@@ -1,0 +1,72 @@
+"""Carries the JAX package's weights and optimizer state into the port.
+
+Input trees hold numpy arrays (``jax.tree_util.tree_map(np.asarray, t)``
+on the JAX side); nothing here imports JAX. Flax paths map to the port's
+module paths one to one ('/' becomes '.'); kernels keep their [in, out]
+(or stacked [T, in, out]) layout; the lane-packed flat table
+[n_rows*D/128, 128] — and its Adam moments — become [n_rows, D] by a plain
+reshape (row-major order is the same element order).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _to_torch(a, device=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: move the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {'a/b/c': leaf}."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _table_rows(a, embed_dim: int):
+    a = np.asarray(a)
+    return a.reshape(-1, embed_dim) if a.shape[-1] != embed_dim else a
+
+
+def convert_variables(params: Mapping, batch_stats: Mapping, embed_dim: int,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """flax ``params`` and ``batch_stats`` -> the port's ``state_dict``."""
+    sd = {}
+    for path, leaf in flatten(params).items():
+        if path == "embedding/table":
+            leaf = _table_rows(leaf, embed_dim)
+        sd[path.replace("/", ".")] = _to_torch(leaf, device)
+    for path, leaf in flatten(batch_stats).items():
+        sd[path.replace("/", ".")] = _to_torch(leaf, device)
+    return sd
+
+
+def convert_opt_state(opt_state: Mapping, embed_dim: int, device=None) -> Dict:
+    """The JAX package's hybrid optimizer state {'inner': optax chain
+    state, 'm', 'v', 't'} -> the port's (``train.trainer.hybrid_init``'s
+    layout). The chain's Adam state is found by its ``mu``/``nu``/
+    ``count`` fields."""
+    adam = next(s for s in opt_state["inner"] if hasattr(s, "mu"))
+    return {
+        "inner": {
+            "count": int(np.asarray(adam.count)),
+            "mu": {p: _to_torch(a, device) for p, a in flatten(adam.mu).items()},
+            "nu": {p: _to_torch(a, device) for p, a in flatten(adam.nu).items()},
+        },
+        "m": _to_torch(_table_rows(opt_state["m"], embed_dim), device),
+        "v": _to_torch(_table_rows(opt_state["v"], embed_dim), device),
+        "t": int(np.asarray(opt_state["t"])),
+    }

@@ -1,0 +1,69 @@
+// Registers the sparse-Adam sweep of sparse_adam.cu as the PyTorch operator
+// torch.ops.aread_tpu_torch.sparse_adam_ (CUDA dispatch key). Compiled by
+// the host compiler against PyTorch's headers and linked with the nvcc
+// object of sparse_adam.cu; see build.py.
+//
+// The Python wrapper (ops/sparse_adam.py::sparse_adam_cuda) checks dtypes,
+// shapes, devices and contiguity, computes the f32 scalars and the grid
+// size, and owns the slot map; this operator passes the tensors' storage
+// to the launcher on the stream it is given and raises on a CUDA error.
+
+#include <torch/library.h>
+
+#include <cstdint>
+
+extern "C" int aread_sparse_adam(
+    void* w, int w_bf16, void* m, void* v, int mv_bf16, const int32_t* uids,
+    int k_total, const float* gsum, int32_t* slot, uint32_t n_rows, uint32_t d,
+    float lr, float b1, float b2, float eps, float decay, float b1c, float b2c,
+    float omb1, float omb2, uint32_t seed, double* l2_partials,
+    double* l2_out, int n_blocks, void* stream_ptr);
+extern "C" const char* aread_cuda_error_string(int err);
+
+namespace {
+
+// Scalars arrive as doubles (the schema's `float`) holding exact f32
+// values, so the casts below are exact.
+void sparse_adam_(const at::Tensor& w, const at::Tensor& m,
+                  const at::Tensor& v, const at::Tensor& uids,
+                  const at::Tensor& gsum, const at::Tensor& slot,
+                  const at::Tensor& l2_partials, const at::Tensor& l2_out,
+                  double lr, double b1, double b2, double eps, double decay,
+                  double b1c, double b2c, double omb1, double omb2,
+                  int64_t seed, int64_t n_blocks, int64_t stream) {
+  const bool want_l2 = l2_partials.numel() > 0;
+  TORCH_CHECK(!want_l2 || (l2_partials.numel() == n_blocks &&
+                           l2_out.numel() == 1),
+              "sparse_adam_: l2 buffers must hold n_blocks and 1 doubles");
+  const int err = aread_sparse_adam(
+      w.data_ptr(), w.scalar_type() == at::kBFloat16, m.data_ptr(),
+      v.data_ptr(), m.scalar_type() == at::kBFloat16,
+      uids.data_ptr<int32_t>(), static_cast<int>(uids.numel()),
+      gsum.data_ptr<float>(), slot.data_ptr<int32_t>(),
+      static_cast<uint32_t>(w.size(0)), static_cast<uint32_t>(w.size(1)),
+      static_cast<float>(lr), static_cast<float>(b1), static_cast<float>(b2),
+      static_cast<float>(eps), static_cast<float>(decay),
+      static_cast<float>(b1c), static_cast<float>(b2c),
+      static_cast<float>(omb1), static_cast<float>(omb2),
+      static_cast<uint32_t>(seed & 0xFFFFFFFF),
+      want_l2 ? l2_partials.data_ptr<double>() : nullptr,
+      want_l2 ? l2_out.data_ptr<double>() : nullptr,
+      static_cast<int>(n_blocks), reinterpret_cast<void*>(stream));
+  TORCH_CHECK(err == 0, "sparse_adam_ kernel launch failed: ",
+              aread_cuda_error_string(err));
+}
+
+}  // namespace
+
+TORCH_LIBRARY(aread_tpu_torch, lib) {
+  lib.def(
+      "sparse_adam_(Tensor(a!) w, Tensor(b!) m, Tensor(c!) v, Tensor uids, "
+      "Tensor gsum, Tensor(d!) slot, Tensor(e!) l2_partials, "
+      "Tensor(f!) l2_out, float lr, float b1, float b2, float eps, "
+      "float decay, float b1c, float b2c, float omb1, float omb2, int seed, "
+      "int n_blocks, int stream) -> ()");
+}
+
+TORCH_LIBRARY_IMPL(aread_tpu_torch, CUDA, lib) {
+  lib.impl("sparse_adam_", &sparse_adam_);
+}

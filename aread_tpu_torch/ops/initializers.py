@@ -1,0 +1,35 @@
+"""Parameter initializers with PyTorch's default distributions (counterpart
+of ``aread_tpu/ops/initializers.py``): ``nn.Linear`` weights and biases
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)), ``nn.Embedding`` N(0, 1). Every draw
+comes from the ``torch.Generator`` the caller passes."""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+
+def uniform_fan_in(shape: Sequence[int], fan_in: int, generator: torch.Generator,
+                   device=None, dtype=torch.float32) -> torch.Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    u = torch.rand(tuple(shape), generator=generator, device=device,
+                   dtype=torch.float32)
+    return (u * (2 * bound) - bound).to(dtype)
+
+
+def linear_kernel_init(shape: Sequence[int], generator: torch.Generator,
+                       device=None) -> torch.Tensor:
+    """A (..., fan_in, fan_out) kernel; the bound comes from the
+    second-to-last axis, so stacked kernels draw per tower as torch
+    would."""
+    return uniform_fan_in(shape, shape[-2], generator, device)
+
+
+def embedding_init(shape: Sequence[int], generator: torch.Generator,
+                   device=None, dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1), drawn in f32 and stored in ``dtype``."""
+    return torch.randn(tuple(shape), generator=generator, device=device,
+                       dtype=torch.float32).to(dtype)

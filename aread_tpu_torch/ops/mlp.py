@@ -1,0 +1,160 @@
+"""Dense stacks (counterpart of ``aread_tpu/ops/mlp.py``): Linear,
+BatchNorm with torch semantics and row masking, dropout drawn from an
+explicit generator, and the stacked-tower variants (one batched matmul for T
+parallel towers).
+
+Kernels keep the JAX package's ``[in, out]`` layout (``[T, in, out]`` when
+stacked), so converted weights are used as they are and ``x @ kernel``
+is the same product.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from aread_tpu_torch.ops.initializers import linear_kernel_init, uniform_fan_in
+
+
+class Linear(nn.Module):
+    def __init__(self, din: int, features: int, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(linear_kernel_init((din, features),
+                                                      generator, device))
+        self.bias = (nn.Parameter(uniform_fan_in((features,), din, generator,
+                                                 device))
+                     if use_bias else None)
+
+    def forward(self, x):
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+def _masked_moments(x, mask):
+    """Mean and biased variance over axis 0 counting only mask == 1 rows,
+    and the count."""
+    if mask is None:
+        mean = x.mean(dim=0)
+        var = torch.square(x - mean[None]).mean(dim=0)
+        return mean, var, torch.tensor(float(x.shape[0]), device=x.device)
+    m = mask.to(x.dtype)
+    count = torch.clamp(m.sum(), min=1.0)
+    while m.dim() < x.dim():
+        m = m[..., None]
+    mean = (x * m).sum(dim=0) / count
+    var = (torch.square(x - mean[None]) * m).sum(dim=0) / count
+    return mean, var, count
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm1d with torch semantics and optional row masking, over
+    [B, D] or [B, T, D] (statistics per trailing channel(s)):
+
+    * normalizes with the biased batch variance; running statistics take
+      the unbiased variance with momentum 0.1, eps 1e-5;
+    * a (valid) batch of <= 1 row passes through unchanged and leaves the
+      running statistics alone;
+    * ``update_gate`` (broadcastable to the statistics) freezes the running
+      statistics where it is 0 — the masked towers of a HEMP domain.
+    """
+
+    def __init__(self, stat_shape: Tuple[int, ...], momentum: float = 0.1,
+                 eps: float = 1e-5, device=None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(stat_shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(stat_shape, device=device))
+        self.register_buffer("mean", torch.zeros(stat_shape, device=device))
+        self.register_buffer("var", torch.ones(stat_shape, device=device))
+
+    def forward(self, x, train: bool, mask=None, update_gate=None):
+        if not train:
+            normed = (x - self.mean[None]) * torch.rsqrt(self.var[None] + self.eps)
+            return normed * self.scale + self.bias
+        mean, var, count = _masked_moments(x, mask)
+        normed = (x - mean[None]) * torch.rsqrt(var[None] + self.eps)
+        out = normed * self.scale + self.bias
+        big_enough = count > 1.0
+        out = torch.where(big_enough, out, x)
+        with torch.no_grad():
+            mean, var = mean.detach(), var.detach()
+            unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+            new_mean = (1 - self.momentum) * self.mean + self.momentum * mean
+            new_var = (1 - self.momentum) * self.var + self.momentum * unbiased
+            do_update = big_enough
+            if update_gate is not None:
+                do_update = torch.logical_and(
+                    big_enough, torch.broadcast_to(update_gate.to(torch.bool),
+                                                   self.mean.shape))
+            self.mean.copy_(torch.where(do_update, new_mean, self.mean))
+            self.var.copy_(torch.where(do_update, new_var, self.var))
+        return out
+
+
+def dropout(x, rate: float, train: bool,
+            generator: Optional[torch.Generator]):
+    """Inverted dropout with the keep mask drawn from ``generator``."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    keep_mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(keep_mask, x / keep, torch.zeros((), device=x.device))
+
+
+class StackedLinear(nn.Module):
+    """T parallel Linear layers as one batched product: input [B, T, din]
+    (or [B, din], broadcast to all T) -> [B, T, dout]; kernel [T, din,
+    dout], bias [T, dout]."""
+
+    def __init__(self, n_stack: int, din: int, features: int,
+                 use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(linear_kernel_init(
+            (n_stack, din, features), generator, device))
+        self.bias = (nn.Parameter(uniform_fan_in((n_stack, features), din,
+                                                 generator, device))
+                     if use_bias else None)
+
+    def forward(self, x):
+        if x.dim() == 2:
+            y = torch.einsum("bd,tdf->btf", x, self.kernel)
+        else:
+            y = torch.einsum("btd,tdf->btf", x, self.kernel)
+        return y if self.bias is None else y + self.bias[None]
+
+
+class StackedMLP(nn.Module):
+    """T parallel [StackedLinear -> BatchNorm -> ReLU -> Dropout] towers
+    with per-tower BatchNorm statistics."""
+
+    def __init__(self, n_stack: int, din: int, layer_dims: Tuple[int, ...],
+                 dropout: float = 0.2, use_bn: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.rate = dropout
+        self.use_bn = use_bn
+        self.n_layers = len(layer_dims)
+        for i, dim in enumerate(layer_dims):
+            self.add_module(f"linear_{i}", StackedLinear(
+                n_stack, din, dim, generator=generator, device=device))
+            if use_bn:
+                self.add_module(f"bn_{i}", BatchNorm((n_stack, dim),
+                                                     device=device))
+            din = dim
+
+    def forward(self, x, train: bool = False, mask=None, tower_gate=None,
+                generator=None):
+        # tower_gate: optional [T] gating BN running-stat updates per tower
+        ug = tower_gate[:, None] if tower_gate is not None else None
+        for i in range(self.n_layers):
+            x = getattr(self, f"linear_{i}")(x)
+            if self.use_bn:
+                x = getattr(self, f"bn_{i}")(x, train=train, mask=mask,
+                                             update_gate=ug)
+            x = torch.relu(x)
+            x = dropout(x, self.rate, train, generator)
+        return x

@@ -1,0 +1,491 @@
+"""On-card smoke run of the PyTorch/CUDA port (aread_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py                      # every phase, as CI runs it
+    python3 chip_smoke.py --phases device,build,kernels
+
+Phases, each printing one line:
+  device   the card's name and power limit (nvidia-smi) and torch's name;
+  build    every kernel of the port built from the sources in the checkout
+           (nvcc for the .cu, the host compiler for its TORCH_LIBRARY
+           binding), one compiler process per source, all at once;
+  kernels  each kernel against its plain PyTorch version on the card, at
+           the main path's shapes (full 1,518,384 x 32 Amazon table), with
+           its time, the plain version's, the library call's and the bound;
+  train    the port's main path at full Amazon width: AREADTrainer.init,
+           warm-up steps (wo_mask) and bagging steps (domain_mask_bagging)
+           under per-domain 'rand' masks, with the kernel launch counts;
+  eval     AREADTrainer.evaluate over a few per-domain batches;
+  reference three steps from the same weights on the card and on the CPU
+           (plain versions) at a small width: they must agree;
+  profile  (opt-in, after train) torch.profiler over 4 bagging steps;
+           tables and a trace go to --profile-dir.
+
+Then one JSON line with every kernel's numbers, and last the line
+{"ok": true, "device": {...}}. Any failure exits non-zero before that
+line. Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Amazon layout of bench.py / config defaults
+AMAZON_DIMS = (1368287, 7, 25, 40, 11, 150000, 12)
+EMBED_DIM, BS, N_DOMAIN = 32, 1024, 25
+KERNEL_SOURCES = ["sparse_adam"]
+# TPU kernel each port replaces
+REPLACES = {"sparse_adam":
+            "aread_tpu/ops/pallas/sparse_adam_kernel.py:252"}
+
+
+def peak_hbm_bytes_per_s(name: str) -> float:
+    """Published HBM bandwidth of the H100 SXM (data sheet)."""
+    if name != "NVIDIA H100 80GB HBM3":
+        raise RuntimeError(f"no peak bandwidth known for {name!r}")
+    return 3.35e12
+
+
+def cuda_time_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Median over ``n`` calls, each timed with its own CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def say(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+# ------------------------------------------------------------------ phases
+def phase_device(ctx):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    ctx["smi"] = smi.stdout.strip().splitlines()[0]
+    print(ctx["smi"], flush=True)
+    ctx["name"] = torch.cuda.get_device_name(0)
+    ctx["peak_bw"] = peak_hbm_bytes_per_s(ctx["name"])
+    say("device", torch_name=ctx["name"], smi=ctx["smi"],
+        torch=torch.__version__, cuda=torch.version.cuda,
+        count=torch.cuda.device_count(), peak_hbm_bytes_per_s=ctx["peak_bw"])
+
+
+def phase_build(ctx):
+    from aread_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    paths = build.build_all(KERNEL_SOURCES)
+    ctx["build_s"] = time.perf_counter() - t0
+    for name in KERNEL_SOURCES:
+        build.load(name)
+    ptxas = {n: [l for l in build.BUILD_LOGS.get(n, "").splitlines()
+                 if "registers" in l or "spill" in l]
+             for n in KERNEL_SOURCES}
+    say("build", seconds=round(ctx["build_s"], 3),
+        steps_s=build.BUILD_TIMES, libs={n: str(p.name)
+                                         for n, p in paths.items()},
+        ptxas=ptxas)
+
+
+def amazon_table_ids(rng, spec_dims, n_rows, bs=BS):
+    """One batch's gathered table rows (17 per example), as the embedding
+    computes them: per-field offsets, the two history sequences on the
+    itemid rows."""
+    offs = np.concatenate([[0], np.cumsum(spec_dims)[:-1]])
+    cols = [rng.integers(0, d, size=(bs, 1)) + o
+            for d, o in zip(spec_dims, offs)]
+    seqs = rng.integers(0, spec_dims[0], size=(bs, 10))
+    return np.clip(np.concatenate(cols + [seqs], axis=1), 0, n_rows - 1)
+
+
+def phase_kernels(ctx):
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.ops.sparse_adam import (dedup_rows,
+                                                 sparse_adam_cuda,
+                                                 sparse_adam_reference)
+
+    dev = torch.device("cuda")
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5).with_flat_table(EMBED_DIM)
+    n_rows, d = spec.n_rows, EMBED_DIM
+    rng = np.random.default_rng(1)
+    K = BS * spec.n_columns
+    batches = {
+        "amazon": amazon_table_ids(rng, spec.one_hot_dims, n_rows),
+        # every id inside one 16K-row region (the TPU window's worst case)
+        "clustered": rng.integers(700_000, 700_000 + 16384, size=K),
+    }
+    kw = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-8, l2=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w32 = torch.randn((n_rows, d), generator=gen, device=dev)
+    m32 = 0.1 * torch.randn((n_rows, d), generator=gen, device=dev)
+    v32 = 0.01 * torch.rand((n_rows, d), generator=gen, device=dev)
+    variants = {  # name: (table dtype, moment dtype, want_l2)
+        "f32": (torch.float32, torch.float32, False),
+        "bf16": (torch.bfloat16, torch.bfloat16, False),
+        "bf16_l2": (torch.bfloat16, torch.bfloat16, True),
+        "f32_l2": (torch.float32, torch.float32, True),
+    }
+    t = 7
+    results = {}
+    for bname, ids in batches.items():
+        ids_t = torch.as_tensor(ids.reshape(-1), dtype=torch.int32, device=dev)
+        grads = torch.randn((K, d), generator=gen, device=dev)
+        uids, gsum = dedup_rows(ids_t, grads, n_rows)
+        # the segmented sum adds in sorted order on every device
+        cu, cg = dedup_rows(ids_t.cpu(), grads.cpu(), n_rows)
+        if not (torch.equal(uids.cpu(), cu) and torch.equal(gsum.cpu(), cg)):
+            raise AssertionError(f"dedup_rows differs between card and CPU "
+                                 f"({bname} batch)")
+        n_unique = int((uids < n_rows).sum())
+        if n_unique >= K:
+            raise AssertionError("the batch must carry duplicate ids")
+        for vname, (wdt, mdt, want_l2) in variants.items():
+            w, m, v = w32.to(wdt), m32.to(mdt), v32.to(mdt)
+            ref = sparse_adam_reference(w, m, v, uids, gsum, t,
+                                        want_l2=want_l2, **kw)
+            kw_, km, kv = w.clone(), m.clone(), v.clone()
+            l2k = sparse_adam_cuda(kw_, km, kv, uids, gsum, t,
+                                   want_l2=want_l2, **kw)
+            torch.cuda.synchronize()
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip((kw_, km, kv), ref[:3]))
+            bitwise = all(torch.equal(a, b) for a, b in zip((kw_, km, kv),
+                                                             ref[:3]))
+            line = {"batch": bname, "variant": vname, "n_unique": n_unique,
+                    "bitwise": bitwise, "max_abs_err": err}
+            if not bitwise:
+                raise AssertionError(f"kernel != plain version: {line}")
+            again = w.clone(), m.clone(), v.clone()
+            l2k2 = sparse_adam_cuda(*again, uids, gsum, t, want_l2=want_l2,
+                                    **kw)
+            if not all(torch.equal(a, b) for a, b in zip(again, ref[:3])) or (
+                    want_l2 and not torch.equal(l2k, l2k2)):
+                raise AssertionError(f"a repeated launch differs: {line}")
+            if want_l2:
+                exact = float(torch.sum(torch.square(w.double())))
+                rel = abs(float(l2k) - exact) / exact
+                line["l2_rel_err"] = rel
+                if rel > 1e-5:
+                    raise AssertionError(f"sum(w^2) off: {line}")
+            results[(bname, vname)] = line
+            say("kernels", **line)
+        del ids_t, grads
+
+    # times at the main path's configuration: bf16 table and moments,
+    # sum(w^2) wanted (config defaults), Amazon batch
+    ids_t = torch.as_tensor(batches["amazon"].reshape(-1), dtype=torch.int32,
+                            device=dev)
+    grads = torch.randn((K, d), generator=gen, device=dev)
+    uids, gsum = dedup_rows(ids_t, grads, n_rows)
+    timing = {}
+    for vname in ("bf16_l2", "f32_l2"):
+        wdt, mdt, _ = variants[vname]
+        w, m, v = w32.to(wdt), m32.to(mdt), v32.to(mdt)
+        kernel_ms = cuda_time_ms(lambda: sparse_adam_cuda(
+            w, m, v, uids, gsum, t, want_l2=True, **kw))
+        plain_ms = cuda_time_ms(lambda: sparse_adam_reference(
+            w, m, v, uids, gsum, t, want_l2=True, **kw), n=5)
+        esz = w.element_size() + m.element_size() + v.element_size()
+        nbytes = 2 * esz * n_rows * d + uids.numel() * 4 + gsum.numel() * 4
+        bound_ms = nbytes / ctx["peak_bw"] * 1e3
+        timing[vname] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bytes": nbytes}
+        say("kernels_time", variant=vname, **timing[vname],
+            achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3))
+        del w, m, v
+    # library yardstick: PyTorch's fused dense Adam over an f32 table with
+    # a dense gradient (the function the sweep computes, minus sparsity)
+    p = torch.nn.Parameter(w32.clone())
+    p.grad = torch.zeros_like(p)
+    p.grad.index_put_((uids[uids < n_rows].long(),), gsum[uids < n_rows])
+    opt = torch.optim.Adam([p], lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
+                           weight_decay=1e-8 + 2e-5, fused=True)
+    library_ms = cuda_time_ms(opt.step)
+    say("kernels_library", call="torch.optim.Adam(fused=True) f32 dense",
+        ms=library_ms)
+    del p, opt
+    main = timing["bf16_l2"]
+    ctx["kernel_rows"] = {"sparse_adam": {
+        "name": "sparse_adam", "route": "cuda",
+        "source": "aread_tpu_torch/ops/cuda/sparse_adam.cu",
+        "replaces": REPLACES["sparse_adam"],
+        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": library_ms}}
+
+
+def amazon_rows(rng, spec, n: int):
+    """Synthetic rows over the full Amazon vocab, 25 domains, labels tied
+    to the item id as in make_synthetic_data (so AUC is learnable)."""
+    cols = [rng.integers(0, d, size=n) for d in spec.one_hot_dims]
+    seq = rng.integers(0, spec.one_hot_dims[spec.itemid_idx],
+                       size=(n, spec.n_seq_fields * spec.seq_maxlen))
+    x = np.concatenate([np.stack(cols, axis=1), seq], axis=1).astype(np.int32)
+    logits = ((x[:, spec.itemid_idx] % 7) / 3.0 - 1.0
+              + 0.3 * rng.standard_normal(n))
+    return x, (logits > 0).astype(np.int8)
+
+
+def build_trainer(spec, device, n_domain, **cfg_kw):
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.hemp import AREADTrainer
+
+    cfg = Config(**cfg_kw)
+    tr = AREADTrainer(build_model(cfg, spec, n_domain, device=device), cfg,
+                      n_domain)
+    tr.init()
+    return tr
+
+
+def phase_train(ctx):
+    """The main path at full Amazon width (bench.py's configuration and the
+    config defaults): 8 warm-up and 16 bagging steps."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.ops.sparse_adam import launch_counts, reset_launch_counts
+
+    # the config defaults are bench.py's Amazon configuration
+    t0 = time.perf_counter()
+    tr = build_trainer(FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5), "cuda",
+                       N_DOMAIN, dataset_name="amazon", seed=0)
+    spec, cfg = tr.model.spec, tr.config
+    if (spec.n_rows, tr.model.n_tower, cfg.bs) != (1518384, (3, 6, 12), BS):
+        raise AssertionError("not the Amazon configuration of bench.py")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    x, y = amazon_rows(rng, spec, N_DOMAIN * 3 * BS)
+    ex, ey = amazon_rows(rng, spec, N_DOMAIN * 200)
+    batcher = DomainBatcher(x, y, BS, spec.domain_idx, N_DOMAIN, seed=0)
+    ctx["eval"] = (tr, DomainBatcher(ex, ey, BS, spec.domain_idx, N_DOMAIN,
+                                     seed=1),
+                   np.bincount(x[:, spec.domain_idx], minlength=N_DOMAIN) / len(x))
+    ms = tr.mask_state
+    for d in range(N_DOMAIN):
+        ms.domain_mask[d] = ms.generate_mask("rand", d,
+                                             cfg.init_active_percent)
+    table0 = tr.model.embedding.table.clone()
+    seq = list(batcher.domain_batch_seq)
+    plan = [("warmup", seq[i]) for i in range(8)] + \
+        [("main", seq[8 + i]) for i in range(16)]
+    batches = [(kind, d, tr.place(batcher.next_batch(d))) for kind, d in plan]
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    losses, times = [], []
+    t_loop = time.perf_counter()
+    for kind, d, batch in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if kind == "warmup":
+            loss, _ = tr.warmup_step(batch)
+        else:
+            loss, _ = tr.main_step(batch, ms.domain_mask[d])
+        b.record()
+        losses.append(loss)
+        times.append((kind, a, b))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    ctx["launches"] = dict(launch_counts)
+    ctx["profile_args"] = (tr, batches[-1][2], ms.domain_mask[batches[-1][1]])
+
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss: {losses}")
+    step_ms = {k: statistics.median(a.elapsed_time(b) for kk, a, b in times
+                                    if kk == k) for k in ("warmup", "main")}
+    table = tr.model.embedding.table
+    if torch.equal(table, table0):
+        raise AssertionError("the table did not change")
+    st = tr.opt_state
+    if not (st["m"].float().abs().sum() > 0 and st["v"].float().abs().sum() > 0):
+        raise AssertionError("the table's Adam moments did not change")
+    if ctx["launches"]["sparse_adam"] != len(batches):
+        raise AssertionError(f"sparse_adam launched "
+                             f"{ctx['launches']['sparse_adam']} times in "
+                             f"{len(batches)} steps")
+    say("train", table_rows=spec.n_rows, embed_dim=cfg.embed_dim, bs=cfg.bs,
+        n_tower=[3, 6, 12], steps={"warmup": 8, "main": 16},
+        init_s=init_s, loop_s=loop_s, step_ms_median=step_ms,
+        examples_per_s_main=BS / (step_ms["main"] * 1e-3),
+        loss_first=float(losses[0]), loss_last=float(losses[-1]),
+        launches=ctx["launches"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_eval(ctx):
+    tr, batcher, weight = ctx["eval"]
+    t0 = time.perf_counter()
+    res = tr.evaluate(batcher, weight)
+    secs = time.perf_counter() - t0
+    for k in ("total_auc", "mean_auc", "total_loss"):
+        if not np.isfinite(res[k]) or (k.endswith("auc") and not 0 <= res[k] <= 1):
+            raise AssertionError(f"{k}={res[k]}")
+    say("eval", total_auc=res["total_auc"], mean_auc=res["mean_auc"],
+        total_loss=res["total_loss"], n_batches=len(batcher.domain_batch_seq),
+        seconds=secs)
+
+
+def phase_reference(ctx):
+    """The same three steps, from the same weights, on the card (kernel)
+    and on the CPU (plain versions), at a small width with an f32 table,
+    no dropout and the full mask; losses, weights and Adam state must
+    agree at atol 1e-5. The linear biases that feed a BatchNorm get their
+    true gradient, exactly 0, on both sides: the computed one is round-off,
+    which Adam would normalize into a step of up to lr either way."""
+    import re
+
+    from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
+    from aread_tpu_torch.models.aread import full_mask
+    from aread_tpu_torch.train.trainer import DenseAdam
+
+    pre_bn_bias = re.compile(r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$")
+
+    class DenseAdamTrueZero(DenseAdam):
+        def update_(self, params, grads, state):
+            super().update_(params, {
+                n: torch.zeros_like(g) if pre_bn_bias.match(n) else g
+                for n, g in grads.items()}, state)
+
+    data = make_synthetic_data(n_rows=2048, n_domain=4, vocab=300, seed=3)
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        tr = build_trainer(
+            data.spec, dev, 4, embed_dim=8, mlp_dims=(16, 8),
+            aread_tower_dims=((8,), (8, 4)), dropout=0.0,
+            table_dtype="float32", table_moments_dtype="float32")
+        tr.optimizer = DenseAdamTrueZero(lr=tr.config.lr, wd=tr.config.wd)
+        trainers[dev] = tr
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    dm = [np.asarray(m) for m in full_mask(trainers["cpu"].model.n_tower)]
+    losses = {dev: [] for dev in trainers}
+    for step in range(3):
+        sl = slice(256 * step, 256 * (step + 1))
+        batch = pad_batch(data.train_x[sl], data.train_y[sl], 256)
+        for dev, tr in trainers.items():
+            loss, _ = (tr.warmup_step(batch) if step == 0
+                       else tr.main_step(batch, dm))
+            losses[dev].append(float(loss))
+    cpu, gpu = trainers["cpu"], trainers["cuda"]
+    diffs = {"loss": float(np.max(np.abs(np.subtract(losses["cpu"],
+                                                     losses["cuda"]))))}
+    gsd = gpu.model.state_dict()
+    for k, v in cpu.model.state_dict().items():
+        diffs[k] = float((v.float() - gsd[k].float().cpu()).abs().max())
+    for k in ("m", "v"):
+        diffs[k] = float((cpu.opt_state[k] - gpu.opt_state[k].cpu()).abs().max())
+    worst = max(diffs, key=diffs.get)
+    if diffs[worst] > 1e-5:
+        raise AssertionError(f"card and CPU disagree after 3 steps: {worst} "
+                             f"{diffs[worst]}")
+    say("reference", steps=3, max_abs_diff=diffs[worst], worst=worst,
+        tolerance=1e-5)
+
+
+def phase_profile(ctx):
+    """Opt-in: 8 more bagging steps of the train phase's trainer timed on
+    the host clock, then 4 under torch.profiler: device busy time per step
+    and the device's idle share, launches per step, the top kernels. The
+    full tables and a Chrome trace go to --profile-dir."""
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr, batch, dm = ctx["profile_args"]
+    for _ in range(2):
+        tr.main_step(batch, dm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        tr.main_step(batch, dm)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            tr.main_step(batch, dm)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    out = Path(ctx["profile_dir"])
+    out.mkdir(parents=True, exist_ok=True)
+    by_dev = ka.table(sort_by="self_cuda_time_total", row_limit=40)
+    by_cpu = ka.table(sort_by="self_cpu_time_total", row_limit=40)
+    (out / "key_averages.txt").write_text(by_dev + "\n\n" + by_cpu)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    # device-side events only (kernels, copies, memsets): an op row and
+    # its kernel row both carry the kernel's time
+    dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 4e3
+    say("profile", step_ms_host_clock=step_ms, device_busy_ms_per_step=busy_ms,
+        device_idle_share=1 - busy_ms / step_ms,
+        device_events_per_step=sum(e.count for e in dev) / 4,
+        cuda_launches_per_step=sum(e.count for e in ka
+                                   if e.key == "cudaLaunchKernel") / 4,
+        top_device=[(e.key[:60], e.self_device_time_total / 4e3, e.count / 4)
+                    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]])
+
+
+PHASES = {"device": phase_device, "build": phase_build,
+          "kernels": phase_kernels, "reference": phase_reference,
+          "train": phase_train, "eval": phase_eval}
+OPT_IN = {"profile": phase_profile}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--profile-dir", default="profile",
+                    help="where the profile phase writes its tables and trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on a GPU only", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = {"profile_dir": args.profile_dir}
+    wanted = args.phases.split(",")
+    if "device" not in wanted:
+        wanted.insert(0, "device")
+    for name in wanted:
+        t0 = time.perf_counter()
+        {**PHASES, **OPT_IN}[name](ctx)
+        print(f"# phase {name} done in {time.perf_counter() - t0:.1f}s",
+              file=sys.stderr, flush=True)
+    rows = []
+    for name, row in ctx.get("kernel_rows", {}).items():
+        row = dict(row)
+        row["launches"] = ctx.get("launches", {}).get(name, 0)
+        rows.append(row)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
