@@ -27,8 +27,10 @@ class Config:
     seed: int = 2000
     lr: float = 1e-3
     bs: int = 1024
+    epoch: int = 10
     embed_dim: int = 32
     wd: float = 1e-8
+    early_stop: int = 2  # patience, in epochs without a better valid AUC
     group_strategy: str = "dcn_3groups_kl"
     is_evaluate_multi_domain: bool = True
 
@@ -39,7 +41,15 @@ class Config:
     use_dcn: bool = True
     n_cross_layers: int = 3
     mmoe_n_expert: int = 4
-    mlp_dims: Tuple[int, ...] = (256, 128, 64)  # AREAD's MMoE experts
+    mlp_dims: Tuple[int, ...] = (256, 128, 64)  # DCN's MLP, AREAD's experts
+    tower_dims: Tuple[int, ...] = (256, 128, 64, 32)
+    use_atten: bool = True
+    atten_embed_dim: int = 64
+    att_layer_num: int = 3
+    att_head_num: int = 2
+    att_res: bool = True
+    mmoe_expert_dims: Tuple[int, ...] = (256, 128, 64)
+    mmoe_tower_dims: Tuple[int, ...] = (64, 32)
     aread_tower_dims: Tuple[Tuple[int, ...], ...] = ((64, 32), (32, 16), (16, 8))
     dropout: float = 0.2
 
@@ -52,6 +62,23 @@ class Config:
     loss_report_table_l2: bool = True
     # global-norm gradient clipping over all data gradients; 0 = off
     grad_clip_norm: float = 0.0
+    # the table's data gradient: True = sparse (d loss / d gathered rows,
+    # deduplicated, ops/sparse_adam.py; the table padded as the JAX
+    # package pads it for its lane-packed storage); False = the dense
+    # [n_rows, D] gradient and the fused dense Adam (ops/fused_adam.py).
+    # The two leave the same f32 table bitwise.
+    sparse_table_grad: bool = True
+    # keep the train split on the device and gather each batch by index:
+    # 'auto' = when it fits Trainer.DEVICE_DATA_BUDGET, '1' / '0' force
+    device_data: str = "auto"
+
+    # options of the JAX package's generic Trainer that are not ported
+    # yet: any value but the default raises NotImplementedError
+    streaming_eval: bool = False
+    dynamic_regroup: str = "off"
+    log_dir: str = ""
+    epoch_timeout_s: float = 0.0
+    embed_lookup: str = "gspmd"
 
     def domain2group(self) -> Optional[Tuple[int, ...]]:
         groups = DOMAIN2GROUP.get(self.dataset_name)

@@ -18,8 +18,10 @@ import torch
 
 def _to_torch(a, device=None) -> torch.Tensor:
     a = np.asarray(a)
+    # always a copy: the port updates in place, and the source may be
+    # memory that JAX still owns
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: move the bits
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        t = torch.from_numpy(np.array(a.view(np.int16)))
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 

@@ -1,14 +1,15 @@
 """Batching and synthetic data (counterpart of the batching half of
 ``aread_tpu/data/loader.py``): fixed-shape padded batches with a validity
-mask, per-domain streams with a shuffled single-domain batch sequence,
-and the small synthetic dataset of the tests. The numpy random streams
+mask, shuffled batches over a whole split (``GlobalBatcher``), per-domain
+streams with a shuffled single-domain batch sequence, and the small
+synthetic dataset of the tests. The numpy random streams
 are the JAX package's, draw for draw. Reading and caching the dataset
 CSVs is not ported yet."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -40,6 +41,74 @@ def pad_batch(x: np.ndarray, y: np.ndarray, bs: int) -> Dict[str, np.ndarray]:
         x = np.concatenate([x, pad_x], axis=0)
         y = np.concatenate([y, pad_y], axis=0)
     return {"x": x, "y": y.astype(np.float32), "valid": valid}
+
+
+class GlobalBatcher:
+    """Shuffled fixed-shape batches over the full split. Each batch
+    carries ``domain`` and, with a ``domain2group`` map, ``group``.
+
+    The shuffle is keyed by (seed, epoch) through a counter-based Philox
+    generator rather than drawn from a running stream, so ``set_epoch``
+    can fast-forward to any epoch and replay its exact permutation."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, batch_size: int,
+                 domain_idx: int, domain2group: Optional[np.ndarray] = None,
+                 shuffle: bool = True, seed: int = 0):
+        self.x, self.y = x, y
+        self.bs = batch_size
+        self.domain_idx = domain_idx
+        self.domain2group = domain2group
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return int(np.ceil(self.x.shape[0] / self.bs))
+
+    def set_epoch(self, epoch: int) -> None:
+        """Fast-forward the shuffle stream."""
+        self._epoch = int(epoch)
+
+    def _batch(self, sel: np.ndarray) -> Dict[str, np.ndarray]:
+        batch = pad_batch(self.x[sel], self.y[sel], self.bs)
+        domain = batch["x"][:, self.domain_idx].astype(np.int32)
+        batch["domain"] = domain
+        if self.domain2group is not None:
+            batch["group"] = np.asarray(self.domain2group)[domain].astype(np.int32)
+        return batch
+
+    def sample_batch(self) -> Dict[str, np.ndarray]:
+        """A shape-complete batch that does not advance the epoch
+        stream."""
+        return self._batch(np.arange(min(self.bs, self.x.shape[0])))
+
+    def epoch_indices(self) -> np.ndarray:
+        """One epoch's (shuffled) row order — the stream ``__iter__``
+        consumes; advances the epoch."""
+        idx = np.arange(self.x.shape[0])
+        if self.shuffle:
+            rng = np.random.Generator(
+                np.random.Philox(key=[self.seed & (2**64 - 1),
+                                      0xA5EAD ^ self._epoch]))
+            rng.shuffle(idx)
+        self._epoch += 1
+        return idx
+
+    def epoch_perm(self) -> np.ndarray:
+        """``epoch_indices`` padded with -1 to whole batches, as
+        [n_batches, bs] int32 — the schedule of the device-resident
+        epoch."""
+        idx = self.epoch_indices()
+        n_batches = -(-len(idx) // self.bs)
+        pad = n_batches * self.bs - len(idx)
+        if pad:
+            idx = np.concatenate([idx, np.full(pad, -1, idx.dtype)])
+        return idx.reshape(n_batches, self.bs).astype(np.int32)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = self.epoch_indices()
+        for i in range(0, len(idx), self.bs):
+            yield self._batch(idx[i:i + self.bs])
 
 
 class DomainBatcher:

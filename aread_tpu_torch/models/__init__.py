@@ -1,6 +1,6 @@
 """Model construction from a Config (counterpart of
-``aread_tpu/models/__init__.py`` ``build_model``; this slice builds AREAD
-only)."""
+``aread_tpu/models/__init__.py`` ``build_model``): ``deepfm``, ``dcn``,
+``mmoe`` and ``aread``; the rest of the zoo is not ported yet."""
 
 from __future__ import annotations
 
@@ -10,25 +10,53 @@ from typing import Optional
 from aread_tpu_torch.config import Config
 from aread_tpu_torch.device import DeviceLike
 from aread_tpu_torch.models.aread import AREAD
-from aread_tpu_torch.models.base import FeatureSpec
+from aread_tpu_torch.models.base import CTRModel, FeatureSpec
+from aread_tpu_torch.models.dcn import DCN
+from aread_tpu_torch.models.deepfm import DeepFM
+from aread_tpu_torch.models.mmoe import MMoE
+
+__all__ = ["AREAD", "CTRModel", "DCN", "DeepFM", "FeatureSpec", "MMoE",
+           "build_model"]
 
 
 def build_model(config: Config, spec: FeatureSpec, n_domain: int,
-                n_tower: Optional[int] = None,
-                device: DeviceLike = None) -> AREAD:
-    """The JAX package's wiring: the table padded as for its lane-packed
-    storage (same row count, so weights convert one to one) and stored in
-    ``config.table_dtype``; HEI towers (g, 2g, 4g, ...) with g the
-    dataset's group count capped by ``n_domain``."""
-    if config.model not in ("aread", "aread_womask"):
-        raise NotImplementedError(f"model {config.model!r} is not ported yet")
-    spec = dataclasses.replace(spec.with_flat_table(config.embed_dim),
-                               table_dtype=config.table_dtype)
-    g = min(config.n_tower, n_domain) if n_tower is None else n_tower
-    towers = tuple(g * 2 ** l for l in range(len(config.aread_tower_dims)))
-    return AREAD(spec, config.embed_dim, towers, n_domain,
-                 base_model=config.base_model, expert_dims=config.mlp_dims,
-                 tower_dims=config.aread_tower_dims, dropout=config.dropout,
-                 use_dcn=config.use_dcn, n_cross_layers=config.n_cross_layers,
-                 mmoe_n_expert=config.mmoe_n_expert, seed=config.seed,
-                 device=device)
+                n_tower: Optional[int] = None, device: DeviceLike = None):
+    """The JAX package's wiring. With ``config.sparse_table_grad`` the
+    table is padded as for the JAX package's lane-packed storage, and only
+    then — either way the row count, and so the converted weights, equal
+    the JAX package's. The table is stored in ``config.table_dtype``.
+    ``n_tower`` defaults to the dataset's group count capped by
+    ``n_domain``; AREAD's HEI towers are (g, 2g, 4g, ...)."""
+    name = config.model
+    e = config.embed_dim
+    if n_tower is None:
+        n_tower = min(config.n_tower, n_domain)
+    if config.sparse_table_grad:
+        spec = spec.with_flat_table(e)
+    spec = dataclasses.replace(spec, table_dtype=config.table_dtype)
+    common = dict(dropout=config.dropout, seed=config.seed, device=device)
+    if name == "deepfm":
+        return DeepFM(spec, e, mlp_dims=(256, 128), **common)
+    if name == "dcn":
+        return DCN(spec, e, n_cross_layers=3, mlp_dims=config.mlp_dims,
+                   **common)
+    if name == "mmoe":
+        return MMoE(spec, e, n_tower=n_tower, n_expert=config.mmoe_n_expert,
+                    expert_dims=config.mmoe_expert_dims,
+                    tower_dims=config.mmoe_tower_dims, use_dcn=config.use_dcn,
+                    use_atten=config.use_atten,
+                    n_cross_layers=config.n_cross_layers,
+                    atten_embed_dim=config.atten_embed_dim,
+                    att_layer_num=config.att_layer_num,
+                    att_head_num=config.att_head_num, att_res=config.att_res,
+                    **common)
+    if name in ("aread", "aread_womask"):
+        towers = tuple(n_tower * 2 ** l
+                       for l in range(len(config.aread_tower_dims)))
+        return AREAD(spec, e, towers, n_domain, base_model=config.base_model,
+                     expert_dims=config.mlp_dims,
+                     tower_dims=config.aread_tower_dims,
+                     use_dcn=config.use_dcn,
+                     n_cross_layers=config.n_cross_layers,
+                     mmoe_n_expert=config.mmoe_n_expert, **common)
+    raise NotImplementedError(f"model {name!r} is not ported yet")

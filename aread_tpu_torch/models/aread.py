@@ -29,9 +29,8 @@ import torch
 from torch import nn
 
 from aread_tpu_torch.device import DeviceLike, resolve_device
-from aread_tpu_torch.models.base import BASE_REG_RULES, FeatureSpec
+from aread_tpu_torch.models.base import BASE_REG_RULES, CTRModel, FeatureSpec
 from aread_tpu_torch.ops.cross import CrossNetwork
-from aread_tpu_torch.ops.embedding import FeaturesEmbedding, FeaturesLinear
 from aread_tpu_torch.ops.initializers import embedding_init
 from aread_tpu_torch.ops.mlp import Linear, StackedLinear, StackedMLP
 
@@ -47,7 +46,7 @@ def full_mask(n_tower: Sequence[int]) -> Tuple[np.ndarray, ...]:
     return tuple(masks)
 
 
-class AREAD(nn.Module):
+class AREAD(CTRModel):
     REG_RULES = BASE_REG_RULES + (
         (r"^mmoe_experts/.*kernel$", 1e-5),
         (r"^cgc_\d+/.*kernel$", 1e-5),
@@ -70,15 +69,11 @@ class AREAD(nn.Module):
                 f"base_model={base_model!r} is not ported yet (mmoe only)")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        self.spec, self.embed_dim = spec, embed_dim
         self.n_tower = tuple(int(t) for t in n_tower)
         self.n_domain = n_domain
         kw = dict(generator=gen, device=dev)
-        self.embedding = FeaturesEmbedding(
-            spec.one_hot_dims, embed_dim, spec.n_seq_fields, spec.itemid_idx,
-            spec.seq_maxlen, spec.method, getattr(torch, spec.table_dtype), **kw)
+        self._backbone(spec, embed_dim, gen, dev)
         flat_dim = spec.embed_output_dim(embed_dim)
-        self.linear = FeaturesLinear(flat_dim, **kw)
         self.cn = CrossNetwork(flat_dim, n_cross_layers, **kw) if use_dcn else None
         self.mmoe_experts = StackedMLP(mmoe_n_expert, flat_dim, expert_dims,
                                        dropout, **kw)
@@ -99,16 +94,10 @@ class AREAD(nn.Module):
                                            use_bias=False, **kw)
         self.final_gate = Linear(2 * embed_dim, self.n_tower[-1],
                                  use_bias=False, **kw)
-        self.device = dev
 
     @property
     def n_level(self) -> int:
         return len(self.n_tower)
-
-    def dense_named_parameters(self):
-        """Every trainable tensor by '/'-joined path (the table is a
-        buffer and is not among them)."""
-        return {n.replace(".", "/"): p for n, p in self.named_parameters()}
 
     def forward(self, x, domain_mask=None, mode: str = "wo_mask",
                 train: bool = False, mask=None, generator=None,

@@ -1,5 +1,5 @@
-"""Feature specification and the manual L2 regularization (counterpart of
-``aread_tpu/models/base.py``).
+"""Feature specification, the base class of the zoo models and the manual
+L2 regularization (counterpart of ``aread_tpu/models/base.py``).
 
 Models return a dict with at least ``logit`` and ``prob``. Each model class
 declares ``REG_RULES``: (path_regex, l2) pairs matched against
@@ -16,6 +16,9 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+from aread_tpu_torch.ops.embedding import FeaturesEmbedding, FeaturesLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +97,45 @@ def regularization_loss(named: Dict[str, torch.Tensor],
         dev = next(iter(named.values())).device if named else None
         return torch.zeros((), device=dev)
     return total
+
+
+class CTRModel(nn.Module):
+    """Base of the zoo models: the feature spec, the ``REG_RULES``
+    contract and the embedding + first-order linear backbone every model
+    builds on.
+
+    Subclasses implement ``forward(x, group=None, train=False, mask=None,
+    generator=None, tap=False)`` -> dict with 'logit' and 'prob' ([B], or
+    [B, n_tower] for multi-tower models) and, with ``tap``, 'rows': the
+    gathered table rows as a grad leaf (the table itself is a buffer; its
+    gradient is taken through this tap). ``generator`` is dropout's.
+    Submodule and parameter names are the JAX package's flax paths with
+    '.' for '/'."""
+
+    # (path_regex, l2) applied to '/'-joined parameter paths; first match
+    # wins
+    REG_RULES: Tuple[Tuple[str, float], ...] = ()
+
+    def _backbone(self, spec: FeatureSpec, embed_dim: int, generator, device):
+        """Creates ``self.embedding`` and ``self.linear``."""
+        self.spec, self.embed_dim, self.device = spec, embed_dim, device
+        self.embedding = FeaturesEmbedding(
+            spec.one_hot_dims, embed_dim, spec.n_seq_fields, spec.itemid_idx,
+            spec.seq_maxlen, spec.method, getattr(torch, spec.table_dtype),
+            generator=generator, device=device)
+        self.linear = FeaturesLinear(spec.embed_output_dim(embed_dim),
+                                     generator=generator, device=device)
+
+    @property
+    def model_name(self) -> str:
+        return type(self).__name__.lower()
+
+    def dense_named_parameters(self) -> Dict[str, torch.Tensor]:
+        """Every trainable tensor by '/'-joined path (the table is a
+        buffer and is not among them)."""
+        return {n.replace(".", "/"): p for n, p in self.named_parameters()}
+
+
+def gather_group(preds: torch.Tensor, group: torch.Tensor) -> torch.Tensor:
+    """preds.gather(1, group) for multi-tower outputs: [B, T] -> [B]."""
+    return torch.gather(preds, 1, group.to(torch.int64)[:, None])[:, 0]

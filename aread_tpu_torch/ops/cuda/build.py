@@ -10,7 +10,8 @@ Each kernel ``<name>`` has two sources in this directory:
 
 The two compile at once and ``nvcc`` links them into one shared library
 in ``aread_tpu_torch/_build/`` (ignored by git), named by a hash of the
-sources, the flags and the PyTorch version, so a changed source is
+sources, every header beside them (``*.cuh``: device code the kernels
+share), the flags and the PyTorch version, so a changed source or header is
 rebuilt and an unchanged one is loaded as it is. ``load`` registers it with
 ``torch.ops.load_library``. Neither ninja nor ``torch.utils.cpp_extension``
 is needed. Nothing is built when the module is imported: the first call
@@ -84,9 +85,17 @@ def sources(name: str) -> List[Path]:
     return [SRC_DIR / f"{name}.cu", SRC_DIR / f"{name}_op.cpp"]
 
 
+def headers() -> List[Path]:
+    """Every header of the source directory: the kernels share device
+    code through them (``rounding.cuh``)."""
+    return sorted(p for p in SRC_DIR.iterdir()
+                  if p.suffix in (".cuh", ".h", ".hpp"))
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in sources(name):
+    for src in sources(name) + headers():
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + cxx_flags() + link_flags()).encode())
     h.update(torch.__version__.encode())

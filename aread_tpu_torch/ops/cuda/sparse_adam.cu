@@ -30,46 +30,21 @@
 // Arithmetic is IEEE single precision in the plain version's operation
 // order: the build passes --fmad=false (no contraction of a*b+c into an
 // FMA) and keeps IEEE division and sqrt (no fast-math), so the result is
-// bitwise equal to the plain PyTorch version on the same inputs.
+// bitwise equal to the plain PyTorch version on the same inputs. The
+// element update, the stochastic rounding and the typed loads and stores
+// are rounding.cuh's, shared with fused_adam.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rounding.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t hash_bits(uint32_t idx, uint32_t seed) {
-  uint32_t h = idx * 0x9E3779B9u + seed * 0x85EBCA6Bu;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float load_f(const float* p, uint32_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, uint32_t i) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ void store_rn(float* p, uint32_t i, float x) { p[i] = x; }
-__device__ __forceinline__ void store_rn(__nv_bfloat16* p, uint32_t i, float x) {
-  p[i] = __float2bfloat16_rn(x);
-}
-
-// weight store: exact for f32, stochastic rounding for bf16
-__device__ __forceinline__ void store_w(float* p, uint32_t i, float x, uint32_t) { p[i] = x; }
-__device__ __forceinline__ void store_w(__nv_bfloat16* p, uint32_t i, float x,
-                                        uint32_t seed) {
-  uint32_t b = __float_as_uint(x);
-  b = (b + (hash_bits(i, seed) & 0xFFFFu)) & 0xFFFF0000u;
-  p[i] = __ushort_as_bfloat16(static_cast<unsigned short>(b >> 16));
-}
-
-struct AdamScalars {
-  float lr, b1, b2, eps, decay, b1c, b2c, omb1, omb2;
-};
+using aread::AdamScalars;
+using aread::load_f;
+using aread::store_rn;
+using aread::store_w;
 
 __global__ void slot_scatter(const int32_t* __restrict__ uids, int k_total,
                              uint32_t n_rows, int32_t* __restrict__ slot) {
@@ -106,13 +81,9 @@ __global__ void adam_sweep(WT* __restrict__ w, MT* __restrict__ m,
     const float gd = k >= 0 ? gsum[static_cast<size_t>(k) * d + c] : 0.0f;
     const float wf = load_f(w, e);
     if (WANT_L2) acc += static_cast<double>(__fmul_rn(wf, wf));
-    const float g = __fadd_rn(gd, __fmul_rn(s.decay, wf));
-    const float m2 = __fadd_rn(__fmul_rn(s.b1, load_f(m, e)), __fmul_rn(s.omb1, g));
-    const float v2 = __fadd_rn(__fmul_rn(s.b2, load_f(v, e)),
-                               __fmul_rn(__fmul_rn(s.omb2, g), g));
-    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, s.b2c)), s.eps);
-    const float step = __fdiv_rn(__fmul_rn(s.lr, __fdiv_rn(m2, s.b1c)), den);
-    store_w(w, e, __fsub_rn(wf, step), seed);
+    float w2, m2, v2;
+    aread::adam_element(wf, load_f(m, e), load_f(v, e), gd, s, &w2, &m2, &v2);
+    store_w(w, e, w2, seed);
     store_rn(m, e, m2);
     store_rn(v, e, v2);
   }
@@ -207,6 +178,6 @@ extern "C" int aread_sparse_adam(
   return static_cast<int>(err);
 }
 
-extern "C" const char* aread_cuda_error_string(int err) {
+extern "C" const char* aread_sparse_adam_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

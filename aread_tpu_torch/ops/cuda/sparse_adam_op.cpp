@@ -18,7 +18,7 @@ extern "C" int aread_sparse_adam(
     float lr, float b1, float b2, float eps, float decay, float b1c, float b2c,
     float omb1, float omb2, uint32_t seed, double* l2_partials,
     double* l2_out, int n_blocks, void* stream_ptr);
-extern "C" const char* aread_cuda_error_string(int err);
+extern "C" const char* aread_sparse_adam_error_string(int err);
 
 namespace {
 
@@ -50,12 +50,14 @@ void sparse_adam_(const at::Tensor& w, const at::Tensor& m,
       want_l2 ? l2_out.data_ptr<double>() : nullptr,
       static_cast<int>(n_blocks), reinterpret_cast<void*>(stream));
   TORCH_CHECK(err == 0, "sparse_adam_ kernel launch failed: ",
-              aread_cuda_error_string(err));
+              aread_sparse_adam_error_string(err));
 }
 
 }  // namespace
 
-TORCH_LIBRARY(aread_tpu_torch, lib) {
+// a fragment: every kernel of the port adds its operator to the one
+// namespace from its own library
+TORCH_LIBRARY_FRAGMENT(aread_tpu_torch, lib) {
   lib.def(
       "sparse_adam_(Tensor(a!) w, Tensor(b!) m, Tensor(c!) v, Tensor uids, "
       "Tensor gsum, Tensor(d!) slot, Tensor(e!) l2_partials, "

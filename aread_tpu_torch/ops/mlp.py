@@ -1,7 +1,7 @@
 """Dense stacks (counterpart of ``aread_tpu/ops/mlp.py``): Linear,
 BatchNorm with torch semantics and row masking, dropout drawn from an
-explicit generator, and the stacked-tower variants (one batched matmul for T
-parallel towers).
+explicit generator, ``MLP`` / ``DNN``, and the stacked-tower variants (one
+batched matmul for T parallel towers).
 
 Kernels keep the JAX package's ``[in, out]`` layout (``[T, in, out]`` when
 stacked), so converted weights are used as they are and ``x @ kernel``
@@ -104,6 +104,49 @@ def dropout(x, rate: float, train: bool,
     return torch.where(keep_mask, x / keep, torch.zeros((), device=x.device))
 
 
+class MLP(nn.Module):
+    """[Linear -> BatchNorm -> ReLU -> Dropout] per hidden dim, then an
+    optional Linear(1) named ``out``."""
+
+    def __init__(self, din: int, layer_dims: Tuple[int, ...],
+                 dropout: float = 0.2, output_layer: bool = True,
+                 use_bn: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.rate = dropout
+        self.use_bn = use_bn
+        self.n_layers = len(layer_dims)
+        for i, dim in enumerate(layer_dims):
+            self.add_module(f"linear_{i}", Linear(din, dim,
+                                                  generator=generator,
+                                                  device=device))
+            if use_bn:
+                self.add_module(f"bn_{i}", BatchNorm((dim,), device=device))
+            din = dim
+        self.out = (Linear(din, 1, generator=generator, device=device)
+                    if output_layer else None)
+
+    def forward(self, x, train: bool = False, mask=None, generator=None):
+        for i in range(self.n_layers):
+            x = getattr(self, f"linear_{i}")(x)
+            if self.use_bn:
+                x = getattr(self, f"bn_{i}")(x, train=train, mask=mask)
+            x = torch.relu(x)
+            x = dropout(x, self.rate, train, generator)
+        return x if self.out is None else self.out(x)
+
+
+class DNN(MLP):
+    """DeepCTR-style MLP: the same layers, no output projection, dropout
+    off by default."""
+
+    def __init__(self, din: int, hidden_units: Tuple[int, ...],
+                 dropout: float = 0.0, use_bn: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(din, hidden_units, dropout, output_layer=False,
+                         use_bn=use_bn, generator=generator, device=device)
+
+
 class StackedLinear(nn.Module):
     """T parallel Linear layers as one batched product: input [B, T, din]
     (or [B, din], broadcast to all T) -> [B, T, dout]; kernel [T, din,
@@ -129,10 +172,12 @@ class StackedLinear(nn.Module):
 
 class StackedMLP(nn.Module):
     """T parallel [StackedLinear -> BatchNorm -> ReLU -> Dropout] towers
-    with per-tower BatchNorm statistics."""
+    with per-tower BatchNorm statistics, then an optional per-tower
+    Linear(1) named ``out``."""
 
     def __init__(self, n_stack: int, din: int, layer_dims: Tuple[int, ...],
-                 dropout: float = 0.2, use_bn: bool = True,
+                 dropout: float = 0.2, output_layer: bool = False,
+                 use_bn: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.rate = dropout
@@ -145,6 +190,8 @@ class StackedMLP(nn.Module):
                 self.add_module(f"bn_{i}", BatchNorm((n_stack, dim),
                                                      device=device))
             din = dim
+        self.out = (StackedLinear(n_stack, din, 1, generator=generator,
+                                  device=device) if output_layer else None)
 
     def forward(self, x, train: bool = False, mask=None, tower_gate=None,
                 generator=None):
@@ -157,4 +204,4 @@ class StackedMLP(nn.Module):
                                              update_gate=ug)
             x = torch.relu(x)
             x = dropout(x, self.rate, train, generator)
-        return x
+        return x if self.out is None else self.out(x)

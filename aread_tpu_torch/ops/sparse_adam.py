@@ -31,16 +31,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from aread_tpu_torch.ops.cuda import launch_counts
 from aread_tpu_torch.ops.rounding import flat_index_grid, sround
-
-# launches of each kernel wrapper; chip_smoke.py zeroes them before the
-# main path and reads them after it
-launch_counts: Dict[str, int] = {"sparse_adam": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def dedup_rows(flat_ids: torch.Tensor, flat_grads: torch.Tensor,
@@ -141,11 +133,18 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
 _SLOTS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
+def _slot_key(device: torch.device, n_rows: int) -> Tuple[int, int]:
+    """(card index, table size); a device without an index ("cuda") is the
+    current card."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return index, n_rows
+
+
 def _slot_map(device: torch.device, n_rows: int) -> torch.Tensor:
     """Persistent int32 slot map, all -1 between launches (the kernel
     restores it), one per (card, table size)."""
-    key = (device.index if device.index is not None
-           else torch.cuda.current_device(), n_rows)
+    key = _slot_key(device, n_rows)
     slot = _SLOTS.get(key)
     if slot is None:
         slot = torch.full((n_rows,), -1, dtype=torch.int32, device=device)
@@ -153,7 +152,7 @@ def _slot_map(device: torch.device, n_rows: int) -> torch.Tensor:
     return slot
 
 
-def _sweep_blocks(device: torch.device, n_elems: int) -> int:
+def sweep_blocks(device: torch.device, n_elems: int) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(sms * 16, -(-n_elems // 256)))
 
@@ -195,7 +194,7 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
     build.load("sparse_adam")
     s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
     slot = _slot_map(dev, n_rows)
-    n_blocks = _sweep_blocks(dev, n_rows * d)
+    n_blocks = sweep_blocks(dev, n_rows * d)
     partials = torch.empty((n_blocks if want_l2 else 0,), dtype=torch.float64,
                            device=dev)
     out = torch.empty((1 if want_l2 else 0,), dtype=torch.float64, device=dev)
@@ -208,7 +207,7 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
                 s["omb2"], int(t), n_blocks, stream)
         except RuntimeError:
             # a launch that failed after the scatter leaves the map dirty
-            _SLOTS.pop((dev.index, n_rows), None)
+            _SLOTS.pop(_slot_key(dev, n_rows), None)
             raise
     launch_counts["sparse_adam"] += 1
     return out[0].to(torch.float32) if want_l2 else None

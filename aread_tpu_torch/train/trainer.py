@@ -1,24 +1,40 @@
-"""Loss pieces and the hybrid optimizer (counterpart of the core of
-``aread_tpu/train/trainer.py``).
+"""Loss pieces, the hybrid optimizer and the generic ``Trainer`` of the
+zoo models (counterpart of ``aread_tpu/train/trainer.py``).
 
 The reference trains with torch.optim.Adam(lr, betas=(0.9, 0.99),
 eps=1e-8, weight_decay=1e-8) and a manual L2 term in the loss. Here the
 fused embedding table (~99% of the parameters at Amazon width) takes a
-dense-semantics Adam from its sparse row gradient, with the weight decay
-and the table's L2 gradient folded into the update
-(``ops/sparse_adam.py``); every other leaf takes ``DenseAdam``, the JAX
-package's optax chain add_decayed_weights(wd) -> scale_by_adam(0.9,
-0.99, 1e-8) -> scale(-lr) in its expression order.
+dense-semantics Adam with the weight decay and the table's L2 gradient
+folded into the update — from its sparse row gradient
+(``hybrid_update_sparse``, ``ops/sparse_adam.py``) or from its dense
+gradient (``hybrid_update``, ``ops/fused_adam.py``); every other leaf
+takes ``DenseAdam``, the JAX package's optax chain
+add_decayed_weights(wd) -> scale_by_adam(0.9, 0.99, 1e-8) -> scale(-lr)
+in its expression order.
+
+``Trainer`` is train / evaluate / early stop on the weighted mean AUC for
+single-output and multi-tower models: a multi-tower model computes every
+tower and the loss gathers the sample's group column.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import time
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from aread_tpu_torch.config import Config
+from aread_tpu_torch.data.loader import GlobalBatcher, SplitData
+from aread_tpu_torch.models.base import gather_group, regularization_loss
+from aread_tpu_torch.ops.fused_adam import fused_adam_dispatch
 from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_dispatch
+from aread_tpu_torch.train import metrics as metrics_lib
+
+MULTI_TOWER_MODELS = ("ple", "mmoe", "pepnet", "epnet", "star", "adl", "hinet")
+CONCAT_GROUP_MODELS = ("star", "adl", "hinet")  # forward consumes group
 
 TABLE_RULE = r"^embedding/table$"
 TABLE_L2 = 1e-5  # the reference's l2_reg_embedding
@@ -32,6 +48,37 @@ def bce_with_logits(logit, y):
 
 def masked_mean(values, valid):
     return torch.sum(values * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def mean_losses(losses: List) -> float:
+    """Mean over a list of 0-dim (or [S]) loss tensors. The epoch loops
+    keep the losses on the device, unfetched — a fetch per step would make
+    the host wait for the device every step — and bring them over here,
+    once."""
+    if not losses:
+        return float("nan")
+    return float(torch.cat([l.detach().reshape(-1) for l in losses])
+                 .mean(dtype=torch.float32))
+
+
+def table_reg_value(table: torch.Tensor) -> torch.Tensor:
+    """l2 * sum(table^2) without gradient, summed in f32: keeps the
+    reported loss equal to the reference's while the term's gradient is
+    folded into the table's Adam."""
+    with torch.no_grad():
+        return TABLE_L2 * torch.sum(torch.square(table.to(torch.float32)))
+
+
+def raise_if_nonfinite(train_loss: float, epoch_i: int) -> None:
+    """Guard on the fetched per-epoch train loss. Without it a run
+    poisoned by NaN goes on into evaluate(), ``is_continuable`` sees NaN
+    metrics (NaN > best is False) and the run stops early as if it had
+    converged."""
+    if np.isfinite(float(train_loss)):
+        return
+    raise FloatingPointError(
+        f"non-finite train loss {train_loss} at epoch {epoch_i + 1}; "
+        "possible causes: lr too high; non-finite rows in the input")
 
 
 def strip_table_rule(rules):
@@ -115,6 +162,51 @@ def clip_scale_by_global_norm(tensors: Sequence[torch.Tensor],
     return torch.clamp(clip_norm / (torch.sqrt(sq) + 1e-6), max=1.0)
 
 
+def dense_table_grad(table_ids: torch.Tensor, row_grads: torch.Tensor,
+                     n_rows: int, dtype: torch.dtype) -> torch.Tensor:
+    """The dense [n_rows, D] table gradient from the tap's row gradients
+    [..., D] at ``table_ids`` [...]: what autodiff through the gather
+    holds. Duplicate ids are summed by ``dedup_rows`` (sorted segmented
+    sum, no float atomics) and the sums copied into zeros, so it is the
+    same on every run and device. For a bf16 table the gradient is bf16,
+    as the gather's cotangent is in the JAX package: the row gradients
+    are cast to bf16 before the sum; the sum itself runs in f32 and is
+    rounded once."""
+    flat = row_grads.reshape(-1, row_grads.shape[-1])
+    if dtype == torch.bfloat16:
+        flat = flat.to(torch.bfloat16).to(torch.float32)
+    uids, gsum = dedup_rows(table_ids.reshape(-1).to(torch.int32), flat,
+                            n_rows)
+    # sentinel entries (id n_rows, zero gradient) land in a spare last row
+    g = torch.zeros((n_rows + 1, flat.shape[-1]), dtype=torch.float32,
+                    device=flat.device)
+    g.index_copy_(0, uids.to(torch.int64), gsum)
+    return g[:n_rows].to(dtype)
+
+
+def hybrid_update(optimizer: DenseAdam, lr: float, wd: float, model,
+                  g_rest: Dict[str, torch.Tensor], g_table: torch.Tensor,
+                  opt_state: Dict, table_l2: float = TABLE_L2,
+                  clip_norm: float = 0.0) -> None:
+    """One optimizer step from dense gradients, in place: the table
+    through the fused dense Adam (``ops/fused_adam.py``: the kernel on the
+    card, the plain version on the CPU), the other leaves through
+    ``optimizer``. ``clip_norm`` clips by the global norm of all data
+    gradients, the table's included; the decay and L2 terms folded into
+    the updates are not clipped."""
+    table, rest = split_table(model)
+    scale = clip_scale_by_global_norm(list(g_rest.values()) + [g_table],
+                                      clip_norm)
+    if scale is not None:
+        g_rest = {n: g * scale for n, g in g_rest.items()}
+        g_table = g_table.to(torch.float32) * scale
+    opt_state["t"] += 1
+    fused_adam_dispatch(table, opt_state["m"], opt_state["v"],
+                        g_table.contiguous(), opt_state["t"], lr=lr,
+                        weight_decay=wd, l2=table_l2)
+    optimizer.update_(rest, g_rest, opt_state["inner"])
+
+
 def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
                          g_rest: Dict[str, torch.Tensor],
                          table_ids: torch.Tensor, row_grads: torch.Tensor,
@@ -141,3 +233,274 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
         lr=lr, weight_decay=wd, l2=table_l2, want_l2=want_table_l2)
     optimizer.update_(rest, g_rest, opt_state["inner"])
     return table_l2 * raw_l2 if want_table_l2 else None
+
+
+def device_data_mode_enabled(config, total_bytes: int, budget: int) -> bool:
+    """``config.device_data`` gate: '0' off, '1' forced, 'auto' = the
+    split fits the budget."""
+    cfg = config.device_data
+    if cfg == "0":
+        return False
+    if cfg == "1":
+        return True
+    if cfg != "auto":
+        raise ValueError(f"device_data={cfg!r}")
+    return total_bytes <= budget
+
+
+# Config options of the JAX package's Trainer that are not ported yet,
+# with the only value the port takes
+_UNPORTED_OPTIONS = {"streaming_eval": False, "dynamic_regroup": "off",
+                     "log_dir": "", "epoch_timeout_s": 0.0,
+                     "embed_lookup": "gspmd"}
+
+
+class Trainer:
+    """Generic trainer for single-output and multi-tower models. The
+    model's weights and BatchNorm statistics live in the model and are
+    updated in place; the optimizer state is ``self.opt_state``."""
+
+    # device memory the resident train split may take under
+    # device_data='auto' (the full Amazon split is ~1.2 GB of int32)
+    DEVICE_DATA_BUDGET = 4 * 2**30
+
+    def __init__(self, model, config: Config, n_domain: int,
+                 domain2group: Optional[np.ndarray] = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("mesh runs are not ported yet")
+        for name, only in _UNPORTED_OPTIONS.items():
+            if getattr(config, name) != only:
+                raise NotImplementedError(
+                    f"config.{name}={getattr(config, name)!r} is not ported "
+                    f"yet (only {only!r})")
+        self.model = model
+        self.config = config
+        self.n_domain = n_domain
+        self.device = model.device
+        self.model_name = getattr(model, "model_name",
+                                  type(model).__name__.lower())
+        self.is_multi_tower = self.model_name in MULTI_TOWER_MODELS
+        self.domain2group = (None if domain2group is None
+                             else np.asarray(domain2group))
+        self.optimizer = make_optimizer(config.lr, config.wd)
+        # dropout's stream
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.seed)
+        # the table's L2 gradient is folded into its Adam update
+        self.reg_rules = strip_table_rule(type(model).REG_RULES)
+        self.opt_state: Optional[Dict] = None
+        self._device_data = None  # (host_x, host_y, dx, dy)
+        # early-stop state
+        self.trial_counter = 0
+        self.best_auc, self.best_mean_auc = 0.0, 0.0
+        self.best_loss, self.best_mean_loss = np.inf, np.inf
+        self.best_checkpoint = None
+        self._improved = False
+
+    # ---------------------------------------------------------------- init
+    def init(self) -> Dict:
+        """Optimizer state for the model's current weights (the weights
+        are drawn from the model's seed when it is built)."""
+        self.opt_state = hybrid_init(
+            self.optimizer, self.model,
+            moments_dtype=self.config.table_moments_dtype)
+        return self.opt_state
+
+    def place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    # ---------------------------------------------------------------- step
+    def step(self, batch) -> torch.Tensor:
+        """One training step in place; returns the reported loss (data
+        loss + L2 terms, the table's included with
+        ``config.loss_report_table_l2``), not fetched to the host. The
+        table's gradient is taken through the embedding's tap and goes
+        into the update sparse (``config.sparse_table_grad``) or as the
+        dense [n_rows, D] gradient."""
+        cfg = self.config
+        if self.opt_state is None:
+            raise RuntimeError("call init() before stepping")
+        if isinstance(batch["x"], np.ndarray):
+            batch = self.place(batch)
+        model = self.model
+        model.train()
+        x, y, valid = batch["x"], batch["y"], batch["valid"]
+        group = batch.get("group")
+        out = model(x, group=group, train=True, mask=valid,
+                    generator=self.generator, tap=True)
+        logit = out["logit"]
+        if self.is_multi_tower and logit.dim() == 2:
+            logit = gather_group(logit, group if group is not None
+                                 else batch["domain"])
+        table, rest = split_table(model)
+        loss = (masked_mean(bce_with_logits(logit, y), valid)
+                + regularization_loss(rest, self.reg_rules))
+        names = list(rest)
+        # leaves the loss does not reach get zero gradients (the decay
+        # term still moves them)
+        grads = torch.autograd.grad(loss, [rest[n] for n in names] + [out["rows"]],
+                                    materialize_grads=True)
+        g_rest = dict(zip(names, grads[:-1]))
+        ids = model.embedding.table_ids(x)
+        loss = loss.detach()
+        if cfg.sparse_table_grad:
+            l2val = hybrid_update_sparse(
+                self.optimizer, cfg.lr, cfg.wd, model, g_rest, ids, grads[-1],
+                self.opt_state, want_table_l2=cfg.loss_report_table_l2,
+                clip_norm=cfg.grad_clip_norm)
+            return loss if l2val is None else loss + l2val
+        if cfg.loss_report_table_l2:
+            loss = loss + table_reg_value(table)  # the pre-update table
+        g_table = dense_table_grad(ids, grads[-1], table.shape[0], table.dtype)
+        hybrid_update(self.optimizer, cfg.lr, cfg.wd, model, g_rest, g_table,
+                      self.opt_state, clip_norm=cfg.grad_clip_norm)
+        return loss
+
+    # ------------------------------------------------------------ training
+    def train_epoch(self, batcher: Iterable) -> float:
+        """One pass over the batcher's host batches; the mean loss."""
+        return mean_losses([self.step(self.place(b)) for b in batcher])
+
+    def device_data_enabled(self, train_x: np.ndarray) -> bool:
+        return device_data_mode_enabled(self.config, train_x.nbytes,
+                                        self.DEVICE_DATA_BUDGET)
+
+    def train_epoch_device(self, batcher: GlobalBatcher) -> float:
+        """``train_epoch`` over a device-resident copy of the split: each
+        step gathers its batch by index, and only the [n_batches, bs]
+        permutation is transferred per epoch. Same shuffle stream and
+        padded-batch semantics as the host path (pad slots carry -1 and
+        replicate the batch's first row), so the two give the same
+        result."""
+        # keyed on the host arrays themselves (`is`): a second fit() on
+        # new data must not gather from the previous split's copy
+        if (self._device_data is None
+                or self._device_data[0] is not batcher.x
+                or self._device_data[1] is not batcher.y):
+            self._device_data = (
+                batcher.x, batcher.y,
+                torch.as_tensor(np.ascontiguousarray(batcher.x),
+                                device=self.device),
+                torch.as_tensor(np.ascontiguousarray(batcher.y),
+                                device=self.device))
+        _, _, dx, dy = self._device_data
+        perm = torch.as_tensor(batcher.epoch_perm(), device=self.device)
+        d2g = (None if batcher.domain2group is None else torch.as_tensor(
+            np.asarray(batcher.domain2group), dtype=torch.int32,
+            device=self.device))
+        losses = []
+        for idx in perm:
+            valid = (idx >= 0).to(torch.float32)
+            gidx = torch.where(idx < 0, idx[0], idx).to(torch.int64)
+            x = dx[gidx]
+            batch = {"x": x, "y": dy[gidx].to(torch.float32) * valid,
+                     "valid": valid,
+                     "domain": x[:, batcher.domain_idx].to(torch.int32)}
+            if d2g is not None:
+                batch["group"] = d2g[batch["domain"].to(torch.int64)]
+            losses.append(self.step(batch))
+        return mean_losses(losses)
+
+    # ---------------------------------------------------------- evaluation
+    @torch.no_grad()
+    def eval_prob(self, batch) -> torch.Tensor:
+        self.model.eval()
+        group = batch.get("group")
+        prob = self.model(batch["x"], group=group, train=False)["prob"]
+        if self.is_multi_tower and prob.dim() == 2:
+            prob = gather_group(prob, group)
+        return prob
+
+    def evaluate(self, x: np.ndarray, y: np.ndarray,
+                 domain_cnt_weight: np.ndarray) -> Dict:
+        """Total and per-domain AUC / log-loss over a split. Evaluation
+        normalizes with the running statistics, so the batch size does not
+        change the predictions; batches of 8 * bs cut the launches."""
+        batcher = GlobalBatcher(x, y, self.config.bs * 8,
+                                self.model.spec.domain_idx, self.domain2group,
+                                shuffle=False)
+        preds, targets, domains = [], [], []
+        for batch in batcher:
+            n = int(batch["valid"].sum())
+            preds.append(self.eval_prob(self.place(batch))[:n])
+            targets.append(batch["y"][:n])
+            domains.append(batch["domain"][:n])
+        return metrics_lib.full_evaluation(
+            np.concatenate(targets), torch.cat(preds).cpu().numpy(),
+            np.concatenate(domains), domain_cnt_weight,
+            multi_domain=self.config.is_evaluate_multi_domain)
+
+    def is_continuable(self, result: Dict, epoch_i: int) -> bool:
+        """Early stopping on mean_auc (total_auc when that is missing or
+        NaN) with patience ``config.early_stop``; an improvement keeps a
+        copy of the weights on the device."""
+        key = ("mean_auc" if "mean_auc" in result
+               and not np.isnan(result["mean_auc"]) else "total_auc")
+        best = self.best_mean_auc if key == "mean_auc" else self.best_auc
+        self._improved = result[key] > best
+        if self._improved:
+            self.trial_counter = 0
+            self.best_auc = result["total_auc"]
+            self.best_loss = result["total_loss"]
+            if "mean_auc" in result:
+                self.best_mean_auc = result["mean_auc"]
+                self.best_mean_loss = result.get("mean_loss", np.inf)
+            self.best_checkpoint = (
+                {k: v.clone() for k, v in self.model.state_dict().items()},
+                epoch_i)
+            return True
+        if self.trial_counter + 1 < self.config.early_stop:
+            self.trial_counter += 1
+            return True
+        return False
+
+    def fit(self, data: SplitData, epochs: Optional[int] = None,
+            verbose: bool = True, warm_start: Optional[Dict] = None,
+            ckpt_dir: Optional[str] = None) -> Dict:
+        """Train up to ``epochs`` (default ``config.epoch``) epochs with
+        early stopping on the valid split, then evaluate the best weights
+        on the test split; the model is left holding them. Returns
+        {'history': per-epoch valid results, 'test': the test result}."""
+        if warm_start is not None:
+            raise NotImplementedError("warm_start is not ported yet")
+        if ckpt_dir is not None:
+            raise NotImplementedError("ckpt_dir (resume) is not ported yet")
+        cfg = self.config
+        batcher = GlobalBatcher(data.train_x, data.train_y, cfg.bs,
+                                data.spec.domain_idx, self.domain2group,
+                                seed=cfg.seed)
+        self.init()
+        device_data = self.device_data_enabled(data.train_x)
+        n_train = data.train_x.shape[0]
+        history = []
+        try:
+            for epoch_i in range(epochs if epochs is not None else cfg.epoch):
+                t0 = time.time()
+                train_loss = (self.train_epoch_device(batcher) if device_data
+                              else self.train_epoch(batcher))
+                train_s = time.time() - t0
+                raise_if_nonfinite(train_loss, epoch_i)
+                result = self.evaluate(data.valid_x, data.valid_y,
+                                       data.domain_cnt_weight)
+                result["train_loss"] = train_loss
+                result["epoch_time_s"] = time.time() - t0
+                result["examples_per_s"] = n_train / train_s
+                history.append(result)
+                if verbose:
+                    msg = (f"epoch {epoch_i + 1}: train_loss={train_loss:.4f} "
+                           f"valid auc={result['total_auc']:.4f} "
+                           f"loss={result['total_loss']:.4f}")
+                    if "mean_auc" in result:
+                        msg += f" mean_auc={result['mean_auc']:.4f}"
+                    print(msg)
+                if not self.is_continuable(result, epoch_i):
+                    break
+        finally:
+            # release the resident split even when an epoch fails
+            self._device_data = None
+        if self.best_checkpoint is not None:
+            self.model.load_state_dict(self.best_checkpoint[0])
+        test_result = self.evaluate(data.test_x, data.test_y,
+                                    data.domain_cnt_weight)
+        return {"history": history, "test": test_result}

@@ -11,16 +11,25 @@ Phases, each printing one line:
   kernels  each kernel against its plain PyTorch version on the card, at
            the main path's shapes (full 1,518,384 x 32 Amazon table), with
            its time, the plain version's, the library call's and the bound;
-  train    the port's main path at full Amazon width: AREADTrainer.init,
+  train    the AREAD path at full Amazon width: AREADTrainer.init,
            warm-up steps (wo_mask) and bagging steps (domain_mask_bagging)
            under per-domain 'rand' masks, with the kernel launch counts;
   eval     AREADTrainer.evaluate over a few per-domain batches;
+  train_dense  the generic Trainer at full Amazon width with the dense
+           table gradient: build_model + Trainer.fit for DeepFM (one epoch,
+           valid and test passes), then a few steps each of DCN and MMoE,
+           and of DeepFM with the sparse table gradient;
   reference three steps from the same weights on the card and on the CPU
-           (plain versions) at a small width: they must agree;
-  profile  (opt-in, after train) torch.profiler over 4 bagging steps;
-           tables and a trace go to --profile-dir.
+           (plain versions) at a small width, for the AREAD step and for
+           the dense DeepFM step: they must agree;
+  profile, profile_dense  (opt-in, after train / train_dense)
+           torch.profiler over 4 AREAD bagging steps / 4 dense DeepFM
+           steps; tables and a trace go to --profile-dir.
 
-Then one JSON line with every kernel's numbers, and last the line
+The launch counts are set to 0 just before each path (train, train_dense
+and its parts) and read just after it; a kernel's ``launches`` is the sum
+over the paths. Then one JSON line with every kernel's numbers, and last
+the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line. Imports nothing of JAX or of the JAX package.
 """
@@ -40,10 +49,11 @@ import torch
 # Amazon layout of bench.py / config defaults
 AMAZON_DIMS = (1368287, 7, 25, 40, 11, 150000, 12)
 EMBED_DIM, BS, N_DOMAIN = 32, 1024, 25
-KERNEL_SOURCES = ["sparse_adam"]
+KERNEL_SOURCES = ["sparse_adam", "fused_adam"]
 # TPU kernel each port replaces
 REPLACES = {"sparse_adam":
-            "aread_tpu/ops/pallas/sparse_adam_kernel.py:252"}
+            "aread_tpu/ops/pallas/sparse_adam_kernel.py:252",
+            "fused_adam": "aread_tpu/ops/pallas/fused_adam.py:63"}
 
 
 def peak_hbm_bytes_per_s(name: str) -> float:
@@ -71,6 +81,18 @@ def cuda_time_ms(fn, n: int = 20, warmup: int = 3) -> float:
 
 def say(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def counted(ctx, path: str, fn):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before and
+    read just after; the counts go to ctx['launches_by_path'][path]."""
+    from aread_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    ctx.setdefault("launches_by_path", {})[path] = dict(launch_counts)
+    return out
 
 
 # ------------------------------------------------------------------ phases
@@ -119,6 +141,11 @@ def amazon_table_ids(rng, spec_dims, n_rows, bs=BS):
 
 
 def phase_kernels(ctx):
+    check_sparse_adam(ctx)
+    check_fused_adam(ctx)
+
+
+def check_sparse_adam(ctx):
     from aread_tpu_torch.models.base import FeatureSpec
     from aread_tpu_torch.ops.sparse_adam import (dedup_rows,
                                                  sparse_adam_cuda,
@@ -235,6 +262,121 @@ def phase_kernels(ctx):
         "library_ms": library_ms}}
 
 
+def check_fused_adam(ctx):
+    """The dense fused Adam against its plain version — bitwise — at three
+    small shapes and at the dense path's unpadded Amazon table, in every
+    storage variant; against the sparse sweep fed the same gradient; and
+    its times at the full table."""
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.ops.fused_adam import (fused_adam_cuda,
+                                                fused_adam_reference)
+    from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_cuda
+
+    dev = torch.device("cuda")
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)  # the dense path pads nothing
+    n_rows, d = spec.n_rows, EMBED_DIM
+    kw = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-8, l2=1e-5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    variants = {  # name: (w, moments, g) storage
+        "f32": (f32, f32, f32),
+        "f32_bf16m": (f32, bf16, f32),
+        "bf16_sr": (bf16, bf16, bf16),
+    }
+    gen = torch.Generator(device=dev).manual_seed(2)
+    t = 7
+    worst = 0.0
+    for shape in [(1000, 33), (128,), (7, 5, 3), (n_rows, d)]:
+        w32 = torch.randn(shape, generator=gen, device=dev)
+        m32 = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        v32 = 0.01 * torch.rand(shape, generator=gen, device=dev)
+        g32 = torch.randn(shape, generator=gen, device=dev)
+        for vname, (wdt, mdt, gdt) in variants.items():
+            w, m, v, g = w32.to(wdt), m32.to(mdt), v32.to(mdt), g32.to(gdt)
+            ref = fused_adam_reference(w, m, v, g, t, **kw)
+            got = w.clone(), m.clone(), v.clone()
+            fused_adam_cuda(*got, g, t, **kw)
+            torch.cuda.synchronize()
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, ref))
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+            line = {"kernel": "fused_adam", "shape": list(shape),
+                    "variant": vname, "bitwise": bitwise, "max_abs_err": err}
+            if not bitwise:
+                raise AssertionError(f"kernel != plain version: {line}")
+            if torch.equal(got[0], w):
+                raise AssertionError(f"the kernel changed nothing: {line}")
+            again = w.clone(), m.clone(), v.clone()
+            fused_adam_cuda(*again, g, t, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(again, ref)):
+                raise AssertionError(f"a repeated launch differs: {line}")
+            worst = max(worst, err)
+            say("kernels", **line)
+            del w, m, v, g, ref, got, again
+    # the full-size f32 state stays for what follows
+
+    # the sparse sweep on (uids, gsum) and this kernel on the same gradient
+    # scattered into a dense g leave the same f32 table and moments
+    rng = np.random.default_rng(1)
+    ids = amazon_table_ids(rng, spec.one_hot_dims, n_rows)
+    ids_t = torch.as_tensor(ids.reshape(-1), dtype=torch.int32, device=dev)
+    grads = torch.randn((ids_t.numel(), d), generator=gen, device=dev)
+    uids, gsum = dedup_rows(ids_t, grads, n_rows)
+    live = uids < n_rows
+    dense_g = torch.zeros((n_rows, d), device=dev).index_copy_(
+        0, uids[live].long(), gsum[live])
+    for mdt in (f32, bf16):
+        a = w32.clone(), m32.to(mdt, copy=True), v32.to(mdt, copy=True)
+        b = w32.clone(), m32.to(mdt, copy=True), v32.to(mdt, copy=True)
+        sparse_adam_cuda(*a, uids, gsum, t, **kw)
+        fused_adam_cuda(*b, dense_g, t, **kw)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        say("kernels", kernel="sparse_adam == fused_adam", moments=str(mdt),
+            n_unique=int(live.sum()), bitwise=same)
+        if not same:
+            raise AssertionError("the sparse and the dense table update "
+                                 f"differ (moments {mdt})")
+        del a, b
+
+    # times at the full table: all-f32 and the dense path's configuration
+    # (f32 table, bf16 moments)
+    timing = {}
+    for vname in ("f32", "f32_bf16m"):
+        wdt, mdt, gdt = variants[vname]
+        w, m, v = (x.to(dt, copy=True)
+                   for x, dt in ((w32, wdt), (m32, mdt), (v32, mdt)))
+        kernel_ms = cuda_time_ms(lambda: fused_adam_cuda(w, m, v, dense_g, t,
+                                                         **kw))
+        plain_ms = cuda_time_ms(lambda: fused_adam_reference(
+            w, m, v, dense_g, t, **kw), n=5)
+        # w, m, v read and written once, g read once
+        nbytes = (2 * (w.element_size() + 2 * m.element_size())
+                  + dense_g.element_size()) * w.numel()
+        timing[vname] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": nbytes / ctx["peak_bw"] * 1e3,
+                         "bytes": nbytes}
+        say("kernels_time", kernel="fused_adam", variant=vname,
+            **timing[vname], achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3))
+        del w, m, v
+    # library yardstick: PyTorch's fused Adam on the same f32 leaf and
+    # gradient (the same function for the all-f32 case)
+    p = torch.nn.Parameter(w32.clone())
+    p.grad = dense_g.clone()
+    opt = torch.optim.Adam([p], lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
+                           weight_decay=1e-8 + 2e-5, fused=True)
+    library_ms = cuda_time_ms(opt.step)
+    say("kernels_library", kernel="fused_adam",
+        call="torch.optim.Adam(fused=True) f32 dense", ms=library_ms)
+    del p, opt
+    main = timing["f32_bf16m"]
+    ctx["kernel_rows"]["fused_adam"] = {
+        "name": "fused_adam", "route": "cuda",
+        "source": "aread_tpu_torch/ops/cuda/fused_adam.cu",
+        "replaces": REPLACES["fused_adam"], "max_abs_err": worst,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": library_ms}
+
+
 def amazon_rows(rng, spec, n: int):
     """Synthetic rows over the full Amazon vocab, 25 domains, labels tied
     to the item id as in make_synthetic_data (so AUC is learnable)."""
@@ -264,7 +406,6 @@ def phase_train(ctx):
     config defaults): 8 warm-up and 16 bagging steps."""
     from aread_tpu_torch.data.loader import DomainBatcher
     from aread_tpu_torch.models.base import FeatureSpec
-    from aread_tpu_torch.ops.sparse_adam import launch_counts, reset_launch_counts
 
     # the config defaults are bench.py's Amazon configuration
     t0 = time.perf_counter()
@@ -293,23 +434,25 @@ def phase_train(ctx):
     batches = [(kind, d, tr.place(batcher.next_batch(d))) for kind, d in plan]
     torch.cuda.synchronize()
 
-    reset_launch_counts()
     losses, times = [], []
+
+    def loop():
+        for kind, d, batch in batches:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            if kind == "warmup":
+                loss, _ = tr.warmup_step(batch)
+            else:
+                loss, _ = tr.main_step(batch, ms.domain_mask[d])
+            b.record()
+            losses.append(loss)
+            times.append((kind, a, b))
+
     t_loop = time.perf_counter()
-    for kind, d, batch in batches:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        if kind == "warmup":
-            loss, _ = tr.warmup_step(batch)
-        else:
-            loss, _ = tr.main_step(batch, ms.domain_mask[d])
-        b.record()
-        losses.append(loss)
-        times.append((kind, a, b))
-    torch.cuda.synchronize()
+    counted(ctx, "train", loop)
     loop_s = time.perf_counter() - t_loop
-    ctx["launches"] = dict(launch_counts)
+    launches = ctx["launches_by_path"]["train"]
     ctx["profile_args"] = (tr, batches[-1][2], ms.domain_mask[batches[-1][1]])
 
     losses = torch.stack(losses).cpu().numpy()
@@ -323,16 +466,16 @@ def phase_train(ctx):
     st = tr.opt_state
     if not (st["m"].float().abs().sum() > 0 and st["v"].float().abs().sum() > 0):
         raise AssertionError("the table's Adam moments did not change")
-    if ctx["launches"]["sparse_adam"] != len(batches):
+    if launches["sparse_adam"] != len(batches):
         raise AssertionError(f"sparse_adam launched "
-                             f"{ctx['launches']['sparse_adam']} times in "
+                             f"{launches['sparse_adam']} times in "
                              f"{len(batches)} steps")
     say("train", table_rows=spec.n_rows, embed_dim=cfg.embed_dim, bs=cfg.bs,
         n_tower=[3, 6, 12], steps={"warmup": 8, "main": 16},
         init_s=init_s, loop_s=loop_s, step_ms_median=step_ms,
         examples_per_s_main=BS / (step_ms["main"] * 1e-3),
         loss_first=float(losses[0]), loss_last=float(losses[-1]),
-        launches=ctx["launches"],
+        launches=launches,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -349,26 +492,236 @@ def phase_eval(ctx):
         seconds=secs)
 
 
+def timed_steps(tr, batches):
+    """Median CUDA-event time of ``tr.step`` over ``batches`` (ms), and the
+    losses."""
+    losses, events = [], []
+    for batch in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(tr.step(batch))
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss: {losses}")
+    return statistics.median(a.elapsed_time(b) for a, b in events), losses
+
+
+def phase_train_dense(ctx):
+    """The generic Trainer at full Amazon width. DeepFM with the dense
+    table gradient, an f32 table and bf16 moments — the configuration in
+    which the JAX package reaches its fused-Adam Pallas kernel — through
+    build_model and Trainer.fit: one epoch of 24 steps, the valid pass, the
+    test pass with the best weights. Then timed steps of the same trainer,
+    a few dense steps each of DCN and MMoE (3 towers, DCN and attention
+    side nets, Amazon domain2group), and DeepFM steps with the sparse
+    table gradient (the sparse-Adam kernel through the same Trainer)."""
+    from aread_tpu_torch.config import DOMAIN2GROUP, Config
+    from aread_tpu_torch.data.loader import GlobalBatcher, SplitData
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.train.trainer import Trainer, dense_table_grad
+
+    torch.cuda.reset_peak_memory_stats()
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+    rng = np.random.default_rng(0)
+    n_steps, n_eval = 24, 4096
+    x, y = amazon_rows(rng, spec, n_steps * BS + 2 * n_eval)
+    n_train = n_steps * BS
+    data = SplitData(
+        train_x=x[:n_train], train_y=y[:n_train],
+        valid_x=x[n_train:n_train + n_eval], valid_y=y[n_train:n_train + n_eval],
+        test_x=x[n_train + n_eval:], test_y=y[n_train + n_eval:], spec=spec,
+        domain_cnt_weight=np.bincount(x[:n_train, spec.domain_idx],
+                                      minlength=N_DOMAIN) / n_train,
+        n_domain=N_DOMAIN)
+    d2g = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
+
+    def make(model, sparse=False):
+        cfg = Config(model=model, dataset_name="amazon", seed=0,
+                     sparse_table_grad=sparse, table_dtype="float32")
+        if (cfg.bs, cfg.embed_dim, cfg.table_moments_dtype, cfg.dropout) != (
+                BS, EMBED_DIM, "bfloat16", 0.2):
+            raise AssertionError("not the Amazon defaults")
+        return Trainer(build_model(cfg, spec, N_DOMAIN, device="cuda"), cfg,
+                       N_DOMAIN, d2g)
+
+    def step_batches(tr, n):
+        batcher = GlobalBatcher(data.train_x, data.train_y, BS,
+                                spec.domain_idx, d2g, seed=1)
+        return [tr.place(b) for b, _ in zip(batcher, range(n))]
+
+    # --- DeepFM, dense table gradient, through fit
+    t0 = time.perf_counter()
+    tr = make("deepfm")
+    table = tr.model.embedding.table
+    if tuple(table.shape) != (1518382, EMBED_DIM) or table.dtype != torch.float32:
+        raise AssertionError(f"table {tuple(table.shape)} {table.dtype}")
+    table0 = table.clone()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = counted(ctx, "train_dense/deepfm_fit",
+                  lambda: tr.fit(data, epochs=1, verbose=False))
+    fit_s = time.perf_counter() - t0
+    launches = ctx["launches_by_path"]["train_dense/deepfm_fit"]
+    if launches != {"sparse_adam": 0, "fused_adam": n_steps}:
+        raise AssertionError(f"fit of {n_steps} dense steps launched {launches}")
+    hist = res["history"][0]
+    for name, r in (("valid", hist), ("test", res["test"])):
+        for k in ("total_auc", "mean_auc", "total_loss"):
+            if not np.isfinite(r[k]) or (k.endswith("auc")
+                                         and not 0 <= r[k] <= 1):
+                raise AssertionError(f"{name} {k}={r[k]}")
+    if not np.isfinite(hist["train_loss"]):
+        raise AssertionError(f"train loss {hist['train_loss']}")
+    st = tr.opt_state
+    if torch.equal(table, table0) or not (
+            st["m"].float().abs().sum() > 0 and st["v"].float().abs().sum() > 0):
+        raise AssertionError("the table or its Adam moments did not change")
+    if st["t"] != n_steps or st["m"].dtype != torch.bfloat16:
+        raise AssertionError(f"t={st['t']}, moments {st['m'].dtype}")
+    del table0
+    batches = step_batches(tr, 16)
+    step_ms, _ = counted(ctx, "train_dense/deepfm_steps",
+                         lambda: timed_steps(tr, batches))
+    # the dense gradient's build alone, on one batch's ids
+    ids = tr.model.embedding.table_ids(batches[0]["x"])
+    row_grads = torch.randn(ids.shape + (EMBED_DIM,), device="cuda")
+    dense_grad_ms = cuda_time_ms(lambda: dense_table_grad(
+        ids, row_grads, table.shape[0], torch.float32))
+    say("train_dense", model="deepfm", table_rows=table.shape[0],
+        embed_dim=EMBED_DIM, bs=BS, table_dtype="float32",
+        moments_dtype="bfloat16", fit_steps=n_steps, init_s=init_s,
+        fit_s=fit_s, train_loss=hist["train_loss"],
+        fit_examples_per_s_host_clock=hist["examples_per_s"],
+        valid_total_auc=hist["total_auc"], valid_mean_auc=hist["mean_auc"],
+        test_total_auc=res["test"]["total_auc"],
+        test_mean_auc=res["test"]["mean_auc"], fit_launches=launches,
+        step_ms_median=step_ms, examples_per_s=BS / (step_ms * 1e-3),
+        dense_grad_build_ms=dense_grad_ms,
+        step_launches=ctx["launches_by_path"]["train_dense/deepfm_steps"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    ctx["dense_profile_args"] = (tr, batches)
+
+    # --- DCN and MMoE, dense; DeepFM, sparse table gradient
+    for model, sparse, n in (("dcn", False, 6), ("mmoe", False, 6),
+                             ("deepfm", True, 6)):
+        tr2 = make(model, sparse)
+        tr2.init()
+        path = f"train_dense/{model}_{'sparse' if sparse else 'dense'}"
+        ms_, losses = counted(ctx, path,
+                              lambda: timed_steps(tr2, step_batches(tr2, n)))
+        want = ({"sparse_adam": n, "fused_adam": 0} if sparse
+                else {"sparse_adam": 0, "fused_adam": n})
+        if ctx["launches_by_path"][path] != want:
+            raise AssertionError(f"{path}: launches "
+                                 f"{ctx['launches_by_path'][path]}")
+        line = dict(model=model, sparse_table_grad=sparse, steps=n,
+                    table_rows=tr2.model.embedding.table.shape[0],
+                    step_ms_median=ms_, loss_first=float(losses[0]),
+                    loss_last=float(losses[-1]),
+                    launches=ctx["launches_by_path"][path])
+        if model == "mmoe":
+            out = tr2.model(batches[0]["x"], train=False)
+            if tuple(out["logit"].shape) != (BS, 3):
+                raise AssertionError(f"mmoe logit {tuple(out['logit'].shape)}")
+            line["n_tower"] = 3
+        say("train_dense", **line)
+        del tr2
+
+
+def true_zero_adam(pre_bn_bias: str, lr: float, wd: float):
+    """DenseAdam that gives the linear biases feeding a BatchNorm their
+    true gradient, exactly 0: the computed one is round-off, which Adam
+    would normalize into a step of up to lr on either device."""
+    import re
+
+    from aread_tpu_torch.train.trainer import DenseAdam
+
+    pat = re.compile(pre_bn_bias)
+
+    class DenseAdamTrueZero(DenseAdam):
+        def update_(self, params, grads, state):
+            super().update_(params, {
+                n: torch.zeros_like(g) if pat.match(n) else g
+                for n, g in grads.items()}, state)
+
+    return DenseAdamTrueZero(lr=lr, wd=wd)
+
+
+def state_diffs(cpu_tr, gpu_tr, losses):
+    diffs = {"loss": float(np.max(np.abs(np.subtract(losses["cpu"],
+                                                     losses["cuda"]))))}
+    gsd = gpu_tr.model.state_dict()
+    for k, v in cpu_tr.model.state_dict().items():
+        diffs[k] = float((v.float() - gsd[k].float().cpu()).abs().max())
+    for k in ("m", "v"):
+        diffs[k] = float((cpu_tr.opt_state[k]
+                          - gpu_tr.opt_state[k].cpu()).abs().max())
+    worst = max(diffs, key=diffs.get)
+    return worst, diffs[worst]
+
+
+def reference_dense(ctx):
+    """Three dense DeepFM steps of the generic Trainer from the same
+    weights on the card (fused-Adam kernel) and on the CPU (plain
+    version): small width, f32 table and moments, dropout 0, with the
+    global-norm clip on; atol 1e-5."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    data = make_synthetic_data(n_rows=2048, n_domain=4, vocab=300, seed=3)
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        cfg = Config(model="deepfm", embed_dim=8, dropout=0.0,
+                     sparse_table_grad=False, table_dtype="float32",
+                     table_moments_dtype="float32", grad_clip_norm=0.5)
+        tr = Trainer(build_model(cfg, data.spec, 4, device=dev), cfg, 4)
+        tr.optimizer = true_zero_adam(r"^mlp/linear_\d+/bias$", cfg.lr, cfg.wd)
+        tr.init()
+        trainers[dev] = tr
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    losses = {dev: [] for dev in trainers}
+
+    def steps():
+        for step in range(3):
+            sl = slice(256 * step, 256 * (step + 1))
+            batch = pad_batch(data.train_x[sl], data.train_y[sl], 256)
+            for dev, tr in trainers.items():
+                losses[dev].append(float(tr.step(batch)))
+
+    counted(ctx, "reference_dense", steps)
+    if ctx["launches_by_path"].pop("reference_dense")["fused_adam"] != 3:
+        raise AssertionError("the card's dense steps did not launch "
+                             "fused_adam once each")
+    worst, diff = state_diffs(trainers["cpu"], trainers["cuda"], losses)
+    if diff > 1e-5:
+        raise AssertionError(f"dense DeepFM: card and CPU disagree after 3 "
+                             f"steps: {worst} {diff}")
+    say("reference", path="deepfm dense Trainer.step", steps=3,
+        max_abs_diff=diff, worst=worst, tolerance=1e-5)
+
+
 def phase_reference(ctx):
+    reference_aread(ctx)
+    reference_dense(ctx)
+
+
+def reference_aread(ctx):
     """The same three steps, from the same weights, on the card (kernel)
     and on the CPU (plain versions), at a small width with an f32 table,
     no dropout and the full mask; losses, weights and Adam state must
     agree at atol 1e-5. The linear biases that feed a BatchNorm get their
     true gradient, exactly 0, on both sides: the computed one is round-off,
     which Adam would normalize into a step of up to lr either way."""
-    import re
-
     from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
     from aread_tpu_torch.models.aread import full_mask
-    from aread_tpu_torch.train.trainer import DenseAdam
-
-    pre_bn_bias = re.compile(r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$")
-
-    class DenseAdamTrueZero(DenseAdam):
-        def update_(self, params, grads, state):
-            super().update_(params, {
-                n: torch.zeros_like(g) if pre_bn_bias.match(n) else g
-                for n, g in grads.items()}, state)
 
     data = make_synthetic_data(n_rows=2048, n_domain=4, vocab=300, seed=3)
     trainers = {}
@@ -377,7 +730,9 @@ def phase_reference(ctx):
             data.spec, dev, 4, embed_dim=8, mlp_dims=(16, 8),
             aread_tower_dims=((8,), (8, 4)), dropout=0.0,
             table_dtype="float32", table_moments_dtype="float32")
-        tr.optimizer = DenseAdamTrueZero(lr=tr.config.lr, wd=tr.config.wd)
+        tr.optimizer = true_zero_adam(
+            r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$", tr.config.lr,
+            tr.config.wd)
         trainers[dev] = tr
     trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
     dm = [np.asarray(m) for m in full_mask(trainers["cpu"].model.n_tower)]
@@ -389,47 +744,38 @@ def phase_reference(ctx):
             loss, _ = (tr.warmup_step(batch) if step == 0
                        else tr.main_step(batch, dm))
             losses[dev].append(float(loss))
-    cpu, gpu = trainers["cpu"], trainers["cuda"]
-    diffs = {"loss": float(np.max(np.abs(np.subtract(losses["cpu"],
-                                                     losses["cuda"]))))}
-    gsd = gpu.model.state_dict()
-    for k, v in cpu.model.state_dict().items():
-        diffs[k] = float((v.float() - gsd[k].float().cpu()).abs().max())
-    for k in ("m", "v"):
-        diffs[k] = float((cpu.opt_state[k] - gpu.opt_state[k].cpu()).abs().max())
-    worst = max(diffs, key=diffs.get)
-    if diffs[worst] > 1e-5:
+    worst, diff = state_diffs(trainers["cpu"], trainers["cuda"], losses)
+    if diff > 1e-5:
         raise AssertionError(f"card and CPU disagree after 3 steps: {worst} "
-                             f"{diffs[worst]}")
-    say("reference", steps=3, max_abs_diff=diffs[worst], worst=worst,
-        tolerance=1e-5)
+                             f"{diff}")
+    say("reference", path="aread AREADTrainer steps", steps=3,
+        max_abs_diff=diff, worst=worst, tolerance=1e-5)
 
 
-def phase_profile(ctx):
-    """Opt-in: 8 more bagging steps of the train phase's trainer timed on
-    the host clock, then 4 under torch.profiler: device busy time per step
-    and the device's idle share, launches per step, the top kernels. The
-    full tables and a Chrome trace go to --profile-dir."""
+def profile_steps(ctx, name: str, step):
+    """10 calls of ``step`` on the host clock (2 of them warm-up), then 4
+    under torch.profiler: device busy time per step and the device's idle
+    share, launches per step, the top kernels. The full tables and a
+    Chrome trace go to --profile-dir/<name>."""
     from pathlib import Path
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tr, batch, dm = ctx["profile_args"]
     for _ in range(2):
-        tr.main_step(batch, dm)
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(8):
-        tr.main_step(batch, dm)
+        step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 8 * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(4):
-            tr.main_step(batch, dm)
+            step()
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    out = Path(ctx["profile_dir"])
+    out = Path(ctx["profile_dir"]) / name
     out.mkdir(parents=True, exist_ok=True)
     by_dev = ka.table(sort_by="self_cuda_time_total", row_limit=40)
     by_cpu = ka.table(sort_by="self_cpu_time_total", row_limit=40)
@@ -439,7 +785,8 @@ def phase_profile(ctx):
     # its kernel row both carry the kernel's time
     dev = [e for e in ka if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 4e3
-    say("profile", step_ms_host_clock=step_ms, device_busy_ms_per_step=busy_ms,
+    say("profile", path=name, step_ms_host_clock=step_ms,
+        device_busy_ms_per_step=busy_ms,
         device_idle_share=1 - busy_ms / step_ms,
         device_events_per_step=sum(e.count for e in dev) / 4,
         cuda_launches_per_step=sum(e.count for e in ka
@@ -448,10 +795,24 @@ def phase_profile(ctx):
                     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]])
 
 
+def phase_profile(ctx):
+    """Opt-in, after train: the AREAD bagging step under torch.profiler."""
+    tr, batch, dm = ctx["profile_args"]
+    profile_steps(ctx, "aread_bagging", lambda: tr.main_step(batch, dm))
+
+
+def phase_profile_dense(ctx):
+    """Opt-in, after train_dense: the dense DeepFM step of the generic
+    Trainer under torch.profiler."""
+    tr, batches = ctx["dense_profile_args"]
+    profile_steps(ctx, "deepfm_dense", lambda: tr.step(batches[0]))
+
+
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
-          "train": phase_train, "eval": phase_eval}
-OPT_IN = {"profile": phase_profile}
+          "train": phase_train, "eval": phase_eval,
+          "train_dense": phase_train_dense}
+OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense}
 
 
 def main(argv=None) -> int:
@@ -475,10 +836,17 @@ def main(argv=None) -> int:
         {**PHASES, **OPT_IN}[name](ctx)
         print(f"# phase {name} done in {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
+    if {"train", "train_dense"} <= set(wanted):
+        for name in KERNEL_SOURCES:
+            if not any(c.get(name, 0) for c in
+                       ctx["launches_by_path"].values()):
+                raise AssertionError(f"no path launched {name}")
+    say("launches", by_path=ctx.get("launches_by_path", {}))
     rows = []
     for name, row in ctx.get("kernel_rows", {}).items():
         row = dict(row)
-        row["launches"] = ctx.get("launches", {}).get(name, 0)
+        row["launches"] = sum(c.get(name, 0) for c in
+                              ctx.get("launches_by_path", {}).values())
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """The port's boundaries: aread_tpu_torch and chip_smoke.py import nothing
 of JAX or of the JAX package; without a card every entry point raises
-instead of running on the CPU; the CUDA wrapper never takes CPU tensors;
-the kernel build keeps IEEE arithmetic."""
+instead of running on the CPU; the CUDA wrappers never take CPU tensors;
+the kernel build keeps IEEE arithmetic, names a library by its sources and
+every shared header; both kernels count their launches in one place; the
+sparse kernel's slot map has one key; chip_smoke.py knows both kernels and
+drives both trainers."""
 
 import ast
 import os
@@ -13,9 +16,13 @@ from pathlib import Path
 import pytest
 import torch
 
+import aread_tpu_torch.ops.cuda as cuda_ops
+from aread_tpu_torch.config import Config
 from aread_tpu_torch.data.loader import make_synthetic_data
 from aread_tpu_torch.device import resolve_device
+from aread_tpu_torch.models import build_model
 from aread_tpu_torch.models.aread import AREAD
+from aread_tpu_torch.ops import fused_adam, sparse_adam
 from aread_tpu_torch.ops.cuda import build
 from aread_tpu_torch.ops.sparse_adam import sparse_adam_cuda
 
@@ -59,12 +66,39 @@ def test_entry_points_raise_without_a_card():
                  tower_dims=((4,), (4,)), device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("model", ["deepfm", "dcn", "mmoe", "aread"])
+def test_build_model_raises_without_a_card(model):
+    _no_card()
+    spec = make_synthetic_data(n_rows=64, n_domain=2, vocab=20).spec
+    cfg = Config(model=model, embed_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg, spec, 2)
+    assert build_model(cfg, spec, 2, device="cpu").device.type == "cpu"
+
+
+def test_table_is_padded_only_for_the_sparse_path():
+    spec = make_synthetic_data(n_rows=64, n_domain=2, vocab=20).spec
+    assert spec.n_rows % 16 != 0
+    for sparse, rows in ((True, -(-spec.n_rows // 16) * 16),
+                         (False, spec.n_rows)):
+        cfg = Config(model="deepfm", embed_dim=8, sparse_table_grad=sparse,
+                     table_dtype="float32")
+        table = build_model(cfg, spec, 2, device="cpu").embedding.table
+        assert tuple(table.shape) == (rows, 8) and table.dtype == torch.float32
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     w = torch.zeros((16, 8))
     with pytest.raises(ValueError, match="CUDA"):
         sparse_adam_cuda(w, w.clone(), w.clone(),
                          torch.zeros(4, dtype=torch.int32),
                          torch.zeros((4, 8)), 1, lr=1e-3)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam.fused_adam_cuda(w, w.clone(), w.clone(), w.clone(), 1,
+                                   lr=1e-3)
+
+
+KERNELS = ["sparse_adam", "fused_adam"]
 
 
 def test_build_flags_keep_ieee_arithmetic():
@@ -73,7 +107,93 @@ def test_build_flags_keep_ieee_arithmetic():
     assert "--fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert build.BUILD_DIR == ROOT / "aread_tpu_torch" / "_build"
-    assert all(src.exists() for src in build.sources("sparse_adam"))
+    for name in KERNELS:
+        assert all(src.exists() for src in build.sources(name))
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_sources_share_the_rounding_header(name):
+    cu, op = (p.read_text() for p in build.sources(name))
+    assert '#include "rounding.cuh"' in cu
+    assert "hash_bits" not in cu  # the hash lives in the header only
+    assert "torch/" not in cu  # PyTorch's headers stay in the binding
+    assert f"{name}_(" in op and "TORCH_LIBRARY_FRAGMENT(aread_tpu_torch" in op
+    assert build.SRC_DIR / "rounding.cuh" in build.headers()
+
+
+@pytest.mark.parametrize("changed", ["rounding.cuh", "fused_adam.cu",
+                                     "fused_adam_op.cpp"])
+def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch,
+                                                  changed):
+    """A changed source or shared header gives the library a new name, so
+    it is rebuilt; an unchanged tree keeps the name."""
+    for p in build.SRC_DIR.iterdir():
+        if p.suffix in (".cu", ".cpp", ".cuh"):
+            shutil.copy(p, tmp_path / p.name)
+    monkeypatch.setattr(build, "SRC_DIR", tmp_path)
+    before = build.library_path("fused_adam")
+    assert before == build.library_path("fused_adam")
+    assert before.parent == build.BUILD_DIR
+    with open(tmp_path / changed, "a") as f:
+        f.write("\n// changed\n")
+    assert build.library_path("fused_adam") != before
+    # the other kernel's library is renamed by the header alone
+    monkeypatch.setattr(build, "SRC_DIR", ROOT / "aread_tpu_torch/ops/cuda")
+    other = build.library_path("sparse_adam")
+    monkeypatch.setattr(build, "SRC_DIR", tmp_path)
+    assert (build.library_path("sparse_adam") != other) == (
+        changed == "rounding.cuh")
+
+
+def test_launch_counts_are_shared_by_both_kernels():
+    assert set(cuda_ops.launch_counts) == set(KERNELS)
+    assert sparse_adam.launch_counts is cuda_ops.launch_counts
+    assert fused_adam.launch_counts is cuda_ops.launch_counts
+    cuda_ops.launch_counts["fused_adam"] += 2
+    cuda_ops.reset_launch_counts()
+    assert cuda_ops.launch_counts == {"sparse_adam": 0, "fused_adam": 0}
+    # the plain versions on the CPU count nothing
+    w = torch.zeros((4, 2))
+    fused_adam.fused_adam_dispatch(w, w.clone(), w.clone(), w.clone(), 1,
+                                   lr=1e-3)
+    assert cuda_ops.launch_counts["fused_adam"] == 0
+
+
+def test_slot_map_key_is_one_function(monkeypatch):
+    """A table on plain "cuda" and the same table on "cuda:<current>" share
+    one slot map, and the key that stores a map is the key that drops it
+    after a failed launch."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    key = sparse_adam._slot_key
+    assert key(torch.device("cuda"), 100) == key(torch.device("cuda:1"), 100)
+    assert key(torch.device("cuda"), 100) == (1, 100)
+    assert key(torch.device("cuda:0"), 100) == (0, 100)
+    assert key(torch.device("cuda"), 100) != key(torch.device("cuda"), 101)
+    src = Path(sparse_adam.__file__).read_text()
+    assert src.count("_slot_key(") == 3  # its definition, the get, the pop
+    assert "_SLOTS.pop(_slot_key(dev, n_rows), None)" in src
+
+
+def test_chip_smoke_drives_both_kernels_and_trainers():
+    src = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(src)
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id in ("KERNEL_SOURCES",
+                                                      "REPLACES")}
+    assert consts["KERNEL_SOURCES"] == KERNELS
+    assert consts["REPLACES"] == {
+        "sparse_adam": "aread_tpu/ops/pallas/sparse_adam_kernel.py:252",
+        "fused_adam": "aread_tpu/ops/pallas/fused_adam.py:63"}
+    funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"phase_device", "phase_build", "phase_kernels", "phase_reference",
+            "phase_train", "phase_eval", "phase_train_dense",
+            "check_sparse_adam", "check_fused_adam", "reference_aread",
+            "reference_dense"} <= funcs
+    assert "from aread_tpu_torch.ops.cuda import launch_counts" in src
+    for name in ("Trainer", "AREADTrainer", "fused_adam_cuda",
+                 "sparse_adam_cuda", "fused_adam_reference"):
+        assert name in src
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
