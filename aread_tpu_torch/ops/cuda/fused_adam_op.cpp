@@ -4,9 +4,10 @@
 // object of fused_adam.cu; see build.py.
 //
 // The Python wrapper (ops/fused_adam.py::fused_adam_cuda) checks dtypes,
-// shapes, devices and contiguity and computes the f32 scalars and the grid
-// size; this operator passes the tensors' storage to the launcher on the
-// stream it is given and raises on a CUDA error.
+// shapes, devices and contiguity, computes the f32 scalars and picks the
+// vector or the scalar kernel (`vec`) from the pointers' alignment; the
+// launcher sizes the grid. This operator passes the tensors' storage to
+// the launcher on the stream it is given and raises on a CUDA error.
 
 #include <torch/library.h>
 
@@ -16,7 +17,7 @@ extern "C" int aread_fused_adam(
     void* w, int w_bf16, void* m, void* v, int mv_bf16, const void* g,
     int g_bf16, uint64_t n_elems, float lr, float b1, float b2, float eps,
     float decay, float b1c, float b2c, float omb1, float omb2, uint32_t seed,
-    int n_blocks, void* stream_ptr);
+    int vec, void* stream_ptr);
 extern "C" const char* aread_fused_adam_error_string(int err);
 
 namespace {
@@ -26,7 +27,7 @@ namespace {
 void fused_adam_(const at::Tensor& w, const at::Tensor& m, const at::Tensor& v,
                  const at::Tensor& g, double lr, double b1, double b2,
                  double eps, double decay, double b1c, double b2c, double omb1,
-                 double omb2, int64_t seed, int64_t n_blocks, int64_t stream) {
+                 double omb2, int64_t seed, bool vec, int64_t stream) {
   const int err = aread_fused_adam(
       w.data_ptr(), w.scalar_type() == at::kBFloat16, m.data_ptr(),
       v.data_ptr(), m.scalar_type() == at::kBFloat16, g.data_ptr(),
@@ -35,7 +36,7 @@ void fused_adam_(const at::Tensor& w, const at::Tensor& m, const at::Tensor& v,
       static_cast<float>(eps), static_cast<float>(decay),
       static_cast<float>(b1c), static_cast<float>(b2c),
       static_cast<float>(omb1), static_cast<float>(omb2),
-      static_cast<uint32_t>(seed & 0xFFFFFFFF), static_cast<int>(n_blocks),
+      static_cast<uint32_t>(seed & 0xFFFFFFFF), vec ? 1 : 0,
       reinterpret_cast<void*>(stream));
   TORCH_CHECK(err == 0, "fused_adam_ kernel launch failed: ",
               aread_fused_adam_error_string(err));
@@ -49,7 +50,7 @@ TORCH_LIBRARY_FRAGMENT(aread_tpu_torch, lib) {
   lib.def(
       "fused_adam_(Tensor(a!) w, Tensor(b!) m, Tensor(c!) v, Tensor g, "
       "float lr, float b1, float b2, float eps, float decay, float b1c, "
-      "float b2c, float omb1, float omb2, int seed, int n_blocks, "
+      "float b2c, float omb1, float omb2, int seed, bool vec, "
       "int stream) -> ()");
 }
 

@@ -4,9 +4,11 @@
 // object of sparse_adam.cu; see build.py.
 //
 // The Python wrapper (ops/sparse_adam.py::sparse_adam_cuda) checks dtypes,
-// shapes, devices and contiguity, computes the f32 scalars and the grid
-// size, and owns the slot map; this operator passes the tensors' storage
-// to the launcher on the stream it is given and raises on a CUDA error.
+// shapes, devices and contiguity, computes the f32 scalars, picks the
+// vector or the scalar sweep (vpr, shift, mul) and owns the slot map and
+// the sum(w * w) scratch; the launcher sizes the grid. This operator passes
+// the tensors' storage to the launcher on the stream it is given and
+// raises on a CUDA error.
 
 #include <torch/library.h>
 
@@ -16,8 +18,9 @@ extern "C" int aread_sparse_adam(
     void* w, int w_bf16, void* m, void* v, int mv_bf16, const int32_t* uids,
     int k_total, const float* gsum, int32_t* slot, uint32_t n_rows, uint32_t d,
     float lr, float b1, float b2, float eps, float decay, float b1c, float b2c,
-    float omb1, float omb2, uint32_t seed, double* l2_partials,
-    double* l2_out, int n_blocks, void* stream_ptr);
+    float omb1, float omb2, uint32_t seed, uint32_t vpr, uint32_t shift,
+    uint32_t mul, double* l2_partials, int l2_capacity, float* l2_out,
+    unsigned int* l2_count, void* stream_ptr);
 extern "C" const char* aread_sparse_adam_error_string(int err);
 
 namespace {
@@ -28,13 +31,21 @@ void sparse_adam_(const at::Tensor& w, const at::Tensor& m,
                   const at::Tensor& v, const at::Tensor& uids,
                   const at::Tensor& gsum, const at::Tensor& slot,
                   const at::Tensor& l2_partials, const at::Tensor& l2_out,
-                  double lr, double b1, double b2, double eps, double decay,
+                  const at::Tensor& l2_count, double lr, double b1, double b2,
+                  double eps, double decay,
                   double b1c, double b2c, double omb1, double omb2,
-                  int64_t seed, int64_t n_blocks, int64_t stream) {
+                  int64_t seed, int64_t vpr, int64_t shift, int64_t mul,
+                  int64_t stream) {
   const bool want_l2 = l2_partials.numel() > 0;
-  TORCH_CHECK(!want_l2 || (l2_partials.numel() == n_blocks &&
-                           l2_out.numel() == 1),
-              "sparse_adam_: l2 buffers must hold n_blocks and 1 doubles");
+  TORCH_CHECK(!want_l2 || (l2_partials.scalar_type() == at::kDouble &&
+                           l2_out.scalar_type() == at::kFloat &&
+                           l2_out.numel() == 1 &&
+                           l2_count.scalar_type() == at::kInt &&
+                           l2_count.numel() == 1),
+              "sparse_adam_: the sum(w*w) scratch must be float64 partials, "
+              "one float32 and one int32");
+  TORCH_CHECK(vpr == 0 || w.size(1) == 8 * vpr,
+              "sparse_adam_: the vector sweep needs D == 8 * vpr");
   const int err = aread_sparse_adam(
       w.data_ptr(), w.scalar_type() == at::kBFloat16, m.data_ptr(),
       v.data_ptr(), m.scalar_type() == at::kBFloat16,
@@ -45,10 +56,14 @@ void sparse_adam_(const at::Tensor& w, const at::Tensor& m,
       static_cast<float>(eps), static_cast<float>(decay),
       static_cast<float>(b1c), static_cast<float>(b2c),
       static_cast<float>(omb1), static_cast<float>(omb2),
-      static_cast<uint32_t>(seed & 0xFFFFFFFF),
+      static_cast<uint32_t>(seed & 0xFFFFFFFF), static_cast<uint32_t>(vpr),
+      static_cast<uint32_t>(shift), static_cast<uint32_t>(mul),
       want_l2 ? l2_partials.data_ptr<double>() : nullptr,
-      want_l2 ? l2_out.data_ptr<double>() : nullptr,
-      static_cast<int>(n_blocks), reinterpret_cast<void*>(stream));
+      static_cast<int>(l2_partials.numel()),
+      want_l2 ? l2_out.data_ptr<float>() : nullptr,
+      want_l2 ? reinterpret_cast<unsigned int*>(l2_count.data_ptr<int32_t>())
+              : nullptr,
+      reinterpret_cast<void*>(stream));
   TORCH_CHECK(err == 0, "sparse_adam_ kernel launch failed: ",
               aread_sparse_adam_error_string(err));
 }
@@ -61,9 +76,9 @@ TORCH_LIBRARY_FRAGMENT(aread_tpu_torch, lib) {
   lib.def(
       "sparse_adam_(Tensor(a!) w, Tensor(b!) m, Tensor(c!) v, Tensor uids, "
       "Tensor gsum, Tensor(d!) slot, Tensor(e!) l2_partials, "
-      "Tensor(f!) l2_out, float lr, float b1, float b2, float eps, "
-      "float decay, float b1c, float b2c, float omb1, float omb2, int seed, "
-      "int n_blocks, int stream) -> ()");
+      "Tensor(f!) l2_out, Tensor(g!) l2_count, float lr, float b1, float b2, "
+      "float eps, float decay, float b1c, float b2c, float omb1, float omb2, "
+      "int seed, int vpr, int shift, int mul, int stream) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(aread_tpu_torch, CUDA, lib) {

@@ -16,7 +16,9 @@ the whole table takes one Adam step per training step:
   tensors. Tests and the CPU path use it.
 * ``fused_adam_cuda`` launches the hand-written kernel
   ``ops/cuda/fused_adam.cu`` (``torch.ops.aread_tpu_torch.fused_adam_``),
-  in place.
+  in place: its vector form (a thread per 8 elements, 16-byte accesses)
+  when w, m, v and g are 16-byte aligned, its scalar form (a thread per
+  element) otherwise. Both leave the same bits.
 * ``fused_adam_dispatch`` updates w, m and v in place: CUDA tensors go
   through the kernel, always — a failed build or launch raises — and CPU
   tensors through the plain version.
@@ -34,7 +36,7 @@ import torch
 
 from aread_tpu_torch.ops.cuda import launch_counts
 from aread_tpu_torch.ops.rounding import sround
-from aread_tpu_torch.ops.sparse_adam import sweep_blocks, adam_scalars
+from aread_tpu_torch.ops.sparse_adam import VEC, adam_scalars, is_aligned16
 
 _STORAGE = (torch.float32, torch.bfloat16)
 
@@ -65,6 +67,13 @@ def fused_adam_reference(w, m, v, g, t: int, lr: float, b1: float = 0.9,
     return new_w.to(w.dtype), m2.to(m.dtype), v2.to(v.dtype)
 
 
+def takes_vector_kernel(numel: int, aligned: bool) -> bool:
+    """Whether a leaf of ``numel`` elements goes through the vector kernel:
+    w, m, v and g 16-byte aligned and at least one whole vector (the last
+    ``numel % 8`` elements are done one by one in the same launch)."""
+    return aligned and numel >= VEC
+
+
 def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                     b2: float = 0.99, eps: float = 1e-8,
                     weight_decay: float = 1e-8, l2: float = 0.0) -> None:
@@ -93,13 +102,12 @@ def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
 
     build.load("fused_adam")
     s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
-    n_blocks = sweep_blocks(dev, w.numel())
+    vec = takes_vector_kernel(w.numel(), is_aligned16(w, m, v, g))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         torch.ops.aread_tpu_torch.fused_adam_(
             w, m, v, g, s["lr"], s["b1"], s["b2"], s["eps"], s["decay"],
-            s["b1c"], s["b2c"], s["omb1"], s["omb2"], int(t), n_blocks,
-            stream)
+            s["b1c"], s["b2c"], s["omb1"], s["omb2"], int(t), vec, stream)
     launch_counts["fused_adam"] += 1
 
 

@@ -26,7 +26,7 @@ has no window to overflow.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -73,14 +73,14 @@ def adam_scalars(t: int, lr: float, b1: float = 0.9, b2: float = 0.99,
     corrections ``1 - b**t`` in f32, as the JAX package computes them;
     the kernel and the plain version get the same values."""
     f32 = np.float32
-    b1t = torch.tensor(b1, dtype=torch.float32) ** torch.tensor(
-        float(t), dtype=torch.float32)
-    b2t = torch.tensor(b2, dtype=torch.float32) ** torch.tensor(
-        float(t), dtype=torch.float32)
+    # numpy's f32 scalar power, not torch's on two 0-dim tensors: the same
+    # bits (tests/test_torch_port_vector_plan.py) in under half the host time
+    b1t = f32(b1) ** f32(t)
+    b2t = f32(b2) ** f32(t)
     return {
         "lr": float(f32(lr)), "b1": float(f32(b1)), "b2": float(f32(b2)),
         "eps": float(f32(eps)), "decay": float(f32(weight_decay + 2.0 * l2)),
-        "b1c": float(1.0 - b1t), "b2c": float(1.0 - b2t),
+        "b1c": float(f32(1.0) - b1t), "b2c": float(f32(1.0) - b2t),
         "omb1": float(f32(1.0 - b1)), "omb2": float(f32(1.0 - b2)),
     }
 
@@ -130,7 +130,57 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
 
 
 # --------------------------------------------------------------- CUDA path
-_SLOTS: Dict[Tuple[int, int], torch.Tensor] = {}
+VEC = 8  # elements a thread of the vector kernels owns: 16 bytes of bf16
+# Capacity of the sum(w*w) partials: with want_l2 the sweep runs at most
+# this many blocks (the launcher's grid, occupancy x SMs, is ~1,000).
+L2_PARTIALS = 4096
+
+
+def is_aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's first element sits on a 16-byte boundary (a
+    fresh tensor's does; a view at an odd offset does not)."""
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
+
+
+def row_divider(vpr: int) -> Tuple[int, int]:
+    """(shift, mul) with which the vector sweep divides a vector index
+    ``n < 2**29`` by ``vpr`` (vectors per row) without a division:
+    ``n >> shift`` when ``mul == 0`` (``vpr`` a power of two), else
+    ``(n * mul >> 32) >> shift`` with ``mul = ceil(2**(32+shift) / vpr)``
+    below 2**32. Exact because ``mul * vpr - 2**(32+shift) < vpr <=
+    2**(3+shift)`` (Granlund and Montgomery, 29-bit dividends); tables are
+    below 2**32 elements, so vector indices are below 2**29."""
+    if vpr < 1:
+        raise ValueError(f"vpr={vpr}")
+    if vpr & (vpr - 1) == 0:
+        return vpr.bit_length() - 1, 0
+    shift = max(0, (vpr - 1).bit_length() - 3)
+    return shift, -(-(1 << (32 + shift)) // vpr)
+
+
+def sweep_plan(d: int, aligned: bool) -> Tuple[int, int, int]:
+    """Which sweep a ``[n_rows, d]`` table takes: ``(vpr, shift, mul)``.
+    ``vpr = d // 8 > 0`` is the vector sweep (a thread per 8 elements of a
+    row, ``row_divider``'s numbers), taken when ``d`` is a multiple of 8 and
+    w, m, v and gsum are 16-byte aligned; ``(0, 0, 0)`` the scalar sweep.
+    Where ``vpr`` divides 32 the vector sweep also restores the slot map
+    (an update is two launches); else a third launch does."""
+    if d % VEC != 0 or not aligned:
+        return 0, 0, 0
+    vpr = d // VEC
+    return (vpr,) + row_divider(vpr)
+
+
+class _Scratch(NamedTuple):
+    """Persistent device state of the sweep for one (card, table size)."""
+    slot: torch.Tensor      # [n_rows] int32, all -1 between launches
+    partials: torch.Tensor  # [L2_PARTIALS] f64 per-block sums of w*w
+    l2: torch.Tensor        # [1] f32, the sweep's sum(w*w)
+    count: torch.Tensor     # [1] int32 blocks done, 0 between launches
+    none: torch.Tensor      # [0], passed for the three when no sum is wanted
+
+
+_SLOTS: Dict[Tuple[int, int], _Scratch] = {}
 
 
 def _slot_key(device: torch.device, n_rows: int) -> Tuple[int, int]:
@@ -141,20 +191,25 @@ def _slot_key(device: torch.device, n_rows: int) -> Tuple[int, int]:
     return index, n_rows
 
 
-def _slot_map(device: torch.device, n_rows: int) -> torch.Tensor:
-    """Persistent int32 slot map, all -1 between launches (the kernel
-    restores it), one per (card, table size)."""
+def _slot_map(device: torch.device, n_rows: int) -> _Scratch:
+    """The sweep's persistent scratch, one per (card, table size): the
+    int32 slot map, all -1 between launches (the kernel restores it), and
+    the sum(w*w) partials, output and block counter (0 between launches).
+    Two tables of one size on one card share it, so their updates must
+    run on one stream; a launch on a second stream could read the map
+    and the counter while the first still uses them."""
     key = _slot_key(device, n_rows)
-    slot = _SLOTS.get(key)
-    if slot is None:
-        slot = torch.full((n_rows,), -1, dtype=torch.int32, device=device)
-        _SLOTS[key] = slot
-    return slot
-
-
-def sweep_blocks(device: torch.device, n_elems: int) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(sms * 16, -(-n_elems // 256)))
+    scratch = _SLOTS.get(key)
+    if scratch is None:
+        scratch = _Scratch(
+            slot=torch.full((n_rows,), -1, dtype=torch.int32, device=device),
+            partials=torch.empty((L2_PARTIALS,), dtype=torch.float64,
+                                 device=device),
+            l2=torch.zeros((1,), dtype=torch.float32, device=device),
+            count=torch.zeros((1,), dtype=torch.int32, device=device),
+            none=torch.empty((0,), dtype=torch.float32, device=device))
+        _SLOTS[key] = scratch
+    return scratch
 
 
 def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
@@ -165,8 +220,9 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
     ``torch.ops.aread_tpu_torch.sparse_adam_``) on the current stream: w, m,
     v updated in place, a bf16 table rounded stochastically keyed by ``t``.
     Returns sum(w_pre**2) as a 0-dim f32 CUDA tensor with ``want_l2``, else
-    None. Raises on anything the kernel does not take and on a failed
-    build or launch."""
+    None; it is a view of scratch that the next update of a table of this
+    size overwrites, so use it (or copy it) before that. Raises on
+    anything the kernel does not take and on a failed build or launch."""
     n_rows, d = w.shape
     dev = w.device
     if dev.type != "cuda":
@@ -193,24 +249,24 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
 
     build.load("sparse_adam")
     s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
-    slot = _slot_map(dev, n_rows)
-    n_blocks = sweep_blocks(dev, n_rows * d)
-    partials = torch.empty((n_blocks if want_l2 else 0,), dtype=torch.float64,
-                           device=dev)
-    out = torch.empty((1 if want_l2 else 0,), dtype=torch.float64, device=dev)
+    vpr, shift, mul = sweep_plan(d, is_aligned16(w, m, v, gsum))
+    scratch = _slot_map(dev, n_rows)
+    partials, out, count = ((scratch.partials, scratch.l2, scratch.count)
+                            if want_l2 else (scratch.none,) * 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         try:
             torch.ops.aread_tpu_torch.sparse_adam_(
-                w, m, v, uids, gsum, slot, partials, out, s["lr"], s["b1"],
-                s["b2"], s["eps"], s["decay"], s["b1c"], s["b2c"], s["omb1"],
-                s["omb2"], int(t), n_blocks, stream)
+                w, m, v, uids, gsum, scratch.slot, partials, out, count,
+                s["lr"], s["b1"], s["b2"], s["eps"], s["decay"], s["b1c"],
+                s["b2c"], s["omb1"], s["omb2"], int(t), vpr, shift, mul,
+                stream)
         except RuntimeError:
             # a launch that failed after the scatter leaves the map dirty
             _SLOTS.pop(_slot_key(dev, n_rows), None)
             raise
     launch_counts["sparse_adam"] += 1
-    return out[0].to(torch.float32) if want_l2 else None
+    return out[0] if want_l2 else None
 
 
 def sparse_adam_dispatch(w, m, v, uids, gsum, t: int, lr: float,

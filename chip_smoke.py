@@ -8,9 +8,17 @@ Phases, each printing one line:
   build    every kernel of the port built from the sources in the checkout
            (nvcc for the .cu, the host compiler for its TORCH_LIBRARY
            binding), one compiler process per source, all at once;
-  kernels  each kernel against its plain PyTorch version on the card, at
-           the main path's shapes (full 1,518,384 x 32 Amazon table), with
-           its time, the plain version's, the library call's and the bound;
+  kernels  each kernel, in its vector and in its scalar form, against its
+           plain PyTorch version on the card: bitwise at small shapes that
+           take every path of the wrappers' choice (widths 8 to 264,
+           element counts that are no multiple of 8, misaligned views) and
+           at the main path's shapes (full 1,518,384 x 32 Amazon table);
+           then its times there: ms = device time per update (one event
+           pair around 20 back-to-back calls / 20), call_ms = median of
+           calls timed one by one (host time included), scalar_ms the
+           scalar kernel by the first clock in the same run, the plain
+           version's and the library call's by both, the bound, and the
+           CUDA launches of one update (torch.profiler);
   train    the AREAD path at full Amazon width: AREADTrainer.init,
            warm-up steps (wo_mask) and bagging steps (domain_mask_bagging)
            under per-domain 'rand' masks, with the kernel launch counts;
@@ -37,6 +45,7 @@ line. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -50,6 +59,11 @@ import torch
 AMAZON_DIMS = (1368287, 7, 25, 40, 11, 150000, 12)
 EMBED_DIM, BS, N_DOMAIN = 32, 1024, 25
 KERNEL_SOURCES = ["sparse_adam", "fused_adam"]
+# per-kernel times of the final ``kernels`` line (beside library_ms):
+# ms / scalar_ms are device times (back-to-back clock) of the vector and the
+# scalar kernel, call_ms the vector kernel's per-call median (host included)
+ROW_TIMES = ("ms", "call_ms", "scalar_ms", "scalar_call_ms", "plain_ms",
+             "bound_ms", "cuda_launches_per_update", "wrapper_host_us")
 # TPU kernel each port replaces
 REPLACES = {"sparse_adam":
             "aread_tpu/ops/pallas/sparse_adam_kernel.py:252",
@@ -77,6 +91,107 @@ def cuda_time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_time_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Device time per call: one event pair around ``n`` back-to-back
+    calls, over ``n``. The host runs ahead of the device, so its own time
+    per call is left out; every launch a call makes is included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def both_clocks(fn, n: int = 20):
+    """(ms, call_ms): the back-to-back device time per call and the median
+    of calls timed one by one (which holds the caller's host time)."""
+    return device_time_ms(fn, n), cuda_time_ms(fn, n)
+
+
+def host_us_per_call(fn, n: int = 20) -> float:
+    """Host time of one call (microseconds): ``n`` calls on the host clock
+    with the device left to run behind."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def cuda_launches_per_call(fn, n: int = 4) -> float:
+    """cudaLaunchKernel calls per call of ``fn``, from a torch.profiler
+    window over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    count = sum(e.count for e in prof.key_averages()
+                if e.key == "cudaLaunchKernel")
+    if count == 0:
+        raise AssertionError("the profiler saw no cudaLaunchKernel")
+    return count / n
+
+
+@contextlib.contextmanager
+def scalar_kernels():
+    """Inside, both wrappers take their scalar kernel whatever the shapes
+    and alignment (the choice is a module function of each wrapper)."""
+    from aread_tpu_torch.ops import fused_adam, sparse_adam
+
+    saved = sparse_adam.sweep_plan, fused_adam.takes_vector_kernel
+    sparse_adam.sweep_plan = lambda d, aligned: (0, 0, 0)
+    fused_adam.takes_vector_kernel = lambda numel, aligned: False
+    try:
+        yield
+    finally:
+        sparse_adam.sweep_plan, fused_adam.takes_vector_kernel = saved
+
+
+def kernel_forms():
+    """("vector", ctx), ("scalar", ctx): the wrappers' own choice (checked
+    by the caller to be the vector kernel) and the scalar kernels forced."""
+    return (("vector", contextlib.nullcontext()), ("scalar", scalar_kernels()))
+
+
+def time_forms(fn, plain_fn):
+    """Both clocks of ``fn`` with the scalar and the vector kernel in turns
+    (scalar, vector, vector, scalar), with the wrapper's host time per call,
+    and of the plain version. ``ms`` / ``scalar_ms`` are the means of the
+    two back-to-back readings."""
+    runs = []
+    for form in ("scalar", "vector", "vector", "scalar"):
+        with (scalar_kernels() if form == "scalar"
+              else contextlib.nullcontext()):
+            ms, call_ms = both_clocks(fn)
+            host_us = host_us_per_call(fn)
+        runs.append({"form": form, "ms": ms, "call_ms": call_ms,
+                     "host_us": host_us})
+    plain_ms, plain_call_ms = both_clocks(plain_fn, n=5)
+
+    def mean(form, key):
+        return statistics.mean(r[key] for r in runs if r["form"] == form)
+
+    return {"ms": mean("vector", "ms"), "call_ms": mean("vector", "call_ms"),
+            "scalar_ms": mean("scalar", "ms"),
+            "scalar_call_ms": mean("scalar", "call_ms"),
+            "wrapper_host_us": mean("vector", "host_us"),
+            "scalar_wrapper_host_us": mean("scalar", "host_us"),
+            "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+            "runs": runs}
 
 
 def say(phase: str, **kw) -> None:
@@ -120,13 +235,47 @@ def phase_build(ctx):
     ctx["build_s"] = time.perf_counter() - t0
     for name in KERNEL_SOURCES:
         build.load(name)
-    ptxas = {n: [l for l in build.BUILD_LOGS.get(n, "").splitlines()
-                 if "registers" in l or "spill" in l]
+    ptxas = {n: ptxas_summary(build.BUILD_LOGS.get(n, ""))
              for n in KERNEL_SOURCES}
     say("build", seconds=round(ctx["build_s"], 3),
         steps_s=build.BUILD_TIMES, libs={n: str(p.name)
                                          for n, p in paths.items()},
         ptxas=ptxas)
+    for name, kernels in ptxas.items():
+        vector = [k for k in kernels if "vec8" in k["kernel"]]
+        if build.BUILD_LOGS.get(name) and len(vector) != 8:
+            raise AssertionError(f"{name}: ptxas reported {len(vector)} "
+                                 "vector kernels, 8 instantiations expected")
+        spilled = [k for k in vector if k["spill_bytes"]]
+        if spilled:
+            raise AssertionError(f"vector kernels spill registers: {spilled}")
+
+
+def ptxas_summary(log: str):
+    """[{kernel, registers, spill_bytes}] from nvcc's ``-Xptxas -v`` output,
+    kernel names demangled where c++filt is at hand."""
+    import re
+    import shutil
+
+    out = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            out.append({"kernel": m.group(1)})
+        elif out and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                     r"spill loads", line)):
+            # a device function that was not inlined reports under its caller
+            out[-1]["spill_bytes"] = (out[-1].get("spill_bytes", 0)
+                                      + int(m.group(1)) + int(m.group(2)))
+        elif out and (m := re.search(r"Used (\d+) registers", line)):
+            out[-1]["registers"] = max(out[-1].get("registers", 0),
+                                       int(m.group(1)))
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"] + [k["kernel"] for k in out],
+                               capture_output=True, text=True).stdout.split("\n")
+        for k, name in zip(out, names):
+            k["kernel"] = (name.replace("(anonymous namespace)::", "")
+                           .split("(")[0].removeprefix("void "))
+    return out
 
 
 def amazon_table_ids(rng, spec_dims, n_rows, bs=BS):
@@ -145,7 +294,80 @@ def phase_kernels(ctx):
     check_fused_adam(ctx)
 
 
+SPARSE_KW = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-8,
+                 l2=1e-5)
+SPARSE_VARIANTS = {  # name: (table dtype, moment dtype, want_l2)
+    "f32": (torch.float32, torch.float32, False),
+    "bf16": (torch.bfloat16, torch.bfloat16, False),
+    "bf16_l2": (torch.bfloat16, torch.bfloat16, True),
+    "f32_l2": (torch.float32, torch.float32, True),
+}
+
+
+def sparse_case(label, w32, m32, v32, uids, gsum, t, want_vpr):
+    """Vector (the wrapper's choice, which must be ``want_vpr`` vectors per
+    row; 0 = it takes the scalar sweep itself) and scalar sweep against the
+    plain version in every storage variant: bitwise, repeatable, sum(w^2)
+    within rtol 1e-5 of f64, the slot map and the block counter clean
+    afterwards. Returns the worst absolute error."""
+    from aread_tpu_torch.ops.sparse_adam import (_slot_map, is_aligned16,
+                                                 sparse_adam_cuda,
+                                                 sparse_adam_reference,
+                                                 sweep_plan)
+
+    n_rows, d = w32.shape
+    worst = 0.0
+    for vname, (wdt, mdt, want_l2) in SPARSE_VARIANTS.items():
+        w, m, v = w32.to(wdt), m32.to(mdt), v32.to(mdt)
+        ref = sparse_adam_reference(w, m, v, uids, gsum, t, want_l2=want_l2,
+                                    **SPARSE_KW)
+        vpr = sweep_plan(d, is_aligned16(w, m, v, gsum))[0]
+        if vpr != want_vpr:
+            raise AssertionError(f"{label}: the wrapper plans vpr={vpr}, "
+                                 f"expected {want_vpr}")
+        for form, forced in kernel_forms():
+            if form == "vector" and vpr == 0:
+                continue
+            line = {**label, "variant": vname, "form": form}
+            with forced:
+                sums = []
+                for _ in range(2):  # the second launch must repeat the first
+                    got = w.clone(), m.clone(), v.clone()
+                    l2k = sparse_adam_cuda(*got, uids, gsum, t,
+                                           want_l2=want_l2, **SPARSE_KW)
+                    # the sum is a view of scratch the next launch overwrites
+                    sums.append(l2k.clone() if want_l2 else None)
+                    torch.cuda.synchronize()
+                    line["bitwise"] = all(torch.equal(x, y)
+                                          for x, y in zip(got, ref[:3]))
+                    line["max_abs_err"] = max(
+                        float((x.float() - y.float()).abs().max())
+                        for x, y in zip(got, ref[:3]))
+                    if not line["bitwise"]:
+                        raise AssertionError(f"kernel != plain version: {line}")
+            scratch = _slot_map(w.device, n_rows)
+            if not (bool((scratch.slot == -1).all())
+                    and int(scratch.count) == 0):
+                raise AssertionError(f"the slot map or the block counter "
+                                     f"was left dirty: {line}")
+            if want_l2:
+                if not torch.equal(sums[0], sums[1]):
+                    raise AssertionError(f"sum(w^2) not repeatable: {line}")
+                exact = float(torch.sum(torch.square(w.double())))
+                line["l2_rel_err"] = abs(float(sums[0]) - exact) / exact
+                line["l2_equals_plain"] = bool(torch.equal(sums[0], ref[3]))
+                if line["l2_rel_err"] > 1e-5 or abs(
+                        float(sums[0]) - float(ref[3])) > 1e-5 * exact:
+                    raise AssertionError(f"sum(w^2) off: {line}")
+            worst = max(worst, line["max_abs_err"])
+            say("kernels", **line)
+    return worst
+
+
 def check_sparse_adam(ctx):
+    """The sparse sweep, vector and scalar kernel, against its plain version
+    at the full Amazon table (two batches) and at small tables whose D takes
+    each path of the plan; then its times at the main path's configuration."""
     from aread_tpu_torch.models.base import FeatureSpec
     from aread_tpu_torch.ops.sparse_adam import (dedup_rows,
                                                  sparse_adam_cuda,
@@ -161,19 +383,38 @@ def check_sparse_adam(ctx):
         # every id inside one 16K-row region (the TPU window's worst case)
         "clustered": rng.integers(700_000, 700_000 + 16384, size=K),
     }
-    kw = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-8, l2=1e-5)
+    kw = SPARSE_KW
     gen = torch.Generator(device=dev).manual_seed(0)
+    t = 7
+    worst = 0.0
+    # small tables: D = 20 takes the scalar sweep; 8, 32, 64, 256 the vector
+    # sweep with the row found by a shift and the map reset in the sweep; 40
+    # and 96 by the host-computed multiplier, 264 too (33 vectors a row, more
+    # than a warp), with the reset launch. 5,003 rows: the last warp is ragged
+    for small_d, want_vpr in ((20, 0), (8, 1), (32, 4), (40, 5), (64, 8),
+                              (96, 12), (256, 32), (264, 33)):
+        rows = 5003
+        sw = torch.randn((rows, small_d), generator=gen, device=dev)
+        sm = 0.1 * torch.randn((rows, small_d), generator=gen, device=dev)
+        sv = 0.01 * torch.rand((rows, small_d), generator=gen, device=dev)
+        ids = torch.randint(0, rows, (700,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        grads = torch.randn((700, small_d), generator=gen, device=dev)
+        uids, gsum = dedup_rows(ids, grads, rows)
+        worst = max(worst, sparse_case({"rows": rows, "d": small_d}, sw, sm,
+                                       sv, uids, gsum, t, want_vpr))
+    # a misaligned gradient (a view one float into its buffer): the wrapper
+    # itself must take the scalar sweep
+    buf = torch.zeros((gsum.numel() + 1,), device=dev)
+    off = buf[1:].view(gsum.shape).copy_(gsum)
+    worst = max(worst, sparse_case({"rows": rows, "d": small_d,
+                                    "gsum": "misaligned"}, sw, sm, sv, uids,
+                                   off, t, 0))
+    del sw, sm, sv, buf, off
+
     w32 = torch.randn((n_rows, d), generator=gen, device=dev)
     m32 = 0.1 * torch.randn((n_rows, d), generator=gen, device=dev)
     v32 = 0.01 * torch.rand((n_rows, d), generator=gen, device=dev)
-    variants = {  # name: (table dtype, moment dtype, want_l2)
-        "f32": (torch.float32, torch.float32, False),
-        "bf16": (torch.bfloat16, torch.bfloat16, False),
-        "bf16_l2": (torch.bfloat16, torch.bfloat16, True),
-        "f32_l2": (torch.float32, torch.float32, True),
-    }
-    t = 7
-    results = {}
     for bname, ids in batches.items():
         ids_t = torch.as_tensor(ids.reshape(-1), dtype=torch.int32, device=dev)
         grads = torch.randn((K, d), generator=gen, device=dev)
@@ -186,36 +427,9 @@ def check_sparse_adam(ctx):
         n_unique = int((uids < n_rows).sum())
         if n_unique >= K:
             raise AssertionError("the batch must carry duplicate ids")
-        for vname, (wdt, mdt, want_l2) in variants.items():
-            w, m, v = w32.to(wdt), m32.to(mdt), v32.to(mdt)
-            ref = sparse_adam_reference(w, m, v, uids, gsum, t,
-                                        want_l2=want_l2, **kw)
-            kw_, km, kv = w.clone(), m.clone(), v.clone()
-            l2k = sparse_adam_cuda(kw_, km, kv, uids, gsum, t,
-                                   want_l2=want_l2, **kw)
-            torch.cuda.synchronize()
-            err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip((kw_, km, kv), ref[:3]))
-            bitwise = all(torch.equal(a, b) for a, b in zip((kw_, km, kv),
-                                                             ref[:3]))
-            line = {"batch": bname, "variant": vname, "n_unique": n_unique,
-                    "bitwise": bitwise, "max_abs_err": err}
-            if not bitwise:
-                raise AssertionError(f"kernel != plain version: {line}")
-            again = w.clone(), m.clone(), v.clone()
-            l2k2 = sparse_adam_cuda(*again, uids, gsum, t, want_l2=want_l2,
-                                    **kw)
-            if not all(torch.equal(a, b) for a, b in zip(again, ref[:3])) or (
-                    want_l2 and not torch.equal(l2k, l2k2)):
-                raise AssertionError(f"a repeated launch differs: {line}")
-            if want_l2:
-                exact = float(torch.sum(torch.square(w.double())))
-                rel = abs(float(l2k) - exact) / exact
-                line["l2_rel_err"] = rel
-                if rel > 1e-5:
-                    raise AssertionError(f"sum(w^2) off: {line}")
-            results[(bname, vname)] = line
-            say("kernels", **line)
+        worst = max(worst, sparse_case(
+            {"batch": bname, "n_unique": n_unique}, w32, m32, v32, uids, gsum,
+            t, d // 8))
         del ids_t, grads
 
     # times at the main path's configuration: bf16 table and moments,
@@ -226,19 +440,23 @@ def check_sparse_adam(ctx):
     uids, gsum = dedup_rows(ids_t, grads, n_rows)
     timing = {}
     for vname in ("bf16_l2", "f32_l2"):
-        wdt, mdt, _ = variants[vname]
+        wdt, mdt, _ = SPARSE_VARIANTS[vname]
         w, m, v = w32.to(wdt), m32.to(mdt), v32.to(mdt)
-        kernel_ms = cuda_time_ms(lambda: sparse_adam_cuda(
+
+        def update():
+            return sparse_adam_cuda(w, m, v, uids, gsum, t, want_l2=True, **kw)
+
+        times = time_forms(update, lambda: sparse_adam_reference(
             w, m, v, uids, gsum, t, want_l2=True, **kw))
-        plain_ms = cuda_time_ms(lambda: sparse_adam_reference(
-            w, m, v, uids, gsum, t, want_l2=True, **kw), n=5)
         esz = w.element_size() + m.element_size() + v.element_size()
         nbytes = 2 * esz * n_rows * d + uids.numel() * 4 + gsum.numel() * 4
-        bound_ms = nbytes / ctx["peak_bw"] * 1e3
-        timing[vname] = {"ms": kernel_ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bytes": nbytes}
-        say("kernels_time", variant=vname, **timing[vname],
-            achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3))
+        timing[vname] = {**times, "bound_ms": nbytes / ctx["peak_bw"] * 1e3,
+                         "bytes": nbytes,
+                         "cuda_launches_per_update":
+                             cuda_launches_per_call(update)}
+        say("kernels_time", kernel="sparse_adam", variant=vname,
+            **timing[vname],
+            achieved_bytes_per_s=nbytes / (times["ms"] * 1e-3))
         del w, m, v
     # library yardstick: PyTorch's fused dense Adam over an f32 table with
     # a dense gradient (the function the sweep computes, minus sparsity)
@@ -247,26 +465,72 @@ def check_sparse_adam(ctx):
     p.grad.index_put_((uids[uids < n_rows].long(),), gsum[uids < n_rows])
     opt = torch.optim.Adam([p], lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
                            weight_decay=1e-8 + 2e-5, fused=True)
-    library_ms = cuda_time_ms(opt.step)
+    library_ms, library_call_ms = both_clocks(opt.step)
     say("kernels_library", call="torch.optim.Adam(fused=True) f32 dense",
-        ms=library_ms)
+        ms=library_ms, call_ms=library_call_ms)
     del p, opt
     main = timing["bf16_l2"]
+    if main["cuda_launches_per_update"] != 2:
+        raise AssertionError("the sparse update at the main path's shapes "
+                             "must be two CUDA launches (scatter, sweep), "
+                             f"not {main['cuda_launches_per_update']}")
     ctx["kernel_rows"] = {"sparse_adam": {
         "name": "sparse_adam", "route": "cuda",
         "source": "aread_tpu_torch/ops/cuda/sparse_adam.cu",
-        "replaces": REPLACES["sparse_adam"],
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": "bytes",
-        "library_ms": library_ms}}
+        "replaces": REPLACES["sparse_adam"], "max_abs_err": worst,
+        **{k: main[k] for k in ROW_TIMES},
+        "bound_by": "bytes", "library_ms": library_ms,
+        "library_call_ms": library_call_ms}}
+
+
+def fused_case(label, w, m, v, g, t, kw, want_vector):
+    """Vector (the wrapper's choice, which must be the vector kernel iff
+    ``want_vector``) and scalar kernel against the plain version: bitwise,
+    repeatable, and the leaf really changed. Returns the worst absolute
+    error."""
+    from aread_tpu_torch.ops.fused_adam import (fused_adam_cuda,
+                                                fused_adam_reference,
+                                                takes_vector_kernel)
+    from aread_tpu_torch.ops.sparse_adam import is_aligned16
+
+    ref = fused_adam_reference(w, m, v, g, t, **kw)
+    vec = takes_vector_kernel(w.numel(), is_aligned16(w, m, v, g))
+    if vec != want_vector:
+        raise AssertionError(f"{label}: the wrapper picks vector={vec}")
+    worst = 0.0
+    for form, forced in kernel_forms():
+        if form == "vector" and not vec:
+            continue
+        line = {"kernel": "fused_adam", **label, "form": form}
+        with forced:
+            for _ in range(2):  # the second launch must repeat the first
+                w0, m0, v0 = w.clone(), m.clone(), v.clone()
+                fused_adam_cuda(w, m, v, g, t, **kw)
+                torch.cuda.synchronize()
+                got = w.clone(), m.clone(), v.clone()
+                w.copy_(w0), m.copy_(m0), v.copy_(v0)
+                line["bitwise"] = all(torch.equal(x, y)
+                                      for x, y in zip(got, ref))
+                line["max_abs_err"] = max(
+                    float((x.float() - y.float()).abs().max())
+                    for x, y in zip(got, ref))
+                if not line["bitwise"]:
+                    raise AssertionError(f"kernel != plain version: {line}")
+                if torch.equal(got[0], w0):
+                    raise AssertionError(f"the kernel changed nothing: {line}")
+                del got, w0, m0, v0
+        worst = max(worst, line["max_abs_err"])
+        say("kernels", **line)
+    return worst
 
 
 def check_fused_adam(ctx):
-    """The dense fused Adam against its plain version — bitwise — at three
-    small shapes and at the dense path's unpadded Amazon table, in every
-    storage variant; against the sparse sweep fed the same gradient; and
-    its times at the full table."""
+    """The dense fused Adam, vector and scalar kernel, against its plain
+    version — bitwise — at small shapes (element counts that are and are
+    not multiples of 8), on misaligned views (which the wrapper itself must
+    hand to the scalar kernel) and at the dense path's unpadded Amazon
+    table, in every storage variant; against the sparse sweep fed the same
+    gradient; and its times at the full table."""
     from aread_tpu_torch.models.base import FeatureSpec
     from aread_tpu_torch.ops.fused_adam import (fused_adam_cuda,
                                                 fused_adam_reference)
@@ -281,37 +545,36 @@ def check_fused_adam(ctx):
         "f32": (f32, f32, f32),
         "f32_bf16m": (f32, bf16, f32),
         "bf16_sr": (bf16, bf16, bf16),
+        "bf16_f32m": (bf16, f32, f32),
     }
     gen = torch.Generator(device=dev).manual_seed(2)
     t = 7
     worst = 0.0
-    for shape in [(1000, 33), (128,), (7, 5, 3), (n_rows, d)]:
+    for shape in [(1000, 33), (128,), (7, 5, 3), (5,), (100003,),
+                  (n_rows, d)]:
         w32 = torch.randn(shape, generator=gen, device=dev)
         m32 = 0.1 * torch.randn(shape, generator=gen, device=dev)
         v32 = 0.01 * torch.rand(shape, generator=gen, device=dev)
         g32 = torch.randn(shape, generator=gen, device=dev)
         for vname, (wdt, mdt, gdt) in variants.items():
-            w, m, v, g = w32.to(wdt), m32.to(mdt), v32.to(mdt), g32.to(gdt)
-            ref = fused_adam_reference(w, m, v, g, t, **kw)
-            got = w.clone(), m.clone(), v.clone()
-            fused_adam_cuda(*got, g, t, **kw)
-            torch.cuda.synchronize()
-            err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(got, ref))
-            bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
-            line = {"kernel": "fused_adam", "shape": list(shape),
-                    "variant": vname, "bitwise": bitwise, "max_abs_err": err}
-            if not bitwise:
-                raise AssertionError(f"kernel != plain version: {line}")
-            if torch.equal(got[0], w):
-                raise AssertionError(f"the kernel changed nothing: {line}")
-            again = w.clone(), m.clone(), v.clone()
-            fused_adam_cuda(*again, g, t, **kw)
-            if not all(torch.equal(a, b) for a, b in zip(again, ref)):
-                raise AssertionError(f"a repeated launch differs: {line}")
-            worst = max(worst, err)
-            say("kernels", **line)
-            del w, m, v, g, ref, got, again
+            w, m, v, g = (x.to(dt, copy=True) for x, dt in (
+                (w32, wdt), (m32, mdt), (v32, mdt), (g32, gdt)))
+            worst = max(worst, fused_case(
+                {"shape": list(shape), "variant": vname}, w, m, v, g, t, kw,
+                want_vector=w.numel() >= 8))
+            del w, m, v, g
+        if shape == (100003,):
+            # views one element into flat buffers: not 16-byte aligned
+            for vname, (wdt, mdt, gdt) in variants.items():
+                w, m, v, g = (
+                    torch.zeros((x.numel() + 1,), dtype=dt, device=dev)[1:]
+                    .copy_(x) for x, dt in ((w32, wdt), (m32, mdt),
+                                            (v32, mdt), (g32, gdt)))
+                worst = max(worst, fused_case(
+                    {"shape": list(shape), "variant": vname,
+                     "views": "misaligned"}, w, m, v, g, t, kw,
+                    want_vector=False))
+                del w, m, v, g
     # the full-size f32 state stays for what follows
 
     # the sparse sweep on (uids, gsum) and this kernel on the same gradient
@@ -325,17 +588,19 @@ def check_fused_adam(ctx):
     dense_g = torch.zeros((n_rows, d), device=dev).index_copy_(
         0, uids[live].long(), gsum[live])
     for mdt in (f32, bf16):
-        a = w32.clone(), m32.to(mdt, copy=True), v32.to(mdt, copy=True)
-        b = w32.clone(), m32.to(mdt, copy=True), v32.to(mdt, copy=True)
-        sparse_adam_cuda(*a, uids, gsum, t, **kw)
-        fused_adam_cuda(*b, dense_g, t, **kw)
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
-        say("kernels", kernel="sparse_adam == fused_adam", moments=str(mdt),
-            n_unique=int(live.sum()), bitwise=same)
-        if not same:
-            raise AssertionError("the sparse and the dense table update "
-                                 f"differ (moments {mdt})")
-        del a, b
+        for form, forced in kernel_forms():
+            a = w32.clone(), m32.to(mdt, copy=True), v32.to(mdt, copy=True)
+            b = w32.clone(), m32.to(mdt, copy=True), v32.to(mdt, copy=True)
+            with forced:
+                sparse_adam_cuda(*a, uids, gsum, t, **kw)
+                fused_adam_cuda(*b, dense_g, t, **kw)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            say("kernels", kernel="sparse_adam == fused_adam", form=form,
+                moments=str(mdt), n_unique=int(live.sum()), bitwise=same)
+            if not same:
+                raise AssertionError("the sparse and the dense table update "
+                                     f"differ (moments {mdt}, {form})")
+            del a, b
 
     # times at the full table: all-f32 and the dense path's configuration
     # (f32 table, bf16 moments)
@@ -344,18 +609,22 @@ def check_fused_adam(ctx):
         wdt, mdt, gdt = variants[vname]
         w, m, v = (x.to(dt, copy=True)
                    for x, dt in ((w32, wdt), (m32, mdt), (v32, mdt)))
-        kernel_ms = cuda_time_ms(lambda: fused_adam_cuda(w, m, v, dense_g, t,
-                                                         **kw))
-        plain_ms = cuda_time_ms(lambda: fused_adam_reference(
-            w, m, v, dense_g, t, **kw), n=5)
+
+        def update():
+            fused_adam_cuda(w, m, v, dense_g, t, **kw)
+
+        times = time_forms(update, lambda: fused_adam_reference(
+            w, m, v, dense_g, t, **kw))
         # w, m, v read and written once, g read once
         nbytes = (2 * (w.element_size() + 2 * m.element_size())
                   + dense_g.element_size()) * w.numel()
-        timing[vname] = {"ms": kernel_ms, "plain_ms": plain_ms,
-                         "bound_ms": nbytes / ctx["peak_bw"] * 1e3,
-                         "bytes": nbytes}
+        timing[vname] = {**times, "bound_ms": nbytes / ctx["peak_bw"] * 1e3,
+                         "bytes": nbytes,
+                         "cuda_launches_per_update":
+                             cuda_launches_per_call(update)}
         say("kernels_time", kernel="fused_adam", variant=vname,
-            **timing[vname], achieved_bytes_per_s=nbytes / (kernel_ms * 1e-3))
+            **timing[vname],
+            achieved_bytes_per_s=nbytes / (times["ms"] * 1e-3))
         del w, m, v
     # library yardstick: PyTorch's fused Adam on the same f32 leaf and
     # gradient (the same function for the all-f32 case)
@@ -363,18 +632,22 @@ def check_fused_adam(ctx):
     p.grad = dense_g.clone()
     opt = torch.optim.Adam([p], lr=1e-3, betas=(0.9, 0.99), eps=1e-8,
                            weight_decay=1e-8 + 2e-5, fused=True)
-    library_ms = cuda_time_ms(opt.step)
+    library_ms, library_call_ms = both_clocks(opt.step)
     say("kernels_library", kernel="fused_adam",
-        call="torch.optim.Adam(fused=True) f32 dense", ms=library_ms)
+        call="torch.optim.Adam(fused=True) f32 dense", ms=library_ms,
+        call_ms=library_call_ms)
     del p, opt
     main = timing["f32_bf16m"]
+    if main["cuda_launches_per_update"] != 1:
+        raise AssertionError("the dense update must be one CUDA launch, not "
+                             f"{main['cuda_launches_per_update']}")
     ctx["kernel_rows"]["fused_adam"] = {
         "name": "fused_adam", "route": "cuda",
         "source": "aread_tpu_torch/ops/cuda/fused_adam.cu",
         "replaces": REPLACES["fused_adam"], "max_abs_err": worst,
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": "bytes",
-        "library_ms": library_ms}
+        **{k: main[k] for k in ROW_TIMES},
+        "bound_by": "bytes", "library_ms": library_ms,
+        "library_call_ms": library_call_ms}
 
 
 def amazon_rows(rng, spec, n: int):

@@ -194,6 +194,20 @@ def test_chip_smoke_drives_both_kernels_and_trainers():
     for name in ("Trainer", "AREADTrainer", "fused_adam_cuda",
                  "sparse_adam_cuda", "fused_adam_reference"):
         assert name in src
+    # every kernel row carries both clocks, the scalar kernel's time and the
+    # CUDA launches of one update beside the contract's fields
+    assert {"scalar_kernels", "time_forms", "device_time_ms",
+            "cuda_launches_per_call"} <= funcs
+    row_times = next(ast.literal_eval(n.value) for n in tree.body
+                     if isinstance(n, ast.Assign)
+                     and isinstance(n.targets[0], ast.Name)
+                     and n.targets[0].id == "ROW_TIMES")
+    assert {"ms", "call_ms", "scalar_ms", "plain_ms", "bound_ms",
+            "cuda_launches_per_update"} <= set(row_times)
+    for key in ('"library_ms"', '"bound_by"', '"max_abs_err"', '"launches"',
+                '"replaces"', '"route"', '"source"'):
+        assert src.count(key) >= 1
+    assert src.count("**{k: main[k] for k in ROW_TIMES}") == 2
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
