@@ -34,8 +34,20 @@ class Config:
     group_strategy: str = "dcn_3groups_kl"
     is_evaluate_multi_domain: bool = True
 
-    # HEMP
+    # AREAD / HEMP: warm-up and regroup intervals count batches of 1024
+    # rows (the trainer rescales them by 1024 / bs)
+    update_lr: float = 1e-2  # the fast-adapt chains' learning rate
+    warm_up_interval: int = 100
+    regroup_interval: int = 2000
+    regroup_update_step: int = 5
+    regroup_eval_step: int = 5
+    candidate_mask_num: int = 10
+    random_modify_sigma: float = 0.2
     init_active_percent: float = 0.7
+    # final-gate phase after HEMP: a fresh Adam over final_gate alone
+    final_lr: float = 1e-3
+    final_epoch: int = 10
+    aread_final: bool = False
 
     # model hyper-params
     use_dcn: bool = True
@@ -62,6 +74,14 @@ class Config:
     loss_report_table_l2: bool = True
     # global-norm gradient clipping over all data gradients; 0 = off
     grad_clip_norm: float = 0.0
+    # 'adam': dense semantics, every row's moments decay every step (the
+    # sparse-Adam sweep). 'lazy_adam': only the rows gathered this step
+    # change (indexed updates, never the kernel).
+    table_optimizer: str = "adam"
+    # engine of the HEMP fast-adapt chains: 'full' = every chain step runs
+    # the full-table sweep; 'auto' resolves to it; 'overlay' (a compact
+    # working-set copy) is not ported yet and raises
+    hemp_fast_adapt: str = "auto"  # 'auto' | 'overlay' | 'full'
     # the table's data gradient: True = sparse (d loss / d gathered rows,
     # deduplicated, ops/sparse_adam.py; the table padded as the JAX
     # package pads it for its lane-packed storage); False = the dense
@@ -72,7 +92,7 @@ class Config:
     # 'auto' = when it fits Trainer.DEVICE_DATA_BUDGET, '1' / '0' force
     device_data: str = "auto"
 
-    # options of the JAX package's generic Trainer that are not ported
+    # options of the JAX package's trainers that are not ported
     # yet: any value but the default raises NotImplementedError
     streaming_eval: bool = False
     dynamic_regroup: str = "off"

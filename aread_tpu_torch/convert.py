@@ -1,5 +1,11 @@
 """Carries the JAX package's weights and optimizer state into the port.
 
+``convert_final_opt_state`` carries the final-gate phase's optimizer
+state, ``convert_mask_state`` and ``copy_hemp_schedule`` the HEMP state
+(masks, gate records, candidates, probe losses, the mask generator's
+position; the trainer's schedule values), so that both sides can start
+from one state.
+
 Input trees hold numpy arrays (``jax.tree_util.tree_map(np.asarray, t)``
 on the JAX side); nothing here imports JAX. Flax paths map to the port's
 module paths one to one ('/' becomes '.'); kernels keep their [in, out]
@@ -72,3 +78,56 @@ def convert_opt_state(opt_state: Mapping, embed_dim: int, device=None) -> Dict:
         "v": _to_torch(_table_rows(opt_state["v"], embed_dim), device),
         "t": int(np.asarray(opt_state["t"])),
     }
+
+
+def convert_final_opt_state(opt_state, device=None) -> Dict:
+    """The final-gate phase's optax chain state over the ``final_gate``
+    leaf ({'kernel': ...}) -> the port's ``DenseAdam`` state over
+    {'final_gate/kernel': ...}."""
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mu": {f"final_gate/{p}": _to_torch(a, device)
+               for p, a in flatten(adam.mu).items()},
+        "nu": {f"final_gate/{p}": _to_torch(a, device)
+               for p, a in flatten(adam.nu).items()},
+    }
+
+
+def _copy_mask(mask):
+    return None if mask is None else [np.array(m, dtype=bool) for m in mask]
+
+
+def convert_mask_state(src):
+    """A ``HempMaskState`` of the port holding a copy of every field of
+    the JAX package's object ``src`` (read by attribute, as numpy): the
+    per-domain masks, the gate records, thresholds, candidates and probe
+    losses of a running evolution, the last fast-adapt gate record, and
+    the generator's position, so that both draw the same masks next."""
+    from aread_tpu_torch.utils.masks import HempMaskState
+
+    dst = HempMaskState(src.n_tower, src.n_domain)
+    dst.rng.bit_generator.state = src.rng.bit_generator.state
+    dst.domain_mask = [_copy_mask(m) for m in src.domain_mask]
+    for d in range(src.n_domain):
+        for rec in src.gate_acc[d]._records:
+            dst.gate_acc[d].add([np.array(g) for g in rec])
+        dst.candidate_domain_mask[d] = [
+            _copy_mask(m) for m in src.candidate_domain_mask[d]]
+        dst.eval_loss[d] = [[float(x) for x in losses]
+                            for losses in src.eval_loss[d]]
+    dst.gate_value_threshold = list(src.gate_value_threshold)
+    dst.tmp_gate_record = (None if src.tmp_gate_record is None else
+                           tuple(np.array(g) for g in src.tmp_gate_record))
+    return dst
+
+
+HEMP_SCHEDULE_FIELDS = ("random_modify_sigma", "init_active_percent",
+                        "candidate_mask_num", "regroup_times")
+
+
+def copy_hemp_schedule(src, dst) -> None:
+    """The HEMP schedule values of the JAX package's ``AREADTrainer``
+    ``src`` onto the port's trainer ``dst``."""
+    for name in HEMP_SCHEDULE_FIELDS:
+        setattr(dst, name, type(getattr(dst, name))(getattr(src, name)))

@@ -27,6 +27,10 @@ class SplitData:
     spec: FeatureSpec
     domain_cnt_weight: np.ndarray
     n_domain: int
+    # augmented train rows for the HEMP fast-adapt chains; None = the
+    # chains draw from the train rows
+    aug_train_x: Optional[np.ndarray] = None
+    aug_train_y: Optional[np.ndarray] = None
 
 
 def pad_batch(x: np.ndarray, y: np.ndarray, bs: int) -> Dict[str, np.ndarray]:
@@ -137,6 +141,10 @@ class DomainBatcher:
         if shuffle:
             self.domain_batch_seq = list(
                 self.rng.permutation(self.domain_batch_seq).astype(int))
+
+    def shuffle_seq(self):
+        self.domain_batch_seq = list(
+            self.rng.permutation(self.domain_batch_seq).astype(int))
 
     def next_batch_indices(self, d: int) -> np.ndarray:
         """Row ids of domain ``d``'s next batch, padded to bs with -1."""

@@ -9,12 +9,14 @@
     shared first-order logit.
 
 Modes: 'wo_mask' (warm-up, all edges, mean over all leaves),
-'domain_with_mask' (one domain's mask, mean over active leaves) and
-'domain_mask_bagging' (the same, the trainer averages per-leaf losses).
-Every mode returns leaf_logit, leaf_prob, leaf_active, gate_means, prob
-and logit. The ``final_gate`` parameter exists, as the JAX package
-initializes through 'domain_mask_final'; that mode, 'batch_with_mask' and
-the PLE base are not ported yet and raise.
+'domain_with_mask' (one domain's mask, mean over active leaves),
+'domain_mask_bagging' (the same, the trainer averages per-leaf losses),
+'domain_mask_final' (the body detached, a trainable softmax gate over the
+active leaves: only ``final_gate`` gets a gradient) and 'batch_with_mask'
+(evaluation only: every mask array carries a leading [B] axis, so a
+mixed-domain batch runs in one forward). Every mode returns leaf_logit,
+leaf_prob, leaf_active, gate_means, prob and logit. The PLE base is not
+ported yet and raises.
 
 Submodule and parameter names are the JAX package's flax paths with '.'
 for '/', so ``convert.py`` maps weights one to one.
@@ -34,7 +36,8 @@ from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.initializers import embedding_init
 from aread_tpu_torch.ops.mlp import Linear, StackedLinear, StackedMLP
 
-MODES = ("wo_mask", "domain_with_mask", "domain_mask_bagging")
+MODES = ("wo_mask", "domain_with_mask", "domain_mask_bagging",
+         "domain_mask_final", "batch_with_mask")
 
 
 def full_mask(n_tower: Sequence[int]) -> Tuple[np.ndarray, ...]:
@@ -102,12 +105,19 @@ class AREAD(CTRModel):
     def forward(self, x, domain_mask=None, mode: str = "wo_mask",
                 train: bool = False, mask=None, generator=None,
                 tap: bool = False):
-        """``domain_mask``: n_level+1 boolean arrays shaped as
-        ``full_mask``, required by the masked modes. ``mask``: [B] row
+        """``domain_mask``: n_level+1 boolean arrays (numpy or tensors)
+        shaped as ``full_mask``, required by the masked modes; with a
+        leading [B] axis each in 'batch_with_mask'. ``mask``: [B] row
         validity for BatchNorm. ``generator``: dropout's. ``tap``: make
         the gathered rows a grad leaf, returned as ``out['rows']``."""
         if mode not in MODES:
-            raise NotImplementedError(f"mode {mode!r} is not ported yet")
+            raise ValueError(f"unknown mode {mode!r}")
+        per_ex = mode == "batch_with_mask"
+        final = mode == "domain_mask_final"
+        if per_ex and train:
+            # the per-tower gating of the BatchNorm statistics is undefined
+            # per example: ungated updates would fold mask-zeroed rows in
+            raise ValueError("batch_with_mask is eval-only (train=True)")
         dev = self.device
         f32 = torch.float32
         embed_x, rows = self.embedding(x, tap=tap)
@@ -128,32 +138,55 @@ class AREAD(CTRModel):
         else:
             if domain_mask is None:
                 raise ValueError("masked modes need a domain_mask")
-            dm = [torch.as_tensor(np.asarray(m), device=dev) for m in domain_mask]
-            m0 = dm[0][0].to(f32)
-            ge = (m0 / torch.clamp(m0.sum(), min=1e-8)) @ self.group_embedding
-            group_embed = ge[None, :].expand_as(domain_embed)
+            dm = [m.to(dev) if torch.is_tensor(m)
+                  else torch.as_tensor(np.asarray(m), device=dev)
+                  for m in domain_mask]
+            if per_ex:
+                m0 = dm[0][:, 0, :].to(f32)  # [B, T0]
+                group_embed = (m0 / torch.clamp(m0.sum(dim=1, keepdim=True),
+                                                min=1e-8)) @ self.group_embedding
+            else:
+                m0 = dm[0][0].to(f32)
+                ge = (m0 / torch.clamp(m0.sum(), min=1e-8)) @ self.group_embedding
+                group_embed = ge[None, :].expand_as(domain_embed)
         gate_inputs = torch.cat([domain_embed, group_embed], dim=1)
+        # the body is frozen while the final gate trains
+        gate_inputs_body = gate_inputs.detach() if final else gate_inputs
 
-        active = [dm[0][0]]
-        for l in range(1, self.n_level):
-            active.append(dm[l].any(dim=0))
-        leaf_active = dm[self.n_level][:, 0]
+        if per_ex:
+            active = [dm[0][:, 0, :]]  # [B, T0]
+            for l in range(1, self.n_level):
+                active.append(dm[l].any(dim=1))  # [B, T_l]
+            leaf_active = dm[self.n_level][:, :, 0]  # [B, T_last]
+        else:
+            active = [dm[0][0]]
+            for l in range(1, self.n_level):
+                active.append(dm[l].any(dim=0))
+            leaf_active = dm[self.n_level][:, 0]
 
         gate_means = []
         outs = None
         for l in range(self.n_level):
-            actb = active[l].to(f32)[None, :, None]
+            act = active[l].to(f32)
+            actb = act[:, :, None] if per_ex else act[None, :, None]
             if l == 0:
                 level_in = tower_inputs * actb
             else:
-                gl = getattr(self, f"tower_gates_{l}")(gate_inputs)
+                gl = getattr(self, f"tower_gates_{l}")(gate_inputs_body)
                 gate_out = torch.softmax(gl, dim=-1)  # [B, T_l, T_{l-1}]
-                masked = gate_out * dm[l].T.to(f32)[None]
+                if per_ex:
+                    masked = gate_out * dm[l].transpose(1, 2).to(f32)
+                else:
+                    masked = gate_out * dm[l].T.to(f32)[None]
                 renorm = masked / (masked.sum(dim=-1, keepdim=True) + 1e-8)
                 level_in = torch.einsum("btp,bpd->btd", renorm, outs)
                 gate_means.append(masked.mean(dim=0).detach().T)
-            body = getattr(self, f"towers_{l}")(level_in, tower_gate=active[l],
-                                                **run)
+            # per example the statistics' gate is undefined and unused
+            # (evaluation only)
+            body = getattr(self, f"towers_{l}")(
+                level_in, tower_gate=None if per_ex else active[l], **run)
+            if final:
+                body = body.detach()
             outs = body * actb
 
         if cn_out is not None:
@@ -162,6 +195,8 @@ class AREAD(CTRModel):
                  outs], dim=-1)
         else:
             leaf_in = outs
+        if final:
+            leaf_in, linear_out = leaf_in.detach(), linear_out.detach()
         leaf_logit = self.towers_linear(leaf_in)[..., 0] + linear_out
         leaf_prob = torch.sigmoid(leaf_logit)
         out = {"leaf_logit": leaf_logit, "leaf_prob": leaf_prob,
@@ -169,6 +204,15 @@ class AREAD(CTRModel):
         la = leaf_active.to(f32)
         if mode == "wo_mask":
             out["prob"] = leaf_prob.mean(dim=1)
+        elif per_ex:  # la: [B, T_last]
+            out["prob"] = (leaf_prob * la).sum(dim=1) / torch.clamp(
+                la.sum(dim=1), min=1e-8)
+        elif final:
+            fg = torch.softmax(self.final_gate(gate_inputs.detach()), dim=1)
+            fg = fg * la[None]
+            fg = fg / (fg.sum(dim=1, keepdim=True) + 1e-8)
+            # the whole leaf stack is frozen, towers_linear included
+            out["prob"] = (leaf_prob.detach() * fg).sum(dim=1)
         else:
             out["prob"] = (leaf_prob * la[None]).sum(dim=1) / torch.clamp(
                 la.sum(), min=1e-8)

@@ -17,6 +17,11 @@ the rows not gathered this step.
   through the plain version, with CUDA tensors through the hand-written
   kernel ``ops/cuda/sparse_adam.cu`` (``sparse_adam_cuda``), always — if
   the kernel cannot be built or launched it raises.
+* ``lazy_sparse_adam_`` (the dispatch's ``lazy=True``) is the other table
+  optimizer, ``table_optimizer='lazy_adam'``: only the gathered rows
+  change, so there is no table sweep and no kernel; the JAX package runs
+  it with gathers and scatters outside its Pallas kernel too, and indexed
+  PyTorch ops on either device are its port.
 
 The TPU kernel's ``PAD_W`` block window, its overflow fallback and the
 host checks that avoid it (``rows_fit_kernel``, ``steps_fit_kernel``) have
@@ -127,6 +132,35 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
     m2[rows] = nm[live]
     v2[rows] = nv[live]
     return (w2, m2, v2, l2v) if want_l2 else (w2, m2, v2)
+
+
+@torch.no_grad()
+def lazy_sparse_adam_(w, m, v, uids, gsum, t: int, lr: float,
+                      b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
+                      weight_decay: float = 1e-8, l2: float = 0.0) -> None:
+    """SparseAdam-semantics update in place (port of
+    ``_lazy_sparse_adam``): only the rows in ``uids`` change, weights and
+    moments; the rest of the table is bitwise untouched and its moments do
+    not decay. The bias correction uses the global step ``t``; the decay
+    and L2 term is applied to the touched rows' gradients ('lazy
+    regularization'). A bf16 table is rounded stochastically, keyed by
+    ``t`` and the storage index, as in the dense-semantics update. Work is
+    O(touched rows). Selecting the live entries of ``uids`` waits for the
+    device once."""
+    n_rows, d = w.shape
+    s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
+    b1c = torch.tensor(s["b1c"], dtype=torch.float32, device=w.device)
+    b2c = torch.tensor(s["b2c"], dtype=torch.float32, device=w.device)
+    live = uids < n_rows  # sentinel entries carry no row
+    rows = uids[live].to(torch.int64)
+    wf = w[rows].to(torch.float32)
+    g = gsum[live] + s["decay"] * wf
+    m2 = s["b1"] * m[rows].to(torch.float32) + s["omb1"] * g
+    v2 = s["b2"] * v[rows].to(torch.float32) + s["omb2"] * g * g
+    w2 = wf - s["lr"] * (m2 / b1c) / (torch.sqrt(v2 / b2c) + s["eps"])
+    w[rows] = sround(w2, w.dtype, _row_flat_index(rows, d), t)
+    m[rows] = m2.to(m.dtype)
+    v[rows] = v2.to(v.dtype)
 
 
 # --------------------------------------------------------------- CUDA path
@@ -272,13 +306,21 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
 def sparse_adam_dispatch(w, m, v, uids, gsum, t: int, lr: float,
                          b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
                          weight_decay: float = 1e-8, l2: float = 0.0,
-                         want_l2: bool = False):
-    """One dense-semantics Adam step on the [n_rows, D] table, in place.
-    (uids, gsum) are ``dedup_rows``' output. CUDA tensors go through the
-    kernel, CPU tensors through the plain version. Returns the pre-update
-    sum(w**2) (0-dim f32) with ``want_l2``, else None."""
-    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2,
-              want_l2=want_l2)
+                         want_l2: bool = False, lazy: bool = False):
+    """One Adam step on the [n_rows, D] table, in place. (uids, gsum) are
+    ``dedup_rows``' output. Dense semantics (the default): CUDA tensors go
+    through the kernel, CPU tensors through the plain version. ``lazy``:
+    the touched rows only, by indexed updates on either device, never the
+    kernel. Returns the pre-update sum(w**2) (0-dim f32) with ``want_l2``,
+    else None."""
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2)
+    if lazy:
+        # the sum is a full pass of its own here: no sweep carries it
+        l2v = (torch.sum(torch.square(w.to(torch.float32)))
+               if want_l2 else None)
+        lazy_sparse_adam_(w, m, v, uids, gsum, t, **kw)
+        return l2v
+    kw["want_l2"] = want_l2
     if w.device.type == "cuda":
         return sparse_adam_cuda(w, m, v, uids, gsum, t, **kw)
     out = sparse_adam_reference(w, m, v, uids, gsum, t, **kw)

@@ -1,37 +1,101 @@
-"""AREAD training step and evaluation (counterpart of the parts of
-``aread_tpu/train/hemp.py`` that this slice ports): ``AREADTrainer``'s
-construction and init, the bagging loss, the train step as
-``warmup_step`` (mode 'wo_mask') and ``main_step`` ('domain_mask_bagging'),
-and ``evaluate`` over per-domain batches through each domain's mask.
+"""AREAD training (counterpart of ``aread_tpu/train/hemp.py``): warm-up,
+bagging steps under per-domain masks, HEMP mask evolution every regroup
+interval, early stopping on the weighted mean AUC, the optional
+final-gate phase and the per-domain masked evaluation.
 
-One step: forward with the embedding's sparse tap, one autograd pass for
-the dense leaves and the gathered rows, then ``hybrid_update_sparse`` (the
-table through the sparse-Adam kernel on the card). The mask-evolution
-loop (``train_epoch``, fast-adapt chains and probes), the final-gate
-phase and ``fit`` are not ported yet.
+One step (``step_core``): forward with the embedding's sparse tap, one
+autograd pass for the dense leaves and the gathered rows, then
+``hybrid_update_sparse`` (the table through the sparse-Adam kernel on the
+card). The model's weights and BatchNorm statistics live in the model and
+are updated in place; the main optimizer's state is ``self.opt_state``.
+
+Host and device:
+  * mask generation and selection are numpy on the host
+    (``utils/masks.py``): masks are tiny;
+  * one evolution is a plain loop over its candidates, in place, on the
+    one model: restore the snapshot, zero the one fast-Adam state, run
+    ``regroup_update_step`` bagging steps at ``update_lr`` with a prune
+    after each, then ``regroup_eval_step`` no-grad probes. The snapshot
+    stays on the device and is restored with in-place copies, so no tensor
+    that the optimizer states or the kernel's scratch refer to is
+    replaced, and the main optimizer's state and step count come out of an
+    evolution untouched;
+  * losses and recorded gate means stay on the device and are fetched once
+    per segment, not per step.
+
+The JAX package fuses a whole regroup into one dispatch and a segment of
+steps into scans (``fast_adapt_many``, ``SCAN_CHUNK``, ``run_segment``)
+because every dispatch there crosses a slow link to its device; that
+reason does not exist here, so those, and the Pallas kernel window's
+prechecks (``FITS_SLICE``, ``_fits_from_x``, ``_fits_from_idx``,
+``no_overflow``, ``assume_no_overflow``), have no counterpart: the CUDA
+kernel has no window. Not ported yet, each raising ``NotImplementedError``
+by name: the overlay fast-adapt engine, ``streaming_eval``,
+``warm_start``, ``ckpt_dir``, ``log_dir``, the epoch watchdog, a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import logging
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from aread_tpu_torch.config import Config
-from aread_tpu_torch.data.loader import DomainBatcher
+from aread_tpu_torch.data.loader import DomainBatcher, SplitData, pad_batch
 from aread_tpu_torch.models.aread import AREAD
 from aread_tpu_torch.models.base import regularization_loss
 from aread_tpu_torch.train import metrics as metrics_lib
-from aread_tpu_torch.train.trainer import (bce_with_logits, hybrid_init,
-                                           hybrid_update_sparse,
+from aread_tpu_torch.train.trainer import (Trainer, bce_with_logits,
+                                           device_data_mode_enabled,
+                                           hybrid_init, hybrid_update_sparse,
                                            make_optimizer, masked_mean,
-                                           split_table, strip_table_rule)
-from aread_tpu_torch.utils.masks import HempMaskState
+                                           mean_losses, raise_if_nonfinite,
+                                           split_table, strip_table_rule,
+                                           table_reg_value)
+from aread_tpu_torch.utils.masks import HempMaskState, prune_mask
+
+log = logging.getLogger(__name__)
+
+# Config options of the JAX package's AREADTrainer that are not ported
+# yet, with the only value the port takes
+_UNPORTED_OPTIONS = {"streaming_eval": False, "log_dir": "",
+                     "epoch_timeout_s": 0.0, "embed_lookup": "gspmd"}
+
+
+def gather_batch(dxc: torch.Tensor, dyc: torch.Tensor,
+                 idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A batch from the device-resident split by row ids (``idx`` [bs]
+    int32, -1 = padding), with ``pad_batch``'s semantics: pad rows
+    replicate the batch's first row (padding is a suffix), y zeros, the
+    validity mask."""
+    valid = (idx >= 0).to(torch.float32)
+    gidx = torch.where(idx < 0, idx[0], idx).to(torch.int64)
+    return {"x": dxc[gidx], "y": dyc[gidx].to(torch.float32) * valid,
+            "valid": valid}
+
+
+def prob_bce(prob, y, valid):
+    """Masked mean BCE on a probability."""
+    prob = torch.clamp(prob, 1e-7, 1 - 1e-7)
+    return masked_mean(-(y * torch.log(prob) + (1 - y) * torch.log1p(-prob)),
+                       valid)
 
 
 class AREADTrainer:
-    def __init__(self, model: AREAD, config: Config, n_domain: int):
+    def __init__(self, model: AREAD, config: Config, n_domain: int,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("mesh runs are not ported yet")
+        for name, only in _UNPORTED_OPTIONS.items():
+            if getattr(config, name) != only:
+                raise NotImplementedError(
+                    f"config.{name}={getattr(config, name)!r} is not ported "
+                    f"yet (only {only!r})")
+        if config.table_optimizer not in ("adam", "lazy_adam"):
+            raise ValueError(f"table_optimizer={config.table_optimizer!r}")
         self.model = model
         self.config = config
         self.n_domain = n_domain
@@ -39,13 +103,53 @@ class AREADTrainer:
         self.mask_state = HempMaskState(model.n_tower, n_domain,
                                         seed=config.seed)
         self.optimizer = make_optimizer(config.lr, config.wd)
+        self.fast_optimizer = make_optimizer(config.update_lr, config.wd)
+        self.final_optimizer = make_optimizer(config.final_lr, config.wd)
+        # HEMP schedule state
+        self.random_modify_sigma = config.random_modify_sigma
+        self.init_active_percent = config.init_active_percent
+        self.candidate_mask_num = float(config.candidate_mask_num)
+        self.regroup_times = 0
+        # one record per evolution: seconds, chains, candidates per domain
+        # and the active ratio it left
+        self.regroup_log: List[Dict] = []
+        # early stopping
+        self.trial_counter = 0
+        self.best_auc, self.best_mean_auc = 0.0, 0.0
+        self.best_checkpoint = None
+        self._improved = False
         # dropout's stream
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
         # the table's L2 gradient is folded into its Adam update
         self.reg_rules = strip_table_rule(type(model).REG_RULES)
         self.opt_state: Optional[Dict] = None
+        # the chains' optimizer state: allocated once, zeroed per chain
+        self._fast_state: Optional[Dict] = None
+        self._device_data = None  # (dxc, dyc, aug_offset)
+        self._epoch_examples = 0  # rows stepped in the running epoch
+        # fail on a hemp_fast_adapt misconfiguration now, not at the first
+        # regroup, a warm-up into the first epoch
+        overlay = self.overlay_enabled()
+        log.info("hemp_fast_adapt=%r: fast-adapt chains run the %s engine",
+                 config.hemp_fast_adapt, "overlay" if overlay else "full-sweep")
 
+    def overlay_enabled(self) -> bool:
+        """Resolve ``config.hemp_fast_adapt``. 'full' and 'auto' are the
+        full sweep: every chain step updates the whole table through the
+        sparse-Adam sweep. The overlay engine (a compact working-set copy)
+        is not ported; where 'auto' would cross over to it on this card has
+        not been measured."""
+        mode = self.config.hemp_fast_adapt
+        if mode in ("full", "auto"):
+            return False
+        if mode == "overlay":
+            raise NotImplementedError(
+                "hemp_fast_adapt='overlay' is not ported yet (the overlay "
+                "Adam engine); use 'auto' or 'full'")
+        raise ValueError(f"hemp_fast_adapt={mode!r}")
+
+    # ---------------------------------------------------------------- state
     def init(self) -> Dict:
         """Optimizer state for the model's current weights (the model's
         weights are drawn from its seed when it is built)."""
@@ -58,18 +162,47 @@ class AREADTrainer:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
+    def _snapshot(self) -> Dict[str, torch.Tensor]:
+        """A device-resident copy of the parameters, the table and the
+        BatchNorm statistics."""
+        return {k: v.clone() for k, v in self.model.state_dict().items()}
+
+    @torch.no_grad()
+    def _restore(self, snap: Dict[str, torch.Tensor]) -> None:
+        """Copy a snapshot back into the live tensors, in place."""
+        live = self.model.state_dict()
+        torch._foreach_copy_([live[k] for k in snap], list(snap.values()))
+
+    def _fresh_fast_state(self) -> Dict:
+        """The chains' optimizer state with zero moments and t = 0: one
+        allocation (two table-sized moment tensors) for the whole run,
+        zeroed in place for every candidate."""
+        st = self._fast_state
+        if st is None:
+            st = self._fast_state = hybrid_init(
+                self.fast_optimizer, self.model,
+                moments_dtype=self.config.table_moments_dtype)
+            return st
+        inner = st["inner"]
+        torch._foreach_zero_(list(inner["mu"].values())
+                             + list(inner["nu"].values())
+                             + [st["m"], st["v"]])
+        inner["count"] = 0
+        st["t"] = 0
+        return st
+
+    # ----------------------------------------------------------------- step
     def bagging_loss(self, batch, dm, mode: str, train: bool = True):
         """(loss, model output). 'wo_mask' trains on the mean-prob
-        prediction; the bagging mode on the mean of per-leaf BCEs over the
-        active leaves."""
+        prediction and 'domain_mask_final' on the gate-mixed one; the
+        bagging mode on the mean of per-leaf BCEs over the active
+        leaves."""
         out = self.model(batch["x"], domain_mask=dm, mode=mode, train=train,
                          mask=batch["valid"], generator=self.generator,
-                         tap=True)
+                         tap=mode != "domain_mask_final")
         y, valid = batch["y"], batch["valid"]
-        if mode == "wo_mask":
-            prob = torch.clamp(out["prob"], 1e-7, 1 - 1e-7)
-            bce = masked_mean(-(y * torch.log(prob)
-                                + (1 - y) * torch.log1p(-prob)), valid)
+        if mode in ("wo_mask", "domain_mask_final"):
+            bce = prob_bce(out["prob"], y, valid)
         else:
             per_leaf = (torch.sum(bce_with_logits(out["leaf_logit"], y[:, None])
                                   * valid[:, None], dim=0)
@@ -80,12 +213,12 @@ class AREADTrainer:
         loss = bce + regularization_loss(rest, self.reg_rules)
         return loss, out
 
-    def step_core(self, mode: str, batch, dm) -> Tuple[torch.Tensor, Tuple]:
-        """One training step in place. Returns (reported loss, gate means);
+    def step_core(self, optimizer, lr: float, opt_state: Dict, mode: str,
+                  batch, dm) -> Tuple[torch.Tensor, Tuple]:
+        """One training step in place with the given optimizer, learning
+        rate and optimizer state. Returns (reported loss, gate means);
         neither is fetched to the host."""
         cfg = self.config
-        if self.opt_state is None:
-            raise RuntimeError("call init() before stepping")
         if isinstance(batch["x"], np.ndarray):
             batch = self.place(batch)
         self.model.train()
@@ -98,36 +231,294 @@ class AREADTrainer:
                                     materialize_grads=True)
         ids = self.model.embedding.table_ids(batch["x"])
         l2val = hybrid_update_sparse(
-            self.optimizer, cfg.lr, cfg.wd, self.model,
-            dict(zip(names, grads[:-1])), ids, grads[-1], self.opt_state,
+            optimizer, lr, cfg.wd, self.model,
+            dict(zip(names, grads[:-1])), ids, grads[-1], opt_state,
             want_table_l2=cfg.loss_report_table_l2,
-            clip_norm=cfg.grad_clip_norm)
+            clip_norm=cfg.grad_clip_norm,
+            lazy=cfg.table_optimizer == "lazy_adam")
         loss = loss.detach()
         if l2val is not None:
             loss = loss + l2val
         return loss, out["gate_means"]
 
+    def _main_state(self) -> Dict:
+        if self.opt_state is None:
+            raise RuntimeError("call init() before stepping")
+        return self.opt_state
+
     def warmup_step(self, batch):
-        return self.step_core("wo_mask", batch, None)
+        return self.step_core(self.optimizer, self.config.lr,
+                              self._main_state(), "wo_mask", batch, None)
 
     def main_step(self, batch, dm: Sequence[np.ndarray]):
-        return self.step_core("domain_mask_bagging", batch, dm)
+        return self.step_core(self.optimizer, self.config.lr,
+                              self._main_state(), "domain_mask_bagging",
+                              batch, dm)
 
-    @torch.no_grad()
-    def eval_prob(self, batch, dm) -> torch.Tensor:
+    def final_core(self, opt_state: Dict, batch, dm):
+        """One final-gate step: only the ``final_gate`` leaf is in the
+        optimizer. The body is frozen in the loss (detached inside the
+        model's 'domain_mask_final' mode) and must be frozen in the
+        optimizer too: an Adam over the whole tree would walk every frozen
+        weight toward zero at about final_lr per step (zero data gradient
+        plus the tiny decay term normalizes to a full-lr signed step).
+        ``opt_state`` is ``final_optimizer.init`` of that one leaf."""
+        cfg = self.config
+        if isinstance(batch["x"], np.ndarray):
+            batch = self.place(batch)
+        self.model.train()
+        loss, out = self.bagging_loss(batch, dm, "domain_mask_final")
+        leaf = {"final_gate/kernel": self.model.final_gate.kernel}
+        (g,) = torch.autograd.grad(loss, list(leaf.values()))
+        loss = loss.detach()
+        if cfg.loss_report_table_l2:
+            loss = loss + table_reg_value(self.model.embedding.table)
+        self.final_optimizer.update_(leaf, {"final_gate/kernel": g}, opt_state)
+        return loss, out["gate_means"]
+
+    # ---------------------------------------------------------- device data
+    def device_data_enabled(self, train_x: np.ndarray,
+                            aug_x: np.ndarray) -> bool:
+        """``config.device_data`` for the HEMP path: the train and the
+        augmented split together must fit the budget."""
+        total = train_x.nbytes + (0 if aug_x is train_x else aug_x.nbytes)
+        return device_data_mode_enabled(self.config, total,
+                                        Trainer.DEVICE_DATA_BUDGET)
+
+    def stage_device_data(self, train_x, train_y, aug_x, aug_y) -> bool:
+        """Place [train; augmented] on the device as one array when
+        ``config.device_data`` allows; returns whether the device-resident
+        path is active. Augmented row ids shift by the train length (no
+        shift when the splits are one array: no augmentation)."""
+        self._device_data = None
+        if not self.device_data_enabled(train_x, aug_x):
+            return False
+        if aug_x is train_x:
+            xc, yc, aug_off = train_x, train_y, 0
+        else:
+            xc = np.concatenate([train_x, aug_x])
+            yc = np.concatenate([train_y, aug_y])
+            aug_off = train_x.shape[0]
+        self._device_data = (
+            torch.as_tensor(np.ascontiguousarray(xc), device=self.device),
+            torch.as_tensor(np.ascontiguousarray(yc), device=self.device),
+            aug_off)
+        return True
+
+    def _batch(self, batcher: DomainBatcher, idx: np.ndarray,
+               offset: int = 0) -> Dict[str, torch.Tensor]:
+        """The batch of ``batcher``'s rows ``idx`` (-1 = padding) on the
+        device: gathered from the resident split (``offset`` shifts the
+        augmented rows' ids) or staged from the host arrays. The two are
+        the same batch."""
+        if self._device_data is not None:
+            dxc, dyc, _ = self._device_data
+            if offset:
+                idx = np.where(idx >= 0, idx + offset, -1).astype(np.int32)
+            return gather_batch(dxc, dyc,
+                                torch.as_tensor(idx, device=self.device))
+        sel = idx[idx >= 0]
+        return self.place(pad_batch(batcher.x[sel], batcher.y[sel],
+                                    self.config.bs))
+
+    # ------------------------------------------------------------ evolution
+    def _prune(self, mask, gate_means):
+        """The chain's progressive prune, on the host: one fetch of the
+        step's gate means (90 floats at Amazon width; the host waits for
+        the device, which a host-bound step leaves nearly idle anyway) and
+        numpy. The tensor twin (``utils.masks.prune_mask_tensor``) gives
+        the same mask without the wait but costs some 90 small launches;
+        timed alone on the H100 it is the dearer one, and inside a chain
+        the two cannot be told apart (chip_smoke.py, phase hemp, times
+        both; PERF.md)."""
+        return prune_mask(mask, [g.cpu().numpy() for g in gate_means],
+                          prun_ratio=0.05)
+
+    def _place_mask(self, mask) -> Tuple[torch.Tensor, ...]:
+        return tuple(torch.as_tensor(m, device=self.device) for m in mask)
+
+    def _fast_adapt(self, mask, fa_batches, probe_batches):
+        """One candidate's chain from the weights the model holds: a fresh
+        fast-Adam state, a bagging step at ``update_lr`` per adapt batch
+        with a progressive prune of the mask after each, then one no-grad
+        probe per probe batch in 'domain_with_mask' mode. Returns (the
+        pruned mask, the probe losses [regroup_eval_step] on the device).
+        The weights, the BatchNorm statistics and a bf16 table's rounding
+        are left as the chain moved them: the caller restores."""
+        cfg = self.config
+        state = self._fresh_fast_state()
+        # uploaded once per prune, not once per forward
+        dm = self._place_mask(mask)
+        for batch in fa_batches:
+            _, gms = self.step_core(self.fast_optimizer, cfg.update_lr, state,
+                                    "domain_mask_bagging", batch, dm)
+            mask = self._prune(mask, gms)
+            dm = self._place_mask(mask)
         self.model.eval()
-        return self.model(batch["x"], domain_mask=dm, mode="domain_with_mask",
+        with torch.no_grad():
+            table, rest = split_table(self.model)
+            # constant across the probes (the weights are fixed now): the
+            # table's term is a pass over the whole table, paid once
+            reg = (regularization_loss(rest, self.reg_rules)
+                   + table_reg_value(table))
+            losses = [prob_bce(self.model(b["x"], domain_mask=dm,
+                                          mode="domain_with_mask",
+                                          train=False)["prob"],
+                               b["y"], b["valid"]) for b in probe_batches]
+        return mask, torch.stack(losses) + reg
+
+    def _mask_evolution(self, train_batcher: DomainBatcher,
+                        aug_batcher: DomainBatcher,
+                        verbose: bool = True) -> None:
+        """HEMP candidate generation, fast adaptation, probes and
+        selection. Every candidate's chain starts from the snapshot taken
+        here; the weights and statistics are restored at the end, and the
+        main optimizer's state is never touched."""
+        cfg = self.config
+        ms = self.mask_state
+        snap = self._snapshot()
+        self.random_modify_sigma *= 0.99
+        self.init_active_percent = max(0.1, self.init_active_percent * 0.95)
+        self.candidate_mask_num *= 0.99
+        n_cand = max(1, int(self.candidate_mask_num))
+        self.regroup_times += 1
+        if verbose:
+            print(f"regroup {self.regroup_times}: sigma={self.random_modify_sigma:.4f} "
+                  f"active%={self.init_active_percent:.3f} candidates={n_cand}")
+        t0 = time.time()
+        aug_off = self._device_data[2] if self._device_data is not None else 0
+        cand_index: List[Tuple[int, int]] = []
+        out_masks, out_losses = [], []
+        # the numpy streams (mask generator, both batchers) are drawn
+        # domain-major, a candidate's mask, then its adapt batches, then
+        # its probe batches: the JAX package's staging order
+        for d in range(self.n_domain):
+            # a domain the augmented rows do not cover adapts on its train
+            # rows
+            use_aug = len(aug_batcher.domain_indices[d]) > 0
+            fa_batcher = aug_batcher if use_aug else train_batcher
+            for z in range(n_cand):
+                mask = ms.generate_mask(
+                    "mask_max_gate", d,
+                    init_active_percent=self.init_active_percent,
+                    random_modify_sigma=self.random_modify_sigma)
+                fa = [self._batch(fa_batcher, fa_batcher.next_batch_indices(d),
+                                  aug_off if use_aug else 0)
+                      for _ in range(cfg.regroup_update_step)]
+                probes = [self._batch(train_batcher,
+                                      train_batcher.next_batch_indices(d))
+                          for _ in range(cfg.regroup_eval_step)]
+                if cand_index:
+                    self._restore(snap)
+                mask, losses = self._fast_adapt(mask, fa, probes)
+                out_masks.append(mask)
+                out_losses.append(losses)
+                cand_index.append((d, z))
+        # one fetch for the whole regroup
+        all_losses = torch.stack(out_losses).cpu().numpy()
+        for i, (d, z) in enumerate(cand_index):
+            ms.candidate_domain_mask[d].append(out_masks[i])
+            for loss in all_losses[i]:
+                ms.add_eval_loss(float(loss), d=d, mask_z=z)
+        ms.update_all_mask()
+        self._restore(snap)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.time() - t0
+        self.regroup_log.append({
+            "seconds": seconds, "chains": len(cand_index),
+            "candidates": n_cand,
+            "active_ratio": ms.current_active_ratio()})
+        if verbose:
+            print(f"mask evolution took {seconds:.1f}s; "
+                  f"active ratio {ms.current_active_ratio():.3f}")
+        ms.reset_for_mask_update()
+
+    # --------------------------------------------------------------- epochs
+    def train_epoch(self, epoch_i: int, train_batcher: DomainBatcher,
+                    aug_batcher: DomainBatcher, verbose: bool = True) -> float:
+        """One pass over the train batcher's domain sequence; at epoch 0 a
+        warm-up first ('wo_mask', round-robin over the domains, gate means
+        recorded) and an evolution right after it; an evolution at every
+        regroup point; gate means recorded in the warm_up_interval steps
+        before each. Returns the mean loss of the bagging steps."""
+        cfg = self.config
+        ms = self.mask_state
+        warm_up_interval = (cfg.warm_up_interval * 1024) // cfg.bs
+        regroup_interval = max(1, (cfg.regroup_interval * 1024) // cfg.bs)
+        losses: List[torch.Tensor] = []
+        recorded: List[Tuple[int, Tuple]] = []
+        self._epoch_examples = 0
+
+        def flush_records():
+            # the gate means wait on the device until a regroup needs them
+            for d, gms in recorded:
+                ms.record_gates(d, [g.cpu().numpy() for g in gms])
+            recorded.clear()
+
+        def step(kind, d, mask, record):
+            idx = train_batcher.next_batch_indices(d)
+            self._epoch_examples += int((idx >= 0).sum())
+            batch = self._batch(train_batcher, idx)
+            loss, gms = (self.warmup_step(batch) if kind == "warmup"
+                         else self.main_step(batch, mask))
+            losses.append(loss)
+            if record:
+                recorded.append((d, gms))
+
+        if epoch_i == 0:
+            domain_list: List[int] = []
+            for _ in range(warm_up_interval):
+                if not domain_list:
+                    domain_list = list(range(self.n_domain))
+                step("warmup", domain_list.pop(), None, True)
+            losses.clear()  # warm-up losses are not epoch losses
+
+        for i, d in enumerate(train_batcher.domain_batch_seq):
+            if (epoch_i == 0 and i == 0) or ((i + 1) % regroup_interval == 0):
+                flush_records()
+                self._mask_evolution(train_batcher, aug_batcher, verbose)
+            record = ((i + 1) // regroup_interval
+                      - (i + 1 + warm_up_interval) // regroup_interval) > 0
+            step("main", d, ms.domain_mask[d], record)
+        flush_records()
+        return mean_losses(losses)
+
+    def train_final_epoch(self, opt_state: Dict, epoch_i: int,
+                          train_batcher: DomainBatcher,
+                          verbose: bool = True) -> float:
+        """One final-gate epoch: the body frozen, BCE on the gate-mixed
+        prob; every domain is in the sequence at least once."""
+        ms = self.mask_state
+        seq = list(train_batcher.domain_batch_seq)
+        present = set(seq)
+        seq.extend(d for d in range(self.n_domain) if d not in present)
+        losses = []
+        for d in seq:
+            batch = self.place(train_batcher.next_batch(d))
+            loss, _ = self.final_core(opt_state, batch, ms.domain_mask[d])
+            losses.append(loss)
+        return mean_losses(losses)
+
+    # ----------------------------------------------------------- evaluation
+    @torch.no_grad()
+    def eval_prob(self, batch, dm, final: bool = False) -> torch.Tensor:
+        self.model.eval()
+        mode = "domain_mask_final" if final else "domain_with_mask"
+        return self.model(batch["x"], domain_mask=dm, mode=mode,
                           train=False)["prob"]
 
     def evaluate(self, batcher: DomainBatcher,
-                 domain_cnt_weight: np.ndarray) -> Dict:
+                 domain_cnt_weight: np.ndarray, final: bool = False) -> Dict:
         """One pass over ``batcher.domain_batch_seq``, each batch through
-        its domain's current mask; total and per-domain AUC / log-loss."""
+        its domain's current mask (``final``: and the trained final gate);
+        total and per-domain AUC / log-loss."""
         ms = self.mask_state
         preds, targets, domains = [], [], []
         for d in batcher.domain_batch_seq:
             batch_np = batcher.next_batch(d)
-            prob = self.eval_prob(self.place(batch_np), ms.domain_mask[d])
+            prob = self.eval_prob(self.place(batch_np), ms.domain_mask[d],
+                                  final=final)
             n = int(batch_np["valid"].sum())
             preds.append(prob[:n])
             targets.append(batch_np["y"][:n])
@@ -136,3 +527,135 @@ class AREADTrainer:
             np.concatenate(targets), torch.cat(preds).cpu().numpy(),
             np.concatenate(domains), domain_cnt_weight,
             multi_domain=self.config.is_evaluate_multi_domain)
+
+    def _copy_masks(self):
+        return [None if m is None else [mm.copy() for mm in m]
+                for m in self.mask_state.domain_mask]
+
+    def is_continuable(self, result: Dict, epoch_i: int) -> bool:
+        """Early stopping on mean_auc (total_auc when that is missing or
+        NaN) with patience ``config.early_stop``; an improvement keeps a
+        device copy of the weights and a copy of the masks."""
+        key = ("mean_auc" if "mean_auc" in result
+               and not np.isnan(result["mean_auc"]) else "total_auc")
+        best = self.best_mean_auc if key == "mean_auc" else self.best_auc
+        self._improved = result[key] > best
+        if self._improved:
+            self.trial_counter = 0
+            self.best_auc = result["total_auc"]
+            if "mean_auc" in result:
+                self.best_mean_auc = result["mean_auc"]
+            self.best_checkpoint = (self._snapshot(), self._copy_masks(),
+                                    epoch_i)
+            return True
+        if self.trial_counter + 1 < self.config.early_stop:
+            self.trial_counter += 1
+            return True
+        return False
+
+    def _load_best(self) -> None:
+        if self.best_checkpoint is not None:
+            snap, masks, _ = self.best_checkpoint
+            self._restore(snap)
+            self.mask_state.domain_mask = [
+                None if m is None else [mm.copy() for mm in m] for m in masks]
+
+    def fit(self, data: SplitData, epochs: Optional[int] = None,
+            verbose: bool = True, final_gate: Optional[bool] = None,
+            warm_start: Optional[Dict] = None,
+            ckpt_dir: Optional[str] = None) -> Dict:
+        """Train up to ``epochs`` (default ``config.epoch``) epochs with
+        mask evolution and early stopping on the valid split, then, with
+        ``final_gate`` (default ``config.aread_final``), the final-gate
+        phase: a fresh Adam at ``final_lr`` over ``final_gate`` alone, up
+        to ``epochs`` (default ``config.final_epoch``) epochs with the
+        patience counter reset. The test split is evaluated on the best
+        weights and masks, which the model and the mask state are left
+        holding. Returns {'history', 'test', 'domain_mask'}."""
+        if warm_start is not None:
+            raise NotImplementedError("warm_start is not ported yet")
+        if ckpt_dir is not None:
+            raise NotImplementedError("ckpt_dir (resume) is not ported yet")
+        try:
+            return self._fit_inner(data, epochs, verbose, final_gate)
+        finally:
+            # release the resident split even when an epoch fails
+            self._device_data = None
+
+    def _fit_inner(self, data: SplitData, epochs, verbose, final_gate) -> Dict:
+        cfg = self.config
+        final_gate = cfg.aread_final if final_gate is None else final_gate
+        didx = data.spec.domain_idx
+        train_b = DomainBatcher(data.train_x, data.train_y, cfg.bs, didx,
+                                self.n_domain, seed=cfg.seed)
+        # evaluation normalizes with the running statistics, so the batch
+        # size does not change the predictions; bigger batches cut launches
+        eval_bs = cfg.bs * 8
+        valid_b = DomainBatcher(data.valid_x, data.valid_y, eval_bs, didx,
+                                self.n_domain, shuffle=False, seed=cfg.seed)
+        test_b = DomainBatcher(data.test_x, data.test_y, eval_bs, didx,
+                               self.n_domain, shuffle=False, seed=cfg.seed)
+        aug_x = data.aug_train_x if data.aug_train_x is not None else data.train_x
+        aug_y = data.aug_train_y if data.aug_train_y is not None else data.train_y
+        aug_b = DomainBatcher(aug_x, aug_y, cfg.bs, didx, self.n_domain,
+                              seed=cfg.seed + 1)
+        self.stage_device_data(data.train_x, data.train_y, aug_x, aug_y)
+        # the JAX package draws one batch of the largest domain to shape
+        # its weights; drawn here too, so that the data streams agree
+        train_b.next_batch_indices(
+            int(np.argmax([len(i) for i in train_b.domain_indices])))
+        self.init()
+
+        history = []
+        for epoch_i in range(epochs if epochs is not None else cfg.epoch):
+            t0 = time.time()
+            train_loss = self.train_epoch(epoch_i, train_b, aug_b, verbose)
+            train_s = time.time() - t0
+            raise_if_nonfinite(train_loss, epoch_i)
+            train_b.shuffle_seq()
+            result = self.evaluate(valid_b, data.domain_cnt_weight)
+            result["train_loss"] = train_loss
+            result["epoch_time_s"] = time.time() - t0
+            # evolutions included
+            result["examples_per_s"] = self._epoch_examples / train_s
+            history.append(result)
+            if verbose:
+                print(f"epoch {epoch_i + 1}: train_loss={train_loss:.4f} "
+                      f"valid auc={result['total_auc']:.4f} "
+                      f"loss={result['total_loss']:.4f} "
+                      f"mean_auc={result.get('mean_auc', np.nan):.4f}")
+            if not self.is_continuable(result, epoch_i):
+                break
+        self._load_best()
+
+        if final_gate:
+            final_state = self.final_optimizer.init(
+                {"final_gate/kernel": self.model.final_gate.kernel})
+            # the main loop leaves the patience counter exhausted
+            self.trial_counter = 0
+            for epoch_i in range(epochs if epochs is not None
+                                 else cfg.final_epoch):
+                t0 = time.time()
+                floss = self.train_final_epoch(final_state, epoch_i, train_b,
+                                               verbose)
+                raise_if_nonfinite(floss, epoch_i)
+                train_b.shuffle_seq()
+                result = self.evaluate(valid_b, data.domain_cnt_weight,
+                                       final=True)
+                result["train_loss"] = floss
+                result["epoch_time_s"] = time.time() - t0
+                result["phase"] = "final_gate"
+                history.append(result)
+                if verbose:
+                    print(f"final-gate epoch {epoch_i + 1}: train_loss={floss:.4f} "
+                          f"valid auc={result['total_auc']:.4f} "
+                          f"loss={result['total_loss']:.4f} "
+                          f"mean_auc={result.get('mean_auc', np.nan):.4f}")
+                if not self.is_continuable(result, epoch_i):
+                    break
+            self._load_best()
+
+        test_result = self.evaluate(test_b, data.domain_cnt_weight,
+                                    final=final_gate)
+        return {"history": history, "test": test_result,
+                "domain_mask": self.mask_state.domain_mask}

@@ -212,9 +212,12 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
                          table_ids: torch.Tensor, row_grads: torch.Tensor,
                          opt_state: Dict, table_l2: float = TABLE_L2,
                          want_table_l2: bool = False,
-                         clip_norm: float = 0.0) -> Optional[torch.Tensor]:
+                         clip_norm: float = 0.0,
+                         lazy: bool = False) -> Optional[torch.Tensor]:
     """One optimizer step, in place: the table from its sparse (ids,
-    rows) gradient, the dense leaves through ``optimizer``. Returns
+    rows) gradient (``lazy``: the touched rows only,
+    ``table_optimizer='lazy_adam'``), the dense leaves through
+    ``optimizer``. Returns
     table_l2 * sum(table_pre^2) with ``want_table_l2`` (the kernel sums it
     inside its sweep), else None. ``clip_norm`` clips by the global norm
     of the dense gradients and the deduplicated row sums — the norm of
@@ -230,7 +233,8 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
         gsum = gsum * scale
     raw_l2 = sparse_adam_dispatch(
         table, opt_state["m"], opt_state["v"], uids, gsum, opt_state["t"],
-        lr=lr, weight_decay=wd, l2=table_l2, want_l2=want_table_l2)
+        lr=lr, weight_decay=wd, l2=table_l2, want_l2=want_table_l2,
+        lazy=lazy)
     optimizer.update_(rest, g_rest, opt_state["inner"])
     return table_l2 * raw_l2 if want_table_l2 else None
 
@@ -348,7 +352,8 @@ class Trainer:
             l2val = hybrid_update_sparse(
                 self.optimizer, cfg.lr, cfg.wd, model, g_rest, ids, grads[-1],
                 self.opt_state, want_table_l2=cfg.loss_report_table_l2,
-                clip_norm=cfg.grad_clip_norm)
+                clip_norm=cfg.grad_clip_norm,
+                lazy=cfg.table_optimizer == "lazy_adam")
             return loss if l2val is None else loss + l2val
         if cfg.loss_report_table_l2:
             loss = loss + table_reg_value(table)  # the pre-update table

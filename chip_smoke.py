@@ -27,15 +27,24 @@ Phases, each printing one line:
            table gradient: build_model + Trainer.fit for DeepFM (one epoch,
            valid and test passes), then a few steps each of DCN and MMoE,
            and of DeepFM with the sparse table gradient;
+  hemp     the HEMP loop at full Amazon width: build_model +
+           AREADTrainer.fit — warm-up, bagging steps, a mask evolution at
+           every regroup point (fresh fast-Adam chains from a snapshot,
+           a prune after each step, probes), the valid pass, the
+           final-gate phase, the test pass; depth cut to HEMP_DEPTH. Then
+           the evolution's parts timed one by one (adapt step, probe,
+           snapshot restore, the prune by both routes);
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
-           the dense DeepFM step: they must agree;
-  profile, profile_dense  (opt-in, after train / train_dense)
-           torch.profiler over 4 AREAD bagging steps / 4 dense DeepFM
-           steps; tables and a trace go to --profile-dir.
+           the dense DeepFM step, and one small evolution at full width
+           (2 domains' chains): they must agree;
+  profile, profile_dense, profile_hemp  (opt-in, after train /
+           train_dense / hemp) torch.profiler over 4 AREAD bagging steps /
+           4 dense DeepFM steps / 4 fast-adapt chains; tables and a trace
+           go to --profile-dir.
 
 The launch counts are set to 0 just before each path (train, train_dense
-and its parts) and read just after it; a kernel's ``launches`` is the sum
+and its parts, hemp) and read just after it; a kernel's ``launches`` is the sum
 over the paths. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -662,14 +671,14 @@ def amazon_rows(rng, spec, n: int):
     return x, (logits > 0).astype(np.int8)
 
 
-def build_trainer(spec, device, n_domain, **cfg_kw):
+def build_trainer(spec, device, n_domain, n_tower=None, **cfg_kw):
     from aread_tpu_torch.config import Config
     from aread_tpu_torch.models import build_model
     from aread_tpu_torch.train.hemp import AREADTrainer
 
     cfg = Config(**cfg_kw)
-    tr = AREADTrainer(build_model(cfg, spec, n_domain, device=device), cfg,
-                      n_domain)
+    tr = AREADTrainer(build_model(cfg, spec, n_domain, n_tower=n_tower,
+                                  device=device), cfg, n_domain)
     tr.init()
     return tr
 
@@ -984,6 +993,102 @@ def reference_dense(ctx):
 def phase_reference(ctx):
     reference_aread(ctx)
     reference_dense(ctx)
+    reference_evolution(ctx)
+
+
+def spy_evolutions(tr):
+    """Make ``tr`` keep, per evolution, the masks and the main optimizer's
+    t before and after it and what it handed to update_all_mask (the
+    candidates' pruned masks and probe losses, which the evolution resets
+    when it ends). Returns the list the records go to."""
+    records = []
+    ms = tr.mask_state
+    evolve, update = tr._mask_evolution, ms.update_all_mask
+
+    def update_all_mask():
+        records[-1]["losses"] = [[list(z) for z in d] for d in ms.eval_loss]
+        records[-1]["candidates"] = [[[np.array(l) for l in m] for m in d]
+                                     for d in ms.candidate_domain_mask]
+        update()
+
+    def mask_evolution(*a, **kw):
+        records.append({"before": tr._copy_masks(), "t": tr.opt_state["t"]})
+        evolve(*a, **kw)
+        records[-1].update(after=tr._copy_masks(), t_after=tr.opt_state["t"])
+
+    ms.update_all_mask = update_all_mask
+    tr._mask_evolution = mask_evolution
+    return records
+
+
+def masks_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def reference_evolution(ctx):
+    """One mask evolution at full Amazon width (2 domains, 2 candidates
+    each, 2 adapt steps and 2 probes a chain) from the same weights on the
+    card (kernel) and on the CPU (plain version): f32 table and moments,
+    dropout 0, the pre-BatchNorm biases at their true zero gradient. Every
+    candidate's pruned mask and the chosen masks must be equal, the probe
+    losses agree at atol 1e-5 plus two f32 ulps of their size: a probe
+    loss holds the table's L2 term, in the hundreds at this width, where
+    one ulp is 6.1e-5."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.models.base import FeatureSpec
+
+    n_domain = 2
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+    rng = np.random.default_rng(5)
+    x, y = amazon_rows(rng, spec, 8 * BS)
+    x[:, spec.domain_idx] = rng.integers(0, n_domain, size=len(x))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = build_trainer(
+            spec, dev, n_domain, n_tower=3, dataset_name="amazon", seed=0,
+            dropout=0.0,
+            table_dtype="float32", table_moments_dtype="float32",
+            regroup_update_step=2, regroup_eval_step=2, candidate_mask_num=3)
+        pat = r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$"
+        tr.optimizer = true_zero_adam(pat, tr.config.lr, tr.config.wd)
+        tr.fast_optimizer = true_zero_adam(pat, tr.config.update_lr,
+                                           tr.config.wd)
+        if dev == "cuda":
+            tr.model.load_state_dict(runs["cpu"][0].model.state_dict())
+        if (tr.model.spec.n_rows, tr.model.n_tower) != (1518384, (3, 6, 12)):
+            raise AssertionError("not the Amazon width")
+        runs[dev] = (tr, spy_evolutions(tr))
+    for dev, (tr, _) in runs.items():
+        batchers = [DomainBatcher(x, y, BS, spec.domain_idx, n_domain, seed=s)
+                    for s in (1, 2)]
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            counted(ctx, "reference_evolution",
+                    lambda: tr._mask_evolution(*batchers, verbose=False))
+        else:
+            tr._mask_evolution(*batchers, verbose=False)
+        runs[dev] += (time.perf_counter() - t0,)
+    launches = ctx["launches_by_path"].pop("reference_evolution")
+    if launches["sparse_adam"] != n_domain * 2 * 2:
+        raise AssertionError(f"the card's evolution launched {launches}")
+    cpu, gpu = runs["cpu"][1][0], runs["cuda"][1][0]
+    diff = 0.0
+    for d in range(n_domain):
+        for a, b in zip(cpu["candidates"][d], gpu["candidates"][d]):
+            if not masks_equal(a, b):
+                raise AssertionError(f"domain {d}: a candidate's pruned mask "
+                                     "differs between card and CPU")
+        if not masks_equal(cpu["after"][d], gpu["after"][d]):
+            raise AssertionError(f"domain {d}: card and CPU chose another mask")
+        a, b = np.array(cpu["losses"][d]), np.array(gpu["losses"][d])
+        diff = max(diff, float(np.max(np.abs(a - b))))
+        if not np.allclose(a, b, rtol=2 * 2.0 ** -23, atol=1e-5):
+            raise AssertionError(f"probe losses differ: {a} {b}")
+    say("reference", path="aread _mask_evolution, full width", chains=4,
+        adapt_steps=2, probes=2, masks_equal=True,
+        probe_loss_max_abs_diff=diff, tolerance="atol 1e-5 + 2 f32 ulp",
+        probe_losses_card=gpu["losses"],
+        seconds={"cpu": runs["cpu"][2], "cuda": runs["cuda"][2]})
 
 
 def reference_aread(ctx):
@@ -1023,6 +1128,231 @@ def reference_aread(ctx):
                              f"{diff}")
     say("reference", path="aread AREADTrainer steps", steps=3,
         max_abs_diff=diff, worst=worst, tolerance=1e-5)
+
+
+# Depth of the hemp phase; the width is the train phase's. Intervals count
+# 1024-row batches. 3 candidates configured: int(3 * 0.99) = 2 run.
+HEMP_DEPTH = {"train_batches": 48, "eval_rows": 8192, "epoch": 1,
+              "warm_up_interval": 8, "regroup_interval": 24,
+              "regroup_update_step": 3, "regroup_eval_step": 2,
+              "candidate_mask_num": 3, "final_epoch": 1}
+
+
+def event_ms(fn, n: int = 10, warmup: int = 2):
+    """(median CUDA-event ms, median host-clock ms with a sync) of ``fn``,
+    each call timed alone."""
+    for _ in range(warmup):
+        fn()
+    ev, host = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev.append(a.elapsed_time(b))
+    return statistics.median(ev), statistics.median(host)
+
+
+def phase_hemp(ctx):
+    """The HEMP loop at full Amazon width through build_model and
+    AREADTrainer.fit, then its parts timed alone."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import DomainBatcher, SplitData
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.train.hemp import AREADTrainer
+    from aread_tpu_torch.utils.masks import (has_output, prune_mask,
+                                             prune_mask_tensor, validate_mask)
+
+    torch.cuda.reset_peak_memory_stats()
+    depth = dict(HEMP_DEPTH)
+    n_train = depth.pop("train_batches") * BS
+    n_eval = depth.pop("eval_rows")
+    cfg = Config(model="aread", dataset_name="amazon", seed=0,
+                 aread_final=True, **depth)
+    if (cfg.bs, cfg.embed_dim, cfg.table_dtype, cfg.table_moments_dtype,
+            cfg.dropout, cfg.mmoe_n_expert, cfg.n_cross_layers) != (
+            BS, EMBED_DIM, "bfloat16", "bfloat16", 0.2, 4, 3):
+        raise AssertionError("not the Amazon defaults")
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+    rng = np.random.default_rng(0)
+    x, y = amazon_rows(rng, spec, 2 * n_train + 2 * n_eval)
+    cuts = np.cumsum([n_train, n_train, n_eval])
+    (tx, ax, vx, ex), (ty, ay, vy, ey) = np.split(x, cuts), np.split(y, cuts)
+    counts = np.bincount(tx[:, spec.domain_idx], minlength=N_DOMAIN)
+    if counts.min() == 0:
+        raise AssertionError("a domain has no train rows")
+    data = SplitData(train_x=tx, train_y=ty, valid_x=vx, valid_y=vy,
+                     test_x=ex, test_y=ey, spec=spec,
+                     domain_cnt_weight=counts / n_train, n_domain=N_DOMAIN,
+                     aug_train_x=ax, aug_train_y=ay)
+    t0 = time.perf_counter()
+    model = build_model(cfg, spec, N_DOMAIN, device="cuda")
+    tr = AREADTrainer(model, cfg, N_DOMAIN)
+    if (model.spec.n_rows, model.n_tower) != (1518384, (3, 6, 12)):
+        raise AssertionError("not the Amazon width")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    evolutions = spy_evolutions(tr)
+    final = {}
+    final_epoch = tr.train_final_epoch
+
+    def train_final_epoch(*a, **kw):
+        named = tr.model.dense_named_parameters()
+        before = {n: p.detach().clone() for n, p in named.items()}
+        table0 = tr.model.embedding.table.clone()
+        final.setdefault("t", tr.opt_state["t"])
+        out = final_epoch(*a, **kw)
+        moved = [n for n, p in named.items() if not torch.equal(p, before[n])]
+        if not torch.equal(tr.model.embedding.table, table0):
+            moved.append("embedding/table")
+        final.setdefault("moved", []).append(moved)
+        return out
+
+    tr.train_final_epoch = train_final_epoch
+    t0 = time.perf_counter()
+    res = counted(ctx, "hemp", lambda: tr.fit(data, verbose=False))
+    fit_s = time.perf_counter() - t0
+    launches = ctx["launches_by_path"]["hemp"]
+
+    # --- what the schedule implies
+    n_seq = int(np.sum(np.ceil(counts / BS)))
+    warm = cfg.warm_up_interval * 1024 // BS
+    interval = cfg.regroup_interval * 1024 // BS
+    n_regroup = 1 + sum((i + 1) % interval == 0 for i in range(n_seq))
+    cands = [max(1, int(cfg.candidate_mask_num * 0.99 ** (r + 1)))
+             for r in range(n_regroup)]
+    want = warm + n_seq + sum(N_DOMAIN * c * cfg.regroup_update_step
+                              for c in cands)
+    if tr.regroup_times != n_regroup or [
+            r["candidates"] for r in tr.regroup_log] != cands:
+        raise AssertionError(f"regroups {tr.regroup_log}, expected {cands}")
+    if launches != {"sparse_adam": want, "fused_adam": 0}:
+        raise AssertionError(f"hemp launched {launches}, the schedule "
+                             f"implies {want} sparse_adam")
+    # the main optimizer stepped in the warm-up and bagging steps only,
+    # and no evolution moved its count
+    if final["t"] != warm + n_seq or tr.opt_state["t"] != warm + n_seq:
+        raise AssertionError(f"main optimizer t={tr.opt_state['t']}, "
+                             f"{warm + n_seq} warm-up and bagging steps")
+    for r in evolutions:
+        if r["t_after"] != r["t"]:
+            raise AssertionError("an evolution moved the main optimizer's t")
+    changed = [sum(not masks_equal(b, a) for b, a in zip(r["before"], r["after"])
+                   if b is not None) for r in evolutions]
+    if len(evolutions) < 2 or not any(changed[1:]):
+        raise AssertionError(f"no mask evolved: {changed}")
+    for d, m in enumerate(res["domain_mask"]):
+        if m is None or not has_output(m) or not masks_equal(m, validate_mask(m)):
+            raise AssertionError(f"domain {d}: invalid mask")
+    # the final phase moved final_gate and nothing else
+    if not final.get("moved") or any(m != ["final_gate/kernel"]
+                                     for m in final["moved"]):
+        raise AssertionError(f"the final phase moved {final.get('moved')}")
+    hist = res["history"]
+    if [h.get("phase") for h in hist] != [None, "final_gate"]:
+        raise AssertionError(f"history phases {[h.get('phase') for h in hist]}")
+    for name, r in (("valid", hist[0]), ("valid_final", hist[1]),
+                    ("test", res["test"])):
+        for k in ("total_auc", "mean_auc"):
+            if not np.isfinite(r[k]) or not 0 <= r[k] <= 1:
+                raise AssertionError(f"{name} {k}={r[k]}")
+    if not all(np.isfinite(h["train_loss"]) for h in hist):
+        raise AssertionError("non-finite train loss")
+
+    # --- the evolution's parts, one by one, at the same shapes
+    ms = tr.mask_state
+    tb = DomainBatcher(tx, ty, BS, spec.domain_idx, N_DOMAIN, seed=3)
+    d = int(np.argmax(counts))
+    fa = [tr.place(tb.next_batch(d)) for _ in range(cfg.regroup_update_step)]
+    probes = [tr.place(tb.next_batch(d)) for _ in range(cfg.regroup_eval_step)]
+    mask = ms.domain_mask[d]
+    snap = tr._snapshot()
+    state = tr._fresh_fast_state()
+    gms = []
+
+    def adapt_step():
+        gms[:] = tr.step_core(tr.fast_optimizer, cfg.update_lr, state,
+                              "domain_mask_bagging", fa[0], mask)[1]
+
+    step_ms = event_ms(adapt_step)
+    probe_ms = event_ms(lambda: tr.eval_prob(probes[0], mask))
+    restore_ms = event_ms(lambda: tr._restore(snap))
+    mask_t = tuple(torch.as_tensor(m, device="cuda") for m in mask)
+    prune_host = event_ms(lambda: prune_mask(
+        mask, [g.cpu().numpy() for g in gms]))
+    prune_dev = event_ms(lambda: prune_mask_tensor(mask_t, gms))
+    got = [m.cpu().numpy() for m in prune_mask_tensor(mask_t, gms)]
+    if not masks_equal(got, prune_mask(mask, [g.cpu().numpy() for g in gms])):
+        raise AssertionError("the two prune routes disagree on the card")
+
+    # a whole chain by either prune route, in turns (host, device, device,
+    # host), from the snapshot each time. The trainer prunes on the host;
+    # the tensor twin stands in for it here, the mask kept on the card
+    card_mask = {}
+
+    def device_prune(_, gate_means):
+        card_mask["m"] = prune_mask_tensor(card_mask["m"], gate_means)
+        return card_mask["m"]
+
+    def chain():
+        card_mask["m"] = mask_t
+        tr._restore(snap)
+        tr._fast_adapt(mask, fa, probes)[1].cpu()
+
+    host_prune = tr._prune
+    chain_ms = {"host": [], "device": []}
+    for route in ("host", "device", "device", "host"):
+        tr._prune = device_prune if route == "device" else host_prune
+        chain_ms[route].append(event_ms(chain, n=6)[1])
+    tr._prune = host_prune
+    tr._restore(snap)
+    ctx["hemp_profile_args"] = chain
+
+    log = tr.regroup_log
+    say("hemp", depth=HEMP_DEPTH, table_rows=model.spec.n_rows,
+        embed_dim=cfg.embed_dim, bs=cfg.bs, n_tower=list(model.n_tower),
+        n_domain=N_DOMAIN, table_dtype=cfg.table_dtype,
+        moments_dtype=cfg.table_moments_dtype, dropout=cfg.dropout,
+        device_data=True, init_s=init_s, fit_s=fit_s,
+        warmup_steps=warm, main_steps=n_seq,
+        final_steps=len(final["moved"]) * n_seq,
+        regroup_times=tr.regroup_times, candidates=cands,
+        chains_per_regroup=[r["chains"] for r in log],
+        seconds_per_regroup=[r["seconds"] for r in log],
+        ms_per_chain=[r["seconds"] / r["chains"] * 1e3 for r in log],
+        active_ratio_after_regroup=[r["active_ratio"] for r in log],
+        domains_changed_per_regroup=changed,
+        adapt_step_ms={"events": step_ms[0], "host_clock": step_ms[1]},
+        probe_ms={"events": probe_ms[0], "host_clock": probe_ms[1]},
+        snapshot_restore_ms={"events": restore_ms[0],
+                             "host_clock": restore_ms[1]},
+        prune_ms={"host_route": {"events": prune_host[0],
+                                 "host_clock": prune_host[1]},
+                  "device_route": {"events": prune_dev[0],
+                                   "host_clock": prune_dev[1]}},
+        chain_ms_host_clock_by_prune_route=chain_ms,
+        prune_route_in_use="host",
+        sparse_adam_launches=launches["sparse_adam"],
+        sparse_adam_launches_schedule=want,
+        main_optimizer_t=tr.opt_state["t"],
+        final_phase_moved=final["moved"],
+        train_loss=hist[0]["train_loss"],
+        final_train_loss=hist[1]["train_loss"],
+        examples_per_s_epoch_host_clock=hist[0]["examples_per_s"],
+        valid_total_auc=hist[0]["total_auc"],
+        valid_mean_auc=hist[0]["mean_auc"],
+        valid_final_total_auc=hist[1]["total_auc"],
+        valid_final_mean_auc=hist[1]["mean_auc"],
+        test_total_auc=res["test"]["total_auc"],
+        test_mean_auc=res["test"]["mean_auc"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def profile_steps(ctx, name: str, step):
@@ -1081,11 +1411,19 @@ def phase_profile_dense(ctx):
     profile_steps(ctx, "deepfm_dense", lambda: tr.step(batches[0]))
 
 
+def phase_profile_hemp(ctx):
+    """Opt-in, after hemp: one fast-adapt chain (snapshot restore, adapt
+    steps with their prunes, probes, the fetch of the probe losses) under
+    torch.profiler; the numbers are per chain."""
+    profile_steps(ctx, "hemp_chain", ctx["hemp_profile_args"])
+
+
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
-          "train_dense": phase_train_dense}
-OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense}
+          "train_dense": phase_train_dense, "hemp": phase_hemp}
+OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
+          "profile_hemp": phase_profile_hemp}
 
 
 def main(argv=None) -> int:

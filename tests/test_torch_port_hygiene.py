@@ -3,8 +3,9 @@ of JAX or of the JAX package; without a card every entry point raises
 instead of running on the CPU; the CUDA wrappers never take CPU tensors;
 the kernel build keeps IEEE arithmetic, names a library by its sources and
 every shared header; both kernels count their launches in one place; the
-sparse kernel's slot map has one key; chip_smoke.py knows both kernels and
-drives both trainers."""
+sparse kernel's slot map has one key; chip_smoke.py knows both kernels,
+drives both trainers and the HEMP loop and ends with the fixed line; what
+the HEMP loop leaves unported raises by name."""
 
 import ast
 import os
@@ -25,6 +26,7 @@ from aread_tpu_torch.models.aread import AREAD
 from aread_tpu_torch.ops import fused_adam, sparse_adam
 from aread_tpu_torch.ops.cuda import build
 from aread_tpu_torch.ops.sparse_adam import sparse_adam_cuda
+from aread_tpu_torch.train.hemp import AREADTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "aread_tpu")
@@ -208,6 +210,101 @@ def test_chip_smoke_drives_both_kernels_and_trainers():
                 '"replaces"', '"route"', '"source"'):
         assert src.count(key) >= 1
     assert src.count("**{k: main[k] for k in ROW_TIMES}") == 2
+
+
+def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    dicts = {t.id: [k.value for k in n.value.keys] for n in tree.body
+             if isinstance(n, ast.Assign) and isinstance(n.value, ast.Dict)
+             for t in n.targets if isinstance(t, ast.Name)}
+    # the default list is PHASES' keys; every earlier phase is still there
+    assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
+                               "train", "eval", "train_dense", "hemp"]
+    assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
+    assert {"train_batches", "regroup_interval", "candidate_mask_num",
+            "final_epoch"} <= set(dicts["HEMP_DEPTH"])
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"phase_hemp", "phase_profile_hemp", "reference_evolution"} <= set(funcs)
+    hemp_src = ast.unparse(funcs["phase_hemp"])
+    for name in ("build_model", "AREADTrainer", ".fit(", "aread_final=True",
+                 "sparse_adam_launches_schedule", "prune_mask_tensor"):
+        assert name in hemp_src, name
+    # the last thing main prints is the fixed line, with these keys only
+    prints = sorted((n for n in ast.walk(funcs["main"])
+                     if isinstance(n, ast.Call)
+                     and getattr(n.func, "id", "") == "print"),
+                    key=lambda n: n.lineno)
+    last = prints[-1].args[0].args[0]  # print(json.dumps({...}))
+    assert isinstance(last, ast.Dict)
+    assert [k.value for k in last.keys] == ["ok", "device"]
+    assert last.values[0].value is True
+    assert [k.value for k in last.values[1].keys] == ["platform", "kind",
+                                                      "count"]
+    assert last.values[1].values[0].value == "gpu"
+
+
+def _toy_aread():
+    data = make_synthetic_data(n_rows=256, n_domain=3, vocab=40)
+    cfg = Config(model="aread", embed_dim=8, mlp_dims=(8,),
+                 aread_tower_dims=((4,), (4,)), table_dtype="float32",
+                 table_moments_dtype="float32")
+    return data, cfg, build_model(cfg, data.spec, 3, n_tower=2, device="cpu")
+
+
+@pytest.mark.parametrize("name,value", [("hemp_fast_adapt", "overlay"),
+                                        ("streaming_eval", True),
+                                        ("log_dir", "logs"),
+                                        ("epoch_timeout_s", 5.0),
+                                        ("embed_lookup", "a2a")])
+def test_unported_hemp_options_raise_by_name(name, value):
+    import dataclasses
+
+    _, cfg, model = _toy_aread()
+    with pytest.raises(NotImplementedError, match=name):
+        AREADTrainer(model, dataclasses.replace(cfg, **{name: value}), 3)
+
+
+def test_unported_fit_arguments_and_ple_raise_by_name():
+    import dataclasses
+
+    data, cfg, model = _toy_aread()
+    tr = AREADTrainer(model, cfg, 3)
+    with pytest.raises(NotImplementedError, match="warm_start"):
+        tr.fit(data, warm_start={})
+    with pytest.raises(NotImplementedError, match="ckpt_dir"):
+        tr.fit(data, ckpt_dir="ckpt")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        AREADTrainer(model, cfg, 3, mesh=object())
+    with pytest.raises(NotImplementedError, match="base_model='ple'"):
+        build_model(dataclasses.replace(cfg, base_model="ple"), data.spec, 3,
+                    device="cpu")
+    with pytest.raises(ValueError, match="hemp_fast_adapt"):
+        AREADTrainer(model, dataclasses.replace(cfg, hemp_fast_adapt="x"), 3)
+    # 'full' and 'auto' are the ported engine
+    for mode in ("full", "auto"):
+        assert not AREADTrainer(model, dataclasses.replace(
+            cfg, hemp_fast_adapt=mode), 3).overlay_enabled()
+
+
+def test_batch_with_mask_refuses_training():
+    data, _, model = _toy_aread()
+    x = torch.tensor(data.train_x[:4])
+    dm = [torch.ones((4,) + s, dtype=torch.bool)
+          for s in ((1, 2), (2, 4), (4, 1))]
+    with pytest.raises(ValueError, match="batch_with_mask"):
+        model(x, domain_mask=dm, mode="batch_with_mask", train=True)
+    assert tuple(model(x, domain_mask=dm, mode="batch_with_mask")["prob"].shape) == (4,)
+
+
+def test_resolved_fast_adapt_engine_is_logged_once(caplog):
+    import logging
+
+    _, cfg, model = _toy_aread()
+    with caplog.at_level(logging.INFO, logger="aread_tpu_torch.train.hemp"):
+        AREADTrainer(model, cfg, 3)
+    lines = [r.getMessage() for r in caplog.records
+             if "hemp_fast_adapt" in r.getMessage()]
+    assert len(lines) == 1 and "full-sweep" in lines[0]
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
