@@ -3,9 +3,11 @@ H100.
 
 The package mirrors ``aread_tpu``'s layout and names so that each module's
 counterpart is found at the same path (``ops/embedding.py``,
-``models/aread.py``, ``train/hemp.py``, ...). It imports torch, numpy and
-the standard library only; it never imports JAX or anything of
-``aread_tpu``.
+``models/aread.py``, ``train/hemp.py``, ``serve/predictor.py``, ...). It
+imports torch, numpy, pandas (the CSV loader and the CLIs) and the
+standard library only; it never imports JAX or anything of ``aread_tpu``.
+``python -m aread_tpu_torch`` trains, ``python -m aread_tpu_torch.serve``
+scores a CSV or serves HTTP.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back

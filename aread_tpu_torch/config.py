@@ -5,7 +5,21 @@ defaults."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
+
+ITEMID_ALL = 1368287  # the amazon item vocab, its pad row included
+SEQ_MAXLEN = 5
+
+DOMAIN_SIZE: Dict[str, Tuple[int, ...]] = {
+    "amazon": (69360, 282546, 776105, 3001846, 88496, 449031, 2859592, 1893,
+               1437340, 16454, 601698, 1802, 2416380, 197170, 202176, 6931,
+               317131, 132650, 602500, 585227, 845268, 1107407, 997451,
+               623565, 44843),
+    "aliccp": (2695782, 1433175, 925817, 584726, 461755, 358265, 166869,
+               113621, 78692, 65313, 54483, 45808, 40975, 37939, 34079,
+               31703, 29551, 27084, 25027, 23464, 21764, 19857, 18390,
+               16712, 15852, 14914, 13653, 12265, 11179, 9760),
+}
 
 DOMAIN2GROUP: Dict[str, Dict[str, Tuple[int, ...]]] = {
     "amazon": {
@@ -31,12 +45,17 @@ class Config:
     embed_dim: int = 32
     wd: float = 1e-8
     early_stop: int = 2  # patience, in epochs without a better valid AUC
+    seq_maxlen: int = SEQ_MAXLEN
+    itemid_all: int = ITEMID_ALL
     group_strategy: str = "dcn_3groups_kl"
+    domain_filter: Optional[Sequence[int]] = None
     is_evaluate_multi_domain: bool = True
+    prepare2train_month: int = 12
 
     # AREAD / HEMP: warm-up and regroup intervals count batches of 1024
     # rows (the trainer rescales them by 1024 / bs)
     update_lr: float = 1e-2  # the fast-adapt chains' learning rate
+    aug_ratio: float = 0.1  # share of counterfactually augmented rows
     warm_up_interval: int = 100
     regroup_interval: int = 2000
     regroup_update_step: int = 5
@@ -92,9 +111,26 @@ class Config:
     # 'auto' = when it fits Trainer.DEVICE_DATA_BUDGET, '1' / '0' force
     device_data: str = "auto"
 
+    # evaluate from per-domain histograms of the logits kept on the
+    # device (train/metrics.py StreamingAUC): only [n_domain, auc_bins]
+    # counts reach the host
+    streaming_eval: bool = False
+    auc_bins: int = 16384
+
+    # paths
+    data_path: str = "dataset"
+    save_path: str = "save"
+    # warm-start weights, BatchNorm statistics and AREAD masks from the
+    # saved best checkpoint; the optimizer starts fresh
+    is_increment: bool = False
+    # write a resumable checkpoint (weights, optimizer state, HEMP masks
+    # and schedule, dropout generator, epoch) on every improvement, and
+    # resume from it when one exists
+    elastic: bool = False
+
     # options of the JAX package's trainers that are not ported
     # yet: any value but the default raises NotImplementedError
-    streaming_eval: bool = False
+    compute_dtype: str = "float32"
     dynamic_regroup: str = "off"
     log_dir: str = ""
     epoch_timeout_s: float = 0.0

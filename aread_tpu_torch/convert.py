@@ -1,5 +1,8 @@
 """Carries the JAX package's weights and optimizer state into the port.
 
+``convert_checkpoint`` turns a checkpoint of the JAX package (the dict its
+``load_checkpoint`` returns) into the port's checkpoint dict, which the
+port's trainers warm-start or resume from and its ``Predictor`` serves.
 ``convert_final_opt_state`` carries the final-gate phase's optimizer
 state, ``convert_mask_state`` and ``copy_hemp_schedule`` the HEMP state
 (masks, gate records, candidates, probe losses, the mask generator's
@@ -16,7 +19,7 @@ reshape (row-major order is the same element order).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -62,17 +65,31 @@ def convert_variables(params: Mapping, batch_stats: Mapping, embed_dim: int,
     return sd
 
 
+def _adam_fields(chain) -> Dict:
+    """{'count', 'mu', 'nu'} of the Adam state inside an optax chain
+    state."""
+    for s in (chain.values() if isinstance(chain, Mapping) else chain):
+        if isinstance(s, Mapping) and "mu" in s:
+            return {k: s[k] for k in ("count", "mu", "nu")}
+        if hasattr(s, "mu"):
+            return {"count": s.count, "mu": s.mu, "nu": s.nu}
+    raise ValueError("no Adam state (mu / nu / count) in the chain state")
+
+
 def convert_opt_state(opt_state: Mapping, embed_dim: int, device=None) -> Dict:
     """The JAX package's hybrid optimizer state {'inner': optax chain
     state, 'm', 'v', 't'} -> the port's (``train.trainer.hybrid_init``'s
     layout). The chain's Adam state is found by its ``mu``/``nu``/
-    ``count`` fields."""
-    adam = next(s for s in opt_state["inner"] if hasattr(s, "mu"))
+    ``count`` fields, in the chain's tuple of NamedTuples or in the nested
+    dicts that a checkpoint restored without a template holds."""
+    adam = _adam_fields(opt_state["inner"])
     return {
         "inner": {
-            "count": int(np.asarray(adam.count)),
-            "mu": {p: _to_torch(a, device) for p, a in flatten(adam.mu).items()},
-            "nu": {p: _to_torch(a, device) for p, a in flatten(adam.nu).items()},
+            "count": int(np.asarray(adam["count"])),
+            "mu": {p: _to_torch(a, device)
+                   for p, a in flatten(adam["mu"]).items()},
+            "nu": {p: _to_torch(a, device)
+                   for p, a in flatten(adam["nu"]).items()},
         },
         "m": _to_torch(_table_rows(opt_state["m"], embed_dim), device),
         "v": _to_torch(_table_rows(opt_state["v"], embed_dim), device),
@@ -131,3 +148,26 @@ def copy_hemp_schedule(src, dst) -> None:
     ``src`` onto the port's trainer ``dst``."""
     for name in HEMP_SCHEDULE_FIELDS:
         setattr(dst, name, type(getattr(dst, name))(getattr(src, name)))
+
+
+def convert_checkpoint(ck: Mapping, embed_dim: int, device=None) -> Dict:
+    """The dict that the JAX package's ``load_checkpoint`` returns (arrays
+    as numpy) -> the port's checkpoint dict, as the port's
+    ``load_checkpoint`` returns it: meta.json's keys as they are (epoch,
+    n_domain, best_result, hemp_schedule, spec, config), 'state_dict',
+    'opt_state' ({} where the checkpoint holds none) and 'domain_mask'
+    where present. The JAX PRNG key has no counterpart in a torch
+    generator and is left out: a converted checkpoint warm-starts and
+    serves, and a run resumed from it draws a new dropout stream."""
+    out = {k: v for k, v in ck.items()
+           if k not in ("params", "state", "opt_state", "rng_key",
+                        "domain_mask")}
+    state = ck.get("state") or {}
+    out["state_dict"] = convert_variables(
+        ck["params"], state.get("batch_stats", {}), embed_dim, device)
+    opt_state = ck.get("opt_state")
+    out["opt_state"] = (convert_opt_state(opt_state, embed_dim, device)
+                        if opt_state else {})
+    if ck.get("domain_mask") is not None:
+        out["domain_mask"] = [_copy_mask(m) for m in ck["domain_mask"]]
+    return out

@@ -1,19 +1,50 @@
-"""Batching and synthetic data (counterpart of the batching half of
-``aread_tpu/data/loader.py``): fixed-shape padded batches with a validity
-mask, shuffled batches over a whole split (``GlobalBatcher``), per-domain
-streams with a shuffled single-domain batch sequence, and the small
-synthetic dataset of the tests. The numpy random streams
-are the JAX package's, draw for draw. Reading and caching the dataset
-CSVs is not ported yet."""
+"""Data loading, splitting and batching (counterpart of
+``aread_tpu/data/loader.py``).
+
+Loading: the canonical CSV's columns per dataset, history sequences
+parsed, padded with the item vocab's pad id and cut to the last
+``seq_maxlen``; the split by timestamp quantiles 0.9 / 0.95 (amazon) or by
+the ``train_tag`` column; one-hot dims as column max + 1 over the file
+(the augmented file included), the amazon itemid dim pinned to
+``itemid_all``; train-frequency domain weights. Parsed arrays are cached
+as ``.npy`` files keyed on the file's identity and the parse options.
+
+Batching: fixed-shape padded batches with a validity mask, shuffled
+batches over a whole split (``GlobalBatcher``), per-domain streams with a
+shuffled single-domain batch sequence, and the small synthetic dataset of
+the tests. The numpy random streams are the JAX package's, draw for
+draw."""
 
 from __future__ import annotations
 
+import ast
 import dataclasses
-from typing import Dict, Iterator, List, Optional
+import hashlib
+import os
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import pandas as pd
 
 from aread_tpu_torch.models.base import FeatureSpec
+
+AMAZON_FEATURES = [
+    "itemid", "weekday", "domain", "sales_chart", "sales_rank", "brand", "price",
+]
+AMAZON_SEQ_FEATURES = ["user_pos_6month_seq", "user_neg_6month_seq"]
+ALICCP_FEATURES = [
+    "userid", "121", "122", "124", "125", "126", "127", "128", "129", "itemid",
+    "domain", "207", "210", "216", "508", "509", "702", "853", "109_14",
+    "110_14", "127_14", "150_14", "301",
+]
+CLOUDTHEME_FEATURES = ["userid", "itemid", "domain", "leaf_cate_id", "cate_level1_id"]
+
+
+def _parse_seq(seq_str, maxlen: int, pad_value: int) -> List[int]:
+    seq = ast.literal_eval(seq_str) if isinstance(seq_str, str) else list(seq_str)
+    if len(seq) >= maxlen:
+        return list(seq[-maxlen:])
+    return list(seq) + [pad_value] * (maxlen - len(seq))
 
 
 @dataclasses.dataclass
@@ -31,6 +62,178 @@ class SplitData:
     # chains draw from the train rows
     aug_train_x: Optional[np.ndarray] = None
     aug_train_y: Optional[np.ndarray] = None
+
+
+def dataset_columns(dataset_name: str, history: bool = True,
+                    only_id: bool = False):
+    """(one-hot columns, sequence columns, label column) of a dataset's
+    canonical CSV."""
+    if only_id:
+        return (["userid", "itemid", "domain"], [],
+                "label" if dataset_name == "amazon" else "click")
+    if dataset_name == "amazon":
+        return (list(AMAZON_FEATURES),
+                list(AMAZON_SEQ_FEATURES) if history else [], "label")
+    if dataset_name == "aliccp":
+        return list(ALICCP_FEATURES), [], "click"
+    if dataset_name == "cloudtheme":
+        return list(CLOUDTHEME_FEATURES), [], "click"
+    raise ValueError(f"unknown dataset {dataset_name}")
+
+
+def tensorize(df: pd.DataFrame, one_hot_cols: Sequence[str],
+              seq_cols: Sequence[str], label_col: str, seq_maxlen: int,
+              pad_value: int) -> Tuple[np.ndarray, np.ndarray]:
+    """DataFrame -> (x int32 [N, n_onehot + n_seq * maxlen], y int8 [N])."""
+    parts = [df[list(one_hot_cols)].to_numpy(dtype=np.int64)]
+    for col in seq_cols:
+        seqs = df[col].map(lambda s: _parse_seq(s, seq_maxlen, pad_value))
+        parts.append(np.stack(seqs.to_numpy()).astype(np.int64))
+    x = np.concatenate(parts, axis=1).astype(np.int32)
+    y = df[label_col].to_numpy(dtype=np.int8)
+    return x, y
+
+
+def _cache_dir() -> Optional[str]:
+    """Where parsed arrays are cached: the dataset directory may be
+    read-only, so the default is ~/.cache/aread_tpu_torch. AREAD_TPU_CACHE=0
+    turns the cache off; a directory there relocates it."""
+    env = os.environ.get("AREAD_TPU_CACHE")
+    if env == "0":
+        return None
+    return env or os.path.join(os.path.expanduser("~"), ".cache",
+                               "aread_tpu_torch")
+
+
+def _read_arrays(path: str, one_hot_cols: Sequence[str],
+                 seq_cols: Sequence[str], label_col: str, split_col: str,
+                 seq_maxlen: int, pad_value: int
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x, y, split) of one CSV: the memory-mapped .npy cache when warm
+    (keyed on the file's identity and the parse options), else parsed with
+    pandas. (The JAX package's native C++ parser is not ported yet.)"""
+    cache_root = _cache_dir()
+    cdir = None
+    if cache_root is not None:
+        st = os.stat(path)
+        key = hashlib.sha1(repr((os.path.abspath(path), st.st_mtime_ns,
+                                 st.st_size, tuple(one_hot_cols),
+                                 tuple(seq_cols), label_col, split_col,
+                                 seq_maxlen, pad_value)).encode()).hexdigest()
+        cdir = os.path.join(cache_root, key)
+        if os.path.exists(os.path.join(cdir, "split.npy")):
+            # mmap: downstream only fancy-indexes the arrays (the split
+            # filters make copies), so pages load on demand
+            return (np.load(os.path.join(cdir, "x.npy"), mmap_mode="r"),
+                    np.load(os.path.join(cdir, "y.npy"), mmap_mode="r"),
+                    np.load(os.path.join(cdir, "split.npy"), mmap_mode="r"))
+
+    df = pd.read_csv(path, usecols=list(one_hot_cols) + list(seq_cols)
+                     + [label_col, split_col])
+    x, y = tensorize(df, one_hot_cols, seq_cols, label_col, seq_maxlen,
+                     pad_value)
+    out = (x, y, df[split_col].to_numpy(dtype=np.float64))
+
+    if cdir is not None:
+        try:
+            os.makedirs(cdir, exist_ok=True)
+            for name, arr in zip(("x", "y", "split"), out):
+                tmp = os.path.join(cdir, f".{name}.npy.tmp")
+                with open(tmp, "wb") as f:  # np.save(path) would add .npy
+                    np.save(f, arr)
+                os.replace(tmp, os.path.join(cdir, f"{name}.npy"))
+        except OSError:
+            pass  # the cache is best-effort
+    return out
+
+
+def load_split_data(path: str, dataset_name: str, seq_maxlen: int = 5,
+                    itemid_all: Optional[int] = None,
+                    aug_path: Optional[str] = None,
+                    domain_filter: Optional[Sequence[int]] = None,
+                    history: bool = True, only_id: bool = False) -> SplitData:
+    """The canonical CSV at ``path`` (and the augmented one at
+    ``aug_path``, whose train-time rows become ``aug_train_x / _y``) as
+    train / valid / test arrays with their FeatureSpec."""
+    one_hot_cols, seq_cols, label_col = dataset_columns(dataset_name, history,
+                                                        only_id)
+    split_col = "timestamp" if dataset_name == "amazon" else "train_tag"
+    n_one = len(one_hot_cols)
+
+    # Without a configured item vocab the pad id is known only after the
+    # data is scanned: parse with -1 and substitute below (ids are not
+    # negative, so -1 can only be padding).
+    pad0 = int(itemid_all) if itemid_all is not None else -1
+    x, y, split = _read_arrays(path, one_hot_cols, seq_cols, label_col,
+                               split_col, seq_maxlen, pad0)
+    if aug_path is not None:
+        aug_x_all, aug_y_all, aug_split = _read_arrays(
+            aug_path, one_hot_cols, seq_cols, label_col, split_col,
+            seq_maxlen, pad0)
+    else:
+        aug_x_all = aug_y_all = aug_split = None
+
+    itemid_idx = one_hot_cols.index("itemid")
+    domain_idx = one_hot_cols.index("domain")
+
+    if domain_filter is not None:
+        keep = np.isin(x[:, domain_idx], list(domain_filter))
+        x, y, split = x[keep], y[keep], split[keep]
+        if aug_x_all is not None:
+            keep = np.isin(aug_x_all[:, domain_idx], list(domain_filter))
+            aug_x_all, aug_y_all, aug_split = (
+                aug_x_all[keep], aug_y_all[keep], aug_split[keep])
+
+    if dataset_name == "amazon":
+        train_valid = np.quantile(split, 0.9)
+        valid_test = np.quantile(split, 0.95)
+    else:
+        train_valid, valid_test = 1, 2
+
+    one_hot_dims = (x[:, :n_one].max(axis=0).astype(np.int64) + 1)
+    if aug_x_all is not None:
+        # the augmented file is train-time input: the vocab covers it too
+        aug_dims = aug_x_all[:, :n_one].max(axis=0).astype(np.int64) + 1
+        one_hot_dims = np.maximum(one_hot_dims, aug_dims)
+    if dataset_name == "amazon" and itemid_all is not None:
+        one_hot_dims[itemid_idx] = itemid_all
+    pad_value = (int(one_hot_dims[itemid_idx] - 1) if itemid_all is None
+                 else int(itemid_all))
+    if itemid_all is None and seq_cols:
+        # no configured item vocab: one extra row is the sequences' pad id
+        one_hot_dims[itemid_idx] += 1
+        pad_value = int(one_hot_dims[itemid_idx] - 1)
+    if pad0 == -1 and seq_cols:
+        x = np.array(x)  # a warm cache hands out read-only memory maps
+        x[x == -1] = pad_value
+        if aug_x_all is not None:
+            aug_x_all = np.array(aug_x_all)
+            aug_x_all[aug_x_all == -1] = pad_value
+
+    spec = FeatureSpec(
+        one_hot_dims=tuple(int(d) for d in one_hot_dims),
+        n_seq_fields=len(seq_cols), itemid_idx=itemid_idx,
+        domain_idx=domain_idx, seq_maxlen=seq_maxlen, method="mean")
+    n_domain = int(np.unique(x[:, domain_idx]).size)
+
+    tr = split < train_valid
+    va = (split >= train_valid) & (split < valid_test)
+    te = split >= valid_test
+    train_x, train_y = x[tr], y[tr]
+
+    cnt = np.bincount(train_x[:, domain_idx], minlength=n_domain).astype(np.float64)
+    domain_cnt_weight = cnt / max(1, train_x.shape[0])
+
+    aug_x = aug_y = None
+    if aug_x_all is not None:
+        keep = aug_split < train_valid
+        aug_x, aug_y = aug_x_all[keep], aug_y_all[keep]
+
+    return SplitData(
+        train_x=train_x, train_y=train_y, valid_x=x[va], valid_y=y[va],
+        test_x=x[te], test_y=y[te], spec=spec,
+        domain_cnt_weight=domain_cnt_weight, n_domain=n_domain,
+        aug_train_x=aug_x, aug_train_y=aug_y)
 
 
 def pad_batch(x: np.ndarray, y: np.ndarray, bs: int) -> Dict[str, np.ndarray]:
@@ -159,6 +362,24 @@ class DomainBatcher:
         out = np.full((self.bs,), -1, np.int32)
         out[:len(sel)] = sel
         return out
+
+    def get_state(self) -> Dict:
+        """What the next draws depend on: the generator's position, each
+        domain's order and cursor, the batch sequence. With it a resumed
+        run draws the batches the interrupted one would have drawn."""
+        return {"rng": self.rng.bit_generator.state,
+                "cursors": [int(c) for c in self._cursors],
+                # row ids fit int32: next_batch_indices hands them out so
+                "orders": [None if o is None else np.asarray(o, np.int32)
+                           for o in self._orders],
+                "domain_batch_seq": [int(d) for d in self.domain_batch_seq]}
+
+    def set_state(self, state: Dict) -> None:
+        self.rng.bit_generator.state = state["rng"]
+        self._cursors = [int(c) for c in state["cursors"]]
+        self._orders = [None if o is None else np.asarray(o, np.int64)
+                        for o in state["orders"]]
+        self.domain_batch_seq = [int(d) for d in state["domain_batch_seq"]]
 
     def next_batch(self, d: int) -> Dict[str, np.ndarray]:
         idx = self.next_batch_indices(d)

@@ -104,12 +104,14 @@ class AREAD(CTRModel):
 
     def forward(self, x, domain_mask=None, mode: str = "wo_mask",
                 train: bool = False, mask=None, generator=None,
-                tap: bool = False):
+                tap: bool = False, group=None):
         """``domain_mask``: n_level+1 boolean arrays (numpy or tensors)
         shaped as ``full_mask``, required by the masked modes; with a
         leading [B] axis each in 'batch_with_mask'. ``mask``: [B] row
         validity for BatchNorm. ``generator``: dropout's. ``tap``: make
-        the gathered rows a grad leaf, returned as ``out['rows']``."""
+        the gathered rows a grad leaf, returned as ``out['rows']``.
+        ``group`` is accepted and unused, so that the generic Trainer can
+        drive the model in 'wo_mask' mode ('aread_womask')."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
         per_ex = mode == "batch_with_mask"

@@ -30,13 +30,14 @@ reason does not exist here, so those, and the Pallas kernel window's
 prechecks (``FITS_SLICE``, ``_fits_from_x``, ``_fits_from_idx``,
 ``no_overflow``, ``assume_no_overflow``), have no counterpart: the CUDA
 kernel has no window. Not ported yet, each raising ``NotImplementedError``
-by name: the overlay fast-adapt engine, ``streaming_eval``,
-``warm_start``, ``ckpt_dir``, ``log_dir``, the epoch watchdog, a mesh.
+by name: the overlay fast-adapt engine, ``compute_dtype='bfloat16'``,
+``log_dir``, the epoch watchdog, a mesh.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -48,12 +49,17 @@ from aread_tpu_torch.data.loader import DomainBatcher, SplitData, pad_batch
 from aread_tpu_torch.models.aread import AREAD
 from aread_tpu_torch.models.base import regularization_loss
 from aread_tpu_torch.train import metrics as metrics_lib
-from aread_tpu_torch.train.trainer import (Trainer, bce_with_logits,
+from aread_tpu_torch.train.checkpoint import (load_checkpoint, mask_template,
+                                              restore_tree_, save_checkpoint,
+                                              set_generator_state)
+from aread_tpu_torch.train.trainer import (Trainer, adopt_state_dict,
+                                           bce_with_logits, clone_state,
                                            device_data_mode_enabled,
                                            hybrid_init, hybrid_update_sparse,
                                            make_optimizer, masked_mean,
                                            mean_losses, raise_if_nonfinite,
-                                           split_table, strip_table_rule,
+                                           restored_best, split_table,
+                                           strip_table_rule,
                                            table_reg_value)
 from aread_tpu_torch.utils.masks import HempMaskState, prune_mask
 
@@ -61,8 +67,14 @@ log = logging.getLogger(__name__)
 
 # Config options of the JAX package's AREADTrainer that are not ported
 # yet, with the only value the port takes
-_UNPORTED_OPTIONS = {"streaming_eval": False, "log_dir": "",
+_UNPORTED_OPTIONS = {"compute_dtype": "float32", "log_dir": "",
                      "epoch_timeout_s": 0.0, "embed_lookup": "gspmd"}
+
+
+def copy_masks(masks) -> List:
+    """Per-domain masks (None = no mask yet) as fresh boolean arrays."""
+    return [None if m is None else [np.array(mm, dtype=bool) for mm in m]
+            for m in masks]
 
 
 def gather_batch(dxc: torch.Tensor, dyc: torch.Tensor,
@@ -165,7 +177,7 @@ class AREADTrainer:
     def _snapshot(self) -> Dict[str, torch.Tensor]:
         """A device-resident copy of the parameters, the table and the
         BatchNorm statistics."""
-        return {k: v.clone() for k, v in self.model.state_dict().items()}
+        return clone_state(self.model)
 
     @torch.no_grad()
     def _restore(self, snap: Dict[str, torch.Tensor]) -> None:
@@ -502,18 +514,38 @@ class AREADTrainer:
 
     # ----------------------------------------------------------- evaluation
     @torch.no_grad()
-    def eval_prob(self, batch, dm, final: bool = False) -> torch.Tensor:
+    def eval_prob_logit(self, batch, dm, final: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         self.model.eval()
         mode = "domain_mask_final" if final else "domain_with_mask"
-        return self.model(batch["x"], domain_mask=dm, mode=mode,
-                          train=False)["prob"]
+        out = self.model(batch["x"], domain_mask=dm, mode=mode, train=False)
+        return out["prob"], out["logit"]
+
+    def eval_prob(self, batch, dm, final: bool = False) -> torch.Tensor:
+        return self.eval_prob_logit(batch, dm, final)[0]
 
     def evaluate(self, batcher: DomainBatcher,
                  domain_cnt_weight: np.ndarray, final: bool = False) -> Dict:
         """One pass over ``batcher.domain_batch_seq``, each batch through
         its domain's current mask (``final``: and the trained final gate);
-        total and per-domain AUC / log-loss."""
+        total and per-domain AUC / log-loss. With
+        ``config.streaming_eval`` the predictions stay on the device: each
+        batch goes into per-domain histograms (``StreamingAUC``) and only
+        those are fetched."""
         ms = self.mask_state
+        if self.config.streaming_eval:
+            acc = metrics_lib.StreamingAUC(self.n_domain, self.config.auc_bins)
+            auc_state = acc.init_state(self.device)
+            for d in batcher.domain_batch_seq:
+                batch = self.place(batcher.next_batch(d))
+                prob, logit = self.eval_prob_logit(batch, ms.domain_mask[d],
+                                                   final=final)
+                auc_state = acc.update(auc_state, prob, batch["y"],
+                                       batch["domain"], batch["valid"],
+                                       logits=logit)
+            return acc.finalize(
+                auc_state, domain_cnt_weight,
+                multi_domain=self.config.is_evaluate_multi_domain)
         preds, targets, domains = [], [], []
         for d in batcher.domain_batch_seq:
             batch_np = batcher.next_batch(d)
@@ -528,9 +560,8 @@ class AREADTrainer:
             np.concatenate(domains), domain_cnt_weight,
             multi_domain=self.config.is_evaluate_multi_domain)
 
-    def _copy_masks(self):
-        return [None if m is None else [mm.copy() for mm in m]
-                for m in self.mask_state.domain_mask]
+    def _copy_masks(self) -> List:
+        return copy_masks(self.mask_state.domain_mask)
 
     def is_continuable(self, result: Dict, epoch_i: int) -> bool:
         """Early stopping on mean_auc (total_auc when that is missing or
@@ -557,8 +588,60 @@ class AREADTrainer:
         if self.best_checkpoint is not None:
             snap, masks, _ = self.best_checkpoint
             self._restore(snap)
-            self.mask_state.domain_mask = [
-                None if m is None else [mm.copy() for mm in m] for m in masks]
+            self.mask_state.domain_mask = copy_masks(masks)
+
+    def hemp_schedule(self) -> Dict:
+        """The HEMP schedule as it stands: what the evolutions so far have
+        decayed, and their count."""
+        return {"random_modify_sigma": self.random_modify_sigma,
+                "init_active_percent": self.init_active_percent,
+                "candidate_mask_num": self.candidate_mask_num,
+                "regroup_times": self.regroup_times}
+
+    def _resume(self, ckpt_dir: str, verbose: bool,
+                train_b: DomainBatcher, aug_b: DomainBatcher) -> int:
+        """Take up a run from its resumable checkpoint: weights, optimizer
+        state and dropout generator in place, masks, HEMP schedule, best
+        metrics, and the host-side streams (both batchers, the mask
+        generator and its waiting gate records) where the checkpoint
+        holds them. Returns the epoch to go on from."""
+        ck = load_checkpoint(ckpt_dir, n_domain=self.n_domain,
+                             map_location=self.device)
+        template = mask_template(self.model.n_tower, self.n_domain)
+        masks = ck.get("domain_mask")
+        if masks is None or any(m is None for m in masks) or any(
+                mm.shape != template[f"d{d}_l{li}"].shape
+                for d, m in enumerate(masks) for li, mm in enumerate(m)):
+            raise ValueError(
+                f"{ckpt_dir}: the checkpoint's domain masks do not fit "
+                f"n_tower={self.model.n_tower}, n_domain={self.n_domain}")
+        adopt_state_dict(self.model, ck["state_dict"])
+        restore_tree_(self.opt_state, ck["opt_state"], "opt_state")
+        set_generator_state(self.generator, ck["rng_state"])
+        self.mask_state.domain_mask = copy_masks(masks)
+        host = ck.get("host_state")
+        if host is not None:
+            train_b.set_state(host["train_batcher"])
+            aug_b.set_state(host["aug_batcher"])
+            self.mask_state.set_state(host["mask_state"])
+        start_epoch = int(ck["epoch"])
+        sched = ck.get("hemp_schedule") or {}
+        self.random_modify_sigma = sched.get(
+            "random_modify_sigma", self.random_modify_sigma)
+        self.init_active_percent = sched.get(
+            "init_active_percent", self.init_active_percent)
+        self.candidate_mask_num = sched.get(
+            "candidate_mask_num", self.candidate_mask_num)
+        self.regroup_times = int(sched.get("regroup_times", 0))
+        best = restored_best(ck)
+        self.best_auc, self.best_mean_auc = (best["best_auc"],
+                                             best["best_mean_auc"])
+        self.best_checkpoint = (self._snapshot(), copy_masks(masks),
+                                start_epoch - 1)
+        if verbose:
+            print(f"elastic resume from {ckpt_dir} at epoch {start_epoch} "
+                  f"(regroups so far: {self.regroup_times})")
+        return start_epoch
 
     def fit(self, data: SplitData, epochs: Optional[int] = None,
             verbose: bool = True, final_gate: Optional[bool] = None,
@@ -571,18 +654,32 @@ class AREADTrainer:
         to ``epochs`` (default ``config.final_epoch``) epochs with the
         patience counter reset. The test split is evaluated on the best
         weights and masks, which the model and the mask state are left
-        holding. Returns {'history', 'test', 'domain_mask'}."""
-        if warm_start is not None:
-            raise NotImplementedError("warm_start is not ported yet")
-        if ckpt_dir is not None:
-            raise NotImplementedError("ckpt_dir (resume) is not ported yet")
+        holding. Returns {'history', 'test', 'domain_mask'}.
+
+        ``warm_start``: a checkpoint dict (``load_checkpoint``) whose
+        weights and buffers replace the model's and whose domain masks,
+        where it has any, replace the mask state's; the optimizer starts
+        fresh.
+
+        ``ckpt_dir``: a resumable checkpoint (weights, optimizer state,
+        domain masks, the decayed HEMP schedule, dropout generator, epoch,
+        best metrics, and the host-side streams: both batchers' positions,
+        the mask generator's and the gate records waiting for the next
+        regroup) is written there on every improvement, and when one
+        exists training resumes from it at the saved epoch: the resumed
+        epochs repeat what the uninterrupted run would have done. A
+        checkpoint without the host-side streams (one carried over from
+        the JAX package, whose checkpoints hold none) resumes with them
+        restarted from the seed, as the JAX package resumes."""
         try:
-            return self._fit_inner(data, epochs, verbose, final_gate)
+            return self._fit_inner(data, epochs, verbose, final_gate,
+                                   warm_start, ckpt_dir)
         finally:
             # release the resident split even when an epoch fails
             self._device_data = None
 
-    def _fit_inner(self, data: SplitData, epochs, verbose, final_gate) -> Dict:
+    def _fit_inner(self, data: SplitData, epochs, verbose, final_gate,
+                   warm_start, ckpt_dir) -> Dict:
         cfg = self.config
         final_gate = cfg.aread_final if final_gate is None else final_gate
         didx = data.spec.domain_idx
@@ -605,9 +702,18 @@ class AREADTrainer:
         train_b.next_batch_indices(
             int(np.argmax([len(i) for i in train_b.domain_indices])))
         self.init()
+        if warm_start is not None:
+            adopt_state_dict(self.model, warm_start["state_dict"])
+            if warm_start.get("domain_mask"):
+                self.mask_state.domain_mask = copy_masks(
+                    warm_start["domain_mask"])
+        start_epoch = 0
+        if ckpt_dir and os.path.exists(os.path.join(ckpt_dir, "meta.json")):
+            start_epoch = self._resume(ckpt_dir, verbose, train_b, aug_b)
 
         history = []
-        for epoch_i in range(epochs if epochs is not None else cfg.epoch):
+        for epoch_i in range(start_epoch,
+                             epochs if epochs is not None else cfg.epoch):
             t0 = time.time()
             train_loss = self.train_epoch(epoch_i, train_b, aug_b, verbose)
             train_s = time.time() - t0
@@ -624,7 +730,20 @@ class AREADTrainer:
                       f"valid auc={result['total_auc']:.4f} "
                       f"loss={result['total_loss']:.4f} "
                       f"mean_auc={result.get('mean_auc', np.nan):.4f}")
-            if not self.is_continuable(result, epoch_i):
+            cont = self.is_continuable(result, epoch_i)
+            if ckpt_dir and self._improved:
+                if any(m is None for m in self.mask_state.domain_mask):
+                    raise RuntimeError("a domain has no mask to checkpoint")
+                save_checkpoint(
+                    ckpt_dir, self.model.state_dict(), self.opt_state,
+                    epoch=epoch_i + 1, best_result=result,
+                    generator=self.generator,
+                    domain_mask=self.mask_state.domain_mask,
+                    hemp_schedule=self.hemp_schedule(),
+                    host_state={"train_batcher": train_b.get_state(),
+                                "aug_batcher": aug_b.get_state(),
+                                "mask_state": self.mask_state.get_state()})
+            if not cont:
                 break
         self._load_best()
 

@@ -20,6 +20,7 @@ tower and the loss gathers the sample's group column.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -32,6 +33,9 @@ from aread_tpu_torch.models.base import gather_group, regularization_loss
 from aread_tpu_torch.ops.fused_adam import fused_adam_dispatch
 from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_dispatch
 from aread_tpu_torch.train import metrics as metrics_lib
+from aread_tpu_torch.train.checkpoint import (load_checkpoint, restore_tree_,
+                                              save_checkpoint,
+                                              set_generator_state)
 
 MULTI_TOWER_MODELS = ("ple", "mmoe", "pepnet", "epnet", "star", "adl", "hinet")
 CONCAT_GROUP_MODELS = ("star", "adl", "hinet")  # forward consumes group
@@ -254,9 +258,31 @@ def device_data_mode_enabled(config, total_bytes: int, budget: int) -> bool:
 
 # Config options of the JAX package's Trainer that are not ported yet,
 # with the only value the port takes
-_UNPORTED_OPTIONS = {"streaming_eval": False, "dynamic_regroup": "off",
+_UNPORTED_OPTIONS = {"compute_dtype": "float32", "dynamic_regroup": "off",
                      "log_dir": "", "epoch_timeout_s": 0.0,
                      "embed_lookup": "gspmd"}
+
+
+def clone_state(model) -> Dict[str, torch.Tensor]:
+    """A copy of the model's weights and buffers on its device."""
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def adopt_state_dict(model, state_dict: Dict[str, torch.Tensor]) -> None:
+    """A checkpoint's weights and buffers into the live tensors, in place,
+    each cast to the live tensor's dtype; the shapes must match (a
+    mismatch means the checkpoint is of another model or spec)."""
+    restore_tree_(model.state_dict(), state_dict, "state_dict")
+
+
+def restored_best(ck: Dict) -> Dict[str, float]:
+    """The early-stop bests of a resumed run from a checkpoint's
+    ``best_result`` (a metric that was NaN is stored as null)."""
+    best = ck.get("best_result") or {}
+    return {"best_auc": best.get("total_auc") or 0.0,
+            "best_loss": best.get("total_loss") or np.inf,
+            "best_mean_auc": best.get("mean_auc") or 0.0,
+            "best_mean_loss": best.get("mean_loss") or np.inf}
 
 
 class Trainer:
@@ -409,22 +435,42 @@ class Trainer:
 
     # ---------------------------------------------------------- evaluation
     @torch.no_grad()
-    def eval_prob(self, batch) -> torch.Tensor:
+    def eval_prob_logit(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(prob, logit) [B] of a placed batch; a multi-tower model's
+        outputs gathered at the sample's group column."""
         self.model.eval()
         group = batch.get("group")
-        prob = self.model(batch["x"], group=group, train=False)["prob"]
+        out = self.model(batch["x"], group=group, train=False)
+        prob, logit = out["prob"], out["logit"]
         if self.is_multi_tower and prob.dim() == 2:
-            prob = gather_group(prob, group)
-        return prob
+            prob, logit = gather_group(prob, group), gather_group(logit, group)
+        return prob, logit
+
+    def eval_prob(self, batch) -> torch.Tensor:
+        return self.eval_prob_logit(batch)[0]
 
     def evaluate(self, x: np.ndarray, y: np.ndarray,
                  domain_cnt_weight: np.ndarray) -> Dict:
         """Total and per-domain AUC / log-loss over a split. Evaluation
         normalizes with the running statistics, so the batch size does not
-        change the predictions; batches of 8 * bs cut the launches."""
+        change the predictions; batches of 8 * bs cut the launches. With
+        ``config.streaming_eval`` the predictions stay on the device: each
+        batch's logits go into per-domain histograms (``StreamingAUC``)
+        and only those are fetched."""
         batcher = GlobalBatcher(x, y, self.config.bs * 8,
                                 self.model.spec.domain_idx, self.domain2group,
                                 shuffle=False)
+        if self.config.streaming_eval:
+            acc = metrics_lib.StreamingAUC(self.n_domain, self.config.auc_bins)
+            auc_state = acc.init_state(self.device)
+            for batch in batcher:
+                tb = self.place(batch)
+                prob, logit = self.eval_prob_logit(tb)
+                auc_state = acc.update(auc_state, prob, tb["y"], tb["domain"],
+                                       tb["valid"], logits=logit)
+            return acc.finalize(
+                auc_state, domain_cnt_weight,
+                multi_domain=self.config.is_evaluate_multi_domain)
         preds, targets, domains = [], [], []
         for batch in batcher:
             n = int(batch["valid"].sum())
@@ -451,9 +497,7 @@ class Trainer:
             if "mean_auc" in result:
                 self.best_mean_auc = result["mean_auc"]
                 self.best_mean_loss = result.get("mean_loss", np.inf)
-            self.best_checkpoint = (
-                {k: v.clone() for k, v in self.model.state_dict().items()},
-                epoch_i)
+            self.best_checkpoint = (clone_state(self.model), epoch_i)
             return True
         if self.trial_counter + 1 < self.config.early_stop:
             self.trial_counter += 1
@@ -466,21 +510,45 @@ class Trainer:
         """Train up to ``epochs`` (default ``config.epoch``) epochs with
         early stopping on the valid split, then evaluate the best weights
         on the test split; the model is left holding them. Returns
-        {'history': per-epoch valid results, 'test': the test result}."""
-        if warm_start is not None:
-            raise NotImplementedError("warm_start is not ported yet")
-        if ckpt_dir is not None:
-            raise NotImplementedError("ckpt_dir (resume) is not ported yet")
+        {'history': per-epoch valid results, 'test': the test result}.
+
+        ``warm_start``: a checkpoint dict (``load_checkpoint``) whose
+        weights and buffers replace the model's; the optimizer starts
+        fresh.
+
+        ``ckpt_dir``: a resumable checkpoint (weights, optimizer state,
+        dropout generator, epoch, best metrics) is written there on every
+        improvement, and when one exists training resumes from it at the
+        saved epoch. The shuffle restarts at the epoch boundary
+        (``GlobalBatcher.set_epoch``), so a resumed run repeats the
+        uninterrupted one; the generator's state resumes only on the
+        device type it was saved on."""
         cfg = self.config
         batcher = GlobalBatcher(data.train_x, data.train_y, cfg.bs,
                                 data.spec.domain_idx, self.domain2group,
                                 seed=cfg.seed)
         self.init()
+        if warm_start is not None:
+            adopt_state_dict(self.model, warm_start["state_dict"])
+        start_epoch = 0
+        if ckpt_dir and os.path.exists(os.path.join(ckpt_dir, "meta.json")):
+            ck = load_checkpoint(ckpt_dir, map_location=self.device)
+            adopt_state_dict(self.model, ck["state_dict"])
+            restore_tree_(self.opt_state, ck["opt_state"], "opt_state")
+            set_generator_state(self.generator, ck["rng_state"])
+            start_epoch = int(ck["epoch"])
+            batcher.set_epoch(start_epoch)
+            for name, value in restored_best(ck).items():
+                setattr(self, name, value)
+            self.best_checkpoint = (clone_state(self.model), start_epoch - 1)
+            if verbose:
+                print(f"elastic resume from {ckpt_dir} at epoch {start_epoch}")
         device_data = self.device_data_enabled(data.train_x)
         n_train = data.train_x.shape[0]
         history = []
         try:
-            for epoch_i in range(epochs if epochs is not None else cfg.epoch):
+            for epoch_i in range(start_epoch,
+                                 epochs if epochs is not None else cfg.epoch):
                 t0 = time.time()
                 train_loss = (self.train_epoch_device(batcher) if device_data
                               else self.train_epoch(batcher))
@@ -499,7 +567,13 @@ class Trainer:
                     if "mean_auc" in result:
                         msg += f" mean_auc={result['mean_auc']:.4f}"
                     print(msg)
-                if not self.is_continuable(result, epoch_i):
+                cont = self.is_continuable(result, epoch_i)
+                if ckpt_dir and self._improved:
+                    save_checkpoint(ckpt_dir, self.model.state_dict(),
+                                    self.opt_state, epoch=epoch_i + 1,
+                                    best_result=result,
+                                    generator=self.generator)
+                if not cont:
                     break
         finally:
             # release the resident split even when an epoch fails

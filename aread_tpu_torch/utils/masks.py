@@ -15,7 +15,7 @@ functions, without a fetch of the gate values.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -305,6 +305,23 @@ class HempMaskState:
             self.gate_value_threshold[d] = None
             self.candidate_domain_mask[d] = []
             self.eval_loss[d] = []
+
+    def get_state(self) -> Dict:
+        """What the next evolution depends on beside ``domain_mask`` (which
+        a checkpoint holds by itself): the generator's position and the
+        gate records waiting for the next regroup. Candidates and probe
+        losses live only inside an evolution."""
+        return {"rng": self.rng.bit_generator.state,
+                "gate_records": [[[np.array(g) for g in rec]
+                                  for rec in acc._records]
+                                 for acc in self.gate_acc]}
+
+    def set_state(self, state: Dict) -> None:
+        self.rng.bit_generator.state = state["rng"]
+        self.reset_for_mask_update()
+        for d, records in enumerate(state["gate_records"]):
+            for rec in records:
+                self.gate_acc[d].add(rec)
 
     # ------------------------------------------------------------ recording
     def record_gates(self, d: int, gate_means: Sequence[np.ndarray]):

@@ -34,6 +34,16 @@ Phases, each printing one line:
            final-gate phase, the test pass; depth cut to HEMP_DEPTH. Then
            the evolution's parts timed one by one (adapt step, probe,
            snapshot restore, the prune by both routes);
+  serve    the path from a trained model to an answered request, at full
+           Amazon width: the hemp phase's AREAD (evolved masks), the
+           train_dense phase's DeepFM and MMoE each saved with
+           save_checkpoint and rebuilt by load_predictor from the
+           directory alone; served probabilities against the trainers'
+           evaluation, the per-domain loop and the same checkpoint on the
+           CPU; the HTTP server on a thread (requests of 1 to 8,192 rows,
+           a malformed one); request times per bucket by both clocks;
+           streaming evaluation against the exact one; fit(ckpt_dir=) and
+           a resume; both CLIs in subprocesses on a seed-made CSV;
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
@@ -44,7 +54,7 @@ Phases, each printing one line:
            go to --profile-dir.
 
 The launch counts are set to 0 just before each path (train, train_dense
-and its parts, hemp) and read just after it; a kernel's ``launches`` is the sum
+and its parts, hemp, serve's resumes) and read just after it; a kernel's ``launches`` is the sum
 over the paths. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -56,10 +66,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -153,6 +168,34 @@ def cuda_launches_per_call(fn, n: int = 4) -> float:
     if count == 0:
         raise AssertionError("the profiler saw no cudaLaunchKernel")
     return count / n
+
+
+def cuda_copies_per_call(fn, n: int = 4):
+    """(cudaMemcpyAsync calls per call of ``fn``, {device-side copy kind:
+    count per call}) from a torch.profiler window over ``n`` calls. The
+    calls count copies between host and device in either direction and
+    device-to-device ones; the kinds tell them apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    return (sum(e.count for e in ka if e.key == "cudaMemcpyAsync") / n,
+            {e.key: e.count / n for e in ka if e.key.startswith("Memcpy")})
+
+
+def assert_copies(what: str, copies: float, kinds, want: int) -> None:
+    """``want`` cudaMemcpyAsync calls per request: one copy in and one
+    out, plus with an f32 table the device-to-device copy of the gathered
+    rows. Held on the host-side call count; the device-side kinds are
+    printed beside it but a profiler window can lose one of them."""
+    if copies != want:
+        raise AssertionError(f"{what} made {copies} copies ({kinds}); "
+                             f"{want} were expected")
 
 
 @contextlib.contextmanager
@@ -888,6 +931,7 @@ def phase_train_dense(ctx):
         step_launches=ctx["launches_by_path"]["train_dense/deepfm_steps"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     ctx["dense_profile_args"] = (tr, batches)
+    ctx["dense"] = {"deepfm": tr, "data": data, "d2g": d2g, "make": make}
 
     # --- DCN and MMoE, dense; DeepFM, sparse table gradient
     for model, sparse, n in (("dcn", False, 6), ("mmoe", False, 6),
@@ -912,6 +956,7 @@ def phase_train_dense(ctx):
             if tuple(out["logit"].shape) != (BS, 3):
                 raise AssertionError(f"mmoe logit {tuple(out['logit'].shape)}")
             line["n_tower"] = 3
+            ctx["dense"]["mmoe"] = tr2
         say("train_dense", **line)
         del tr2
 
@@ -1314,6 +1359,7 @@ def phase_hemp(ctx):
     tr._prune = host_prune
     tr._restore(snap)
     ctx["hemp_profile_args"] = chain
+    ctx["hemp"] = {"trainer": tr, "data": data, "final": True}
 
     log = tr.regroup_log
     say("hemp", depth=HEMP_DEPTH, table_rows=model.spec.n_rows,
@@ -1353,6 +1399,674 @@ def phase_hemp(ctx):
         test_total_auc=res["test"]["total_auc"],
         test_mean_auc=res["test"]["mean_auc"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+# ------------------------------------------------------------------- serve
+SERVE_ROWS = 8192
+SERVE_BUCKETS = (128, 512, 2048, 8192)
+# Depth of the AREAD resume check; the width is the hemp phase's. One
+# candidate runs (int(2 * 0.99)); regroup points at steps 0 and 15 of the
+# 25-batch domain sequence.
+RESUME_DEPTH = {"train_batches": 16, "eval_rows": 2048, "epoch": 2,
+                "warm_up_interval": 4, "regroup_interval": 16,
+                "regroup_update_step": 2, "regroup_eval_step": 1,
+                "candidate_mask_num": 2, "early_stop": 100}
+
+
+def amazon_spec():
+    from aread_tpu_torch.models.base import FeatureSpec
+
+    return FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+
+
+def amazon_split(rng, n_train: int, n_eval: int, aug: bool = False):
+    """A SplitData of synthetic Amazon-width rows: train, (augmented,)
+    valid and test."""
+    from aread_tpu_torch.data.loader import SplitData
+
+    spec = amazon_spec()
+    parts = [n_train] * (2 if aug else 1) + [n_eval, n_eval]
+    x, y = amazon_rows(rng, spec, sum(parts))
+    xs, ys = np.split(x, np.cumsum(parts)[:-1]), np.split(y, np.cumsum(parts)[:-1])
+    counts = np.bincount(xs[0][:, spec.domain_idx], minlength=N_DOMAIN)
+    if counts.min() == 0:
+        raise AssertionError("a domain has no train rows")
+    return SplitData(
+        train_x=xs[0], train_y=ys[0], valid_x=xs[-2], valid_y=ys[-2],
+        test_x=xs[-1], test_y=ys[-1], spec=spec,
+        domain_cnt_weight=counts / n_train, n_domain=N_DOMAIN,
+        aug_train_x=xs[1] if aug else None, aug_train_y=ys[1] if aug else None)
+
+
+def serve_trainers(ctx):
+    """{name: trainer} of the models the phase serves: the hemp phase's
+    AREAD and the train_dense phase's DeepFM and MMoE where those phases
+    ran in this process, else the same configurations built here (AREAD
+    then under 'rand' masks)."""
+    from aread_tpu_torch.config import DOMAIN2GROUP, Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.hemp import AREADTrainer
+    from aread_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    if "hemp" in ctx:
+        out["aread"] = ctx["hemp"]["trainer"]
+    else:
+        cfg = Config(model="aread", dataset_name="amazon", seed=0)
+        tr = AREADTrainer(build_model(cfg, amazon_spec(), N_DOMAIN,
+                                      device="cuda"), cfg, N_DOMAIN)
+        for d in range(N_DOMAIN):
+            tr.mask_state.domain_mask[d] = tr.mask_state.generate_mask(
+                "rand", d, cfg.init_active_percent)
+        out["aread"] = tr
+    d2g = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
+    for name in ("deepfm", "mmoe"):
+        if name in ctx.get("dense", {}):
+            out[name] = ctx["dense"][name]
+        else:
+            cfg = Config(model=name, dataset_name="amazon", seed=0,
+                         sparse_table_grad=False, table_dtype="float32")
+            out[name] = Trainer(build_model(cfg, amazon_spec(), N_DOMAIN,
+                                            device="cuda"), cfg, N_DOMAIN, d2g)
+    return out
+
+
+def predict_per_domain(pred, x: np.ndarray) -> np.ndarray:
+    """A mixed-domain request served as one request per domain, each
+    through 'domain_with_mask' (what a single-domain request takes): the
+    reference that the one-forward route is held against."""
+    out = np.zeros((len(x),), np.float32)
+    domain = x[:, pred.model.spec.domain_idx]
+    for d in np.unique(domain):
+        idx = np.nonzero(domain == d)[0]
+        out[idx] = pred.predict(x[idx])
+    return out
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def max_abs(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64)
+                               - np.asarray(b, np.float64))))
+
+
+def serve_checkpoints(ctx, trainers, tmp: str, x: np.ndarray):
+    """Each model saved, rebuilt from its directory alone on the card and
+    on the CPU, and its served probabilities held against the trainer's
+    evaluation path. Returns {name: Predictor on the card}."""
+    from aread_tpu_torch.models.aread import full_mask
+    from aread_tpu_torch.serve.predictor import load_predictor
+    from aread_tpu_torch.train.checkpoint import save_checkpoint
+
+    spec = amazon_spec()
+    didx = spec.domain_idx
+    preds = {}
+    for name, tr in trainers.items():
+        model = tr.model
+        masks = tr.mask_state.domain_mask if name == "aread" else None
+        path = os.path.join(tmp, f"{name}_best")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, model.state_dict(), {}, epoch=1,
+                        domain_mask=masks, spec=spec, run_config=tr.config,
+                        n_domain=N_DOMAIN)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = load_predictor(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if pred.device.type != "cuda":
+            raise AssertionError("load_predictor did not build its own "
+                                 "model on the card")
+        table = pred.model.embedding.table
+        if table.shape != model.embedding.table.shape or not torch.equal(
+                table, model.embedding.table):
+            raise AssertionError(f"{name}: the rebuilt table differs")
+        got = pred.predict(x)
+        if got.shape != (len(x),) or not np.isfinite(got).all() or not (
+                (got >= 0) & (got <= 1)).all():
+            raise AssertionError(f"{name}: served probabilities {got[:8]}")
+        line = {"model": name, "rows": len(x), "ckpt_bytes": dir_bytes(path),
+                "save_s": save_s, "load_predictor_s": load_s,
+                "table": [list(table.shape), str(table.dtype)]}
+        # (a) against the trainer's evaluation path
+        if name == "aread":
+            want = np.zeros(len(x), np.float32)
+            for d in range(N_DOMAIN):
+                idx = np.nonzero(x[:, didx] == d)[0]
+                dm = masks[d] if masks[d] is not None else full_mask(
+                    model.n_tower)
+                want[idx] = tr.eval_prob(
+                    {"x": torch.as_tensor(x[idx], device="cuda")},
+                    dm).cpu().numpy()
+            per_domain = predict_per_domain(pred, x)
+            line["mixed_vs_per_domain"] = max_abs(got, per_domain)
+            line["per_domain_vs_trainer_eval"] = max_abs(per_domain, want)
+            line["domains_without_mask"] = sum(m is None for m in masks)
+            if max(line["mixed_vs_per_domain"],
+                   line["per_domain_vs_trainer_eval"]) > 1e-6:
+                raise AssertionError(f"aread routes disagree: {line}")
+            # (b) input order
+            perm = np.random.default_rng(1).permutation(len(x))
+            line["order_max_abs"] = max_abs(pred.predict(x[perm]), got[perm])
+            if line["order_max_abs"] > 1e-6:
+                raise AssertionError(f"input order not kept: {line}")
+        else:
+            xb = torch.as_tensor(x, device="cuda")
+            batch = {"x": xb}
+            if tr.domain2group is not None:
+                batch["group"] = torch.as_tensor(
+                    tr.domain2group, device="cuda")[xb[:, didx].long()]
+            want = tr.eval_prob(batch).cpu().numpy()
+            if name == "mmoe" and (pred.domain2group is None or not
+                                   np.array_equal(pred.domain2group,
+                                                  tr.domain2group)):
+                raise AssertionError("mmoe: domain2group not rebuilt")
+        line["vs_trainer_eval"] = max_abs(got, want)
+        if line["vs_trainer_eval"] > 1e-6:
+            raise AssertionError(f"{name}: served != evaluated: {line}")
+        # (c) the same checkpoint on the CPU
+        t0 = time.perf_counter()
+        cpu = load_predictor(path, device='cpu')
+        cpu_got = cpu.predict(x)
+        line["cpu_load_and_predict_s"] = time.perf_counter() - t0
+        line["card_vs_cpu"] = max_abs(got, cpu_got)
+        if cpu.device.type != "cpu" or line["card_vs_cpu"] > 1e-5:
+            raise AssertionError(f"{name}: card != CPU: {line}")
+        del cpu
+        if pred.predict(x[:0]).shape != (0,):
+            raise AssertionError("an empty request")
+        say("serve", part="checkpoint+predictor", tolerance_eval=1e-6,
+            tolerance_cpu=1e-5, **line)
+        preds[name] = pred
+    return preds
+
+
+def http_call(url: str, body=None):
+    """(status, decoded JSON, seconds) of one request."""
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, out = r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        status, out = e.code, json.load(e)
+    return status, out, time.perf_counter() - t0
+
+
+def single_domain(x: np.ndarray, d: int) -> np.ndarray:
+    out = x.copy()
+    out[:, amazon_spec().domain_idx] = d
+    return out
+
+
+def serve_http(pred, x: np.ndarray):
+    """The server on a thread: health, requests of 1 to 8,192 rows single-
+    and mixed-domain (status 200 and the numbers of pred.predict, never
+    only that an answer came: the server turns every exception into a
+    400), a malformed request, a clean shutdown. Returns the round-trip
+    medians (ms) by (rows, kind)."""
+    from aread_tpu_torch.serve.server import make_server
+
+    srv = make_server(pred, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    times = {}
+    try:
+        base = "http://%s:%d" % srv.server_address
+        status, out, _ = http_call(f"{base}/healthz")
+        if status != 200 or out != {"status": "ok"}:
+            raise AssertionError(f"/healthz: {status} {out}")
+        for n in (1, 100) + SERVE_BUCKETS:
+            for kind, rows in (("single", single_domain(x[:n], 3)),
+                               ("mixed", x[:n])):
+                if n == 1 and kind == "mixed":
+                    continue  # one row has one domain
+                body = json.dumps({"x": rows.tolist()}).encode()
+                want = pred.predict(rows)
+                secs = []
+                for _ in range(5):
+                    status, out, s = http_call(f"{base}/predict", body)
+                    if status != 200:
+                        raise AssertionError(f"/predict {n} {kind}: "
+                                             f"{status} {out}")
+                    got = np.asarray(out["prob"], np.float32)
+                    if got.shape != (n,) or max_abs(got, want) > 1e-6:
+                        raise AssertionError(
+                            f"/predict {n} {kind}: served numbers differ "
+                            f"from predict by {max_abs(got, want)}")
+                    secs.append(s)
+                times[f"{n}_{kind}"] = statistics.median(secs) * 1e3
+        for body in (b'{"x": 3}', b"not json"):
+            status, out, _ = http_call(f"{base}/predict", body)
+            if status != 400 or "error" not in out:
+                raise AssertionError(f"malformed request: {status} {out}")
+        if http_call(f"{base}/nothing")[0] != 404:
+            raise AssertionError("an unknown path did not give 404")
+        if http_call(f"{base}/healthz")[0] != 200:
+            raise AssertionError("the server did not outlive a bad request")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+    return times
+
+
+def serve_times(preds, x: np.ndarray, http_ms):
+    """Request time per bucket: median of 20 predict calls by CUDA events
+    and by the host clock (each call ends in its device-to-host copy),
+    single- and mixed-domain, the HTTP round trip beside them; CUDA
+    launches and copies per request (torch.profiler; one copy in and one
+    out, or the run fails); the host's JSON work of a request apart from
+    the device's."""
+    pred = preds["aread"]
+    rows = []
+    for n in SERVE_BUCKETS:
+        for kind, req in (("single", single_domain(x[:n], 3)),
+                          ("mixed", x[:n])):
+            ev, host = event_ms(lambda: pred.predict(req), n=20)
+            copies, kinds = cuda_copies_per_call(lambda: pred.predict(req))
+            assert_copies(f"a {kind} request of {n} rows", copies, kinds, 2)
+            rows.append({"rows": n, "kind": kind, "events_ms": ev,
+                         "host_clock_ms": host,
+                         "http_round_trip_ms": http_ms[f"{n}_{kind}"],
+                         "launches": cuda_launches_per_call(
+                             lambda: pred.predict(req)),
+                         "copies": copies, "copy_kinds": kinds})
+    ev, host = event_ms(lambda: predict_per_domain(pred, x), n=5)
+    per_domain = {"rows": len(x), "events_ms": ev, "host_clock_ms": host}
+    others = {}
+    for name in ("deepfm", "mmoe"):
+        ev, host = event_ms(lambda: preds[name].predict(x), n=20)
+        copies, kinds = cuda_copies_per_call(lambda: preds[name].predict(x))
+        assert_copies(f"{name}: a request of {len(x)} rows", copies, kinds, 3)
+        others[name] = {"rows": len(x), "events_ms": ev, "host_clock_ms": host,
+                        "launches": cuda_launches_per_call(
+                            lambda: preds[name].predict(x)),
+                        "copies": copies, "copy_kinds": kinds}
+    # the host's share of an 8,192-row HTTP request, timed alone
+    body = json.dumps({"x": x.tolist()})
+    prob = pred.predict(x)
+    t0 = time.perf_counter()
+    np.asarray(json.loads(body)["x"], dtype=np.int64)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    json.dumps({"prob": [float(p) for p in prob]})
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    say("serve", part="times", model="aread", requests=rows,
+        http_round_trip_ms=http_ms,
+        per_domain_loop=per_domain, other_models=others,
+        json_8192_rows_ms={"decode_request": decode_ms,
+                           "encode_answer": encode_ms,
+                           "request_bytes": len(body)})
+
+
+def serve_streaming_eval(ctx, trainers):
+    """evaluate() with streaming_eval against the exact path on the same
+    split, both trainers, within the bounds of the JAX package's tests."""
+    import dataclasses
+
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.train.hemp import AREADTrainer
+
+    spec = amazon_spec()
+    rng = np.random.default_rng(5)
+    x, y = amazon_rows(rng, spec, SERVE_ROWS)
+    weight = np.bincount(x[:, spec.domain_idx], minlength=N_DOMAIN) / len(x)
+
+    def run(tr, streaming):
+        cfg = tr.config
+        tr.config = dataclasses.replace(cfg, streaming_eval=streaming)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            if isinstance(tr, AREADTrainer):
+                res = tr.evaluate(
+                    DomainBatcher(x, y, cfg.bs * 8, spec.domain_idx, N_DOMAIN,
+                                  shuffle=False), weight,
+                    final=ctx.get("hemp", {}).get("final", False))
+            else:
+                res = tr.evaluate(x, y, weight)
+        finally:
+            tr.config = cfg
+        return res, time.perf_counter() - t0
+
+    for name, auc_tol in (("aread", 3e-3), ("deepfm", 8e-3)):
+        tr = trainers[name]
+        exact, exact_s = run(tr, False)
+        stream, stream_s = run(tr, True)
+        if name == "deepfm":
+            # DeepFM saturates on these rows, and a saturated, wrong row
+            # costs -log(1e-15) on the exact path and -log(1e-7) on the
+            # streaming one: hold the streaming loss to the same
+            # predictions' BCE at the streaming path's f32 epsilon
+            xb = torch.as_tensor(x, device="cuda")
+            prob = tr.eval_prob({"x": xb, "group": torch.as_tensor(
+                tr.domain2group, device="cuda")[xb[:, spec.domain_idx].long()]})
+            p = torch.clamp(prob, 1e-7, 1 - 1e-7)
+            yt = torch.as_tensor(y, device="cuda").to(torch.float32)
+            bce = -(yt * torch.log(p) + (1 - yt) * torch.log1p(-p))
+            exact = dict(exact, total_loss=float(bce.double().mean()))
+        gaps = {k: abs(stream[k] - exact[k])
+                for k in ("total_auc", "mean_auc", "total_loss")}
+        say("serve", part="streaming_eval", model=name, rows=len(x),
+            auc_bins=tr.config.auc_bins,
+            exact={k: exact[k] for k in gaps},
+            streaming={k: stream[k] for k in gaps}, gap=gaps,
+            bounds={"total_auc": auc_tol, "total_loss": 1e-5},
+            exact_s=exact_s, streaming_s=stream_s)
+        if set(stream) != set(exact) or set(stream["domain_auc"]) != set(
+                exact["domain_auc"]):
+            raise AssertionError("streaming eval: another result dict")
+        if not (gaps["total_auc"] < auc_tol and gaps["total_loss"] < 1e-5):
+            raise AssertionError(f"{name}: streaming eval gap {gaps}")
+
+
+def state_max_diff(a, b) -> float:
+    """Largest absolute difference between two trainers' weights, buffers
+    and table moments; the step counts must be equal."""
+    worst = 0.0
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    for k in sa:
+        worst = max(worst, float((sa[k].float() - sb[k].float()).abs().max()))
+    for k in ("m", "v"):
+        worst = max(worst, float((a.opt_state[k].float()
+                                  - b.opt_state[k].float()).abs().max()))
+    for k in ("mu", "nu"):
+        for n, v in a.opt_state["inner"][k].items():
+            worst = max(worst, float(
+                (v - b.opt_state["inner"][k][n]).abs().max()))
+    if (a.opt_state["t"], a.opt_state["inner"]["count"]) != (
+            b.opt_state["t"], b.opt_state["inner"]["count"]):
+        raise AssertionError("resumed step counts differ")
+    return worst
+
+
+def serve_resume_dense(ctx, tmp: str):
+    """fit(ckpt_dir=) for one epoch, a fresh trainer resumes at epoch 1:
+    after the second epoch its weights and moments equal those of an
+    uninterrupted 2-epoch run (dropout on: the generator's state is part
+    of the checkpoint)."""
+    import dataclasses
+
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    n_steps = 12
+    data = amazon_split(np.random.default_rng(6), n_steps * BS, 2048)
+    d2g = ctx["serve_d2g"]
+
+    def make():
+        cfg = Config(model="deepfm", dataset_name="amazon", seed=0,
+                     sparse_table_grad=False, table_dtype="float32",
+                     early_stop=100)
+        return Trainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
+                       cfg, N_DOMAIN, d2g)
+
+    ckpt = os.path.join(tmp, "deepfm_elastic")
+    whole, first, second = make(), make(), make()
+    t0 = time.perf_counter()
+    res_whole = counted(ctx, "serve/resume_deepfm_whole",
+                        lambda: whole.fit(data, epochs=2, verbose=False))
+    counted(ctx, "serve/resume_deepfm_first", lambda: first.fit(
+        data, epochs=1, verbose=False, ckpt_dir=ckpt))
+    ckpt_bytes = dir_bytes(ckpt)
+    res = counted(ctx, "serve/resume_deepfm_resumed", lambda: second.fit(
+        data, epochs=2, verbose=False, ckpt_dir=ckpt))
+    secs = time.perf_counter() - t0
+    launches = [ctx["launches_by_path"][f"serve/resume_deepfm_{k}"]
+                for k in ("whole", "first", "resumed")]
+    want = [{"sparse_adam": 0, "fused_adam": n}
+            for n in (2 * n_steps, n_steps, n_steps)]
+    if launches != want:
+        raise AssertionError(f"resume launches {launches}, expected {want}")
+    if len(res["history"]) != 1 or second.opt_state["t"] != 2 * n_steps:
+        raise AssertionError("the resumed trainer did not start at epoch 1")
+    diff = state_max_diff(second, whole)
+    auc_gap = abs(res["history"][0]["total_auc"]
+                  - res_whole["history"][1]["total_auc"])
+    say("serve", part="resume", model="deepfm", steps_per_epoch=n_steps,
+        resumable_ckpt_bytes=ckpt_bytes, seconds_three_fits=secs,
+        max_abs_diff_vs_uninterrupted=diff, valid_auc_gap=auc_gap,
+        tolerance=1e-5, launches=launches)
+    if diff > 1e-5 or auc_gap > 1e-6:
+        raise AssertionError(f"resumed != uninterrupted: {diff}, {auc_gap}")
+
+
+def serve_resume_aread(ctx, tmp: str):
+    """AREADTrainer.fit(ckpt_dir=) for one epoch at a cut depth, then a
+    fresh trainer resumes at epoch 1: it enters the epoch holding exactly
+    what was saved, and after it its weights, moments, masks and schedule
+    equal those of an uninterrupted 2-epoch run (the checkpoint holds the
+    batchers' and the mask generator's positions too). The sparse_adam
+    launches of every run are the schedule's."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.hemp import AREADTrainer
+
+    depth = dict(RESUME_DEPTH)
+    n_train = depth.pop("train_batches") * BS
+    data = amazon_split(np.random.default_rng(7), n_train,
+                        depth.pop("eval_rows"), aug=True)
+    cfg = Config(model="aread", dataset_name="amazon", seed=0, **depth)
+
+    def make():
+        return AREADTrainer(build_model(cfg, data.spec, N_DOMAIN,
+                                        device="cuda"), cfg, N_DOMAIN)
+
+    ckpt = os.path.join(tmp, "aread_elastic")
+    whole, first, second = make(), make(), make()
+    t0 = time.perf_counter()
+    res_whole = counted(ctx, "serve/resume_aread_whole", lambda: whole.fit(
+        data, epochs=2, verbose=False))
+    whole_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counted(ctx, "serve/resume_aread_first", lambda: first.fit(
+        data, epochs=1, verbose=False, ckpt_dir=ckpt))
+    first_s = time.perf_counter() - t0
+    ckpt_bytes = dir_bytes(ckpt)
+    saved = {"weights": first._snapshot(),
+             "m": first.opt_state["m"].clone(),
+             "v": first.opt_state["v"].clone(), "t": first.opt_state["t"],
+             "masks": first._copy_masks(), "sched": first.hemp_schedule(),
+             "gen": first.generator.get_state()}
+    entered = {}
+    epoch = second.train_epoch
+
+    def train_epoch(epoch_i, *a, **kw):
+        live = second.model.state_dict()
+        entered["epoch_i"] = epoch_i
+        entered["exact"] = (
+            all(torch.equal(live[k], v) for k, v in saved["weights"].items())
+            and torch.equal(second.opt_state["m"], saved["m"])
+            and torch.equal(second.opt_state["v"], saved["v"])
+            and second.opt_state["t"] == saved["t"]
+            and all(masks_equal(a_, b_) for a_, b_ in zip(
+                second.mask_state.domain_mask, saved["masks"]))
+            and second.hemp_schedule() == saved["sched"]
+            and torch.equal(second.generator.get_state(), saved["gen"]))
+        return epoch(epoch_i, *a, **kw)
+
+    second.train_epoch = train_epoch
+    t0 = time.perf_counter()
+    res = counted(ctx, "serve/resume_aread_resumed", lambda: second.fit(
+        data, epochs=2, verbose=False, ckpt_dir=ckpt))
+    resumed_s = time.perf_counter() - t0
+    if entered != {"epoch_i": 1, "exact": True} or len(res["history"]) != 1:
+        raise AssertionError(f"resume entered {entered}")
+    diff = state_max_diff(second, whole)
+    same_masks = all(masks_equal(a, b) for a, b in zip(
+        res["domain_mask"], res_whole["domain_mask"]))
+    auc_gap = abs(res["history"][0]["total_auc"]
+                  - res_whole["history"][1]["total_auc"])
+    # --- what the schedule implies
+    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
+                         minlength=N_DOMAIN)
+    n_seq = int(np.sum(np.ceil(counts / BS)))
+    warm = cfg.warm_up_interval * 1024 // BS
+    interval = cfg.regroup_interval * 1024 // BS
+    per_epoch = sum((i + 1) % interval == 0 for i in range(n_seq))
+
+    def chain_steps(first_regroup, n):
+        return sum(N_DOMAIN * max(1, int(cfg.candidate_mask_num
+                                         * 0.99 ** (r + 1)))
+                   * cfg.regroup_update_step
+                   for r in range(first_regroup, first_regroup + n))
+
+    want_first = warm + n_seq + chain_steps(0, 1 + per_epoch)
+    want_resumed = n_seq + chain_steps(1 + per_epoch, per_epoch)
+    want = {"whole": want_first + want_resumed, "first": want_first,
+            "resumed": want_resumed}
+    launches = {k: ctx["launches_by_path"][f"serve/resume_aread_{k}"]
+                for k in want}
+    say("serve", part="resume", model="aread", depth=RESUME_DEPTH,
+        resumable_ckpt_bytes=ckpt_bytes, whole_fit_s=whole_s,
+        first_fit_s=first_s, resumed_fit_s=resumed_s,
+        regroups={"whole": whole.regroup_times, "first": first.regroup_times,
+                  "resumed": second.regroup_times},
+        entered_epoch_1_with_saved_state=True,
+        max_abs_diff_vs_uninterrupted=diff, masks_equal=same_masks,
+        valid_auc_gap=auc_gap, schedule=second.hemp_schedule(),
+        tolerance=1e-5, launches=launches,
+        sparse_adam_launches_schedule=want)
+    if per_epoch < 1 or (whole.regroup_times, first.regroup_times,
+                         second.regroup_times) != (
+            1 + 2 * per_epoch, 1 + per_epoch, 1 + 2 * per_epoch):
+        raise AssertionError("the resumed run did not go on with the "
+                             "saved schedule")
+    if launches != {k: {"sparse_adam": n, "fused_adam": 0}
+                    for k, n in want.items()}:
+        raise AssertionError(f"resume launches {launches}, the schedule "
+                             f"implies {want}")
+    if diff > 1e-5 or auc_gap > 1e-6 or not same_masks or (
+            second.hemp_schedule() != whole.hemp_schedule()):
+        raise AssertionError(f"resumed != uninterrupted: {diff}, {auc_gap}, "
+                             f"masks equal: {same_masks}")
+
+
+def canonical_aliccp_frame(n: int, seed: int, n_domain: int = 4,
+                           vocab: int = 40):
+    """A small canonical aliccp training frame made from a seed; the label
+    follows the item id."""
+    import pandas as pd
+
+    from aread_tpu_torch.data.loader import dataset_columns
+
+    rng = np.random.default_rng(seed)
+    one_hot, _, label = dataset_columns("aliccp")
+    cols = {c: rng.integers(0, {"itemid": vocab, "domain": n_domain}.get(c, 6),
+                            n) for c in one_hot}
+    cols[label] = ((cols["itemid"] % 7) / 3.0 - 1.0
+                   + 0.3 * rng.standard_normal(n) > 0).astype(int)
+    cols["train_tag"] = rng.choice([0, 1, 2], n, p=[0.8, 0.1, 0.1])
+    return pd.DataFrame(cols)
+
+
+def serve_cli(tmp: str):
+    """Both CLIs as a user calls them, in subprocesses on the card, on a
+    seed-made canonical CSV (small vocabulary: this part is about the
+    entry points, not the width): train AREAD, then score a CSV; the
+    written probabilities equal load_predictor(...).predict."""
+    import pandas as pd
+
+    from aread_tpu_torch.data.loader import dataset_columns, tensorize
+    from aread_tpu_torch.data.pipeline import preprocessed_csv_path
+    from aread_tpu_torch.serve.predictor import load_predictor
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data_path, save_path = os.path.join(tmp, "dataset"), os.path.join(tmp, "save")
+    csv = preprocessed_csv_path("aliccp", data_path)
+    os.makedirs(os.path.dirname(csv))
+    canonical_aliccp_frame(3000, seed=11).to_csv(csv, index=False)
+    env = dict(os.environ, AREAD_TPU_CACHE="0")
+
+    def run(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"python -m {' '.join(args)} exited {proc.returncode}\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    out, train_s = run(
+        "aread_tpu_torch", "--model", "aread", "--dataset_name", "aliccp",
+        "--data_path", data_path, "--save_path", save_path, "--bs", "256",
+        "--embed_dim", "8", "--epoch", "1", "--warm_up_interval", "1",
+        "--regroup_interval", "8", "--candidate_mask_num", "2",
+        "--regroup_update_step", "2", "--regroup_eval_step", "2",
+        "--elastic")
+    best = os.path.join(save_path, "aliccp", "aread_best")
+    for piece in ("generated augmentation:", "regroup 1:", "epoch 1: train_loss=",
+                  f"checkpoint saved: {best}", "test: {"):
+        if piece not in out:
+            raise AssertionError(f"the training CLI did not print {piece!r}:"
+                                 f"\n{out[-2000:]}")
+    if not os.path.exists(os.path.join(save_path, "aliccp", "aread_elastic",
+                                       "meta.json")):
+        raise AssertionError("--elastic wrote no resumable checkpoint")
+    frame = canonical_aliccp_frame(1000, seed=12).drop(columns=["click"])
+    inp, outp = os.path.join(tmp, "score.csv"), os.path.join(tmp, "preds.csv")
+    frame.to_csv(inp, index=False)
+    _, serve_s = run("aread_tpu_torch.serve", "--ckpt", best, "--input", inp,
+                     "--output", outp)
+    got = pd.read_csv(outp)["prob"].to_numpy()
+    pred = load_predictor(best)
+    one_hot, seq_cols, label = dataset_columns("aliccp")
+    frame[label] = 0
+    spec = pred.model.spec
+    x, _ = tensorize(frame, one_hot, seq_cols, label, spec.seq_maxlen,
+                     spec.one_hot_dims[spec.itemid_idx] - 1)
+    want = pred.predict(x)
+    diff = max_abs(got, want)
+    say("serve", part="cli", train_cli_s=train_s, serve_cli_s=serve_s,
+        scored_rows=len(got), masks_in_checkpoint=sum(
+            m is not None for m in pred.domain_mask),
+        scored_vs_predict=diff, tolerance=1e-6)
+    if len(got) != 1000 or diff > 1e-6 or any(m is None
+                                              for m in pred.domain_mask):
+        raise AssertionError(f"the scored file differs from predict: {diff}")
+
+
+def phase_serve(ctx):
+    """From a trained model to an answered request, at full Amazon width
+    (the CLI part apart), and what the trainers gained with it: streaming
+    evaluation and resume."""
+    from aread_tpu_torch.config import DOMAIN2GROUP
+
+    torch.cuda.reset_peak_memory_stats()
+    ctx["serve_d2g"] = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
+    trainers = serve_trainers(ctx)
+    x, _ = amazon_rows(np.random.default_rng(4), amazon_spec(), SERVE_ROWS)
+    if len(np.unique(x[:, amazon_spec().domain_idx])) != N_DOMAIN:
+        raise AssertionError("the request rows do not cover all domains")
+    with tempfile.TemporaryDirectory(prefix="aread_serve_") as tmp:
+        preds = serve_checkpoints(ctx, trainers, tmp, x)
+        http_ms = serve_http(preds["aread"], x)
+        serve_times(preds, x, http_ms)
+        del preds
+        serve_streaming_eval(ctx, trainers)
+        # the earlier phases' trainers are done with: free their tables
+        trainers.clear()
+        for key in ("hemp", "dense", "eval", "profile_args",
+                    "dense_profile_args", "hemp_profile_args"):
+            ctx.pop(key, None)
+        torch.cuda.empty_cache()
+        serve_resume_dense(ctx, tmp)
+        serve_resume_aread(ctx, tmp)
+        serve_cli(tmp)
+    say("serve", part="done",
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
 
 
 def profile_steps(ctx, name: str, step):
@@ -1421,7 +2135,8 @@ def phase_profile_hemp(ctx):
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
-          "train_dense": phase_train_dense, "hemp": phase_hemp}
+          "train_dense": phase_train_dense, "hemp": phase_hemp,
+          "serve": phase_serve}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}
 

@@ -1,0 +1,219 @@
+"""Both CLIs of the port in a subprocess on the CPU (``--device cpu``), on a
+seed-made canonical aliccp CSV: ``python -m aread_tpu_torch`` trains AREAD
+with HEMP, writes the augmented file, the self-contained best checkpoint
+(with masks) and the resumable one; second runs warm-start
+(``--is_increment``) and resume (``--elastic``); ``python -m
+aread_tpu_torch.serve`` scores a CSV to the probabilities that
+``load_predictor(...).predict`` gives in this process (atol 1e-6; the same
+code on the same rows); a flag whose feature is not ported raises by
+name."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from aread_tpu_torch.__main__ import load_config, main
+from aread_tpu_torch.data.loader import dataset_columns, tensorize
+from aread_tpu_torch.data.pipeline import preprocessed_csv_path
+from aread_tpu_torch.serve.predictor import load_predictor
+from aread_tpu_torch.train.checkpoint import load_checkpoint
+from tests.test_torch_port_data import make_canonical_frame
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_DOMAIN = 4
+HEMP_FLAGS = ["--warm_up_interval", "1", "--regroup_interval", "1",
+              "--candidate_mask_num", "2", "--regroup_update_step", "1",
+              "--regroup_eval_step", "1"]
+
+
+@pytest.fixture(scope="module")
+def dirs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    csv = preprocessed_csv_path("aliccp", str(root / "dataset"))
+    os.makedirs(os.path.dirname(csv))
+    make_canonical_frame("aliccp", 500, seed=7, n_domain=N_DOMAIN).to_csv(
+        csv, index=False)
+    return {"data": str(root / "dataset"), "save": str(root / "save"),
+            "csv": csv, "root": root}
+
+
+def run(module, *args, expect_ok=True):
+    env = {k: v for k, v in os.environ.items() if k != "AREAD_TPU_CACHE"}
+    env["AREAD_TPU_CACHE"] = "0"
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=600)
+    if expect_ok:
+        assert proc.returncode == 0, (
+            f"rc={proc.returncode}\nstdout:\n{proc.stdout[-3000:]}\n"
+            f"stderr:\n{proc.stderr[-3000:]}")
+    return proc
+
+
+def train(dirs, model, *extra, **kw):
+    return run("aread_tpu_torch", "--device", "cpu", "--data_path",
+               dirs["data"], "--save_path", dirs["save"], "--dataset_name",
+               "aliccp", "--model", model, "--bs", "64", "--embed_dim", "8",
+               "--epoch", "1", *extra, **kw)
+
+
+def test_result(stdout):
+    lines = [l for l in stdout.splitlines() if l.startswith("test: {")]
+    assert lines, stdout[-2000:]
+    return eval(lines[-1][len("test: "):],
+                {"nan": float("nan"), "inf": float("inf")})
+
+
+test_result.__test__ = False
+
+
+@pytest.fixture(scope="module")
+def trained_aread(dirs):
+    return train(dirs, "aread", "--elastic", *HEMP_FLAGS).stdout
+
+
+def test_train_cli_aread_writes_checkpoints_with_masks(dirs, trained_aread):
+    out = trained_aread
+    assert "generated augmentation:" in out
+    assert f"n_domain:{N_DOMAIN}" in out and "model:aread, lr:0.001, bs:64" in out
+    assert "regroup 1:" in out and "epoch 1: train_loss=" in out
+    best = os.path.join(dirs["save"], "aliccp", "aread_best")
+    assert f"checkpoint saved: {best}" in out
+    res = test_result(out)
+    assert 0.0 <= res["total_auc"] <= 1.0 and res["total_loss"] > 0
+    assert "test mean_auc:" in out
+    assert os.path.exists(os.path.join(
+        dirs["save"], "aliccp",
+        os.path.basename(dirs["csv"]).replace(".csv", "_aug0.1.csv")))
+    ck = load_checkpoint(best, n_domain=N_DOMAIN)
+    assert ck["epoch"] == 1 and ck["n_domain"] == N_DOMAIN
+    assert ck["opt_state"] == {} and "rng_state" not in ck
+    assert all(m is not None for m in ck["domain_mask"])
+    assert ck["config"]["model"] == "aread" and ck["config"]["elastic"] is True
+    assert len(ck["spec"]["one_hot_dims"]) == 23
+    np.testing.assert_allclose(ck["best_result"]["total_auc"],
+                               res["total_auc"])
+    # the resumable checkpoint of --elastic: optimizer, generator, schedule
+    el = load_checkpoint(os.path.join(dirs["save"], "aliccp", "aread_elastic"),
+                         n_domain=N_DOMAIN)
+    assert el["epoch"] == 1 and el["opt_state"]["t"] > 0
+    assert el["rng_state"]["device"] == "cpu"
+    assert el["hemp_schedule"]["regroup_times"] >= 1
+    assert "spec" not in el
+
+
+def test_train_cli_second_run_warm_starts_and_resumes(dirs, trained_aread):
+    out = train(dirs, "aread", "--elastic", "--is_increment", "--epoch", "2",
+                *HEMP_FLAGS).stdout
+    best = os.path.join(dirs["save"], "aliccp", "aread_best")
+    assert f"warm-start from {best} (epoch 1)" in out
+    assert "elastic resume from" in out and "at epoch 1" in out
+    assert "generated augmentation:" not in out  # the file is reused
+    assert "epoch 2: train_loss=" in out and "epoch 1: train_loss=" not in out
+    assert load_checkpoint(best)["epoch"] == 1  # one epoch was run this time
+
+
+def test_serve_cli_scores_what_predict_gives(dirs, trained_aread):
+    best = os.path.join(dirs["save"], "aliccp", "aread_best")
+    frame = make_canonical_frame("aliccp", 150, seed=8, n_domain=N_DOMAIN)
+    frame = frame.drop(columns=["click"])  # scoring needs no label
+    inp, outp = str(dirs["root"] / "score.csv"), str(dirs["root"] / "preds.csv")
+    frame.to_csv(inp, index=False)
+    out = run("aread_tpu_torch.serve", "--device", "cpu", "--ckpt", best,
+              "--input", inp, "--output", outp).stdout
+    assert f"wrote 150 predictions to {outp}" in out
+    got = pd.read_csv(outp)
+    assert list(got.columns) == ["prob"] and len(got) == 150
+    pred = load_predictor(best, device="cpu")
+    one_hot, seq_cols, label = dataset_columns("aliccp")
+    spec = pred.model.spec
+    frame[label] = 0
+    x, _ = tensorize(frame, one_hot, seq_cols, label, spec.seq_maxlen,
+                     spec.one_hot_dims[spec.itemid_idx] - 1)
+    want = pred.predict(x)
+    assert len(np.unique(x[:, spec.domain_idx])) == N_DOMAIN  # mixed-domain
+    np.testing.assert_allclose(got["prob"].to_numpy(), want, rtol=0,
+                               atol=1e-6)
+    assert ((want > 0) & (want < 1)).all()
+    # without --http the two paths are required
+    proc = run("aread_tpu_torch.serve", "--device", "cpu", "--ckpt", best,
+               expect_ok=False)
+    assert proc.returncode != 0 and "--input/--output required" in proc.stderr
+
+
+def test_train_cli_generic_model_with_streaming_eval(dirs):
+    out = train(dirs, "deepfm", "--streaming_eval", "--auc_bins", "2048",
+                "--table_dtype", "float32").stdout
+    res = test_result(out)
+    assert 0.0 <= res["total_auc"] <= 1.0
+    ck = load_checkpoint(os.path.join(dirs["save"], "aliccp", "deepfm_best"))
+    assert ck["config"]["streaming_eval"] is True
+    assert ck["config"]["auc_bins"] == 2048
+    assert "domain_mask" not in ck
+    pred = load_predictor(os.path.join(dirs["save"], "aliccp", "deepfm_best"),
+                          device="cpu")
+    # aliccp has a precomputed grouping; deepfm has one output and no use
+    # for it, but the map is the training CLI's
+    assert pred.domain2group is not None and not pred.is_aread
+
+
+@pytest.mark.parametrize("flags,name", [
+    (["--log_dir", "logs"], "log_dir"),
+    (["--dynamic_regroup", "towerfirst", "--model", "mmoe"], "dynamic_regroup"),
+    (["--epoch_timeout_s", "5"], "epoch_timeout_s"),
+    (["--embed_lookup", "a2a"], "embed_lookup"),
+    (["--hemp_fast_adapt", "overlay"], "hemp_fast_adapt"),
+    (["--mesh_data", "2"], "mesh"),
+    (["--model", "mamdr"], "mamdr"),
+    (["--model", "dcnv2"], "dcnv2"),
+    (["--base_model", "ple"], "base_model"),
+])
+def test_unported_flag_is_accepted_and_raises_by_name(dirs, flags, name):
+    args = ["--device", "cpu", "--data_path", dirs["data"], "--save_path",
+            str(dirs["root"] / "unported"), "--dataset_name", "aliccp",
+            "--bs", "64", "--embed_dim", "8", "--epoch", "1", *HEMP_FLAGS]
+    if "--model" not in flags:
+        args += ["--model", "aread"]
+    with pytest.raises(NotImplementedError, match=name):
+        main(args + flags)
+
+
+def test_unported_flag_fails_the_process(dirs):
+    proc = train(dirs, "deepfm", "--log_dir", "logs", expect_ok=False)
+    assert proc.returncode != 0
+    assert "NotImplementedError" in proc.stderr and "log_dir" in proc.stderr
+    assert "checkpoint saved" not in proc.stdout
+
+
+def test_missing_csv_raises_by_name(tmp_path):
+    with pytest.raises(NotImplementedError, match="raw-dump"):
+        main(["--device", "cpu", "--data_path", str(tmp_path),
+              "--dataset_name", "aliccp", "--model", "deepfm"])
+
+
+def test_load_config_maps_flags_onto_the_config():
+    cfg, device = load_config([
+        "--model", "mmoe", "--dataset_name", "amazon", "--domain_filter",
+        "[0, 2]", "--aread_final", "--lr", "0.01", "--table_dtype", "float32",
+        "--use_dcn", "0", "--device_data", "0", "--grad_clip_norm", "0.5",
+        "--save_path", "out", "--elastic", "--aug_ratio", "0.2"])
+    assert device == "cuda"
+    assert (cfg.model, cfg.dataset_name, cfg.domain_filter) == (
+        "mmoe", "amazon", [0, 2])
+    assert cfg.aread_final and cfg.elastic and not cfg.is_increment
+    assert (cfg.lr, cfg.table_dtype, cfg.use_dcn, cfg.device_data) == (
+        0.01, "float32", 0, "0")
+    assert (cfg.grad_clip_norm, cfg.save_path, cfg.aug_ratio) == (
+        0.5, "out", 0.2)
+    assert cfg.seed == 2000 and cfg.itemid_all == 1368287
+    # --is_set_seed 0 derives the seed from the arguments, the same twice
+    a, _ = load_config(["--is_set_seed", "0", "--lr", "0.5"])
+    b, _ = load_config(["--is_set_seed", "0", "--lr", "0.5"])
+    c, _ = load_config(["--is_set_seed", "0", "--lr", "0.25"])
+    assert a.seed == b.seed != 2000 and 0 <= a.seed < 10000
+    assert c.seed != a.seed
+    assert load_config(["--device", "cpu"])[1] == "cpu"

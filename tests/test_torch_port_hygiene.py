@@ -1,11 +1,12 @@
 """The port's boundaries: aread_tpu_torch and chip_smoke.py import nothing
-of JAX or of the JAX package; without a card every entry point raises
-instead of running on the CPU; the CUDA wrappers never take CPU tensors;
+of JAX or of the JAX package; without a card every entry point (the
+models, load_predictor, both CLIs) raises instead of running on the CPU; the CUDA wrappers never take CPU tensors;
 the kernel build keeps IEEE arithmetic, names a library by its sources and
 every shared header; both kernels count their launches in one place; the
 sparse kernel's slot map has one key; chip_smoke.py knows both kernels,
-drives both trainers and the HEMP loop and ends with the fixed line; what
-the HEMP loop leaves unported raises by name."""
+drives both trainers, the HEMP loop and the serving path and ends with
+the fixed line; what the trainers leave unported raises by name, and what
+they have ported since (streaming_eval, warm_start, ckpt_dir) does not."""
 
 import ast
 import os
@@ -29,7 +30,12 @@ from aread_tpu_torch.ops.sparse_adam import sparse_adam_cuda
 from aread_tpu_torch.train.hemp import AREADTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "aread_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "aread_tpu")
+SERVING_MODULES = ("config.py", "convert.py", "__main__.py",
+                   "train/checkpoint.py", "train/metrics.py",
+                   "data/loader.py", "data/augment.py", "data/pipeline.py",
+                   "serve/__init__.py", "serve/predictor.py",
+                   "serve/server.py", "serve/__main__.py")
 PORT_FILES = sorted((ROOT / "aread_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -50,6 +56,15 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_serving_modules_are_among_the_checked_files():
+    checked = {str(p.relative_to(ROOT / "aread_tpu_torch"))
+               for p in PORT_FILES[:-1]}
+    assert set(SERVING_MODULES) <= checked
+    # the server is standard library and numpy only
+    roots = set(_imported_roots(ROOT / "aread_tpu_torch/serve/server.py"))
+    assert roots <= {"__future__", "json", "threading", "http", "numpy"}
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the card-less refusal")
@@ -66,6 +81,47 @@ def test_entry_points_raise_without_a_card():
         AREAD(spec, 8, (2, 4), 2, expert_dims=(8,), tower_dims=((4,), (4,)))
     assert AREAD(spec, 8, (2, 4), 2, expert_dims=(8,),
                  tower_dims=((4,), (4,)), device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_raise_without_a_card(tmp_path):
+    """load_predictor (and so the predictor behind make_server) and both
+    CLIs resolve their device first: no card and no request for the CPU is
+    an error, not a CPU run."""
+    _no_card()
+    from aread_tpu_torch.__main__ import main as train_main
+    from aread_tpu_torch.serve.__main__ import main as serve_main
+    from aread_tpu_torch.serve.predictor import load_predictor
+    from aread_tpu_torch.serve.server import make_server
+    from aread_tpu_torch.train.checkpoint import save_checkpoint
+
+    data = make_synthetic_data(n_rows=64, n_domain=2, vocab=20)
+    cfg = Config(model="deepfm", embed_dim=8, dataset_name="none")
+    model = build_model(cfg, data.spec, 2, device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    save_checkpoint(ckpt, model.state_dict(), {}, epoch=1, spec=data.spec,
+                    run_config=cfg, n_domain=2)
+    for call in (lambda: load_predictor(ckpt),
+                 lambda: load_predictor(ckpt, device="cuda"),
+                 lambda: make_server(load_predictor(ckpt)),
+                 lambda: serve_main(["--ckpt", ckpt, "--http", "0"]),
+                 lambda: serve_main(["--ckpt", ckpt, "--input", "a.csv",
+                                     "--output", "b.csv"]),
+                 lambda: train_main(["--model", "deepfm", "--data_path",
+                                     str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    pred = load_predictor(ckpt, device="cpu")
+    assert pred.device.type == "cpu"
+    srv = make_server(pred, port=0)
+    srv.server_close()
+    # and as a process: a non-zero exit code, nothing trained or saved
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for args in (["-m", "aread_tpu_torch", "--save_path", str(tmp_path / "s")],
+                 ["-m", "aread_tpu_torch.serve", "--ckpt", ckpt, "--http", "0"]):
+        proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert not (tmp_path / "s").exists()
 
 
 @pytest.mark.parametrize("model", ["deepfm", "dcn", "mmoe", "aread"])
@@ -219,12 +275,21 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
              for t in n.targets if isinstance(t, ast.Name)}
     # the default list is PHASES' keys; every earlier phase is still there
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
-                               "train", "eval", "train_dense", "hemp"]
+                               "train", "eval", "train_dense", "hemp",
+                               "serve"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
             "final_epoch"} <= set(dicts["HEMP_DEPTH"])
     funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    assert {"phase_hemp", "phase_profile_hemp", "reference_evolution"} <= set(funcs)
+    assert {"phase_hemp", "phase_profile_hemp", "reference_evolution",
+            "phase_serve"} <= set(funcs)
+    serve_src = "".join(ast.unparse(f) for n, f in funcs.items()
+                        if n.startswith(("phase_serve", "serve_")))
+    for name in ("save_checkpoint", "load_predictor", "make_server",
+                 "/healthz", "/predict", "streaming_eval=", "ckpt_dir=",
+                 "aread_tpu_torch.serve", "device='cpu'", "predict_per_domain",
+                 "cuda_launches_per_call", "status != 200", "status != 400"):
+        assert name in serve_src, name
     hemp_src = ast.unparse(funcs["phase_hemp"])
     for name in ("build_model", "AREADTrainer", ".fit(", "aread_final=True",
                  "sparse_adam_launches_schedule", "prune_mask_tensor"):
@@ -252,7 +317,7 @@ def _toy_aread():
 
 
 @pytest.mark.parametrize("name,value", [("hemp_fast_adapt", "overlay"),
-                                        ("streaming_eval", True),
+                                        ("compute_dtype", "bfloat16"),
                                         ("log_dir", "logs"),
                                         ("epoch_timeout_s", 5.0),
                                         ("embed_lookup", "a2a")])
@@ -264,15 +329,22 @@ def test_unported_hemp_options_raise_by_name(name, value):
         AREADTrainer(model, dataclasses.replace(cfg, **{name: value}), 3)
 
 
-def test_unported_fit_arguments_and_ple_raise_by_name():
+def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
     import dataclasses
 
     data, cfg, model = _toy_aread()
+    # ported since: streaming_eval, warm_start and ckpt_dir run
+    cfg = dataclasses.replace(cfg, bs=64, warm_up_interval=0,
+                              regroup_interval=1000, regroup_update_step=1,
+                              regroup_eval_step=1, candidate_mask_num=1,
+                              streaming_eval=True)
     tr = AREADTrainer(model, cfg, 3)
-    with pytest.raises(NotImplementedError, match="warm_start"):
-        tr.fit(data, warm_start={})
-    with pytest.raises(NotImplementedError, match="ckpt_dir"):
-        tr.fit(data, ckpt_dir="ckpt")
+    warm = {"state_dict": {k: v.clone()
+                           for k, v in model.state_dict().items()}}
+    res = tr.fit(data, epochs=1, verbose=False, warm_start=warm,
+                 ckpt_dir=str(tmp_path / "ckpt"))
+    assert len(res["history"]) == 1
+    assert (tmp_path / "ckpt" / "meta.json").exists()
     with pytest.raises(NotImplementedError, match="mesh"):
         AREADTrainer(model, cfg, 3, mesh=object())
     with pytest.raises(NotImplementedError, match="base_model='ple'"):

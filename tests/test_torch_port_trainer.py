@@ -16,7 +16,9 @@ aread_tpu_torch/convert.py) on the same seed-made data:
 * two epochs of Trainer.fit: train loss, valid and test metrics, the
   early-stop bookkeeping;
 * the device-resident epoch against the host-batch epoch inside the port;
-* options that are not ported raise NotImplementedError.
+* options that are not ported raise NotImplementedError (streaming_eval,
+  warm_start and ckpt_dir are ported: tests/test_torch_port_checkpoint.py,
+  tests/test_torch_port_streaming_auc.py).
 
 A linear bias that feeds a BatchNorm has a true gradient of exactly 0; the
 computed one is round-off, which Adam normalizes into a step of up to lr
@@ -375,7 +377,7 @@ def test_unported_options_raise():
     data = make_synthetic_data(n_rows=256, n_domain=N_DOMAIN, vocab=40)
     cfg = Config(model="deepfm", embed_dim=E, sparse_table_grad=False)
     model = build_model(cfg, data.spec, N_DOMAIN, device="cpu")
-    for name, value in (("streaming_eval", True),
+    for name, value in (("compute_dtype", "bfloat16"),
                         ("dynamic_regroup", "towerfirst"),
                         ("log_dir", "logs"), ("epoch_timeout_s", 5.0),
                         ("embed_lookup", "a2a")):
@@ -384,10 +386,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(model, cfg, N_DOMAIN, mesh=object())
     tr = Trainer(model, cfg, N_DOMAIN)
-    with pytest.raises(NotImplementedError, match="ckpt_dir"):
-        tr.fit(data, ckpt_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="warm_start"):
-        tr.fit(data, warm_start={})
+    # streaming_eval is ported: the option builds a trainer
+    Trainer(model, dataclasses.replace(cfg, streaming_eval=True), N_DOMAIN)
     with pytest.raises(RuntimeError, match="init"):
         tr.step(GlobalBatcher(data.train_x, data.train_y, 32, 2).sample_batch())
     with pytest.raises(NotImplementedError, match="dcnv2"):
