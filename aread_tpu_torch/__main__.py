@@ -9,9 +9,11 @@ augmented CSV, generated under ``save_path`` when missing) -> train and
 evaluate -> save ``save/{dataset}/{model}_best``, a self-contained
 checkpoint that ``python -m aread_tpu_torch.serve`` serves from.
 
-Runs on the card; ``--device cpu`` asks for the CPU. A flag whose feature
-is not ported yet is accepted and raises by name where it would take
-effect.
+Runs on the card; ``--device cpu`` asks for the CPU. Every flag of
+``main.py`` but ``--platform`` is accepted; a flag whose feature is not
+ported yet raises by name when it is set to anything but ``main.py``'s
+default, and so does a model that is not ported (``hinet``,
+``adasparse``, ``adl``, ``mamdr``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ import random
 import numpy as np
 
 from aread_tpu_torch.config import Config
+
+# flags of main.py that this CLI takes but does not act on yet, with the
+# value that main.py defaults to (any other raises by name)
+UNPORTED_FLAGS = {"adl_eval_dlm_update": False, "a2a_capacity": 0,
+                  "epoch_timeout_kill": False}
 
 
 def load_config(argv=None):
@@ -84,6 +91,11 @@ def load_config(argv=None):
     parser.add_argument("--loss_report_table_l2", type=int, default=1,
                         help="include the (gradient-free) table L2 term in "
                              "reported losses")
+    parser.add_argument("--prng_impl", default="rbg",
+                        choices=["rbg", "threefry"],
+                        help="the JAX package's dropout PRNG; no meaning "
+                             "here (dropout draws from a torch.Generator "
+                             "seeded by --seed): accepted and ignored")
     parser.add_argument("--table_moments_dtype", default="bfloat16",
                         choices=["float32", "bfloat16"],
                         help="storage dtype of the table's Adam moments")
@@ -105,6 +117,9 @@ def load_config(argv=None):
                         choices=["auto", "overlay", "full"],
                         help="HEMP fast-adapt engine ('overlay' is not "
                              "ported yet)")
+    parser.add_argument("--adl_eval_dlm_update", action="store_true",
+                        help="ADL's eval-time DLM center updates (not "
+                             "ported yet)")
     parser.add_argument("--device_data", default="auto",
                         choices=("auto", "1", "0"),
                         help="device-resident train split (auto: on when "
@@ -118,10 +133,21 @@ def load_config(argv=None):
                         choices=("gspmd", "a2a"),
                         help="sharded-embedding gather under a mesh ('a2a' "
                              "is not ported yet)")
+    parser.add_argument("--a2a_capacity", type=int, default=0,
+                        help="per-owner id-bucket bound of --embed_lookup "
+                             "a2a (not ported yet)")
     parser.add_argument("--epoch_timeout_s", type=float, default=0.0,
                         help="watchdog deadline per train epoch (not "
                              "ported yet)")
+    parser.add_argument("--epoch_timeout_kill", action="store_true",
+                        help="hard exit when the epoch watchdog fires (not "
+                             "ported yet)")
     args = parser.parse_args(argv)
+    for flag, default in UNPORTED_FLAGS.items():
+        if getattr(args, flag) != default:
+            raise NotImplementedError(
+                f"--{flag} {getattr(args, flag)!r} is not ported yet (only "
+                f"{default!r})")
 
     if args.is_set_seed == 0:
         # hashlib and not hash(): python randomizes str hashes per process
@@ -154,12 +180,14 @@ def main(argv=None):
     from aread_tpu_torch.data.augment import make_augmentation
     from aread_tpu_torch.data.loader import load_split_data
     from aread_tpu_torch.data.pipeline import run_preprocessing
-    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.models import UNPORTED_MODELS, build_model
     from aread_tpu_torch.train.checkpoint import (load_checkpoint,
                                                   save_checkpoint)
     from aread_tpu_torch.train.hemp import AREADTrainer
     from aread_tpu_torch.train.trainer import MULTI_TOWER_MODELS, Trainer
 
+    if cfg.model in UNPORTED_MODELS:
+        raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
     path = run_preprocessing(cfg.dataset_name, cfg.data_path,
                              prepare2train_month=cfg.prepare2train_month)
     is_aread = "aread" in cfg.model
@@ -202,9 +230,6 @@ def main(argv=None):
     elastic_dir = (os.path.join(cfg.save_path, cfg.dataset_name,
                                 f"{cfg.model}_elastic")
                    if cfg.elastic else None)
-    if cfg.model == "mamdr":
-        raise NotImplementedError("model 'mamdr' (the Reptile meta-trainer) "
-                                  "is not ported yet")
     model = build_model(cfg, data.spec, data.n_domain, device=device)
     if is_aread and "wo" not in cfg.model:
         trainer = AREADTrainer(model, cfg, data.n_domain)

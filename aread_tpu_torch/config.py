@@ -81,6 +81,10 @@ class Config:
     att_res: bool = True
     mmoe_expert_dims: Tuple[int, ...] = (256, 128, 64)
     mmoe_tower_dims: Tuple[int, ...] = (64, 32)
+    ple_n_expert_specific: int = 2
+    ple_n_expert_shared: int = 2
+    ple_expert_dims: Tuple[Tuple[int, ...], ...] = ((256, 128), (64,))
+    ple_tower_dims: Tuple[int, ...] = (64, 32)
     aread_tower_dims: Tuple[Tuple[int, ...], ...] = ((64, 32), (32, 16), (16, 8))
     dropout: float = 0.2
 

@@ -1,6 +1,9 @@
 """Model construction from a Config (counterpart of
 ``aread_tpu/models/__init__.py`` ``build_model``): ``deepfm``, ``dcn``,
-``mmoe`` and ``aread``; the rest of the zoo is not ported yet."""
+``dcnv2``, ``autoint``, ``ple``, ``mmoe``, ``pepnet`` / ``epnet`` /
+``epnet-single``, ``star`` and ``aread`` (MMoE or PLE base); ``hinet``,
+``adasparse``, ``adl`` and ``mamdr`` are not ported yet and raise by
+name."""
 
 from __future__ import annotations
 
@@ -10,13 +13,20 @@ from typing import Optional
 from aread_tpu_torch.config import Config
 from aread_tpu_torch.device import DeviceLike
 from aread_tpu_torch.models.aread import AREAD
+from aread_tpu_torch.models.autoint import AutoInt
 from aread_tpu_torch.models.base import CTRModel, FeatureSpec
 from aread_tpu_torch.models.dcn import DCN
+from aread_tpu_torch.models.dcnv2 import DCNv2
 from aread_tpu_torch.models.deepfm import DeepFM
 from aread_tpu_torch.models.mmoe import MMoE
+from aread_tpu_torch.models.pepnet import PEPNet
+from aread_tpu_torch.models.ple import PLE
+from aread_tpu_torch.models.star import STAR
 
-__all__ = ["AREAD", "CTRModel", "DCN", "DeepFM", "FeatureSpec", "MMoE",
-           "build_model"]
+__all__ = ["AREAD", "AutoInt", "CTRModel", "DCN", "DCNv2", "DeepFM",
+           "FeatureSpec", "MMoE", "PEPNet", "PLE", "STAR", "build_model"]
+
+UNPORTED_MODELS = ("hinet", "adasparse", "adl", "mamdr")
 
 
 def build_model(config: Config, spec: FeatureSpec, n_domain: int,
@@ -35,21 +45,40 @@ def build_model(config: Config, spec: FeatureSpec, n_domain: int,
         spec = spec.with_flat_table(e)
     spec = dataclasses.replace(spec, table_dtype=config.table_dtype)
     common = dict(dropout=config.dropout, seed=config.seed, device=device)
+    common_att = dict(atten_embed_dim=config.atten_embed_dim,
+                      att_layer_num=config.att_layer_num,
+                      att_head_num=config.att_head_num,
+                      att_res=config.att_res)
+    side = dict(use_dcn=config.use_dcn, use_atten=config.use_atten,
+                n_cross_layers=config.n_cross_layers, **common_att)
     if name == "deepfm":
         return DeepFM(spec, e, mlp_dims=(256, 128), **common)
     if name == "dcn":
         return DCN(spec, e, n_cross_layers=3, mlp_dims=config.mlp_dims,
                    **common)
+    if name == "dcnv2":
+        return DCNv2(spec, e, n_cross_layers=3, mlp_dims=config.mlp_dims,
+                     **common)
+    if name == "autoint":
+        return AutoInt(spec, e, mlp_dims=config.mlp_dims, **common_att,
+                       **common)
+    if name == "ple":
+        return PLE(spec, e, n_tower=n_tower,
+                   n_expert_specific=config.ple_n_expert_specific,
+                   n_expert_shared=config.ple_n_expert_shared,
+                   expert_dims=config.ple_expert_dims,
+                   tower_dims=config.ple_tower_dims, **side, **common)
     if name == "mmoe":
         return MMoE(spec, e, n_tower=n_tower, n_expert=config.mmoe_n_expert,
                     expert_dims=config.mmoe_expert_dims,
-                    tower_dims=config.mmoe_tower_dims, use_dcn=config.use_dcn,
-                    use_atten=config.use_atten,
-                    n_cross_layers=config.n_cross_layers,
-                    atten_embed_dim=config.atten_embed_dim,
-                    att_layer_num=config.att_layer_num,
-                    att_head_num=config.att_head_num, att_res=config.att_res,
-                    **common)
+                    tower_dims=config.mmoe_tower_dims, **side, **common)
+    if name in ("pepnet", "epnet", "epnet-single"):
+        return PEPNet(spec, e, n_tower=1 if name == "epnet-single" else n_tower,
+                      tower_dims=config.tower_dims, gate_hidden_dim=64,
+                      use_ppnet=name == "pepnet", **side, **common)
+    if name == "star":
+        return STAR(spec, e, n_tower=n_tower, tower_dims=config.tower_dims,
+                    use_atten=config.use_atten, **common_att, **common)
     if name in ("aread", "aread_womask"):
         towers = tuple(n_tower * 2 ** l
                        for l in range(len(config.aread_tower_dims)))
@@ -58,5 +87,10 @@ def build_model(config: Config, spec: FeatureSpec, n_domain: int,
                      tower_dims=config.aread_tower_dims,
                      use_dcn=config.use_dcn,
                      n_cross_layers=config.n_cross_layers,
-                     mmoe_n_expert=config.mmoe_n_expert, **common)
-    raise NotImplementedError(f"model {name!r} is not ported yet")
+                     mmoe_n_expert=config.mmoe_n_expert,
+                     ple_n_expert_specific=config.ple_n_expert_specific,
+                     ple_n_expert_shared=config.ple_n_expert_shared,
+                     ple_expert_dims=config.ple_expert_dims, **common)
+    if name in UNPORTED_MODELS:
+        raise NotImplementedError(f"model {name!r} is not ported yet")
+    raise ValueError(f"Unknown model: {name}")

@@ -1,6 +1,7 @@
-"""AREAD with an MMoE base (counterpart of ``aread_tpu/models/aread.py``).
+"""AREAD (counterpart of ``aread_tpu/models/aread.py``).
 
-  * base: MMoE, 4 stacked experts and one softmax gate per level-0 tower;
+  * base: MMoE (4 stacked experts and one softmax gate per level-0 tower)
+    or PLE (the CGC levels ``cgc_{i}`` with one task per level-0 tower);
   * HEI: levels of towers n_tower = (g, 2g, 4g); a level's towers are one
     stacked product; levels >= 1 gate over the previous level's towers
     from [domain_embed || group_embed], masked by the domain's HEMP edges
@@ -15,8 +16,7 @@ Modes: 'wo_mask' (warm-up, all edges, mean over all leaves),
 active leaves: only ``final_gate`` gets a gradient) and 'batch_with_mask'
 (evaluation only: every mask array carries a leading [B] axis, so a
 mixed-domain batch runs in one forward). Every mode returns leaf_logit,
-leaf_prob, leaf_active, gate_means, prob and logit. The PLE base is not
-ported yet and raises.
+leaf_prob, leaf_active, gate_means, prob and logit.
 
 Submodule and parameter names are the JAX package's flax paths with '.'
 for '/', so ``convert.py`` maps weights one to one.
@@ -32,6 +32,7 @@ from torch import nn
 
 from aread_tpu_torch.device import DeviceLike, resolve_device
 from aread_tpu_torch.models.base import BASE_REG_RULES, CTRModel, FeatureSpec
+from aread_tpu_torch.models.ple import add_cgc_levels, run_cgc_levels
 from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.initializers import embedding_init
 from aread_tpu_torch.ops.mlp import Linear, StackedLinear, StackedMLP
@@ -65,11 +66,12 @@ class AREAD(CTRModel):
                  tower_dims: Tuple[Tuple[int, ...], ...] = ((64, 32), (32, 16), (16, 8)),
                  dropout: float = 0.2, use_dcn: bool = True,
                  n_cross_layers: int = 3, mmoe_n_expert: int = 4,
+                 ple_n_expert_specific: int = 2, ple_n_expert_shared: int = 2,
+                 ple_expert_dims: Tuple[Tuple[int, ...], ...] = ((256, 128), (64,)),
                  seed: int = 0, device: DeviceLike = None):
         super().__init__()
-        if base_model != "mmoe":
-            raise NotImplementedError(
-                f"base_model={base_model!r} is not ported yet (mmoe only)")
+        if base_model not in ("mmoe", "ple"):
+            raise ValueError(f"unknown base_model {base_model!r}")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.n_tower = tuple(int(t) for t in n_tower)
@@ -78,13 +80,20 @@ class AREAD(CTRModel):
         self._backbone(spec, embed_dim, gen, dev)
         flat_dim = spec.embed_output_dim(embed_dim)
         self.cn = CrossNetwork(flat_dim, n_cross_layers, **kw) if use_dcn else None
-        self.mmoe_experts = StackedMLP(mmoe_n_expert, flat_dim, expert_dims,
-                                       dropout, **kw)
-        self.mmoe_gates = StackedLinear(self.n_tower[0], flat_dim,
-                                        mmoe_n_expert, **kw)
+        self.base_model = base_model
+        if base_model == "mmoe":
+            self.mmoe_experts = StackedMLP(mmoe_n_expert, flat_dim,
+                                           expert_dims, dropout, **kw)
+            self.mmoe_gates = StackedLinear(self.n_tower[0], flat_dim,
+                                            mmoe_n_expert, **kw)
+            din = expert_dims[-1]
+        else:
+            self.n_level_ple = len(ple_expert_dims)
+            din = add_cgc_levels(self, flat_dim, self.n_tower[0],
+                                 ple_n_expert_specific, ple_n_expert_shared,
+                                 ple_expert_dims, dropout, gen, dev)
         self.group_embedding = nn.Parameter(embedding_init(
             (self.n_tower[0], embed_dim), gen, dev))
-        din = expert_dims[-1]
         for l, T in enumerate(self.n_tower):
             if l > 0:
                 self.add_module(f"tower_gates_{l}", StackedLinear(
@@ -130,9 +139,13 @@ class AREAD(CTRModel):
         cn_out = self.cn(flat) if self.cn is not None else None
         run = dict(train=train, mask=mask, generator=generator)
 
-        expert_outs = self.mmoe_experts(flat, **run)  # [B, E, D]
-        gates0 = torch.softmax(self.mmoe_gates(flat), dim=-1)  # [B, T0, E]
-        tower_inputs = torch.einsum("bte,bed->btd", gates0, expert_outs)
+        if self.base_model == "mmoe":
+            expert_outs = self.mmoe_experts(flat, **run)  # [B, E, D]
+            gates0 = torch.softmax(self.mmoe_gates(flat), dim=-1)  # [B, T0, E]
+            tower_inputs = torch.einsum("bte,bed->btd", gates0, expert_outs)
+        else:
+            tower_inputs = run_cgc_levels(self, self.n_level_ple, flat,
+                                          self.n_tower[0], **run)
 
         if mode == "wo_mask":
             group_embed = torch.zeros_like(domain_embed)

@@ -28,6 +28,15 @@ def linear_kernel_init(shape: Sequence[int], generator: torch.Generator,
     return uniform_fan_in(shape, shape[-2], generator, device)
 
 
+def xavier_normal_init(shape: Sequence[int], generator: torch.Generator,
+                       device=None) -> torch.Tensor:
+    """N(0, 2 / (fan_in + fan_out)) with the fans of the last two axes
+    (``nn.init.xavier_normal_`` per stacked matrix)."""
+    std = math.sqrt(2.0 / (shape[-2] + shape[-1]))
+    return std * torch.randn(tuple(shape), generator=generator, device=device,
+                             dtype=torch.float32)
+
+
 def embedding_init(shape: Sequence[int], generator: torch.Generator,
                    device=None, dtype=torch.float32) -> torch.Tensor:
     """N(0, 1), drawn in f32 and stored in ``dtype``."""

@@ -1,7 +1,7 @@
 """Dense stacks (counterpart of ``aread_tpu/ops/mlp.py``): Linear,
 BatchNorm with torch semantics and row masking, dropout drawn from an
-explicit generator, ``MLP`` / ``DNN``, and the stacked-tower variants (one
-batched matmul for T parallel towers).
+explicit generator, ``MLP`` / ``DNN``, PEPNet's ``GateNN``, and the
+stacked-tower variants (one batched matmul for T parallel towers).
 
 Kernels keep the JAX package's ``[in, out]`` layout (``[T, in, out]`` when
 stacked), so converted weights are used as they are and ``x @ kernel``
@@ -58,25 +58,34 @@ class BatchNorm(nn.Module):
     * a (valid) batch of <= 1 row passes through unchanged and leaves the
       running statistics alone;
     * ``update_gate`` (broadcastable to the statistics) freezes the running
-      statistics where it is 0 — the masked towers of a HEMP domain.
+      statistics where it is 0 — the masked towers of a HEMP domain;
+    * ``tied_affine``: over [B, T, D] one [D] scale and bias shared by the
+      T towers, the statistics still [T, D] (PEPNet's tower-shared layer);
+    * ``scale_mod`` / ``bias_mod``: the effective affine is
+      ``scale * scale_mod`` and ``bias + bias_mod`` (STAR's partitioned
+      normalization).
     """
 
-    def __init__(self, stat_shape: Tuple[int, ...], momentum: float = 0.1,
-                 eps: float = 1e-5, device=None):
+    def __init__(self, stat_shape: Tuple[int, ...], tied_affine: bool = False,
+                 momentum: float = 0.1, eps: float = 1e-5, device=None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.scale = nn.Parameter(torch.ones(stat_shape, device=device))
-        self.bias = nn.Parameter(torch.zeros(stat_shape, device=device))
+        aff_shape = tuple(stat_shape[-1:]) if tied_affine else stat_shape
+        self.scale = nn.Parameter(torch.ones(aff_shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(aff_shape, device=device))
         self.register_buffer("mean", torch.zeros(stat_shape, device=device))
         self.register_buffer("var", torch.ones(stat_shape, device=device))
 
-    def forward(self, x, train: bool, mask=None, update_gate=None):
+    def forward(self, x, train: bool, mask=None, update_gate=None,
+                scale_mod=None, bias_mod=None):
+        scale = self.scale if scale_mod is None else self.scale * scale_mod
+        bias = self.bias if bias_mod is None else self.bias + bias_mod
         if not train:
             normed = (x - self.mean[None]) * torch.rsqrt(self.var[None] + self.eps)
-            return normed * self.scale + self.bias
+            return normed * scale + bias
         mean, var, count = _masked_moments(x, mask)
         normed = (x - mean[None]) * torch.rsqrt(var[None] + self.eps)
-        out = normed * self.scale + self.bias
+        out = normed * scale + bias
         big_enough = count > 1.0
         out = torch.where(big_enough, out, x)
         with torch.no_grad():
@@ -145,6 +154,24 @@ class DNN(MLP):
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__(din, hidden_units, dropout, output_layer=False,
                          use_bn=use_bn, generator=generator, device=device)
+
+
+class GateNN(nn.Module):
+    """PEPNet's gate: ``fc1`` -> ReLU -> dropout -> ``fc2`` -> 2 *
+    sigmoid."""
+
+    def __init__(self, din: int, hidden_dim: int, output_dim: int,
+                 dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.rate = dropout
+        self.fc1 = Linear(din, hidden_dim, generator=generator, device=device)
+        self.fc2 = Linear(hidden_dim, output_dim, generator=generator,
+                          device=device)
+
+    def forward(self, x, train: bool = False, generator=None):
+        x = dropout(torch.relu(self.fc1(x)), self.rate, train, generator)
+        return 2.0 * torch.sigmoid(self.fc2(x))
 
 
 class StackedLinear(nn.Module):

@@ -27,6 +27,15 @@ Phases, each printing one line:
            table gradient: build_model + Trainer.fit for DeepFM (one epoch,
            valid and test passes), then a few steps each of DCN and MMoE,
            and of DeepFM with the sparse table gradient;
+  zoo      the zoo's first half at full Amazon width: build_model +
+           Trainer.fit (12 dense-gradient steps, valid and test passes) for
+           dcnv2, autoint, ple, pepnet, epnet, epnet-single and star, each
+           step timed with its launches, device busy time and peak memory;
+           one step of each on the card against the CPU at a small width;
+           then AREAD on a PLE base (bf16 table and moments): 8 warm-up +
+           16 bagging steps, 3 steps card vs CPU, one epoch of
+           AREADTrainer.fit at RESUME_DEPTH, the model saved, rebuilt by
+           load_predictor and served against the trainer's evaluation;
   hemp     the HEMP loop at full Amazon width: build_model +
            AREADTrainer.fit — warm-up, bagging steps, a mask evolution at
            every regroup point (fresh fast-Adam chains from a snapshot,
@@ -54,7 +63,7 @@ Phases, each printing one line:
            go to --profile-dir.
 
 The launch counts are set to 0 just before each path (train, train_dense
-and its parts, hemp, serve's resumes) and read just after it; a kernel's ``launches`` is the sum
+and its parts, zoo's fits and steps, hemp, serve's resumes) and read just after it; a kernel's ``launches`` is the sum
 over the paths. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -152,9 +161,10 @@ def host_us_per_call(fn, n: int = 20) -> float:
     return dt / n * 1e6
 
 
-def cuda_launches_per_call(fn, n: int = 4) -> float:
-    """cudaLaunchKernel calls per call of ``fn``, from a torch.profiler
-    window over ``n`` calls."""
+def launches_and_busy_per_call(fn, n: int = 3):
+    """(cudaLaunchKernel calls, device busy ms) per call of ``fn`` from a
+    torch.profiler window over ``n`` calls."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -163,11 +173,19 @@ def cuda_launches_per_call(fn, n: int = 4) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    count = sum(e.count for e in prof.key_averages()
-                if e.key == "cudaLaunchKernel")
-    if count == 0:
+    ka = prof.key_averages()
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel") / n
+    busy = sum(e.self_device_time_total for e in ka
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+    if launches == 0:
         raise AssertionError("the profiler saw no cudaLaunchKernel")
-    return count / n
+    return launches, busy
+
+
+def cuda_launches_per_call(fn, n: int = 4) -> float:
+    """cudaLaunchKernel calls per call of ``fn``, from a torch.profiler
+    window over ``n`` calls."""
+    return launches_and_busy_per_call(fn, n)[0]
 
 
 def cuda_copies_per_call(fn, n: int = 4):
@@ -961,21 +979,32 @@ def phase_train_dense(ctx):
         del tr2
 
 
-def true_zero_adam(pre_bn_bias: str, lr: float, wd: float):
+def true_zero_adam(pre_bn_bias: str, lr: float, wd: float,
+                   atten_dim: int = 0):
     """DenseAdam that gives the linear biases feeding a BatchNorm their
     true gradient, exactly 0: the computed one is round-off, which Adam
-    would normalize into a step of up to lr on either device."""
+    would normalize into a step of up to lr on either device. With
+    ``atten_dim``, so does the key slice [atten_dim, 2 * atten_dim) of
+    every self-attention in-projection bias."""
     import re
 
     from aread_tpu_torch.train.trainer import DenseAdam
 
     pat = re.compile(pre_bn_bias)
+    in_proj = re.compile(r"(^|/)attn_\d+/in_proj_bias$")
+
+    def true_zero(n, g):
+        if pat.match(n):
+            return torch.zeros_like(g)
+        if atten_dim and in_proj.search(n):
+            g = g.clone()
+            g[atten_dim:2 * atten_dim] = 0
+        return g
 
     class DenseAdamTrueZero(DenseAdam):
         def update_(self, params, grads, state):
-            super().update_(params, {
-                n: torch.zeros_like(g) if pat.match(n) else g
-                for n, g in grads.items()}, state)
+            super().update_(params, {n: true_zero(n, g)
+                                     for n, g in grads.items()}, state)
 
     return DenseAdamTrueZero(lr=lr, wd=wd)
 
@@ -1136,13 +1165,14 @@ def reference_evolution(ctx):
         seconds={"cpu": runs["cpu"][2], "cuda": runs["cuda"][2]})
 
 
-def reference_aread(ctx):
+def reference_aread(ctx, **model_kw):
     """The same three steps, from the same weights, on the card (kernel)
     and on the CPU (plain versions), at a small width with an f32 table,
     no dropout and the full mask; losses, weights and Adam state must
     agree at atol 1e-5. The linear biases that feed a BatchNorm get their
     true gradient, exactly 0, on both sides: the computed one is round-off,
-    which Adam would normalize into a step of up to lr either way."""
+    which Adam would normalize into a step of up to lr either way.
+    ``model_kw``: config fields beside the small widths (the PLE base)."""
     from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
     from aread_tpu_torch.models.aread import full_mask
 
@@ -1152,7 +1182,7 @@ def reference_aread(ctx):
         tr = build_trainer(
             data.spec, dev, 4, embed_dim=8, mlp_dims=(16, 8),
             aread_tower_dims=((8,), (8, 4)), dropout=0.0,
-            table_dtype="float32", table_moments_dtype="float32")
+            table_dtype="float32", table_moments_dtype="float32", **model_kw)
         tr.optimizer = true_zero_adam(
             r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$", tr.config.lr,
             tr.config.wd)
@@ -1171,8 +1201,297 @@ def reference_aread(ctx):
     if diff > 1e-5:
         raise AssertionError(f"card and CPU disagree after 3 steps: {worst} "
                              f"{diff}")
-    say("reference", path="aread AREADTrainer steps", steps=3,
+    say("reference", path="aread AREADTrainer steps",
+        base_model=trainers["cpu"].config.base_model, steps=3,
         max_abs_diff=diff, worst=worst, tolerance=1e-5)
+
+
+# ------------------------------------------------------------------- zoo
+ZOO_MODELS = ("dcnv2", "autoint", "ple", "pepnet", "epnet", "epnet-single",
+              "star")
+ZOO_STEPS = 12
+# biases whose shift reaches a BatchNorm through linear maps alone, per
+# model: their true gradient is 0 (STAR's partitioned normalization feeds
+# the first linear layer, which feeds a BatchNorm)
+ZOO_PRE_BN_BIAS = {
+    "dcnv2": r"^dnn/linear_\d+/bias$",
+    "autoint": r"^dnn/linear_\d+/bias$",
+    "ple": r"^towers/linear_\d+/bias$",
+    "pepnet": r"^ppnet/bias_\d+$",
+    "epnet": r"^towers/linear_\d+/bias$",
+    "epnet-single": r"^towers/linear_\d+/bias$",
+    "star": (r"^((domain_dnns|shared_dnn)_bias_\d+|domain_norm/bias"
+             r"|shared_bn_bias)$"),
+}
+
+
+def check_metrics(what: str, results) -> None:
+    """Finite losses and AUCs, the AUCs in [0, 1]."""
+    for name, r in results:
+        for k in ("total_auc", "mean_auc", "total_loss"):
+            if k in r and (not np.isfinite(r[k]) or (
+                    k.endswith("auc") and not 0 <= r[k] <= 1)):
+                raise AssertionError(f"{what} {name} {k}={r[k]}")
+
+
+def phase_zoo(ctx):
+    """The first half of the zoo at full Amazon width through the generic
+    Trainer, then AREAD on a PLE base through both of its paths."""
+    zoo_fit(ctx)
+    zoo_reference(ctx)
+    zoo_aread_ple(ctx)
+
+
+def zoo_fit(ctx):
+    """Each of ZOO_MODELS through build_model + Trainer.fit: one epoch of
+    ZOO_STEPS dense-gradient steps (f32 table, bf16 moments, dropout 0.2,
+    Amazon domain2group), the valid and test passes; then its step timed
+    alone, its launches and device busy time per step (torch.profiler) and
+    its peak memory."""
+    from aread_tpu_torch.config import DOMAIN2GROUP, Config
+    from aread_tpu_torch.data.loader import GlobalBatcher
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import MULTI_TOWER_MODELS, Trainer
+
+    data = amazon_split(np.random.default_rng(5), ZOO_STEPS * BS, 2048)
+    d2g = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
+    for name in ZOO_MODELS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = Config(model=name, dataset_name="amazon", seed=0,
+                     sparse_table_grad=False, table_dtype="float32")
+        if (cfg.bs, cfg.embed_dim, cfg.table_moments_dtype, cfg.dropout) != (
+                BS, EMBED_DIM, "bfloat16", 0.2):
+            raise AssertionError("not the Amazon defaults")
+        t0 = time.perf_counter()
+        tr = Trainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
+                     cfg, N_DOMAIN, d2g)
+        model = tr.model
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = counted(ctx, f"zoo/{name}_fit",
+                      lambda: tr.fit(data, epochs=1, verbose=False))
+        fit_s = time.perf_counter() - t0
+        launches = ctx["launches_by_path"][f"zoo/{name}_fit"]
+        if launches != {"fused_adam": ZOO_STEPS, "sparse_adam": 0}:
+            raise AssertionError(f"{name}: fit of {ZOO_STEPS} dense steps "
+                                 f"launched {launches}")
+        hist = res["history"][0]
+        check_metrics(name, (("valid", hist), ("test", res["test"])))
+        if not np.isfinite(hist["train_loss"]) or tr.opt_state["t"] != ZOO_STEPS:
+            raise AssertionError(f"{name}: train loss {hist['train_loss']}, "
+                                 f"t={tr.opt_state['t']}")
+        batches = [tr.place(b) for b, _ in zip(GlobalBatcher(
+            data.train_x, data.train_y, BS, data.spec.domain_idx, d2g,
+            seed=1), range(6))]
+        with torch.no_grad():
+            logit = model(batches[0]["x"], group=batches[0]["group"],
+                          train=False)["logit"]
+        multi = name in MULTI_TOWER_MODELS
+        want = (BS, 3) if multi else (BS,)
+        if tuple(logit.shape) != want or not torch.isfinite(logit).all():
+            raise AssertionError(f"{name}: logit {tuple(logit.shape)}, "
+                                 f"want {want}")
+        step_ms, losses = counted(ctx, f"zoo/{name}_steps",
+                                  lambda: timed_steps(tr, batches))
+        per_step, busy_ms = launches_and_busy_per_call(
+            lambda: tr.step(batches[0]))
+        table = model.embedding.table
+        say("zoo", model=name, logit_shape=list(want),
+            params=sum(p.numel() for p in model.parameters()) + table.numel(),
+            dense_params=sum(p.numel() for p in model.parameters()),
+            table=[list(table.shape), str(table.dtype)],
+            init_s=init_s, fit_s=fit_s, fit_launches=launches,
+            train_loss=hist["train_loss"], valid_total_auc=hist["total_auc"],
+            valid_mean_auc=hist["mean_auc"],
+            test_total_auc=res["test"]["total_auc"],
+            test_mean_auc=res["test"]["mean_auc"], step_ms_median=step_ms,
+            examples_per_s=BS / (step_ms * 1e-3),
+            step_launches=ctx["launches_by_path"][f"zoo/{name}_steps"],
+            cuda_launches_per_step=per_step,
+            device_busy_ms_per_step=busy_ms,
+            device_idle_share=1 - busy_ms / step_ms,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        del tr, model, table, batches
+
+
+def zoo_reference(ctx):
+    """One dense step of each of ZOO_MODELS from the same weights on the
+    card (fused-Adam kernel) and on the CPU (plain versions): small width
+    (embed 8, a 300-id vocab, bs 256, layers of 16 and 8 units, one
+    attention layer of 8), f32 table and moments, dropout 0; atol 1e-5,
+    every model's worst entry reported before a failure is raised. The
+    linear biases that feed a BatchNorm and the key part of every
+    attention in-projection bias get their true gradient, exactly 0
+    (softmax over the keys ignores a shift shared by all keys), on both
+    sides: the computed one is round-off, which Adam would normalize into
+    a step of up to lr. The small layers matter for the same reason: a
+    first Adam step moves an entry by lr * g / (|g| + eps), so an entry
+    whose gradient is within a few eps of 0 turns the f32 round-off of
+    its sum into a difference of up to ~1e-5; the default widths hold
+    ~1M dense entries, enough to meet one."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    data = make_synthetic_data(n_rows=1024, n_domain=4, vocab=300, seed=3)
+    d2g = np.array([0, 1, 2, 1])
+    batch = pad_batch(data.train_x[:256], data.train_y[:256], 256)
+    batch["group"] = d2g[batch["x"][:, data.spec.domain_idx]].astype(np.int32)
+    diffs = {}
+    for name in ZOO_MODELS:
+        trainers = {}
+        for dev in ("cpu", "cuda"):
+            cfg = Config(model=name, embed_dim=8, dropout=0.0,
+                         sparse_table_grad=False, table_dtype="float32",
+                         table_moments_dtype="float32", mlp_dims=(16, 8),
+                         tower_dims=(16, 8), ple_expert_dims=((16,), (8,)),
+                         ple_tower_dims=(8, 4), atten_embed_dim=8,
+                         att_layer_num=1)
+            tr = Trainer(build_model(cfg, data.spec, 4, device=dev), cfg, 4,
+                         d2g)
+            tr.optimizer = true_zero_adam(ZOO_PRE_BN_BIAS[name], cfg.lr,
+                                          cfg.wd, cfg.atten_embed_dim)
+            tr.init()
+            trainers[dev] = tr
+        trainers["cuda"].model.load_state_dict(
+            trainers["cpu"].model.state_dict())
+        losses = {"cpu": [float(trainers["cpu"].step(batch))],
+                  "cuda": [float(counted(ctx, "zoo_reference",
+                                         lambda: trainers["cuda"].step(batch)))]}
+        if ctx["launches_by_path"].pop("zoo_reference")["fused_adam"] != 1:
+            raise AssertionError(f"{name}: the card's step did not launch "
+                                 "fused_adam")
+        diffs[name] = state_diffs(trainers["cpu"], trainers["cuda"], losses)
+    say("reference", path="zoo Trainer.step (dense)", steps=1,
+        max_abs_diff={n: d for n, (_, d) in diffs.items()},
+        worst={n: w for n, (w, _) in diffs.items()}, tolerance=1e-5)
+    bad = {n: wd for n, wd in diffs.items() if wd[1] > 1e-5}
+    if bad:
+        raise AssertionError(f"card and CPU disagree after one step: {bad}")
+
+
+def zoo_aread_ple(ctx):
+    """AREAD with base_model='ple' (the config's ple_* defaults: 2 specific
+    and 2 shared experts per task, levels (256, 128) and (64,)), bf16 table
+    and moments, at Amazon width: 8 warm-up + 16 bagging steps under 'rand'
+    masks; 3 steps on the card against the CPU at a small width; one epoch
+    of AREADTrainer.fit at RESUME_DEPTH; the trained model saved, rebuilt
+    by load_predictor and its mixed-domain answers held against the
+    trainer's evaluation."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.hemp import AREADTrainer
+    from aread_tpu_torch.utils.masks import has_output, validate_mask
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = build_trainer(amazon_spec(), "cuda", N_DOMAIN, dataset_name="amazon",
+                       seed=0, base_model="ple")
+    spec, cfg, model = tr.model.spec, tr.config, tr.model
+    if (spec.n_rows, model.n_tower, cfg.table_dtype, cfg.table_moments_dtype,
+            cfg.ple_expert_dims, hasattr(model, "cgc_1")) != (
+            1518384, (3, 6, 12), "bfloat16", "bfloat16", ((256, 128), (64,)),
+            True):
+        raise AssertionError("not AREAD-PLE at the Amazon width")
+    x, y = amazon_rows(np.random.default_rng(8), spec, N_DOMAIN * 2 * BS)
+    batcher = DomainBatcher(x, y, BS, spec.domain_idx, N_DOMAIN, seed=0)
+    ms = tr.mask_state
+    for d in range(N_DOMAIN):
+        ms.domain_mask[d] = ms.generate_mask("rand", d,
+                                             cfg.init_active_percent)
+    seq = list(batcher.domain_batch_seq)
+    plan = [("warmup", seq[i]) for i in range(8)] + \
+        [("main", seq[8 + i]) for i in range(16)]
+    batches = [(kind, d, tr.place(batcher.next_batch(d))) for kind, d in plan]
+    losses, times = [], []
+
+    def loop():
+        for kind, d, batch in batches:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss, _ = (tr.warmup_step(batch) if kind == "warmup"
+                       else tr.main_step(batch, ms.domain_mask[d]))
+            b.record()
+            losses.append(loss)
+            times.append((kind, a, b))
+
+    counted(ctx, "zoo/aread_ple_steps", loop)
+    launches = ctx["launches_by_path"]["zoo/aread_ple_steps"]
+    if launches != {"sparse_adam": len(batches), "fused_adam": 0}:
+        raise AssertionError(f"aread-ple: {len(batches)} steps launched "
+                             f"{launches}")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"aread-ple: non-finite loss {losses}")
+    step_ms = {k: statistics.median(a.elapsed_time(b) for kk, a, b in times
+                                    if kk == k) for k in ("warmup", "main")}
+    _, d_last, b_last = batches[-1]
+    per_step, busy_ms = launches_and_busy_per_call(
+        lambda: tr.main_step(b_last, ms.domain_mask[d_last]))
+    say("zoo", model="aread", base_model="ple", n_tower=list(model.n_tower),
+        table=[list(model.embedding.table.shape),
+               str(model.embedding.table.dtype)],
+        params=sum(p.numel() for p in model.parameters())
+        + model.embedding.table.numel(),
+        dense_params=sum(p.numel() for p in model.parameters()),
+        steps={"warmup": 8, "main": 16}, launches=launches,
+        step_ms_median=step_ms,
+        examples_per_s_main=BS / (step_ms["main"] * 1e-3),
+        cuda_launches_per_main_step=per_step,
+        device_busy_ms_per_main_step=busy_ms,
+        loss_first=float(losses[0]), loss_last=float(losses[-1]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del tr, model, batches
+
+    # A step moves an entry by lr * m / (sqrt(v) + eps): where |g| is within
+    # a few eps of 0 it turns f32 round-off into up to ~1e-4. The CGC
+    # experts sit at the bottom of the HEI chain with no BatchNorm, so
+    # their gradients are the smallest; at these experts and seed the
+    # smallest nonzero entry over the three steps is 8.5e-8 on the CPU
+    # (the MMoE base's reference above: 7.3e-8), clear of eps (experts of
+    # 16 then 8 units, seed 0: 7.6e-10, and the card differed by 3.2e-5).
+    reference_aread(ctx, base_model="ple", ple_expert_dims=((4,), (4,)),
+                    seed=4)
+
+    depth = dict(RESUME_DEPTH)
+    n_train = depth.pop("train_batches") * BS
+    data = amazon_split(np.random.default_rng(9), n_train,
+                        depth.pop("eval_rows"), aug=True)
+    cfg = Config(model="aread", dataset_name="amazon", seed=0,
+                 base_model="ple", **depth)
+    tr = AREADTrainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
+                      cfg, N_DOMAIN)
+    t0 = time.perf_counter()
+    res = counted(ctx, "zoo/aread_ple_fit",
+                  lambda: tr.fit(data, epochs=1, verbose=False))
+    fit_s = time.perf_counter() - t0
+    want = sparse_adam_launches_of_fit(cfg, data, 1)
+    launches = ctx["launches_by_path"]["zoo/aread_ple_fit"]
+    if launches != {"sparse_adam": want, "fused_adam": 0}:
+        raise AssertionError(f"aread-ple fit launched {launches}, the "
+                             f"schedule implies {want} sparse_adam")
+    for d, m in enumerate(res["domain_mask"]):
+        if m is None or not has_output(m) or not masks_equal(m, validate_mask(m)):
+            raise AssertionError(f"aread-ple: domain {d}: invalid mask")
+    hist = res["history"][0]
+    check_metrics("aread-ple", (("valid", hist), ("test", res["test"])))
+    if not np.isfinite(hist["train_loss"]):
+        raise AssertionError(f"aread-ple: train loss {hist['train_loss']}")
+    say("zoo", model="aread", base_model="ple", part="fit",
+        depth=RESUME_DEPTH, epochs=1, fit_s=fit_s,
+        regroup_times=tr.regroup_times, launches=launches,
+        sparse_adam_launches_schedule=want, train_loss=hist["train_loss"],
+        valid_total_auc=hist["total_auc"], valid_mean_auc=hist["mean_auc"],
+        test_total_auc=res["test"]["total_auc"],
+        test_mean_auc=res["test"]["mean_auc"])
+    x, _ = amazon_rows(np.random.default_rng(4), amazon_spec(), SERVE_ROWS)
+    with tempfile.TemporaryDirectory(prefix="aread_zoo_") as tmp:
+        serve_checkpoints(ctx, {"aread": tr}, tmp, x, phase="zoo")
 
 
 # Depth of the hemp phase; the width is the train phase's. Intervals count
@@ -1493,7 +1812,8 @@ def max_abs(a, b) -> float:
                                - np.asarray(b, np.float64))))
 
 
-def serve_checkpoints(ctx, trainers, tmp: str, x: np.ndarray):
+def serve_checkpoints(ctx, trainers, tmp: str, x: np.ndarray,
+                      phase: str = "serve"):
     """Each model saved, rebuilt from its directory alone on the card and
     on the CPU, and its served probabilities held against the trainer's
     evaluation path. Returns {name: Predictor on the card}."""
@@ -1546,6 +1866,7 @@ def serve_checkpoints(ctx, trainers, tmp: str, x: np.ndarray):
             line["mixed_vs_per_domain"] = max_abs(got, per_domain)
             line["per_domain_vs_trainer_eval"] = max_abs(per_domain, want)
             line["domains_without_mask"] = sum(m is None for m in masks)
+            line["base_model"] = tr.config.base_model
             if max(line["mixed_vs_per_domain"],
                    line["per_domain_vs_trainer_eval"]) > 1e-6:
                 raise AssertionError(f"aread routes disagree: {line}")
@@ -1579,7 +1900,7 @@ def serve_checkpoints(ctx, trainers, tmp: str, x: np.ndarray):
         del cpu
         if pred.predict(x[:0]).shape != (0,):
             raise AssertionError("an empty request")
-        say("serve", part="checkpoint+predictor", tolerance_eval=1e-6,
+        say(phase, part="checkpoint+predictor", tolerance_eval=1e-6,
             tolerance_cpu=1e-5, **line)
         preds[name] = pred
     return preds
@@ -1840,6 +2161,30 @@ def serve_resume_dense(ctx, tmp: str):
         raise AssertionError(f"resumed != uninterrupted: {diff}, {auc_gap}")
 
 
+def regroups_per_epoch(cfg, data) -> int:
+    """Regroup points inside one epoch of AREADTrainer.fit (the first
+    regroup, at the start of training, is not among them)."""
+    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
+                         minlength=N_DOMAIN)
+    n_seq = int(np.sum(np.ceil(counts / BS)))
+    interval = cfg.regroup_interval * 1024 // BS
+    return sum((i + 1) % interval == 0 for i in range(n_seq))
+
+
+def sparse_adam_launches_of_fit(cfg, data, epochs: int) -> int:
+    """sparse_adam launches of ``epochs`` epochs of AREADTrainer.fit: the
+    warm-up steps, every bagging step, and every fast-adapt step of every
+    regroup's chains (one chain per domain and candidate)."""
+    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
+                         minlength=N_DOMAIN)
+    n_seq = int(np.sum(np.ceil(counts / BS)))
+    warm = cfg.warm_up_interval * 1024 // BS
+    n_regroup = 1 + epochs * regroups_per_epoch(cfg, data)
+    return warm + epochs * n_seq + sum(
+        N_DOMAIN * max(1, int(cfg.candidate_mask_num * 0.99 ** (r + 1)))
+        * cfg.regroup_update_step for r in range(n_regroup))
+
+
 def serve_resume_aread(ctx, tmp: str):
     """AREADTrainer.fit(ckpt_dir=) for one epoch at a cut depth, then a
     fresh trainer resumes at epoch 1: it enters the epoch holding exactly
@@ -1907,23 +2252,11 @@ def serve_resume_aread(ctx, tmp: str):
     auc_gap = abs(res["history"][0]["total_auc"]
                   - res_whole["history"][1]["total_auc"])
     # --- what the schedule implies
-    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
-                         minlength=N_DOMAIN)
-    n_seq = int(np.sum(np.ceil(counts / BS)))
-    warm = cfg.warm_up_interval * 1024 // BS
-    interval = cfg.regroup_interval * 1024 // BS
-    per_epoch = sum((i + 1) % interval == 0 for i in range(n_seq))
-
-    def chain_steps(first_regroup, n):
-        return sum(N_DOMAIN * max(1, int(cfg.candidate_mask_num
-                                         * 0.99 ** (r + 1)))
-                   * cfg.regroup_update_step
-                   for r in range(first_regroup, first_regroup + n))
-
-    want_first = warm + n_seq + chain_steps(0, 1 + per_epoch)
-    want_resumed = n_seq + chain_steps(1 + per_epoch, per_epoch)
-    want = {"whole": want_first + want_resumed, "first": want_first,
-            "resumed": want_resumed}
+    per_epoch = regroups_per_epoch(cfg, data)
+    want_first = sparse_adam_launches_of_fit(cfg, data, 1)
+    want_whole = sparse_adam_launches_of_fit(cfg, data, 2)
+    want = {"whole": want_whole, "first": want_first,
+            "resumed": want_whole - want_first}
     launches = {k: ctx["launches_by_path"][f"serve/resume_aread_{k}"]
                 for k in want}
     say("serve", part="resume", model="aread", depth=RESUME_DEPTH,
@@ -2135,7 +2468,8 @@ def phase_profile_hemp(ctx):
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
-          "train_dense": phase_train_dense, "hemp": phase_hemp,
+          "train_dense": phase_train_dense, "zoo": phase_zoo,
+          "hemp": phase_hemp,
           "serve": phase_serve}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}

@@ -5,9 +5,11 @@ with HEMP, writes the augmented file, the self-contained best checkpoint
 (``--is_increment``) and resume (``--elastic``); ``python -m
 aread_tpu_torch.serve`` scores a CSV to the probabilities that
 ``load_predictor(...).predict`` gives in this process (atol 1e-6; the same
-code on the same rows); a flag whose feature is not ported raises by
-name."""
+code on the same rows); every ``--flag`` of the root ``main.py`` but
+``--platform`` parses; a flag whose feature is not ported, or a model that
+is not, raises by name."""
 
+import ast
 import json
 import os
 import subprocess
@@ -17,7 +19,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from aread_tpu_torch.__main__ import load_config, main
+from aread_tpu_torch.__main__ import UNPORTED_FLAGS, load_config, main
 from aread_tpu_torch.data.loader import dataset_columns, tensorize
 from aread_tpu_torch.data.pipeline import preprocessed_csv_path
 from aread_tpu_torch.serve.predictor import load_predictor
@@ -161,6 +163,31 @@ def test_train_cli_generic_model_with_streaming_eval(dirs):
     assert pred.domain2group is not None and not pred.is_aread
 
 
+@pytest.mark.parametrize("flags", [
+    ["--model", "ple"],
+    ["--model", "aread", "--base_model", "ple", *HEMP_FLAGS],
+], ids=["ple", "aread-ple"])
+def test_train_cli_runs_the_zoo(dirs, flags, capsys):
+    """A zoo model and AREAD on a PLE base through the training CLI (in
+    process): trained, tested, saved, and served by load_predictor."""
+    save = str(dirs["root"] / "zoo")
+    main(["--device", "cpu", "--data_path", dirs["data"], "--save_path", save,
+          "--dataset_name", "aliccp", "--bs", "64", "--embed_dim", "8",
+          "--epoch", "1", *flags])
+    res = test_result(capsys.readouterr().out)
+    assert 0.0 <= res["total_auc"] <= 1.0
+    ck = os.path.join(save, "aliccp", f"{flags[1]}_best")
+    pred = load_predictor(ck, device="cpu")
+    assert type(pred.model).__name__.lower() == flags[1]
+    if flags[1] == "aread":
+        assert pred.model.base_model == "ple" and pred.is_aread
+        assert all(m is not None for m in pred.domain_mask)
+    else:
+        assert pred.model.n_tower == 3 and pred.domain2group is not None
+    x = load_checkpoint(ck)  # meta.json holds the run's config
+    assert x["config"]["model"] == flags[1]
+
+
 @pytest.mark.parametrize("flags,name", [
     (["--log_dir", "logs"], "log_dir"),
     (["--dynamic_regroup", "towerfirst", "--model", "mmoe"], "dynamic_regroup"),
@@ -169,8 +196,12 @@ def test_train_cli_generic_model_with_streaming_eval(dirs):
     (["--hemp_fast_adapt", "overlay"], "hemp_fast_adapt"),
     (["--mesh_data", "2"], "mesh"),
     (["--model", "mamdr"], "mamdr"),
-    (["--model", "dcnv2"], "dcnv2"),
-    (["--base_model", "ple"], "base_model"),
+    (["--model", "hinet"], "hinet"),
+    (["--model", "adasparse"], "adasparse"),
+    (["--model", "adl"], "adl"),
+    (["--adl_eval_dlm_update"], "adl_eval_dlm_update"),
+    (["--a2a_capacity", "8"], "a2a_capacity"),
+    (["--epoch_timeout_kill"], "epoch_timeout_kill"),
 ])
 def test_unported_flag_is_accepted_and_raises_by_name(dirs, flags, name):
     args = ["--device", "cpu", "--data_path", dirs["data"], "--save_path",
@@ -217,3 +248,45 @@ def test_load_config_maps_flags_onto_the_config():
     assert a.seed == b.seed != 2000 and 0 <= a.seed < 10000
     assert c.seed != a.seed
     assert load_config(["--device", "cpu"])[1] == "cpu"
+
+
+def _main_py_flags():
+    """(flag, add_argument keywords as literals) of every flag of the root
+    main.py."""
+    tree = ast.parse(open(os.path.join(REPO, "main.py")).read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", "") == "add_argument"):
+            yield node.args[0].value, {k.arg: ast.literal_eval(k.value)
+                                       for k in node.keywords
+                                       if k.arg in ("default", "action")}
+
+
+def test_every_flag_of_main_py_parses():
+    """A main.py command line runs here: each flag, given main.py's
+    default (a store_true flag given alone), parses; the three whose
+    feature is not ported raise by name when set and parse at their
+    default."""
+    seen = set()
+    for flag, kw in _main_py_flags():
+        if flag == "--platform":  # --device takes its place
+            continue
+        seen.add(flag[2:])
+        if kw.get("action") == "store_true":
+            argv = [flag]
+        else:
+            default = kw.get("default")
+            argv = [flag, "[0]" if default is None else str(default)]
+        if flag[2:] in UNPORTED_FLAGS:
+            with pytest.raises(NotImplementedError, match=flag[2:]):
+                load_config(argv if len(argv) == 1 else [flag, "8"])
+            if len(argv) == 1:
+                continue
+        cfg, _ = load_config(argv)
+        assert isinstance(cfg.model, str)
+    assert set(UNPORTED_FLAGS) | {"prng_impl", "model", "epoch_timeout_s",
+                                  "embed_lookup"} <= seen
+    assert len(seen) >= 40
+    # prng_impl has no meaning here: either value gives the same config
+    assert (load_config(["--prng_impl", "threefry"])[0]
+            == load_config(["--prng_impl", "rbg"])[0])

@@ -124,7 +124,11 @@ def test_serving_entry_points_raise_without_a_card(tmp_path):
     assert not (tmp_path / "s").exists()
 
 
-@pytest.mark.parametrize("model", ["deepfm", "dcn", "mmoe", "aread"])
+ZOO = ["deepfm", "dcn", "mmoe", "aread", "dcnv2", "autoint", "ple",
+       "pepnet", "epnet", "epnet-single", "star"]
+
+
+@pytest.mark.parametrize("model", ZOO)
 def test_build_model_raises_without_a_card(model):
     _no_card()
     spec = make_synthetic_data(n_rows=64, n_domain=2, vocab=20).spec
@@ -275,7 +279,7 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
              for t in n.targets if isinstance(t, ast.Name)}
     # the default list is PHASES' keys; every earlier phase is still there
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
-                               "train", "eval", "train_dense", "hemp",
+                               "train", "eval", "train_dense", "zoo", "hemp",
                                "serve"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
@@ -306,6 +310,31 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     assert [k.value for k in last.values[1].keys] == ["platform", "kind",
                                                       "count"]
     assert last.values[1].values[0].value == "gpu"
+
+
+def test_chip_smoke_runs_the_zoo_phase():
+    """The zoo phase fits every model of the slice through the Trainer,
+    checks each against the CPU, and takes AREAD on a PLE base through
+    its steps, its fit and load_predictor."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id in ("ZOO_MODELS",
+                                                      "ZOO_PRE_BN_BIAS")}
+    assert consts["ZOO_MODELS"] == ("dcnv2", "autoint", "ple", "pepnet",
+                                    "epnet", "epnet-single", "star")
+    assert set(consts["ZOO_PRE_BN_BIAS"]) == set(consts["ZOO_MODELS"])
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    for name in ("Trainer(build_model(", ".fit(data, epochs=1",
+                 "MULTI_TOWER_MODELS", "fused_adam"):
+        assert name in funcs["zoo_fit"], name
+    assert "true_zero_adam" in funcs["zoo_reference"]
+    ple = funcs["zoo_aread_ple"]
+    for name in ("base_model='ple'", "main_step", "reference_aread(",
+                 "sparse_adam_launches_of_fit", "serve_checkpoints(",
+                 "validate_mask"):
+        assert name in ple, name
 
 
 def _toy_aread():
@@ -347,8 +376,12 @@ def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
     assert (tmp_path / "ckpt" / "meta.json").exists()
     with pytest.raises(NotImplementedError, match="mesh"):
         AREADTrainer(model, cfg, 3, mesh=object())
-    with pytest.raises(NotImplementedError, match="base_model='ple'"):
-        build_model(dataclasses.replace(cfg, base_model="ple"), data.spec, 3,
+    # the PLE base builds; an unknown base is refused as in the JAX package
+    ple = build_model(dataclasses.replace(cfg, base_model="ple"), data.spec,
+                      3, device="cpu")
+    assert hasattr(ple, "cgc_1") and not hasattr(ple, "mmoe_experts")
+    with pytest.raises(ValueError, match="base_model"):
+        build_model(dataclasses.replace(cfg, base_model="moe"), data.spec, 3,
                     device="cpu")
     with pytest.raises(ValueError, match="hemp_fast_adapt"):
         AREADTrainer(model, dataclasses.replace(cfg, hemp_fast_adapt="x"), 3)
@@ -356,6 +389,16 @@ def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
     for mode in ("full", "auto"):
         assert not AREADTrainer(model, dataclasses.replace(
             cfg, hemp_fast_adapt=mode), 3).overlay_enabled()
+
+
+@pytest.mark.parametrize("model", ["hinet", "adasparse", "adl", "mamdr"])
+def test_unported_models_raise_by_name(model):
+    spec = make_synthetic_data(n_rows=64, n_domain=2, vocab=20).spec
+    with pytest.raises(NotImplementedError, match=model):
+        build_model(Config(model=model, embed_dim=8), spec, 2, device="cpu")
+    with pytest.raises(ValueError, match="Unknown model"):
+        build_model(Config(model="nomodel", embed_dim=8), spec, 2,
+                    device="cpu")
 
 
 def test_batch_with_mask_refuses_training():

@@ -1,9 +1,11 @@
 """The port's AREAD forward (aread_tpu_torch/models/aread.py) against the
 JAX package's, from the same weights (converted by aread_tpu_torch/
-convert.py) on the same seed-made batch: all three ported modes, eval and
-train (dropout 0, BatchNorm running statistics compared too), and the
-sparse row gradient d loss / d rows against the JAX perturbation tap.
-Tolerance atol 1e-5: f32 products summed in another order."""
+convert.py) on the same seed-made batch: with the MMoE base the three
+single-mask training modes, with the PLE base (``cgc_{i}`` levels) all
+five modes (per-example masks in 'batch_with_mask'), eval and train
+(dropout 0, BatchNorm running statistics compared too), the sparse row
+gradient d loss / d rows against the JAX perturbation tap and every dense
+gradient. Tolerance atol 1e-5: f32 products summed in another order."""
 
 import dataclasses
 
@@ -25,11 +27,15 @@ from aread_tpu_torch.data.loader import make_synthetic_data
 from aread_tpu_torch.models.aread import AREAD
 from aread_tpu_torch.train.trainer import bce_with_logits, masked_mean
 from aread_tpu_torch.utils.masks import HempMaskState
+from tests.test_torch_port_zoo import seeded_variables
 
 E, N_TOWER, N_DOMAIN, BS = 8, (2, 4), 4, 64
 MODEL_KW = dict(embed_dim=E, n_tower=N_TOWER, n_domain=N_DOMAIN,
                 expert_dims=(16, 8), tower_dims=((8,), (8, 4)), dropout=0.0)
 MODES = ["wo_mask", "domain_with_mask", "domain_mask_bagging"]
+PLE_KW = dict(MODEL_KW, base_model="ple", ple_n_expert_specific=2,
+              ple_n_expert_shared=2, ple_expert_dims=((16,), (8,)))
+PLE_MODES = MODES + ["domain_mask_final", "batch_with_mask"]
 
 
 @pytest.fixture(scope="module")
@@ -67,6 +73,37 @@ def test_generate_mask_stream_matches_jax():
             np.testing.assert_array_equal(ma, mb)
 
 
+@pytest.fixture(scope="module")
+def setup_ple():
+    """AREAD on a PLE base of two CGC levels, weights drawn from a seed;
+    per-example masks (each row its domain's) for 'batch_with_mask'."""
+    data = make_synthetic_data(n_rows=512, n_domain=N_DOMAIN, vocab=60, seed=0)
+    spec = data.spec.with_flat_table(E)
+    jspec = JFeatureSpec(*dataclasses.astuple(data.spec)[:5]).with_flat_table(E)
+    jm = JAREAD(spec=jspec, **PLE_KW)
+    x = data.train_x[:BS]
+    fm = tuple(jnp.asarray(m) for m in full_mask(N_TOWER))
+    params, state = split_variables(seeded_variables(
+        jm, jnp.asarray(x), domain_mask=fm, mode="domain_mask_final",
+        train=False, seed=2))
+    tm = AREAD(spec, device="cpu", **PLE_KW)
+    sd = convert_variables(
+        jax.tree_util.tree_map(np.asarray, params),
+        jax.tree_util.tree_map(np.asarray, state["batch_stats"]), E)
+    assert set(sd) == set(tm.state_dict())
+    assert any(k.startswith("cgc_1.gates_specific") for k in sd)
+    assert not any(k.startswith("mmoe_") for k in sd)
+    tm.load_state_dict(sd)
+    ms = HempMaskState(N_TOWER, N_DOMAIN, seed=3)
+    masks = [ms.generate_mask("rand", d, 0.6) for d in range(N_DOMAIN)]
+    dom = x[:, data.spec.domain_idx]
+    per_ex = [np.stack([masks[d][l] for d in dom])
+              for l in range(len(masks[0]))]
+    return dict(data=data, jm=jm, tm=tm, params=params, state=state, x=x,
+                y=data.train_y[:BS].astype(np.float32), dm=masks[0],
+                per_ex=per_ex)
+
+
 def _close(a, b, name):
     np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=0,
                                atol=1e-5, err_msg=name)
@@ -74,12 +111,22 @@ def _close(a, b, name):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_forward_eval_matches_jax(setup, mode):
-    s = setup
-    jout = s["jm"].apply({"params": s["params"], **s["state"]},
-                         jnp.asarray(s["x"]), domain_mask=s["dm"], mode=mode,
-                         train=False)
+    _check_eval(setup, mode)
+
+
+@pytest.mark.parametrize("mode", PLE_MODES)
+def test_ple_base_forward_eval_matches_jax(setup_ple, mode):
+    _check_eval(setup_ple, mode)
+
+
+def _check_eval(s, mode):
+    dm = s["per_ex"] if mode == "batch_with_mask" else s["dm"]
+    jout = jax.jit(lambda v, x, dm: s["jm"].apply(
+        v, x, domain_mask=dm, mode=mode, train=False))(
+            {"params": s["params"], **s["state"]}, jnp.asarray(s["x"]),
+            tuple(jnp.asarray(m) for m in dm))
     with torch.no_grad():
-        tout = s["tm"](torch.as_tensor(s["x"]), domain_mask=s["dm"],
+        tout = s["tm"](torch.as_tensor(s["x"]), domain_mask=dm,
                        mode=mode, train=False)
     for k in ("leaf_logit", "leaf_prob", "prob", "logit"):
         _close(tout[k].numpy(), jout[k], k)
@@ -95,7 +142,18 @@ def test_forward_train_and_row_grads_match_jax(setup, mode):
     """train=True with dropout 0: outputs, updated BatchNorm running stats,
     d (bagging loss) / d rows against JAX's perturbation gradient, and the
     gradient of every dense parameter."""
-    s = setup
+    _check_train(setup, mode)
+
+
+@pytest.mark.parametrize("mode", PLE_MODES[:-1])
+def test_ple_base_forward_train_and_grads_match_jax(setup_ple, mode):
+    """The same on the PLE base, in every mode that trains; the loss adds
+    the BCE of the mode's ``logit`` (in 'domain_mask_final' only the final
+    gate reaches it)."""
+    _check_train(setup_ple, mode, with_prob=True)
+
+
+def _check_train(s, mode, with_prob=False):
     x, y = s["x"], s["y"]
     valid = np.ones((BS,), np.float32)
     valid[-5:] = 0.0  # padded rows stay out of the BatchNorm statistics
@@ -108,11 +166,14 @@ def test_forward_train_and_row_grads_match_jax(setup, mode):
             rngs={"dropout": jax.random.PRNGKey(0)})
         per_leaf = jax.vmap(lambda lg: j_masked_mean(j_bce(lg, y), valid),
                             in_axes=1)(out["leaf_logit"])
-        return jnp.sum(per_leaf), (out, new_state)
+        loss = jnp.sum(per_leaf)
+        if with_prob:
+            loss = loss + j_masked_mean(j_bce(out["logit"], y), valid)
+        return loss, (out, new_state)
 
     pert0 = perturbation_zeros(s["jm"].spec, jnp.asarray(x), E)
-    (_, (jout, jstate)), (jgp, jg) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(s["params"], pert0)
+    (_, (jout, jstate)), (jgp, jg) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(s["params"], pert0)
 
     tm = s["tm"]
     saved = {k: v.clone() for k, v in tm.state_dict().items()}
@@ -121,6 +182,8 @@ def test_forward_train_and_row_grads_match_jax(setup, mode):
     yt, vt = torch.as_tensor(y), torch.as_tensor(valid)
     loss = sum(masked_mean(bce_with_logits(tout["leaf_logit"][:, i], yt), vt)
                for i in range(N_TOWER[-1]))
+    if with_prob:
+        loss = loss + masked_mean(bce_with_logits(tout["logit"], yt), vt)
     dense = tm.dense_named_parameters()
     grads = torch.autograd.grad(loss, [tout["rows"]] + list(dense.values()),
                                 materialize_grads=True)

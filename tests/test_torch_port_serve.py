@@ -12,7 +12,9 @@
   ``n == 0``;
 * a checkpoint of the JAX package through ``convert_checkpoint`` and the
   port's ``save_checkpoint`` / ``load_predictor`` serves the JAX
-  Predictor's probabilities (atol 1e-5), from meta.json alone;
+  Predictor's probabilities (atol 1e-5), from meta.json alone, for
+  DeepFM, MMoE, AREAD, PEPNet and AREAD on a PLE base with non-default
+  ``ple_*`` values;
 * the HTTP round trip, 404 and 400, as tests/test_serving.py;
 * ``predict`` called from a second thread runs in inference mode and
   records no autograd graph; the Predictor's module is its own."""
@@ -46,6 +48,7 @@ from aread_tpu_torch.train import checkpoint as ckpt
 from aread_tpu_torch.train.hemp import AREADTrainer
 from aread_tpu_torch.train.trainer import Trainer
 from aread_tpu_torch.utils.masks import HempMaskState
+from tests.test_torch_port_zoo import seeded_variables
 
 E, N_DOMAIN = 8, 4
 D2G = np.array([0, 1, 2, 1])
@@ -77,16 +80,11 @@ def _pair(model_name, data, **kw):
         from aread_tpu.models.aread import full_mask as j_full_mask
         init_kw = dict(mode="domain_mask_final", domain_mask=tuple(
             jnp.asarray(m) for m in j_full_mask(jm.n_tower)))
-    variables = jm.init({"params": jax.random.PRNGKey(1),
-                         "dropout": jax.random.PRNGKey(2)},
-                        jnp.asarray(data.train_x[:8]), train=False, **init_kw)
+    # weights, statistics and a table that are not their initial values
+    variables = seeded_variables(jm, jnp.asarray(data.train_x[:8]),
+                                 train=False, **init_kw)
     params = variables["params"]
     state = {k: v for k, v in variables.items() if k != "params"}
-    # statistics and a table that are not their initial values
-    rng = np.random.default_rng(0)
-    state = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.abs(rng.standard_normal(a.shape)).astype(
-            np.float32) + 0.5), state)
     tm = build_model(cfg, data.spec, N_DOMAIN, device="cpu")
     tm.load_state_dict(convert_variables(
         _np_tree(params), _np_tree(state.get("batch_stats", {})), E))
@@ -263,6 +261,32 @@ def test_jax_checkpoint_serves_through_convert_checkpoint(data, model_name,
     (the JAX package's meta.json, with config fields the port does not
     have) and must serve what aread_tpu.serve.load_predictor serves."""
     kw = {"dataset_name": "amazon"} if model_name == "mmoe" else {}
+    _serve_jax_checkpoint(data, tmp_path, model_name, **kw)
+
+
+@pytest.mark.parametrize("model_name,kw", [
+    ("pepnet", {"dataset_name": "amazon", "tower_dims": (16, 8)}),
+    ("aread", {"base_model": "ple", "ple_n_expert_specific": 1,
+               "ple_n_expert_shared": 3, "ple_expert_dims": ((16,), (8,))}),
+], ids=["pepnet", "aread-ple"])
+def test_jax_checkpoint_of_the_zoo_serves(data, model_name, kw, tmp_path):
+    """The same way for PEPNet (three towers gathered by the Amazon
+    domain2group) and for AREAD on a PLE base whose ple_* values are not
+    the defaults: meta.json carries them and the model is rebuilt with
+    them, not with the defaults."""
+    tp = _serve_jax_checkpoint(data, tmp_path, model_name, **kw)
+    if model_name == "aread":
+        assert tp.model.base_model == "ple"
+        cgc = tp.model.cgc_0
+        assert (cgc.n_spec, cgc.n_shared) == (1, 3)
+        assert tuple(tp.model.cgc_1.gates_specific.kernel.shape) == (
+            tp.model.n_tower[0], 16, 4)
+        assert not hasattr(tp.model, "mmoe_experts")
+    else:
+        assert tp.model.n_tower == 3 and tp.model.use_ppnet
+
+
+def _serve_jax_checkpoint(data, tmp_path, model_name, **kw):
     jm, params, state, tm, jcfg, cfg, jspec = _pair(model_name, data, **kw)
     masks = _masks(tm.n_tower, missing=(1,)) if model_name == "aread" else None
     jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
@@ -298,6 +322,7 @@ def test_jax_checkpoint_serves_through_convert_checkpoint(data, model_name,
     # the weights are the converted ones, bit for bit
     for k, v in tp.model.state_dict().items():
         assert torch.equal(v, pck["state_dict"][k]), k
+    return tp
 
 
 def test_load_predictor_modulo_grouping_and_missing_metadata(data, tmp_path):

@@ -3,7 +3,8 @@ sparse_adam_dispatch) against the same composition in JAX (bench.py's
 step: perturbation-tap gradients, hybrid_update_sparse with the table
 L2 reported, one jax.jit), three bagging steps from the same weights and
 optimizer state, dropout 0, f32 table and moments, with and without the
-global-norm clip (which takes the deduplicated row sums into the norm). Parameters, all Adam
+global-norm clip (which takes the deduplicated row sums into the norm), and
+on the PLE base (``cgc_{i}`` levels) without the clip. Parameters, all Adam
 moments and losses at atol 1e-5. Also the evaluation metrics and the
 data streams."""
 
@@ -37,6 +38,7 @@ from aread_tpu_torch.models.aread import AREAD
 from aread_tpu_torch.train import metrics
 from aread_tpu_torch.train.hemp import AREADTrainer
 from aread_tpu_torch.train.trainer import DenseAdam
+from tests.test_torch_port_zoo import seeded_variables
 
 E, N_TOWER, N_DOMAIN, BS = 8, (2, 4), 4, 64
 # A linear bias that feeds a BatchNorm has a true gradient of exactly 0
@@ -99,10 +101,20 @@ def _jax_step_fn(jm, spec, lr, dm, clip_norm):
 
 @pytest.mark.parametrize("clip_norm", [0.0, 0.05], ids=["no_clip", "clip"])
 def test_three_bagging_steps_match_jax(clip_norm):
+    _three_bagging_steps(clip_norm, MODEL_KW)
+
+
+def test_three_bagging_steps_ple_base_match_jax():
+    _three_bagging_steps(0.0, dict(
+        MODEL_KW, base_model="ple", ple_n_expert_specific=2,
+        ple_n_expert_shared=2, ple_expert_dims=((16,), (8,))))
+
+
+def _three_bagging_steps(clip_norm, model_kw):
     data = make_synthetic_data(n_rows=512, n_domain=N_DOMAIN, vocab=60, seed=0)
     spec = data.spec.with_flat_table(E)
     jspec = JFeatureSpec(*dataclasses.astuple(data.spec)[:5]).with_flat_table(E)
-    jm = JAREAD(spec=jspec, **MODEL_KW)
+    jm = JAREAD(spec=jspec, **model_kw)
     # the full mask: under a masked one, a tower with a single active
     # input edge renormalizes its gate to 1 and the gate's gradient is
     # round-off, which Adam normalizes (the masked modes' forward and
@@ -110,10 +122,8 @@ def test_three_bagging_steps_match_jax(clip_norm):
     dm = [np.asarray(m) for m in full_mask(N_TOWER)]
     jdm = fm = tuple(jnp.asarray(m) for m in dm)
     x0 = jnp.asarray(data.train_x[:BS])
-    variables = jax.jit(lambda r, xx: jm.init(
-        {"params": r, "dropout": r}, xx, domain_mask=fm,
-        mode="domain_mask_final", train=False))(jax.random.PRNGKey(0), x0)
-    params, state = split_variables(variables)
+    params, state = split_variables(seeded_variables(
+        jm, x0, domain_mask=fm, mode="domain_mask_final", train=False))
     lr = 1e-3
     optimizer, jstep = _jax_step_fn(jm, jspec, lr, jdm, clip_norm)
     opt_state = hybrid_init(optimizer, params, moments_dtype="float32")
@@ -121,7 +131,7 @@ def test_three_bagging_steps_match_jax(clip_norm):
     cfg = Config(embed_dim=E, dropout=0.0, table_dtype="float32",
                  table_moments_dtype="float32", lr=lr,
                  grad_clip_norm=clip_norm)
-    tm = AREAD(spec, device="cpu", **MODEL_KW)
+    tm = AREAD(spec, device="cpu", **model_kw)
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
     tm.load_state_dict(convert_variables(np_tree(params),
                                          np_tree(state["batch_stats"]), E))

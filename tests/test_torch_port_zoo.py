@@ -1,5 +1,6 @@
-"""The port's DeepFM, DCN and MMoE (aread_tpu_torch/models/) against the
-JAX package's, from the same weights (carried by aread_tpu_torch/
+"""The port's zoo models (aread_tpu_torch/models/: DeepFM, DCN, DCNv2 in
+two structures, AutoInt, MMoE, PLE, PEPNet / EPNet / EPNet-single, STAR)
+against the JAX package's, from the same weights (carried by aread_tpu_torch/
 convert.py) on the same seed-made batch: the eval forward; the train
 forward with dropout 0 on a padded batch (masked BatchNorm), the gradient
 of the Trainer's loss for every dense parameter and for the gathered rows
@@ -18,23 +19,34 @@ import torch
 from aread_tpu.models.base import FeatureSpec as JFeatureSpec
 from aread_tpu.models.base import gather_group as j_gather_group
 from aread_tpu.models.base import regularization_loss as j_reg_loss
+from aread_tpu.models.autoint import AutoInt as JAutoInt
 from aread_tpu.models.dcn import DCN as JDCN
+from aread_tpu.models.dcnv2 import DCNv2 as JDCNv2
 from aread_tpu.models.deepfm import DeepFM as JDeepFM
 from aread_tpu.models.mmoe import MMoE as JMMoE
+from aread_tpu.models.pepnet import PEPNet as JPEPNet
+from aread_tpu.models.ple import PLE as JPLE
+from aread_tpu.models.star import STAR as JSTAR
 from aread_tpu.train.trainer import (bce_with_logits as j_bce,
                                      masked_mean as j_masked_mean,
                                      perturbation_zeros, split_variables,
                                      strip_table_rule)
 from aread_tpu_torch.convert import convert_variables, flatten
 from aread_tpu_torch.data.loader import make_synthetic_data
+from aread_tpu_torch.models.autoint import AutoInt
 from aread_tpu_torch.models.base import gather_group, regularization_loss
 from aread_tpu_torch.models.dcn import DCN
+from aread_tpu_torch.models.dcnv2 import DCNv2
 from aread_tpu_torch.models.deepfm import DeepFM
 from aread_tpu_torch.models.mmoe import MMoE
+from aread_tpu_torch.models.pepnet import PEPNet
+from aread_tpu_torch.models.ple import PLE
+from aread_tpu_torch.models.star import STAR
 from aread_tpu_torch.train import trainer as T
 
 E, N_DOMAIN, BS = 8, 4, 64
 D2G = np.array([0, 1, 2, 1])
+SIDE_ATT = dict(atten_embed_dim=8, att_layer_num=1, att_head_num=2)
 MODELS = {
     "deepfm": (JDeepFM, DeepFM, dict(mlp_dims=(16, 8))),
     "dcn": (JDCN, DCN, dict(n_cross_layers=2, mlp_dims=(16, 8))),
@@ -42,11 +54,56 @@ MODELS = {
         n_tower=3, n_expert=2, expert_dims=(16, 8), tower_dims=(8, 4),
         n_cross_layers=2, atten_embed_dim=8, att_layer_num=2,
         att_head_num=2)),
+    "dcnv2": (JDCNv2, DCNv2, dict(n_cross_layers=2, mlp_dims=(16, 8),
+                                  low_rank=4, num_experts=2)),
+    "dcnv2-stacked-v2": (JDCNv2, DCNv2, dict(
+        n_cross_layers=2, mlp_dims=(16, 8), use_low_rank_mixture=False,
+        model_structure="stacked")),
+    "autoint": (JAutoInt, AutoInt, dict(
+        atten_embed_dim=8, att_layer_num=2, att_head_num=2,
+        mlp_dims=(16, 8))),
+    "ple": (JPLE, PLE, dict(
+        n_tower=3, n_expert_specific=2, n_expert_shared=2,
+        expert_dims=((16,), (8,)), tower_dims=(8, 4), n_cross_layers=2,
+        **SIDE_ATT)),
+    "pepnet": (JPEPNet, PEPNet, dict(
+        n_tower=3, tower_dims=(16, 8), gate_hidden_dim=8, use_ppnet=True,
+        n_cross_layers=2, **SIDE_ATT)),
+    "epnet": (JPEPNet, PEPNet, dict(
+        n_tower=3, tower_dims=(16, 8), gate_hidden_dim=8, use_ppnet=False,
+        n_cross_layers=2, **SIDE_ATT)),
+    "epnet-single": (JPEPNet, PEPNet, dict(
+        n_tower=1, tower_dims=(16, 8), gate_hidden_dim=8, use_ppnet=False,
+        n_cross_layers=2, **SIDE_ATT)),
+    "star": (JSTAR, STAR, dict(n_tower=3, tower_dims=(16, 8), **SIDE_ATT)),
 }
 
 
 def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
+
+
+def seeded_variables(module, *args, seed: int = 0, **kw):
+    """The variables ``module.init(*args, **kw)`` would make, drawn from a
+    numpy seed over their shapes (``jax.eval_shape``: nothing compiles):
+    the table N(0, 1), BatchNorm scales and running variances around 1,
+    every other leaf U(-b, b) with b = 1/sqrt(fan_in) (0.3 for vectors)."""
+    shapes = jax.eval_shape(lambda r: module.init(
+        {"params": r, "dropout": r}, *args, **kw), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, sd):
+        name = path[-1].key
+        if name == "table":
+            a = rng.standard_normal(sd.shape)
+        elif name in ("scale", "var"):
+            a = 0.5 + np.abs(rng.standard_normal(sd.shape))
+        else:
+            b = 1 / np.sqrt(sd.shape[-2]) if len(sd.shape) >= 2 else 0.3
+            a = rng.uniform(-b, b, sd.shape)
+        return jnp.asarray(a, sd.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 @pytest.fixture(scope="module", params=list(MODELS))
@@ -59,15 +116,9 @@ def setup(request):
     jm = jcls(spec=jspec, embed_dim=E, dropout=0.0, **kw)
     x = data.train_x[:BS]
     group = D2G[x[:, data.spec.domain_idx]].astype(np.int32)
-    variables = jax.jit(lambda r, xx: jm.init(
-        {"params": r, "dropout": r}, xx, train=False))(
-            jax.random.PRNGKey(0), jnp.asarray(x))
-    params, state = split_variables(variables)
     # non-trivial running statistics and BatchNorm scales
-    rng = np.random.default_rng(1)
-    state = jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.abs(rng.normal(size=a.shape)) + 0.5,
-                              jnp.float32), state)
+    params, state = split_variables(seeded_variables(
+        jm, jnp.asarray(x), train=False))
     tm = tcls(data.spec, E, dropout=0.0, device="cpu", **kw)
     sd = convert_variables(_np_tree(params), _np_tree(state["batch_stats"]), E)
     assert set(sd) == set(tm.state_dict())
@@ -85,9 +136,9 @@ def _close(a, b, name):
 
 def test_forward_eval_matches_jax(setup):
     s = setup
-    jout = s["jm"].apply({"params": s["params"], **s["state"]},
-                         jnp.asarray(s["x"]), group=jnp.asarray(s["group"]),
-                         train=False)
+    jout = jax.jit(lambda v, x, g: s["jm"].apply(v, x, group=g, train=False))(
+        {"params": s["params"], **s["state"]}, jnp.asarray(s["x"]),
+        jnp.asarray(s["group"]))
     with torch.no_grad():
         tout = s["tm"](torch.tensor(s["x"]), group=torch.tensor(s["group"]),
                        train=False)
@@ -121,8 +172,8 @@ def test_train_forward_and_gradients_match_jax(setup):
         return loss, (out, new_state)
 
     pert0 = perturbation_zeros(s["jm"].spec, jnp.asarray(x), E)
-    (jl, (jout, jstate)), (jgp, jg) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(s["params"], pert0)
+    (jl, (jout, jstate)), (jgp, jg) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(s["params"], pert0)
 
     tm = s["tm"]
     saved = {k: v.clone() for k, v in tm.state_dict().items()}
@@ -165,9 +216,11 @@ def test_regularization_loss_matches_jax(setup):
     got = regularization_loss(named, type(s["tm"]).REG_RULES)
     want = j_reg_loss(s["params"], type(s["jm"]).REG_RULES)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
-    # the BatchNorm-scale rule bites: without it the value drops
+    # the BatchNorm-scale rule bites: without it the value drops (STAR
+    # has no such rule)
     no_bn = tuple(r for r in type(s["tm"]).REG_RULES if "bn_" not in r[0])
-    assert float(regularization_loss(named, no_bn)) < float(got)
+    if no_bn != type(s["tm"]).REG_RULES:
+        assert float(regularization_loss(named, no_bn)) < float(got)
     np.testing.assert_allclose(
         float(T.table_reg_value(s["tm"].embedding.table)),
         1e-5 * float(np.sum(np.square(
