@@ -12,8 +12,9 @@ checkpoint that ``python -m aread_tpu_torch.serve`` serves from.
 Runs on the card; ``--device cpu`` asks for the CPU. Every flag of
 ``main.py`` but ``--platform`` is accepted; a flag whose feature is not
 ported yet raises by name when it is set to anything but ``main.py``'s
-default, and so does a model that is not ported (``hinet``,
-``adasparse``, ``adl``, ``mamdr``).
+default. ``--model mamdr`` trains with the Reptile meta-trainer
+(``train/mamdr.py``), AREAD with ``AREADTrainer``, every other model with
+the generic ``Trainer``.
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ from aread_tpu_torch.config import Config
 
 # flags of main.py that this CLI takes but does not act on yet, with the
 # value that main.py defaults to (any other raises by name)
-UNPORTED_FLAGS = {"adl_eval_dlm_update": False, "a2a_capacity": 0,
-                  "epoch_timeout_kill": False}
+UNPORTED_FLAGS = {"a2a_capacity": 0, "epoch_timeout_kill": False}
 
 
 def load_config(argv=None):
@@ -118,8 +118,8 @@ def load_config(argv=None):
                         help="HEMP fast-adapt engine ('overlay' is not "
                              "ported yet)")
     parser.add_argument("--adl_eval_dlm_update", action="store_true",
-                        help="ADL's eval-time DLM center updates (not "
-                             "ported yet)")
+                        help="ADL: move the DLM cluster centres during "
+                             "evaluation too, as the reference does")
     parser.add_argument("--device_data", default="auto",
                         choices=("auto", "1", "0"),
                         help="device-resident train split (auto: on when "
@@ -180,14 +180,13 @@ def main(argv=None):
     from aread_tpu_torch.data.augment import make_augmentation
     from aread_tpu_torch.data.loader import load_split_data
     from aread_tpu_torch.data.pipeline import run_preprocessing
-    from aread_tpu_torch.models import UNPORTED_MODELS, build_model
+    from aread_tpu_torch.models import build_model
     from aread_tpu_torch.train.checkpoint import (load_checkpoint,
                                                   save_checkpoint)
     from aread_tpu_torch.train.hemp import AREADTrainer
+    from aread_tpu_torch.train.mamdr import MamdrTrainer
     from aread_tpu_torch.train.trainer import MULTI_TOWER_MODELS, Trainer
 
-    if cfg.model in UNPORTED_MODELS:
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet")
     path = run_preprocessing(cfg.dataset_name, cfg.data_path,
                              prepare2train_month=cfg.prepare2train_month)
     is_aread = "aread" in cfg.model
@@ -232,7 +231,13 @@ def main(argv=None):
                    if cfg.elastic else None)
     model = build_model(cfg, data.spec, data.n_domain, device=device)
     if is_aread and "wo" not in cfg.model:
-        trainer = AREADTrainer(model, cfg, data.n_domain)
+        result = AREADTrainer(model, cfg, data.n_domain).fit(
+            data, warm_start=warm_start, ckpt_dir=elastic_dir)
+    elif cfg.model == "mamdr":
+        # as main.py: a warm start but no resumable checkpoint; fit leaves
+        # the meta weights in the model, and they are what is saved
+        result = MamdrTrainer(model, cfg, data.n_domain).fit(
+            data, warm_start=warm_start)
     else:
         d2g = cfg.domain2group()
         if d2g is not None:
@@ -245,8 +250,8 @@ def main(argv=None):
             d2g = np.arange(data.n_domain) % n_groups
             print(f"no precomputed domain2group for {cfg.dataset_name}: "
                   f"using modulo-{n_groups} grouping")
-        trainer = Trainer(model, cfg, data.n_domain, domain2group=d2g)
-    result = trainer.fit(data, warm_start=warm_start, ckpt_dir=elastic_dir)
+        result = Trainer(model, cfg, data.n_domain, domain2group=d2g).fit(
+            data, warm_start=warm_start, ckpt_dir=elastic_dir)
 
     # persist the best model, which fit leaves in the model: one final
     # save keeps the restart capability of the per-improvement saves

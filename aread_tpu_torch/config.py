@@ -85,8 +85,18 @@ class Config:
     ple_n_expert_shared: int = 2
     ple_expert_dims: Tuple[Tuple[int, ...], ...] = ((256, 128), (64,))
     ple_tower_dims: Tuple[int, ...] = (64, 32)
+    sei_dims: Tuple[int, ...] = (64, 32)  # HiNet's SEI experts
+    dlm_iters: int = 3  # ADL's DLM routing iterations
+    # ADL: the DLM cluster centres move during evaluation too, batch by
+    # batch, as in the reference; off keeps evaluation pure
+    adl_eval_dlm_update: bool = False
     aread_tower_dims: Tuple[Tuple[int, ...], ...] = ((64, 32), (32, 16), (16, 8))
     dropout: float = 0.2
+
+    # MAMDR's Reptile meta-training: the meta step size and the auxiliary
+    # domains trained before each domain
+    mamdr_meta_lr: float = 0.1
+    mamdr_aux_sample_num: int = 2
 
     # storage of the table and its Adam moments; compute stays f32 and a
     # bf16 table is written with stochastic rounding (ops/rounding.py)

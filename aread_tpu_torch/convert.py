@@ -53,15 +53,20 @@ def _table_rows(a, embed_dim: int):
 
 
 def convert_variables(params: Mapping, batch_stats: Mapping, embed_dim: int,
-                      device=None) -> Dict[str, torch.Tensor]:
-    """flax ``params`` and ``batch_stats`` -> the port's ``state_dict``."""
+                      device=None, **collections) -> Dict[str, torch.Tensor]:
+    """flax ``params``, ``batch_stats`` and every other collection of
+    carried state, by name in ``collections`` (ADL's ``model_state``, whose
+    ``cluster_centers`` is the port's buffer of that name) -> the port's
+    ``state_dict``. Each collection's paths map to the port's module paths
+    as the parameters' do."""
     sd = {}
     for path, leaf in flatten(params).items():
         if path == "embedding/table":
             leaf = _table_rows(leaf, embed_dim)
         sd[path.replace("/", ".")] = _to_torch(leaf, device)
-    for path, leaf in flatten(batch_stats).items():
-        sd[path.replace("/", ".")] = _to_torch(leaf, device)
+    for tree in (batch_stats, *collections.values()):
+        for path, leaf in flatten(tree).items():
+            sd[path.replace("/", ".")] = _to_torch(leaf, device)
     return sd
 
 
@@ -162,9 +167,13 @@ def convert_checkpoint(ck: Mapping, embed_dim: int, device=None) -> Dict:
     out = {k: v for k, v in ck.items()
            if k not in ("params", "state", "opt_state", "rng_key",
                         "domain_mask")}
-    state = ck.get("state") or {}
+    # every collection of the state but 'perturbations', the step's input
+    # (the JAX package's split_variables)
+    state = {k: v for k, v in (ck.get("state") or {}).items()
+             if k != "perturbations"}
     out["state_dict"] = convert_variables(
-        ck["params"], state.get("batch_stats", {}), embed_dim, device)
+        ck["params"], state.pop("batch_stats", {}), embed_dim, device,
+        **state)
     opt_state = ck.get("opt_state")
     out["opt_state"] = (convert_opt_state(opt_state, embed_dim, device)
                         if opt_state else {})

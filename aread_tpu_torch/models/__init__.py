@@ -1,9 +1,9 @@
 """Model construction from a Config (counterpart of
-``aread_tpu/models/__init__.py`` ``build_model``): ``deepfm``, ``dcn``,
-``dcnv2``, ``autoint``, ``ple``, ``mmoe``, ``pepnet`` / ``epnet`` /
-``epnet-single``, ``star`` and ``aread`` (MMoE or PLE base); ``hinet``,
-``adasparse``, ``adl`` and ``mamdr`` are not ported yet and raise by
-name."""
+``aread_tpu/models/__init__.py`` ``build_model``): every model name of the
+JAX package — ``deepfm``, ``dcn``, ``dcnv2``, ``autoint``, ``ple``,
+``mmoe``, ``pepnet`` / ``epnet`` / ``epnet-single``, ``star``, ``adl``,
+``hinet``, ``adasparse``, ``mamdr`` and ``aread`` / ``aread_womask`` (MMoE
+or PLE base)."""
 
 from __future__ import annotations
 
@@ -12,21 +12,24 @@ from typing import Optional
 
 from aread_tpu_torch.config import Config
 from aread_tpu_torch.device import DeviceLike
+from aread_tpu_torch.models.adasparse import AdaSparse
+from aread_tpu_torch.models.adl import ADL
 from aread_tpu_torch.models.aread import AREAD
 from aread_tpu_torch.models.autoint import AutoInt
 from aread_tpu_torch.models.base import CTRModel, FeatureSpec
 from aread_tpu_torch.models.dcn import DCN
 from aread_tpu_torch.models.dcnv2 import DCNv2
 from aread_tpu_torch.models.deepfm import DeepFM
+from aread_tpu_torch.models.hinet import HiNet
+from aread_tpu_torch.models.mamdr import MAMDR
 from aread_tpu_torch.models.mmoe import MMoE
 from aread_tpu_torch.models.pepnet import PEPNet
 from aread_tpu_torch.models.ple import PLE
 from aread_tpu_torch.models.star import STAR
 
-__all__ = ["AREAD", "AutoInt", "CTRModel", "DCN", "DCNv2", "DeepFM",
-           "FeatureSpec", "MMoE", "PEPNet", "PLE", "STAR", "build_model"]
-
-UNPORTED_MODELS = ("hinet", "adasparse", "adl", "mamdr")
+__all__ = ["ADL", "AREAD", "AdaSparse", "AutoInt", "CTRModel", "DCN",
+           "DCNv2", "DeepFM", "FeatureSpec", "HiNet", "MAMDR", "MMoE",
+           "PEPNet", "PLE", "STAR", "build_model"]
 
 
 def build_model(config: Config, spec: FeatureSpec, n_domain: int,
@@ -79,6 +82,19 @@ def build_model(config: Config, spec: FeatureSpec, n_domain: int,
     if name == "star":
         return STAR(spec, e, n_tower=n_tower, tower_dims=config.tower_dims,
                     use_atten=config.use_atten, **common_att, **common)
+    if name == "adl":
+        return ADL(spec, e, n_tower=n_tower, tower_dims=config.tower_dims,
+                   dlm_iters=config.dlm_iters,
+                   eval_dlm_update=config.adl_eval_dlm_update, **side,
+                   **common)
+    if name == "hinet":
+        return HiNet(spec, e, n_tower=n_tower, sei_dims=config.sei_dims,
+                     tower_dims=config.tower_dims, **side, **common)
+    if name == "adasparse":
+        return AdaSparse(spec, e, hidden_dims=config.mlp_dims, **side,
+                         **common)
+    if name == "mamdr":
+        return MAMDR(spec, e, mlp_dims=(256, 128), **common)
     if name in ("aread", "aread_womask"):
         towers = tuple(n_tower * 2 ** l
                        for l in range(len(config.aread_tower_dims)))
@@ -91,6 +107,4 @@ def build_model(config: Config, spec: FeatureSpec, n_domain: int,
                      ple_n_expert_specific=config.ple_n_expert_specific,
                      ple_n_expert_shared=config.ple_n_expert_shared,
                      ple_expert_dims=config.ple_expert_dims, **common)
-    if name in UNPORTED_MODELS:
-        raise NotImplementedError(f"model {name!r} is not ported yet")
     raise ValueError(f"Unknown model: {name}")

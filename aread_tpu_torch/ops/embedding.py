@@ -4,7 +4,8 @@ One logical table of ``sum(one_hot_dims)`` rows; per-field offsets are
 added to the raw ids; the multi-hot history-sequence fields reuse the
 itemid field's rows and are mean- or sum-pooled over ``seq_maxlen``, pad
 rows included in the mean (as ``torch.mean(..., dim=2)`` in the
-reference).
+reference), or, with ``method=None``, left unpooled: one output field per
+sequence slot.
 
 The table is stored row-major ``[n_rows, D]`` as a buffer, never a
 trainable parameter: its gradient is taken through a sparse tap. The
@@ -40,15 +41,16 @@ def compute_offsets(one_hot_dims: Sequence[int], n_multi_hot_slots: int,
 
 class FeaturesEmbedding(nn.Module):
     """Input x: int [B, n_one_hot + n_seq_fields * seq_maxlen].
-    Output: f32 [B, n_one_hot + n_seq_fields, D] (pooled), plus the tap
-    rows when asked for."""
+    Output: f32 [B, n_one_hot + n_seq_fields, D] (pooled; ``method=None``:
+    [B, n_one_hot + n_seq_fields * seq_maxlen, D]), plus the tap rows when
+    asked for."""
 
     def __init__(self, one_hot_dims: Tuple[int, ...], embed_dim: int,
                  n_seq_fields: int, itemid_idx: int, seq_maxlen: int,
-                 method: str = "mean", table_dtype=torch.float32,
+                 method: Optional[str] = "mean", table_dtype=torch.float32,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if method not in ("mean", "sum"):
+        if method not in ("mean", "sum", None):
             raise ValueError(f"Invalid multi-hot method {method!r}")
         self.one_hot_dims = tuple(int(d) for d in one_hot_dims)
         self.embed_dim = embed_dim
@@ -79,7 +81,7 @@ class FeaturesEmbedding(nn.Module):
             rows.requires_grad_(True)
         n_one = len(self.one_hot_dims)
         embed_x = rows
-        if self.n_seq_fields > 0:
+        if self.n_seq_fields > 0 and self.method is not None:
             multi = rows[:, n_one:, :].reshape(
                 rows.shape[0], self.n_seq_fields, self.seq_maxlen,
                 self.embed_dim)
@@ -92,12 +94,15 @@ class FeaturesLinear(nn.Module):
     """First-order linear head over the flattened embedding."""
 
     def __init__(self, input_dim: int, output_dim: int = 1,
+                 use_bias: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.kernel = nn.Parameter(linear_kernel_init(
             (input_dim, output_dim), generator, device))
-        self.bias = nn.Parameter(uniform_fan_in(
+        self.bias = (nn.Parameter(uniform_fan_in(
             (output_dim,), input_dim, generator, device))
+                     if use_bias else None)
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias

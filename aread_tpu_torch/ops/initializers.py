@@ -28,6 +28,28 @@ def linear_kernel_init(shape: Sequence[int], generator: torch.Generator,
     return uniform_fan_in(shape, shape[-2], generator, device)
 
 
+def linear_bias_init_for(fan_in: int):
+    """torch Linear's bias draw for a layer of ``fan_in`` inputs, as an
+    initializer of any shape: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+
+    def init(shape: Sequence[int], generator: torch.Generator,
+             device=None) -> torch.Tensor:
+        return uniform_fan_in(shape, fan_in, generator, device)
+
+    return init
+
+
+def normal_init(std: float):
+    """N(0, std^2)."""
+
+    def init(shape: Sequence[int], generator: torch.Generator,
+             device=None) -> torch.Tensor:
+        return std * torch.randn(tuple(shape), generator=generator,
+                                 device=device, dtype=torch.float32)
+
+    return init
+
+
 def xavier_normal_init(shape: Sequence[int], generator: torch.Generator,
                        device=None) -> torch.Tensor:
     """N(0, 2 / (fan_in + fan_out)) with the fans of the last two axes
@@ -35,6 +57,25 @@ def xavier_normal_init(shape: Sequence[int], generator: torch.Generator,
     std = math.sqrt(2.0 / (shape[-2] + shape[-1]))
     return std * torch.randn(tuple(shape), generator=generator, device=device,
                              dtype=torch.float32)
+
+
+def zeros_init(shape: Sequence[int], generator: torch.Generator = None,
+               device=None) -> torch.Tensor:
+    """Zeros (flax's ``nn.initializers.zeros``: a ``nn.Dense`` bias when
+    only its ``kernel_init`` is given)."""
+    return torch.zeros(tuple(shape), device=device)
+
+
+def xavier_uniform_init(shape: Sequence[int], generator: torch.Generator,
+                        device=None) -> torch.Tensor:
+    """flax's ``xavier_uniform``: U(-b, b), b = sqrt(6 / (fan_in +
+    fan_out)), the fans of the last two axes each times the product of the
+    leading axes (the receptive field)."""
+    rf = math.prod(shape[:-2])
+    bound = math.sqrt(6.0 / (shape[-2] * rf + shape[-1] * rf))
+    u = torch.rand(tuple(shape), generator=generator, device=device,
+                   dtype=torch.float32)
+    return u * (2 * bound) - bound
 
 
 def embedding_init(shape: Sequence[int], generator: torch.Generator,

@@ -15,17 +15,24 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from aread_tpu_torch.ops.initializers import linear_kernel_init, uniform_fan_in
+from aread_tpu_torch.ops.initializers import (linear_bias_init_for,
+                                              linear_kernel_init,
+                                              uniform_fan_in)
 
 
 class Linear(nn.Module):
+    """``x @ kernel + bias``. The draws default to torch's Linear; a
+    ``kernel_init`` / ``bias_init`` (``ops/initializers.py``) replaces
+    them as flax's ``nn.Dense`` arguments do."""
+
     def __init__(self, din: int, features: int, use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 kernel_init=linear_kernel_init, bias_init=None):
         super().__init__()
-        self.kernel = nn.Parameter(linear_kernel_init((din, features),
-                                                      generator, device))
-        self.bias = (nn.Parameter(uniform_fan_in((features,), din, generator,
-                                                 device))
+        bias_init = bias_init or linear_bias_init_for(din)
+        self.kernel = nn.Parameter(kernel_init((din, features), generator,
+                                               device))
+        self.bias = (nn.Parameter(bias_init((features,), generator, device))
                      if use_bias else None)
 
     def forward(self, x):

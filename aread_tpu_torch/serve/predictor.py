@@ -122,6 +122,13 @@ class Predictor:
         n = x.shape[0]
         if n == 0:
             return np.zeros((0,), np.float32)
+        if getattr(self.model, "eval_dlm_update", False):
+            # the JAX Predictor applies the model without a mutable
+            # collection, and flax refuses ADL's centre update there
+            raise ValueError(
+                "ADL with adl_eval_dlm_update moves its cluster centres at "
+                "every forward; a Predictor serves a frozen model (rebuild "
+                "it with adl_eval_dlm_update=False to serve these weights)")
         self._check(x)
         model = self.model
         didx = model.spec.domain_idx

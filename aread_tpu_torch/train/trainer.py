@@ -453,7 +453,9 @@ class Trainer:
                  domain_cnt_weight: np.ndarray) -> Dict:
         """Total and per-domain AUC / log-loss over a split. Evaluation
         normalizes with the running statistics, so the batch size does not
-        change the predictions; batches of 8 * bs cut the launches. With
+        change the predictions; batches of 8 * bs cut the launches. ADL with
+        ``eval_dlm_update`` moves its cluster centres batch by batch, in
+        this order, on both paths. With
         ``config.streaming_eval`` the predictions stay on the device: each
         batch's logits go into per-domain histograms (``StreamingAUC``)
         and only those are fetched."""
@@ -580,6 +582,13 @@ class Trainer:
             self._device_data = None
         if self.best_checkpoint is not None:
             self.model.load_state_dict(self.best_checkpoint[0])
+        # ADL with eval_dlm_update moves its centres in every evaluation
+        # (fit carries the valid pass's into the next epoch); the run's
+        # result is the state before the test pass, as in the JAX package
+        kept = (clone_state(self.model)
+                if getattr(self.model, "eval_dlm_update", False) else None)
         test_result = self.evaluate(data.test_x, data.test_y,
                                     data.domain_cnt_weight)
+        if kept is not None:
+            self.model.load_state_dict(kept)
         return {"history": history, "test": test_result}

@@ -36,6 +36,19 @@ Phases, each printing one line:
            16 bagging steps, 3 steps card vs CPU, one epoch of
            AREADTrainer.fit at RESUME_DEPTH, the model saved, rebuilt by
            load_predictor and served against the trainer's evaluation;
+  zoo2     the zoo's second half at full Amazon width: build_model +
+           Trainer.fit (12 dense-gradient steps, valid and test passes) for
+           hinet, adasparse and adl, timed as in zoo; ADL's DLM centres
+           unit vectors after fit, left bitwise alone by an evaluation and
+           moved by one with eval_dlm_update; one step of each card vs CPU
+           at a small width, and ADL's centres after such an evaluation;
+           MAMDR at the CLI defaults (sparse table gradient, bf16 table and
+           moments) through MamdrTrainer.fit for one epoch, its sparse_adam
+           launches held to the Reptile schedule's, a Reptile update, a
+           merge and a weight swap timed, and one small epoch card vs CPU;
+           the four models saved, rebuilt by load_predictor and served
+           against their trainers' evaluation; each FM op this slice
+           added to ops/fm.py card vs CPU at the Amazon field count;
   hemp     the HEMP loop at full Amazon width: build_model +
            AREADTrainer.fit — warm-up, bagging steps, a mask evolution at
            every regroup point (fresh fast-Adam chains from a snapshot,
@@ -63,7 +76,7 @@ Phases, each printing one line:
            go to --profile-dir.
 
 The launch counts are set to 0 just before each path (train, train_dense
-and its parts, zoo's fits and steps, hemp, serve's resumes) and read just after it; a kernel's ``launches`` is the sum
+and its parts, zoo's and zoo2's fits and steps, hemp, serve's resumes) and read just after it; a kernel's ``launches`` is the sum
 over the paths. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -980,12 +993,15 @@ def phase_train_dense(ctx):
 
 
 def true_zero_adam(pre_bn_bias: str, lr: float, wd: float,
-                   atten_dim: int = 0):
+                   atten_dim: int = 0, constant_rows=None):
     """DenseAdam that gives the linear biases feeding a BatchNorm their
     true gradient, exactly 0: the computed one is round-off, which Adam
     would normalize into a step of up to lr on either device. With
     ``atten_dim``, so does the key slice [atten_dim, 2 * atten_dim) of
-    every self-attention in-projection bias."""
+    every self-attention in-projection bias; with ``constant_rows`` =
+    (name, slice), so do those rows of that kernel (a kernel feeding a
+    BatchNorm, its rows fed by an input that is constant over the batch:
+    the domain field's embedding in a single-domain batch)."""
     import re
 
     from aread_tpu_torch.train.trainer import DenseAdam
@@ -999,6 +1015,9 @@ def true_zero_adam(pre_bn_bias: str, lr: float, wd: float,
         if atten_dim and in_proj.search(n):
             g = g.clone()
             g[atten_dim:2 * atten_dim] = 0
+        if constant_rows is not None and n == constant_rows[0]:
+            g = g.clone()
+            g[constant_rows[1]] = 0
         return g
 
     class DenseAdamTrueZero(DenseAdam):
@@ -1222,7 +1241,17 @@ ZOO_PRE_BN_BIAS = {
     "epnet-single": r"^towers/linear_\d+/bias$",
     "star": (r"^((domain_dnns|shared_dnn)_bias_\d+|domain_norm/bias"
              r"|shared_bn_bias)$"),
+    "hinet": r"^((specific_seis|shared_sei)/experts|tower)/linear_\d+/bias$",
+    # each layer's product fc * pi with a per-sample pi reaches its
+    # BatchNorm: no bias has a true zero gradient
+    "adasparse": r"(?!)",
+    "adl": r"^(domain_mlps|shared_mlps)/linear_\d+/bias$",
 }
+
+
+# multi-tower models that take the group and select the sample's tower in
+# their forward: one logit per sample
+TOWER_SELECTED_IN_FORWARD = ("adl", "hinet")
 
 
 def check_metrics(what: str, results) -> None:
@@ -1242,12 +1271,13 @@ def phase_zoo(ctx):
     zoo_aread_ple(ctx)
 
 
-def zoo_fit(ctx):
-    """Each of ZOO_MODELS through build_model + Trainer.fit: one epoch of
+def zoo_fit(ctx, models=ZOO_MODELS, phase: str = "zoo", keep: bool = False):
+    """Each of ``models`` through build_model + Trainer.fit: one epoch of
     ZOO_STEPS dense-gradient steps (f32 table, bf16 moments, dropout 0.2,
     Amazon domain2group), the valid and test passes; then its step timed
     alone, its launches and device busy time per step (torch.profiler) and
-    its peak memory."""
+    its peak memory. With ``keep``, returns ({name: trainer}, the split);
+    else each trainer is dropped before the next is built."""
     from aread_tpu_torch.config import DOMAIN2GROUP, Config
     from aread_tpu_torch.data.loader import GlobalBatcher
     from aread_tpu_torch.models import build_model
@@ -1255,7 +1285,8 @@ def zoo_fit(ctx):
 
     data = amazon_split(np.random.default_rng(5), ZOO_STEPS * BS, 2048)
     d2g = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
-    for name in ZOO_MODELS:
+    kept = {}
+    for name in models:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         cfg = Config(model=name, dataset_name="amazon", seed=0,
@@ -1270,10 +1301,10 @@ def zoo_fit(ctx):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        res = counted(ctx, f"zoo/{name}_fit",
+        res = counted(ctx, f"{phase}/{name}_fit",
                       lambda: tr.fit(data, epochs=1, verbose=False))
         fit_s = time.perf_counter() - t0
-        launches = ctx["launches_by_path"][f"zoo/{name}_fit"]
+        launches = ctx["launches_by_path"][f"{phase}/{name}_fit"]
         if launches != {"fused_adam": ZOO_STEPS, "sparse_adam": 0}:
             raise AssertionError(f"{name}: fit of {ZOO_STEPS} dense steps "
                                  f"launched {launches}")
@@ -1288,17 +1319,18 @@ def zoo_fit(ctx):
         with torch.no_grad():
             logit = model(batches[0]["x"], group=batches[0]["group"],
                           train=False)["logit"]
-        multi = name in MULTI_TOWER_MODELS
+        multi = (name in MULTI_TOWER_MODELS
+                 and name not in TOWER_SELECTED_IN_FORWARD)
         want = (BS, 3) if multi else (BS,)
         if tuple(logit.shape) != want or not torch.isfinite(logit).all():
             raise AssertionError(f"{name}: logit {tuple(logit.shape)}, "
                                  f"want {want}")
-        step_ms, losses = counted(ctx, f"zoo/{name}_steps",
+        step_ms, losses = counted(ctx, f"{phase}/{name}_steps",
                                   lambda: timed_steps(tr, batches))
         per_step, busy_ms = launches_and_busy_per_call(
             lambda: tr.step(batches[0]))
         table = model.embedding.table
-        say("zoo", model=name, logit_shape=list(want),
+        say(phase, model=name, logit_shape=list(want),
             params=sum(p.numel() for p in model.parameters()) + table.numel(),
             dense_params=sum(p.numel() for p in model.parameters()),
             table=[list(table.shape), str(table.dtype)],
@@ -1308,16 +1340,19 @@ def zoo_fit(ctx):
             test_total_auc=res["test"]["total_auc"],
             test_mean_auc=res["test"]["mean_auc"], step_ms_median=step_ms,
             examples_per_s=BS / (step_ms * 1e-3),
-            step_launches=ctx["launches_by_path"][f"zoo/{name}_steps"],
+            step_launches=ctx["launches_by_path"][f"{phase}/{name}_steps"],
             cuda_launches_per_step=per_step,
             device_busy_ms_per_step=busy_ms,
             device_idle_share=1 - busy_ms / step_ms,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        if keep:
+            kept[name] = tr
         del tr, model, table, batches
+    return kept, data
 
 
-def zoo_reference(ctx):
-    """One dense step of each of ZOO_MODELS from the same weights on the
+def zoo_reference(ctx, models=ZOO_MODELS):
+    """One dense step of each of ``models`` from the same weights on the
     card (fused-Adam kernel) and on the CPU (plain versions): small width
     (embed 8, a 300-id vocab, bs 256, layers of 16 and 8 units, one
     attention layer of 8), f32 table and moments, dropout 0; atol 1e-5,
@@ -1340,14 +1375,15 @@ def zoo_reference(ctx):
     d2g = np.array([0, 1, 2, 1])
     batch = pad_batch(data.train_x[:256], data.train_y[:256], 256)
     batch["group"] = d2g[batch["x"][:, data.spec.domain_idx]].astype(np.int32)
-    diffs = {}
-    for name in ZOO_MODELS:
+    diffs, pairs = {}, {}
+    for name in models:
         trainers = {}
         for dev in ("cpu", "cuda"):
             cfg = Config(model=name, embed_dim=8, dropout=0.0,
                          sparse_table_grad=False, table_dtype="float32",
                          table_moments_dtype="float32", mlp_dims=(16, 8),
-                         tower_dims=(16, 8), ple_expert_dims=((16,), (8,)),
+                         tower_dims=(16, 8), sei_dims=(16, 8),
+                         ple_expert_dims=((16,), (8,)),
                          ple_tower_dims=(8, 4), atten_embed_dim=8,
                          att_layer_num=1)
             tr = Trainer(build_model(cfg, data.spec, 4, device=dev), cfg, 4,
@@ -1365,12 +1401,14 @@ def zoo_reference(ctx):
             raise AssertionError(f"{name}: the card's step did not launch "
                                  "fused_adam")
         diffs[name] = state_diffs(trainers["cpu"], trainers["cuda"], losses)
+        pairs[name] = trainers
     say("reference", path="zoo Trainer.step (dense)", steps=1,
         max_abs_diff={n: d for n, (_, d) in diffs.items()},
         worst={n: w for n, (w, _) in diffs.items()}, tolerance=1e-5)
     bad = {n: wd for n, wd in diffs.items() if wd[1] > 1e-5}
     if bad:
         raise AssertionError(f"card and CPU disagree after one step: {bad}")
+    return pairs, data
 
 
 def zoo_aread_ple(ctx):
@@ -1492,6 +1530,284 @@ def zoo_aread_ple(ctx):
     x, _ = amazon_rows(np.random.default_rng(4), amazon_spec(), SERVE_ROWS)
     with tempfile.TemporaryDirectory(prefix="aread_zoo_") as tmp:
         serve_checkpoints(ctx, {"aread": tr}, tmp, x, phase="zoo")
+
+
+# ------------------------------------------------------------------ zoo2
+ZOO2_MODELS = ("hinet", "adasparse", "adl")
+# MAMDR's depth: about one 1024-row batch per domain, one epoch
+MAMDR_TRAIN_ROWS = 12800
+
+
+def phase_zoo2(ctx):
+    """The zoo's second half at full Amazon width: HiNet, AdaSparse and ADL
+    through build_model + Trainer.fit, ADL's centres through evaluation,
+    each model's step card vs CPU; MAMDR through its Reptile meta-trainer
+    at the CLI defaults; the four served from their checkpoints; the FM
+    ops card vs CPU."""
+    trainers, data = zoo_fit(ctx, ZOO2_MODELS, phase="zoo2", keep=True)
+    zoo2_adl_centres(trainers["adl"], data)
+    pairs, small = zoo_reference(ctx, ZOO2_MODELS)
+    zoo2_adl_eval_reference(pairs["adl"], small)
+    del pairs
+    trainers["mamdr"] = zoo2_mamdr(ctx)
+    zoo2_mamdr_reference(ctx)
+    x, _ = amazon_rows(np.random.default_rng(4), amazon_spec(), SERVE_ROWS)
+    with tempfile.TemporaryDirectory(prefix="aread_zoo2_") as tmp:
+        serve_checkpoints(ctx, trainers, tmp, x, phase="zoo2")
+    del trainers
+    zoo2_fm_ops()
+
+
+def zoo2_adl_centres(tr, data):
+    """After fit the DLM centres are unit vectors; an evaluation leaves
+    them bitwise where they were, and one with eval_dlm_update moves
+    them (and keeps them unit vectors)."""
+    model = tr.model
+    centres = model.cluster_centers
+    norm_err = float((torch.linalg.vector_norm(centres, dim=1) - 1).abs().max())
+    before = centres.clone()
+    tr.evaluate(data.valid_x, data.valid_y, data.domain_cnt_weight)
+    pure = torch.equal(centres, before)
+    model.eval_dlm_update = True
+    try:
+        res = tr.evaluate(data.valid_x, data.valid_y, data.domain_cnt_weight)
+    finally:
+        model.eval_dlm_update = False
+    moved = float((centres - before).abs().max())
+    norm_err_after = float(
+        (torch.linalg.vector_norm(centres, dim=1) - 1).abs().max())
+    say("zoo2", model="adl", part="centres", shape=list(centres.shape),
+        norm_err_after_fit=norm_err, eval_bitwise_unchanged=pure,
+        moved_by_eval_dlm_update=moved, norm_err_after_update=norm_err_after,
+        valid_total_auc_with_update=res["total_auc"])
+    if max(norm_err, norm_err_after) > 1e-5 or not pure or moved == 0.0:
+        raise AssertionError("adl: centres not unit vectors, moved by a pure "
+                             "evaluation or not moved by eval_dlm_update")
+
+
+def zoo2_adl_eval_reference(trainers, data):
+    """zoo_reference's ADL pair (one step taken on each device) evaluates
+    the valid split with eval_dlm_update: the centres must agree card vs
+    CPU at atol 1e-5."""
+    for tr in trainers.values():
+        tr.model.eval_dlm_update = True
+        tr.evaluate(data.valid_x, data.valid_y, data.domain_cnt_weight)
+        tr.model.eval_dlm_update = False
+    diff = float((trainers["cpu"].model.cluster_centers
+                  - trainers["cuda"].model.cluster_centers.cpu()).abs().max())
+    say("reference", path="adl evaluation with eval_dlm_update (centres)",
+        max_abs_diff=diff, tolerance=1e-5)
+    if diff > 1e-5:
+        raise AssertionError(f"adl: centres after evaluation, card vs CPU "
+                             f"{diff}")
+
+
+def mamdr_sparse_adam_launches(cfg, data) -> int:
+    """sparse_adam launches of one MamdrTrainer.fit epoch, from the
+    DomainBatcher's per-domain batch counts and the trainer's draws (the
+    permutation, then each domain's auxiliary domains): the shared pass
+    over every batch, then for each domain d and each of its sequences
+    (the auxiliary domains, then d itself) cnt[a] + cnt[d] steps."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+
+    seq = DomainBatcher(data.train_x, data.train_y, cfg.bs,
+                        data.spec.domain_idx, N_DOMAIN,
+                        seed=cfg.seed).domain_batch_seq
+    domains, counts = np.unique(np.asarray(seq), return_counts=True)
+    cnt = dict(zip(domains.tolist(), counts.tolist()))
+    rng = np.random.default_rng(cfg.seed)
+    rng.permutation(domains)
+    total = int(counts.sum())
+    for d in domains.tolist():
+        cands = domains[domains != d]
+        aux = rng.choice(cands, size=min(cfg.mamdr_aux_sample_num,
+                                         len(cands)), replace=False)
+        total += sum(cnt[a] + cnt[d] for a in aux.tolist() + [d])
+    return total
+
+
+def zoo2_mamdr(ctx):
+    """MAMDR at the CLI defaults (sparse table gradient, bf16 table and
+    moments, 2 auxiliary domains) through build_model + MamdrTrainer.fit:
+    one epoch on MAMDR_TRAIN_ROWS rows, valid and test passes of 2,048;
+    the sparse_adam launches must be the schedule's; then one Reptile
+    update, one merge and one weight swap timed alone (the table
+    included), and 6 training steps as zoo times its models'."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.mamdr import (MamdrTrainer, reptile_update,
+                                             tree_add)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = amazon_split(np.random.default_rng(6), MAMDR_TRAIN_ROWS, 2048)
+    cfg = Config(model="mamdr", dataset_name="amazon", seed=0)
+    if (cfg.sparse_table_grad, cfg.table_dtype, cfg.table_moments_dtype,
+            cfg.mamdr_aux_sample_num, cfg.bs) != (True, "bfloat16",
+                                                  "bfloat16", 2, BS):
+        raise AssertionError("not the CLI defaults")
+    tr = MamdrTrainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
+                      cfg, N_DOMAIN)
+    table = tr.model.embedding.table
+    if tuple(table.shape) != (1518384, EMBED_DIM):
+        raise AssertionError(f"table {tuple(table.shape)}")
+    want = mamdr_sparse_adam_launches(cfg, data)
+    t0 = time.perf_counter()
+    res = counted(ctx, "zoo2/mamdr_fit",
+                  lambda: tr.fit(data, epochs=1, verbose=False))
+    epoch_s = time.perf_counter() - t0
+    launches = ctx["launches_by_path"]["zoo2/mamdr_fit"]
+    if launches != {"sparse_adam": want, "fused_adam": 0}:
+        raise AssertionError(f"mamdr fit launched {launches}, the schedule "
+                             f"implies {want} sparse_adam")
+    hist = res["history"][0]
+    check_metrics("mamdr", (("valid", hist), ("test", res["test"])))
+    meta = res["meta_weights"]
+    live = tr.live_weights()
+    if tr.model.embedding.table is not table or not all(
+            torch.equal(v, meta[k]) for k, v in live.items()):
+        raise AssertionError("mamdr: the model does not hold the meta weights")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reptile_ms = event_ms(lambda: reptile_update(meta, live, meta,
+                                                 cfg.mamdr_meta_lr))
+    merge_ms = event_ms(lambda: tree_add(meta, res["domain_weights"][0]))
+    swap_ms = event_ms(lambda: tr.load_weights(meta))
+    # one training step of the meta-trainer alone (the model's state is
+    # put back afterwards: it serves the meta weights)
+    saved = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    batcher = DomainBatcher(data.train_x, data.train_y, BS,
+                            data.spec.domain_idx, N_DOMAIN, seed=1)
+    batches = [tr.place(batcher.next_batch(d)) for d in range(6)]
+    step_ms, _ = counted(ctx, "zoo2/mamdr_steps",
+                         lambda: timed_steps(tr, batches))
+    per_step, busy_ms = launches_and_busy_per_call(lambda: tr.step(batches[0]))
+    tr.model.load_state_dict(saved)
+    say("zoo2", model="mamdr", part="fit", rows=MAMDR_TRAIN_ROWS,
+        table=[list(table.shape), str(table.dtype)],
+        params=sum(t.numel() for t in live.values()),
+        epoch_s=epoch_s, steps=want, launches=launches,
+        sparse_adam_launches_schedule=want, step_ms_median=step_ms,
+        cuda_launches_per_step=per_step, device_busy_ms_per_step=busy_ms,
+        device_idle_share=1 - busy_ms / step_ms,
+        valid_total_auc=hist["total_auc"],
+        valid_mean_auc=hist["mean_auc"],
+        test_total_auc=res["test"]["total_auc"],
+        reptile_update_ms=reptile_ms, merge_ms=merge_ms, swap_ms=swap_ms,
+        peak_mem_gb=peak)
+    del res, meta, live, saved, batches
+    return tr
+
+
+def zoo2_mamdr_reference(ctx):
+    """One MamdrTrainer.fit epoch from the same weights on the card
+    (sparse-Adam kernel) and on the CPU (plain version): a small width
+    (embed 8, MLP of 16 and 8 units, 4 domains, bs 256), f32 table and
+    moments, dropout 0; the meta weights and domain 0's weights at atol
+    1e-5. Every batch holds one domain, so the rows of the MLP's first
+    kernel that the domain field's embedding feeds have a true gradient of
+    0 (their input is constant over the batch and a BatchNorm follows), as
+    the MLP's pre-BatchNorm biases do: both get it on both sides. Their
+    computed gradient is round-off, which each of the epoch's 13 fresh
+    optimizers would turn into a first step of up to lr (one run: 1.1e-5
+    apart in domain 0's weights without this)."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import make_synthetic_data
+    from aread_tpu_torch.models.mamdr import MAMDR
+    from aread_tpu_torch.train.mamdr import (MamdrTrainer, reptile_update,
+                                             tree_add)
+
+    # the Reptile arithmetic alone, bitwise: a bf16 table (its meta_lr
+    # rounded to bf16 as the JAX package does) and f32 leaves
+    g = torch.Generator().manual_seed(1)
+    trees = [{"table": torch.randn((4096, 32), generator=g).to(torch.bfloat16),
+              "kernel": torch.randn((64, 16), generator=g)} for _ in range(3)]
+    on_card = [{k: v.to("cuda") for k, v in t.items()} for t in trees]
+    for name, fn in (("reptile_update", lambda t: reptile_update(*t, 0.1)),
+                     ("tree_add", lambda t: tree_add(t[0], t[1]))):
+        want, got = fn(trees), fn(on_card)
+        if not all(torch.equal(want[k], got[k].cpu()) for k in want):
+            raise AssertionError(f"{name}: card and CPU differ")
+
+    data = make_synthetic_data(n_rows=1024, n_domain=4, vocab=300, seed=3)
+    cfg = Config(model="mamdr", embed_dim=8, bs=256, dropout=0.0, seed=0,
+                 dataset_name="none", table_dtype="float32",
+                 table_moments_dtype="float32")
+    trainers, res = {}, {}
+    for dev in ("cpu", "cuda"):
+        tr = MamdrTrainer(MAMDR(data.spec.with_flat_table(8), 8,
+                                mlp_dims=(16, 8), dropout=0.0, device=dev),
+                          cfg, 4)
+        didx = data.spec.domain_idx
+        tr.optimizer = true_zero_adam(
+            r"^mlp/linear_\d+/bias$", cfg.lr, cfg.wd,
+            constant_rows=("mlp/linear_0/kernel",
+                           slice(didx * 8, (didx + 1) * 8)))
+        trainers[dev] = tr
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    res["cpu"] = trainers["cpu"].fit(data, epochs=1, verbose=False)
+    res["cuda"] = counted(ctx, "zoo2_mamdr_reference", lambda: trainers[
+        "cuda"].fit(data, epochs=1, verbose=False))
+    launches = ctx["launches_by_path"].pop("zoo2_mamdr_reference")
+    diffs = {}
+    for what, pick in (("meta", lambda r: r["meta_weights"]),
+                       ("domain0", lambda r: r["domain_weights"][0])):
+        a, b = pick(res["cpu"]), pick(res["cuda"])
+        for k in a:
+            diffs[f"{what}:{k}"] = float((a[k] - b[k].cpu()).abs().max())
+    worst = max(diffs, key=diffs.get)
+    say("reference", path="mamdr MamdrTrainer.fit (one epoch)",
+        launches=launches, max_abs_diff=diffs[worst], worst=worst,
+        tolerance=1e-5, reptile_and_merge_bitwise=True)
+    if launches["sparse_adam"] != mamdr_sparse_adam_launches(cfg, data):
+        raise AssertionError(f"mamdr reference launched {launches}")
+    if diffs[worst] > 1e-5:
+        raise AssertionError(f"mamdr: card and CPU disagree after one epoch: "
+                             f"{worst} {diffs[worst]}")
+
+
+def zoo2_fm_ops():
+    """Each op that slice 7 brought to ops/fm.py (FactorizationMachine is
+    on DeepFM's path, held by reference_dense) on the card against the CPU
+    at the Amazon
+    field count (9 fields of 32) and bs 1024, the same weights and inputs;
+    atol 1e-5. OuterProductNetwork('mat') is defined, as in the JAX
+    package, only where the pair count equals the width: it runs at 9
+    fields of 36."""
+    import copy
+
+    from aread_tpu_torch.ops import fm
+
+    n_fields = amazon_spec().field_num
+    g = torch.Generator().manual_seed(0)
+    kw = dict(generator=g)
+    n_pairs = n_fields * (n_fields - 1) // 2
+    ops = {"ipnn": fm.InnerProductNetwork(),
+           **{f"opnn_{k}": fm.OuterProductNetwork(n_fields, EMBED_DIM, k, **kw)
+              for k in ("vec", "num")},
+           "opnn_mat": fm.OuterProductNetwork(n_fields, n_pairs, "mat", **kw),
+           "afm": fm.AttentionalFactorizationMachine(EMBED_DIM, 16,
+                                                     (0.2, 0.2), **kw),
+           "cin": fm.CompressedInteractionNetwork(n_fields, (16, 16, 8), **kw),
+           "anova": fm.AnovaKernel(3)}
+    xs = {e: 0.5 * torch.randn((BS, n_fields, e), generator=g)
+          for e in (EMBED_DIM, n_pairs)}
+    diffs, shapes = {}, {}
+    with torch.no_grad():
+        for name, op in ops.items():
+            x = xs[n_pairs if name == "opnn_mat" else EMBED_DIM]
+            want = op(x)
+            got = copy.deepcopy(op).to("cuda")(x.to("cuda")).cpu()
+            shapes[name] = list(got.shape)
+            diffs[name] = float((got - want).abs().max())
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: {tuple(got.shape)}")
+    say("zoo2", part="fm_ops", fields=n_fields, embed_dim=EMBED_DIM,
+        opnn_mat_embed_dim=n_pairs, rows=BS,
+        shapes=shapes, max_abs_diff=diffs, tolerance=1e-5)
+    bad = {n: d for n, d in diffs.items() if d > 1e-5}
+    if bad:
+        raise AssertionError(f"fm ops: card and CPU disagree: {bad}")
 
 
 # Depth of the hemp phase; the width is the train phase's. Intervals count
@@ -2469,7 +2785,7 @@ PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
           "train_dense": phase_train_dense, "zoo": phase_zoo,
-          "hemp": phase_hemp,
+          "zoo2": phase_zoo2, "hemp": phase_hemp,
           "serve": phase_serve}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}

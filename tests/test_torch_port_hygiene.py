@@ -9,6 +9,7 @@ the fixed line; what the trainers leave unported raises by name, and what
 they have ported since (streaming_eval, warm_start, ckpt_dir) does not."""
 
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -125,7 +126,25 @@ def test_serving_entry_points_raise_without_a_card(tmp_path):
 
 
 ZOO = ["deepfm", "dcn", "mmoe", "aread", "dcnv2", "autoint", "ple",
-       "pepnet", "epnet", "epnet-single", "star"]
+       "pepnet", "epnet", "epnet-single", "star", "hinet", "adasparse", "adl",
+       "mamdr"]
+# every model name the JAX package's build_model takes
+MODEL_NAMES = ZOO + ["aread_womask"]
+
+
+def _jax_build_model_names():
+    """The names aread_tpu/models/__init__.py's build_model compares
+    ``name`` with (read from the source: this file imports no JAX)."""
+    tree = ast.parse((ROOT / "aread_tpu" / "models" / "__init__.py")
+                     .read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Compare)
+                and getattr(node.left, "id", "") == "name"):
+            for c in ast.walk(node.comparators[0]):
+                if isinstance(c, ast.Constant) and isinstance(c.value, str):
+                    names.add(c.value)
+    return names
 
 
 @pytest.mark.parametrize("model", ZOO)
@@ -279,8 +298,8 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
              for t in n.targets if isinstance(t, ast.Name)}
     # the default list is PHASES' keys; every earlier phase is still there
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
-                               "train", "eval", "train_dense", "zoo", "hemp",
-                               "serve"]
+                               "train", "eval", "train_dense", "zoo", "zoo2",
+                               "hemp", "serve"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
             "final_epoch"} <= set(dicts["HEMP_DEPTH"])
@@ -320,10 +339,12 @@ def test_chip_smoke_runs_the_zoo_phase():
     consts = {t.id: ast.literal_eval(n.value) for n in tree.body
               if isinstance(n, ast.Assign) for t in n.targets
               if isinstance(t, ast.Name) and t.id in ("ZOO_MODELS",
+                                                      "ZOO2_MODELS",
                                                       "ZOO_PRE_BN_BIAS")}
     assert consts["ZOO_MODELS"] == ("dcnv2", "autoint", "ple", "pepnet",
                                     "epnet", "epnet-single", "star")
-    assert set(consts["ZOO_PRE_BN_BIAS"]) == set(consts["ZOO_MODELS"])
+    assert set(consts["ZOO_PRE_BN_BIAS"]) == (set(consts["ZOO_MODELS"])
+                                              | set(consts["ZOO2_MODELS"]))
     funcs = {n.name: ast.unparse(n) for n in tree.body
              if isinstance(n, ast.FunctionDef)}
     for name in ("Trainer(build_model(", ".fit(data, epochs=1",
@@ -335,6 +356,37 @@ def test_chip_smoke_runs_the_zoo_phase():
                  "sparse_adam_launches_of_fit", "serve_checkpoints(",
                  "validate_mask"):
         assert name in ple, name
+
+
+def test_chip_smoke_runs_the_zoo2_phase():
+    """The zoo2 phase fits HiNet, AdaSparse and ADL through the Trainer
+    and MAMDR through its meta-trainer at Amazon width, holds MAMDR's
+    sparse_adam launches to the Reptile schedule, checks ADL's centres and
+    each model card vs CPU, serves the four from their checkpoints and
+    checks each new FM op card vs CPU."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id == "ZOO2_MODELS"}
+    assert consts["ZOO2_MODELS"] == ("hinet", "adasparse", "adl")
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    zoo2 = funcs["phase_zoo2"]
+    for name in ("zoo_fit(ctx, ZOO2_MODELS", "zoo_reference(ctx, ZOO2_MODELS",
+                 "zoo2_adl_centres", "zoo2_mamdr(", "zoo2_mamdr_reference",
+                 "serve_checkpoints(", "zoo2_fm_ops"):
+        assert name in zoo2, name
+    mamdr = funcs["zoo2_mamdr"]
+    for name in ("MamdrTrainer(build_model(", ".fit(data, epochs=1",
+                 "mamdr_sparse_adam_launches", "'sparse_adam': want",
+                 "'fused_adam': 0", "reptile_update", "event_ms"):
+        assert name in mamdr, name
+    for name in ("eval_dlm_update = True", "torch.equal(centres, before)"):
+        assert name in funcs["zoo2_adl_centres"], name
+    for name in ("InnerProductNetwork", "OuterProductNetwork",
+                 "AttentionalFactorizationMachine",
+                 "CompressedInteractionNetwork", "AnovaKernel"):
+        assert name in funcs["zoo2_fm_ops"], name
 
 
 def _toy_aread():
@@ -351,16 +403,12 @@ def _toy_aread():
                                         ("epoch_timeout_s", 5.0),
                                         ("embed_lookup", "a2a")])
 def test_unported_hemp_options_raise_by_name(name, value):
-    import dataclasses
-
     _, cfg, model = _toy_aread()
     with pytest.raises(NotImplementedError, match=name):
         AREADTrainer(model, dataclasses.replace(cfg, **{name: value}), 3)
 
 
 def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
-    import dataclasses
-
     data, cfg, model = _toy_aread()
     # ported since: streaming_eval, warm_start and ckpt_dir run
     cfg = dataclasses.replace(cfg, bs=64, warm_up_interval=0,
@@ -391,13 +439,30 @@ def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
             cfg, hemp_fast_adapt=mode), 3).overlay_enabled()
 
 
-@pytest.mark.parametrize("model", ["hinet", "adasparse", "adl", "mamdr"])
-def test_unported_models_raise_by_name(model):
-    spec = make_synthetic_data(n_rows=64, n_domain=2, vocab=20).spec
-    with pytest.raises(NotImplementedError, match=model):
-        build_model(Config(model=model, embed_dim=8), spec, 2, device="cpu")
+@pytest.mark.parametrize("model", MODEL_NAMES)
+def test_every_model_name_builds_and_runs(model):
+    """Every model name of the JAX package's build_model builds on the CPU
+    at toy width and gives a finite eval forward of the shape the trainers
+    expect; an unknown name raises ValueError as there."""
+    assert set(MODEL_NAMES) == _jax_build_model_names()
+    data = make_synthetic_data(n_rows=64, n_domain=3, vocab=20)
+    cfg = Config(model=model, embed_dim=8, dataset_name="none",
+                 mlp_dims=(8,), tower_dims=(8, 4), sei_dims=(4,),
+                 mmoe_expert_dims=(8,), mmoe_tower_dims=(4,),
+                 ple_expert_dims=((8,), (4,)), ple_tower_dims=(4,),
+                 aread_tower_dims=((4,), (4,)), atten_embed_dim=8,
+                 att_layer_num=1, n_cross_layers=1)
+    m = build_model(cfg, data.spec, 3, device="cpu")
+    x = torch.tensor(data.train_x[:16])
+    group = x[:, data.spec.domain_idx].long()
+    with torch.no_grad():
+        logit = m(x, group=group, train=False)["logit"]
+    n_out = getattr(m, "n_tower", 1)
+    want = ((16, n_out) if model in ("mmoe", "ple", "pepnet", "epnet", "star")
+            else (16,))
+    assert tuple(logit.shape) == want and torch.isfinite(logit).all()
     with pytest.raises(ValueError, match="Unknown model"):
-        build_model(Config(model="nomodel", embed_dim=8), spec, 2,
+        build_model(dataclasses.replace(cfg, model="nomodel"), data.spec, 3,
                     device="cpu")
 
 

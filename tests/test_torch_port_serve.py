@@ -86,8 +86,10 @@ def _pair(model_name, data, **kw):
     params = variables["params"]
     state = {k: v for k, v in variables.items() if k != "params"}
     tm = build_model(cfg, data.spec, N_DOMAIN, device="cpu")
+    others = {k: v for k, v in _np_tree(state).items() if k != "batch_stats"}
     tm.load_state_dict(convert_variables(
-        _np_tree(params), _np_tree(state.get("batch_stats", {})), E))
+        _np_tree(params), _np_tree(state.get("batch_stats", {})), E,
+        **others))
     return jm, params, state, tm, jcfg, cfg, jspec
 
 
@@ -268,14 +270,24 @@ def test_jax_checkpoint_serves_through_convert_checkpoint(data, model_name,
     ("pepnet", {"dataset_name": "amazon", "tower_dims": (16, 8)}),
     ("aread", {"base_model": "ple", "ple_n_expert_specific": 1,
                "ple_n_expert_shared": 3, "ple_expert_dims": ((16,), (8,))}),
-], ids=["pepnet", "aread-ple"])
+    ("adl", {"dataset_name": "amazon", "tower_dims": (16, 8),
+             "dlm_iters": 2}),
+], ids=["pepnet", "aread-ple", "adl"])
 def test_jax_checkpoint_of_the_zoo_serves(data, model_name, kw, tmp_path):
     """The same way for PEPNet (three towers gathered by the Amazon
-    domain2group) and for AREAD on a PLE base whose ple_* values are not
-    the defaults: meta.json carries them and the model is rebuilt with
-    them, not with the defaults."""
+    domain2group), for AREAD on a PLE base whose ple_* values are not the
+    defaults (meta.json carries them and the model is rebuilt with them,
+    not with the defaults) and for ADL, whose DLM cluster centres live in
+    the JAX package's second collection, ``model_state``: they arrive as
+    the port's ``cluster_centers`` buffer, not as the centres the port's
+    seed would draw."""
     tp = _serve_jax_checkpoint(data, tmp_path, model_name, **kw)
-    if model_name == "aread":
+    if model_name == "adl":
+        fresh = build_model(Config(**{**CFG_KW, "model": "adl", **kw}),
+                            data.spec, N_DOMAIN, device="cpu")
+        assert not torch.allclose(tp.model.cluster_centers,
+                                  fresh.cluster_centers)
+    elif model_name == "aread":
         assert tp.model.base_model == "ple"
         cgc = tp.model.cgc_0
         assert (cgc.n_spec, cgc.n_shared) == (1, 3)
@@ -316,6 +328,10 @@ def _serve_jax_checkpoint(data, tmp_path, model_name, **kw):
         assert tp.domain2group is not None and len(tp.domain2group) == 25
     if model_name == "aread":
         assert tp.domain_mask[1] is None and tp.domain_mask[0] is not None
+    for name in state.get("model_state", {}):
+        np.testing.assert_array_equal(
+            tp.model.state_dict()[name].numpy(),
+            np.asarray(state["model_state"][name]))
     x = data.test_x[:70]
     np.testing.assert_allclose(tp.predict(x), jp.predict(x), rtol=0,
                                atol=1e-5)
@@ -323,6 +339,27 @@ def _serve_jax_checkpoint(data, tmp_path, model_name, **kw):
     for k, v in tp.model.state_dict().items():
         assert torch.equal(v, pck["state_dict"][k]), k
     return tp
+
+
+def test_adl_with_eval_dlm_update_is_refused_by_both_predictors(data):
+    """An ADL built with adl_eval_dlm_update moves its centres at every
+    forward. The JAX Predictor applies it without a mutable collection and
+    flax refuses the update; the port's Predictor refuses it by name, and
+    an empty request is answered on both sides."""
+    kw = dict(dataset_name="amazon", tower_dims=(16, 8),
+              adl_eval_dlm_update=True)
+    jm, params, state, tm, _, _, _ = _pair("adl", data, **kw)
+    d2g = np.asarray(Config(**{**CFG_KW, **kw}).domain2group())
+    jp = JP.Predictor(jm, params, state, N_DOMAIN, domain2group=d2g)
+    tp = Predictor(tm, N_DOMAIN, domain2group=d2g)
+    x = data.test_x[:10]
+    assert jp.predict(x[:0]).shape == tp.predict(x[:0]).shape == (0,)
+    with pytest.raises(Exception, match="model_state"):
+        jp.predict(x)
+    centres = tp.model.cluster_centers.clone()
+    with pytest.raises(ValueError, match="adl_eval_dlm_update"):
+        tp.predict(x)
+    assert torch.equal(tp.model.cluster_centers, centres)
 
 
 def test_load_predictor_modulo_grouping_and_missing_metadata(data, tmp_path):

@@ -390,8 +390,8 @@ def test_unported_options_raise():
     Trainer(model, dataclasses.replace(cfg, streaming_eval=True), N_DOMAIN)
     with pytest.raises(RuntimeError, match="init"):
         tr.step(GlobalBatcher(data.train_x, data.train_y, 32, 2).sample_batch())
-    with pytest.raises(NotImplementedError, match="hinet"):
-        build_model(dataclasses.replace(cfg, model="hinet"), data.spec,
+    with pytest.raises(ValueError, match="Unknown model"):
+        build_model(dataclasses.replace(cfg, model="nomodel"), data.spec,
                     N_DOMAIN, device="cpu")
     with pytest.raises(ValueError, match="device_data"):
         Trainer(model, dataclasses.replace(cfg, device_data="yes"),
