@@ -10,9 +10,12 @@ evaluate -> save ``save/{dataset}/{model}_best``, a self-contained
 checkpoint that ``python -m aread_tpu_torch.serve`` serves from.
 
 Runs on the card; ``--device cpu`` asks for the CPU. Every flag of
-``main.py`` but ``--platform`` is accepted; a flag whose feature is not
-ported yet raises by name when it is set to anything but ``main.py``'s
-default. ``--model mamdr`` trains with the Reptile meta-trainer
+``main.py`` but ``--platform`` is accepted, and ``--compute_dtype`` and
+``--epoch_timeout_first_mult`` set the config fields of those names, which
+``main.py`` has no flags for. What still raises by name: ``--a2a_capacity``
+and ``--embed_lookup a2a`` (when set to anything but ``main.py``'s
+default) and a mesh (``--mesh_data`` x ``--mesh_model`` > 1).
+``--model mamdr`` trains with the Reptile meta-trainer
 (``train/mamdr.py``), AREAD with ``AREADTrainer``, every other model with
 the generic ``Trainer``.
 """
@@ -32,7 +35,7 @@ from aread_tpu_torch.config import Config
 
 # flags of main.py that this CLI takes but does not act on yet, with the
 # value that main.py defaults to (any other raises by name)
-UNPORTED_FLAGS = {"a2a_capacity": 0, "epoch_timeout_kill": False}
+UNPORTED_FLAGS = {"a2a_capacity": 0}
 
 
 def load_config(argv=None):
@@ -78,7 +81,7 @@ def load_config(argv=None):
                              "epoch) on every improvement and resume from "
                              "it if present")
     parser.add_argument("--log_dir", default="",
-                        help="JSONL metric sink dir (not ported yet)")
+                        help="JSONL metric sink dir; empty = off")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; fails without a card) or "
                              "'cpu'")
@@ -111,12 +114,15 @@ def load_config(argv=None):
     parser.add_argument("--grad_clip_norm", type=float, default=0.0,
                         help="global-norm gradient clipping (0 = off)")
     parser.add_argument("--dynamic_regroup", default="off",
-                        help="between-epoch domain->group regrouping (not "
-                             "ported yet)")
+                        help="between-epoch domain->group regrouping of a "
+                             "multi-tower model from per-(tower, domain) "
+                             "valid BCE: 'off' or comma-separated modes "
+                             "(served, besttower, towerfirst)")
     parser.add_argument("--hemp_fast_adapt", default="auto",
                         choices=["auto", "overlay", "full"],
-                        help="HEMP fast-adapt engine ('overlay' is not "
-                             "ported yet)")
+                        help="HEMP fast-adapt engine: 'overlay' runs each "
+                             "chain on a compact working-set copy, 'full' "
+                             "sweeps the table every step, 'auto' picks")
     parser.add_argument("--adl_eval_dlm_update", action="store_true",
                         help="ADL: move the DLM cluster centres during "
                              "evaluation too, as the reference does")
@@ -137,11 +143,20 @@ def load_config(argv=None):
                         help="per-owner id-bucket bound of --embed_lookup "
                              "a2a (not ported yet)")
     parser.add_argument("--epoch_timeout_s", type=float, default=0.0,
-                        help="watchdog deadline per train epoch (not "
-                             "ported yet)")
+                        help="watchdog deadline per train epoch (0 = off); "
+                             "raises once a late epoch returns")
     parser.add_argument("--epoch_timeout_kill", action="store_true",
-                        help="hard exit when the epoch watchdog fires (not "
-                             "ported yet)")
+                        help="hard exit (code 42) when the epoch watchdog "
+                             "fires")
+    parser.add_argument("--epoch_timeout_first_mult", type=float,
+                        default=5.0,
+                        help="the first epoch's deadline is this multiple "
+                             "of --epoch_timeout_s (the cold start)")
+    parser.add_argument("--compute_dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="bfloat16: every product of a training step "
+                             "and of serving takes bf16-rounded operands "
+                             "and sums in f32")
     args = parser.parse_args(argv)
     for flag, default in UNPORTED_FLAGS.items():
         if getattr(args, flag) != default:

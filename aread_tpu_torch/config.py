@@ -112,8 +112,10 @@ class Config:
     # change (indexed updates, never the kernel).
     table_optimizer: str = "adam"
     # engine of the HEMP fast-adapt chains: 'full' = every chain step runs
-    # the full-table sweep; 'auto' resolves to it; 'overlay' (a compact
-    # working-set copy) is not ported yet and raises
+    # the full-table sweep; 'overlay' = a compact copy of the rows the
+    # chain's batches touch, the rest drifted on read (ops/overlay_adam.py;
+    # needs sparse_table_grad); 'auto' = the overlay from the JAX package's
+    # crossover on (AREADTrainer.OVERLAY_AUTO_MIN_ELEMS table elements)
     hemp_fast_adapt: str = "auto"  # 'auto' | 'overlay' | 'full'
     # the table's data gradient: True = sparse (d loss / d gathered rows,
     # deduplicated, ops/sparse_adam.py; the table padded as the JAX
@@ -142,12 +144,30 @@ class Config:
     # resume from it when one exists
     elastic: bool = False
 
-    # options of the JAX package's trainers that are not ported
-    # yet: any value but the default raises NotImplementedError
-    compute_dtype: str = "float32"
+    # 'bfloat16': every product of a training step (its gradient's
+    # included), of a fast-adapt probe and of a Predictor takes bf16-rounded
+    # operands and sums in f32 (ops/precision.py); weights, activations and
+    # evaluation stay f32
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    # between-epoch domain -> group regrouping of a multi-tower model from
+    # the valid split's per-(tower, domain) losses: 'off' or comma-separated
+    # modes of train/regroup.regroup_all_domain ('served', 'besttower',
+    # 'towerfirst')
     dynamic_regroup: str = "off"
+    # JSONL metric sink: <log_dir>/<run>/metrics.jsonl and config.json
+    # (utils/runlog.py); '' = off
     log_dir: str = ""
+    # watchdog deadline per train epoch in seconds, 0 = off
+    # (parallel/health.py): a breach raises HealthError when the epoch
+    # returns; with epoch_timeout_kill the process exits with code 42 at
+    # the breach, for an epoch that never returns. The first wrapped epoch
+    # of a process gets epoch_timeout_first_mult times the deadline: it
+    # pays the cold start (CUDA context, the kernels' first build)
     epoch_timeout_s: float = 0.0
+    epoch_timeout_kill: bool = False
+    epoch_timeout_first_mult: float = 5.0
+    # the sharded-embedding gather of a mesh run; only 'gspmd' (no mesh) is
+    # ported, anything else raises NotImplementedError
     embed_lookup: str = "gspmd"
 
     def domain2group(self) -> Optional[Tuple[int, ...]]:

@@ -32,6 +32,7 @@ from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.initializers import (linear_bias_init_for,
                                               linear_kernel_init)
 from aread_tpu_torch.ops.mlp import Linear, StackedMLP
+from aread_tpu_torch.ops.precision import einsum, matmul
 
 
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
@@ -99,11 +100,11 @@ class ADL(CTRModel):
         with ``update`` the centres then take their EMA step in place."""
         flat = flat.detach()
         centers = self.cluster_centers
-        coeff = torch.softmax(flat @ centers.T, dim=1)
+        coeff = torch.softmax(matmul(flat, centers.T), dim=1)
         route = torch.argmax(coeff, dim=1)
         if update:
             rate = self.dlm_update_rate
-            tmp = l2_normalize(coeff.T @ flat, dim=1)
+            tmp = l2_normalize(matmul(coeff.T, flat), dim=1)
             centers.copy_(l2_normalize(rate * centers + (1 - rate) * tmp,
                                        dim=1))
         return route
@@ -129,7 +130,7 @@ class ADL(CTRModel):
                  * self.shared_mlps_linear_kernel[None])
         eff_b = (self.domain_mlps_linears_bias
                  + self.shared_mlps_linear_bias[None])
-        tower_logits = (torch.einsum("btd,tdf->btf", touts, eff_k)[..., 0]
+        tower_logits = (einsum("btd,tdf->btf", touts, eff_k)[..., 0]
                         + eff_b[None, :, 0] + side)  # [B, T]
         logit = torch.gather(tower_logits, 1, route[:, None])[:, 0]
         out = {"logit": logit, "prob": torch.sigmoid(logit), "route": route}

@@ -36,6 +36,7 @@ from aread_tpu_torch.models.ple import add_cgc_levels, run_cgc_levels
 from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.initializers import embedding_init
 from aread_tpu_torch.ops.mlp import Linear, StackedLinear, StackedMLP
+from aread_tpu_torch.ops.precision import einsum, matmul
 
 MODES = ("wo_mask", "domain_with_mask", "domain_mask_bagging",
          "domain_mask_final", "batch_with_mask")
@@ -142,7 +143,7 @@ class AREAD(CTRModel):
         if self.base_model == "mmoe":
             expert_outs = self.mmoe_experts(flat, **run)  # [B, E, D]
             gates0 = torch.softmax(self.mmoe_gates(flat), dim=-1)  # [B, T0, E]
-            tower_inputs = torch.einsum("bte,bed->btd", gates0, expert_outs)
+            tower_inputs = einsum("bte,bed->btd", gates0, expert_outs)
         else:
             tower_inputs = run_cgc_levels(self, self.n_level_ple, flat,
                                           self.n_tower[0], **run)
@@ -158,11 +159,13 @@ class AREAD(CTRModel):
                   for m in domain_mask]
             if per_ex:
                 m0 = dm[0][:, 0, :].to(f32)  # [B, T0]
-                group_embed = (m0 / torch.clamp(m0.sum(dim=1, keepdim=True),
-                                                min=1e-8)) @ self.group_embedding
+                group_embed = matmul(
+                    m0 / torch.clamp(m0.sum(dim=1, keepdim=True), min=1e-8),
+                    self.group_embedding)
             else:
                 m0 = dm[0][0].to(f32)
-                ge = (m0 / torch.clamp(m0.sum(), min=1e-8)) @ self.group_embedding
+                ge = matmul(m0 / torch.clamp(m0.sum(), min=1e-8),
+                            self.group_embedding)
                 group_embed = ge[None, :].expand_as(domain_embed)
         gate_inputs = torch.cat([domain_embed, group_embed], dim=1)
         # the body is frozen while the final gate trains
@@ -194,7 +197,7 @@ class AREAD(CTRModel):
                 else:
                     masked = gate_out * dm[l].T.to(f32)[None]
                 renorm = masked / (masked.sum(dim=-1, keepdim=True) + 1e-8)
-                level_in = torch.einsum("btp,bpd->btd", renorm, outs)
+                level_in = einsum("btp,bpd->btd", renorm, outs)
                 gate_means.append(masked.mean(dim=0).detach().T)
             # per example the statistics' gate is undefined and unused
             # (evaluation only)

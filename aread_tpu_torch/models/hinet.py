@@ -22,6 +22,7 @@ from aread_tpu_torch.models.base import BASE_REG_RULES, CTRModel, FeatureSpec
 from aread_tpu_torch.ops.attention import AttentionTower
 from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.mlp import MLP, Linear, StackedLinear, StackedMLP
+from aread_tpu_torch.ops.precision import einsum
 
 
 class SEIStack(nn.Module):
@@ -42,7 +43,7 @@ class SEIStack(nn.Module):
         outs = self.experts(x, train=train, mask=mask, generator=generator)
         outs = outs.reshape(x.shape[0], self.n_stack, self.n_expert, -1)
         gates = torch.softmax(self.gate(x), dim=-1)  # [B, T, E]
-        return torch.einsum("bte,bted->btd", gates, outs)
+        return einsum("bte,bted->btd", gates, outs)
 
 
 class HiNet(CTRModel):
@@ -102,7 +103,7 @@ class HiNet(CTRModel):
         specific = self.specific_seis(flat, **run)  # [B, T, D]
         shared = self.shared_sei(flat, **run)[:, 0]  # [B, D]
         san_gate = torch.softmax(self.san_gate(domain_embed), dim=-1)
-        san_feas = torch.einsum("bt,btd->bd", san_gate, specific)
+        san_feas = einsum("bt,btd->bd", san_gate, specific)
         idx = group.to(torch.int64)[:, None, None].expand(
             -1, 1, specific.shape[-1])
         con_feas = torch.gather(specific, 1, idx)[:, 0]

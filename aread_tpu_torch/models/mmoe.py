@@ -19,6 +19,7 @@ from aread_tpu_torch.models.base import BASE_REG_RULES, CTRModel, FeatureSpec
 from aread_tpu_torch.ops.attention import AttentionTower
 from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.mlp import Linear, StackedLinear, StackedMLP
+from aread_tpu_torch.ops.precision import einsum
 
 
 class MMoE(CTRModel):
@@ -67,7 +68,7 @@ class MMoE(CTRModel):
 
         expert_outs = self.experts(flat, **run)  # [B, n_expert, D]
         gates = torch.softmax(self.gates(flat), dim=-1)  # [B, T, n_expert]
-        tower_inputs = torch.einsum("bte,bed->btd", gates, expert_outs)
+        tower_inputs = einsum("bte,bed->btd", gates, expert_outs)
         tower_logits = self.towers(tower_inputs, **run)[..., 0]  # [B, T]
 
         side = self.linear(flat)  # [B, 1]

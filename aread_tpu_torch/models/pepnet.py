@@ -29,6 +29,7 @@ from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.initializers import linear_kernel_init, uniform_fan_in
 from aread_tpu_torch.ops.mlp import (BatchNorm, GateNN, Linear, StackedLinear,
                                      StackedMLP, dropout)
+from aread_tpu_torch.ops.precision import einsum
 
 
 class PPNetBlock(nn.Module):
@@ -63,8 +64,8 @@ class PPNetBlock(nn.Module):
             gw = getattr(self, f"gate_{idx}")(gate_input, train=train,
                                               generator=generator)
             gated = x * gw.reshape(B, T, self.dims[idx])
-            h = (torch.einsum("btd,df->btf", gated,
-                              getattr(self, f"kernel_{idx}"))
+            h = (einsum("btd,df->btf", gated,
+                        getattr(self, f"kernel_{idx}"))
                  + getattr(self, f"bias_{idx}"))
             h = getattr(self, f"bn_{idx}")(h, train=train, mask=mask)
             x = dropout(torch.relu(h), self.rate, train, generator)

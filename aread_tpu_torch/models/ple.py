@@ -21,6 +21,7 @@ from aread_tpu_torch.models.base import BASE_REG_RULES, CTRModel, FeatureSpec
 from aread_tpu_torch.ops.attention import AttentionTower
 from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.mlp import Linear, StackedLinear, StackedMLP
+from aread_tpu_torch.ops.precision import einsum
 
 
 class CGC(nn.Module):
@@ -62,12 +63,12 @@ class CGC(nn.Module):
         shared_rep = shared_out[:, None].expand(B, n_task, n_shared,
                                                 shared_out.shape[-1])
         per_task_experts = torch.cat([spec_by_task, shared_rep], dim=2)
-        task_outs = torch.einsum("bte,bted->btd", gates, per_task_experts)
+        task_outs = einsum("bte,bted->btd", gates, per_task_experts)
         if self.gate_shared is None:
             return task_outs
         all_experts = torch.cat([spec_out, shared_out], dim=1)
         shared_gate = torch.softmax(self.gate_shared(x_list[:, -1, :]), dim=-1)
-        shared_next = torch.einsum("be,bed->bd", shared_gate, all_experts)
+        shared_next = einsum("be,bed->bd", shared_gate, all_experts)
         return torch.cat([task_outs, shared_next[:, None]], dim=1)
 
 

@@ -24,6 +24,7 @@ from aread_tpu_torch.models.base import BASE_REG_RULES, CTRModel, FeatureSpec
 from aread_tpu_torch.ops.attention import AttentionTower
 from aread_tpu_torch.ops.initializers import linear_kernel_init, uniform_fan_in
 from aread_tpu_torch.ops.mlp import BatchNorm, dropout
+from aread_tpu_torch.ops.precision import einsum
 
 
 class STAR(CTRModel):
@@ -89,12 +90,12 @@ class STAR(CTRModel):
             sk = getattr(self, f"shared_dnn_kernel_{i}")
             db = getattr(self, f"domain_dnns_bias_{i}")
             sb = getattr(self, f"shared_dnn_bias_{i}")
-            h = torch.einsum("btd,tdf->btf", h, dk * sk[None]) + (db + sb[None])[None]
+            h = einsum("btd,tdf->btf", h, dk * sk[None]) + (db + sb[None])[None]
             h = getattr(self, f"domain_dnns_bn_{i}")(h, train=train, mask=mask)
             h = dropout(torch.relu(h), self.rate, train, generator)
         eff_k = self.domain_dnn_linears_kernel * self.shared_dnn_linear_kernel[None]
         eff_b = self.domain_dnn_linears_bias + self.shared_dnn_linear_bias[None]
-        logit = torch.einsum("btd,tdf->btf", h, eff_k)[..., 0] + eff_b[None, :, 0]
+        logit = einsum("btd,tdf->btf", h, eff_k)[..., 0] + eff_b[None, :, 0]
         logit = logit + side
         out = {"logit": logit, "prob": torch.sigmoid(logit)}
         if tap:

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from aread_tpu_torch.ops.mlp import Linear, dropout
+from aread_tpu_torch.ops.precision import einsum, matmul
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -40,17 +41,17 @@ class MultiHeadSelfAttention(nn.Module):
         e, h = self.embed_dim, self.num_heads
         head_dim = e // h
         B, L = x.shape[0], x.shape[1]
-        qkv = x @ self.in_proj_kernel + self.in_proj_bias  # [B, L, 3E]
+        qkv = matmul(x, self.in_proj_kernel) + self.in_proj_bias  # [B, L, 3E]
         q, k, v = torch.split(qkv, e, dim=-1)
 
         def split_heads(t):
             return t.reshape(B, L, h, head_dim).permute(0, 2, 1, 3)
 
         q, k, v = split_heads(q), split_heads(k), split_heads(v)
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(head_dim)
+        scores = einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(head_dim)
         weights = torch.softmax(scores, dim=-1)
         weights = dropout(weights, self.rate, train, generator)
-        out = torch.einsum("bhqk,bhkd->bhqd", weights, v)
+        out = einsum("bhqk,bhkd->bhqd", weights, v)
         out = out.permute(0, 2, 1, 3).reshape(B, L, e)
         return self.out_proj(out)
 

@@ -20,6 +20,7 @@ from torch import nn
 
 from aread_tpu_torch.ops.initializers import (linear_kernel_init,
                                               xavier_normal_init)
+from aread_tpu_torch.ops.precision import einsum, matmul
 
 
 class CrossNetwork(nn.Module):
@@ -36,7 +37,7 @@ class CrossNetwork(nn.Module):
     def forward(self, x):
         x0 = x
         for i in range(self.num_layers):
-            xw = x @ getattr(self, f"w_{i}")  # [B, 1]
+            xw = matmul(x, getattr(self, f"w_{i}"))  # [B, 1]
             x = x0 * xw + getattr(self, f"b_{i}") + x
         return x
 
@@ -55,7 +56,7 @@ class CrossNetV2(nn.Module):
     def forward(self, x):
         x0 = x
         for i in range(self.num_layers):
-            x = x0 * (x @ getattr(self, f"w_{i}")) + getattr(self, f"b_{i}") + x
+            x = x0 * matmul(x, getattr(self, f"w_{i}")) + getattr(self, f"b_{i}") + x
         return x
 
 
@@ -79,14 +80,14 @@ class CrossNetMix(nn.Module):
     def forward(self, x):
         x0 = x
         for i in range(self.num_layers):
-            gates = torch.einsum("bd,edo->beo", x, self.gate)[..., 0]  # [B, E]
+            gates = einsum("bd,edo->beo", x, self.gate)[..., 0]  # [B, E]
             gates = torch.softmax(gates, dim=1)
-            vx = torch.tanh(torch.einsum("bd,edr->ber", x,
-                                         getattr(self, f"v_{i}")))
-            vx = torch.tanh(torch.einsum("ber,ers->bes", vx,
-                                         getattr(self, f"c_{i}")))
-            uvx = (torch.einsum("bes,eds->bed", vx, getattr(self, f"u_{i}"))
+            vx = torch.tanh(einsum("bd,edr->ber", x,
+                                   getattr(self, f"v_{i}")))
+            vx = torch.tanh(einsum("ber,ers->bes", vx,
+                                   getattr(self, f"c_{i}")))
+            uvx = (einsum("bes,eds->bed", vx, getattr(self, f"u_{i}"))
                    + getattr(self, f"bias_{i}")[None, None, :])
             expert_out = x0[:, None, :] * uvx  # [B, E, d]
-            x = x + torch.einsum("be,bed->bd", gates, expert_out)
+            x = x + einsum("be,bed->bd", gates, expert_out)
         return x

@@ -14,11 +14,19 @@ f32), and when the caller asks for the tap the f32 rows become a leaf
 with ``requires_grad``; after ``backward`` its ``.grad`` is
 d loss / d rows ``[B, F_cols, D]``. A dense table gradient never exists.
 This replaces the flax ``perturb("rows")`` tap of the JAX package.
+
+``FeaturesEmbedding.lookup_override(gather)`` routes the row gather
+through ``gather(table, row_ids) -> rows`` inside its block (the JAX
+package's ``lookup_override``, there a module-level stack read at trace
+time); the overlay fast-adapt chains read their compact working set
+through it (``ops/overlay_adam.py``). The override's rows become the tap
+leaf as the table's own would.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ from torch import nn
 from aread_tpu_torch.ops.initializers import (embedding_init,
                                               linear_kernel_init,
                                               uniform_fan_in)
+from aread_tpu_torch.ops.precision import matmul
 
 
 def compute_offsets(one_hot_dims: Sequence[int], n_multi_hot_slots: int,
@@ -64,6 +73,19 @@ class FeaturesEmbedding(nn.Module):
                              persistent=False)
         self.register_buffer("table", embedding_init(
             (self.n_rows, embed_dim), generator, device, table_dtype))
+        self._gather: Optional[Callable] = None
+
+    @contextlib.contextmanager
+    def lookup_override(self, gather: Callable) -> Iterator[None]:
+        """Inside the block, ``forward`` gathers its rows with
+        ``gather(table, row_ids)`` (``row_ids`` clipped into the table)
+        in place of ``table[row_ids]``; the previous lookup comes back on
+        exit."""
+        prev, self._gather = self._gather, gather
+        try:
+            yield
+        finally:
+            self._gather = prev
 
     def table_ids(self, x: torch.Tensor) -> torch.Tensor:
         """The table row each input column gathers (offsets applied,
@@ -75,7 +97,9 @@ class FeaturesEmbedding(nn.Module):
         """Returns (embed [B, F, D], rows) where ``rows`` is the f32 leaf
         of gathered rows (``requires_grad`` when ``tap``)."""
         with torch.no_grad():
-            rows = self.table[self.table_ids(x)]
+            ids = self.table_ids(x)
+            rows = (self.table[ids] if self._gather is None
+                    else self._gather(self.table, ids))
         rows = rows.to(torch.float32, copy=True)
         if tap:
             rows.requires_grad_(True)
@@ -104,5 +128,5 @@ class FeaturesLinear(nn.Module):
                      if use_bias else None)
 
     def forward(self, x):
-        y = x @ self.kernel
+        y = matmul(x, self.kernel)
         return y if self.bias is None else y + self.bias

@@ -24,6 +24,7 @@ from torch import nn
 from aread_tpu_torch.ops.initializers import (linear_kernel_init,
                                               xavier_uniform_init)
 from aread_tpu_torch.ops.mlp import Linear, dropout
+from aread_tpu_torch.ops.precision import einsum
 
 
 class FactorizationMachine(nn.Module):
@@ -91,7 +92,7 @@ class OuterProductNetwork(nn.Module):
         row, col = _pairs(self.num_fields, x.device)
         p, q = x[:, row], x[:, col]  # [B, num_ix, E]
         if self.kernel_type == "mat":
-            kp = torch.einsum("bne,enf->bnf", p, self.kernel.permute(1, 0, 2))
+            kp = einsum("bne,enf->bnf", p, self.kernel.permute(1, 0, 2))
             return torch.sum(kp * q, dim=-1)
         return torch.sum(p * q * self.kernel[None], dim=-1)
 
@@ -151,9 +152,9 @@ class CompressedInteractionNetwork(nn.Module):
         B, _, E = x.shape
         xs, x0, h = [], x, x
         for i in range(self.n_layers):
-            z = torch.einsum("bfe,bge->bfge", x0, h).reshape(B, -1, E)
-            out = torch.relu(torch.einsum("bne,nc->bce", z,
-                                          getattr(self, f"conv_{i}"))
+            z = einsum("bfe,bge->bfge", x0, h).reshape(B, -1, E)
+            out = torch.relu(einsum("bne,nc->bce", z,
+                                    getattr(self, f"conv_{i}"))
                              + getattr(self, f"conv_b_{i}")[None, :, None])
             if self._splits(i):
                 out, h = torch.chunk(out, 2, dim=1)

@@ -18,6 +18,7 @@ from torch import nn
 from aread_tpu_torch.ops.initializers import (linear_bias_init_for,
                                               linear_kernel_init,
                                               uniform_fan_in)
+from aread_tpu_torch.ops.precision import einsum, matmul
 
 
 class Linear(nn.Module):
@@ -36,7 +37,7 @@ class Linear(nn.Module):
                      if use_bias else None)
 
     def forward(self, x):
-        y = x @ self.kernel
+        y = matmul(x, self.kernel)
         return y if self.bias is None else y + self.bias
 
 
@@ -198,9 +199,9 @@ class StackedLinear(nn.Module):
 
     def forward(self, x):
         if x.dim() == 2:
-            y = torch.einsum("bd,tdf->btf", x, self.kernel)
+            y = einsum("bd,tdf->btf", x, self.kernel)
         else:
-            y = torch.einsum("btd,tdf->btf", x, self.kernel)
+            y = einsum("btd,tdf->btf", x, self.kernel)
         return y if self.bias is None else y + self.bias[None]
 
 

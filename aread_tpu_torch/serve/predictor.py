@@ -21,7 +21,10 @@
     probabilities per forward, and no other synchronization;
   * predictions are probabilities, equal to the trainers' evaluation
     path's to f32 round-off (a padded bucket and an evaluation batch may
-    take different GEMM paths on the card).
+    take different GEMM paths on the card);
+  * ``compute_dtype='bfloat16'`` (the checkpoint's config) serves every
+    product as one bf16 pass (``ops/precision.py``), as the JAX Predictor
+    does; the trainers evaluate in f32 either way.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from aread_tpu_torch.device import DeviceLike, resolve_device
 from aread_tpu_torch.models import build_model
 from aread_tpu_torch.models.aread import AREAD, full_mask
 from aread_tpu_torch.models.base import FeatureSpec, gather_group
+from aread_tpu_torch.ops.precision import matmul_precision_ctx
 from aread_tpu_torch.train.checkpoint import load_checkpoint
 from aread_tpu_torch.train.trainer import (MULTI_TOWER_MODELS,
                                            adopt_state_dict)
@@ -63,12 +67,14 @@ class Predictor:
 
     def __init__(self, model, n_domain: int,
                  domain_mask: Optional[List] = None,
-                 domain2group: Optional[np.ndarray] = None):
+                 domain2group: Optional[np.ndarray] = None,
+                 compute_dtype: str = "float32"):
         self.model = copy.deepcopy(model).eval()
         self.model.requires_grad_(False)
         self.device = self.model.device
         self.n_domain = n_domain
         self.domain_mask = domain_mask
+        self.compute_dtype = compute_dtype
         self.is_aread = isinstance(self.model, AREAD)
         self.domain2group = domain2group
         self._d2g = (None if domain2group is None else torch.as_tensor(
@@ -132,9 +138,10 @@ class Predictor:
         self._check(x)
         model = self.model
         didx = model.spec.domain_idx
-        # entered here and not at construction: the mode is thread-local,
-        # and a threaded server calls from a new thread per request
-        with torch.inference_mode():
+        # entered here and not at construction: the modes are
+        # thread-local, and a threaded server calls from a new thread per
+        # request
+        with torch.inference_mode(), matmul_precision_ctx(self.compute_dtype):
             if not self.is_aread:
                 xb = self._padded(x)
                 # the mapped domain group, else the domain itself: the
@@ -202,11 +209,6 @@ def load_predictor(ckpt_path: str, device: DeviceLike = None) -> Predictor:
     cfg_fields = {f.name: f.default for f in dataclasses.fields(Config)}
     cfg = Config(**{k: _coerce_like(cfg_fields.get(k), v)
                     for k, v in meta["config"].items() if k in cfg_fields})
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"config.compute_dtype={cfg.compute_dtype!r} is not ported yet "
-            "(only 'float32')")
-
     n_domain = meta.get("n_domain")
     if n_domain is None:
         n_domain = len(DOMAIN_SIZE.get(cfg.dataset_name, ()))
@@ -225,4 +227,4 @@ def load_predictor(ckpt_path: str, device: DeviceLike = None) -> Predictor:
         # precomputed grouping; must match training
         d2g = np.arange(n_domain) % min(cfg.n_tower, n_domain)
     return Predictor(model, n_domain, domain_mask=ck.get("domain_mask"),
-                     domain2group=d2g)
+                     domain2group=d2g, compute_dtype=cfg.compute_dtype)

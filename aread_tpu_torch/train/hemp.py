@@ -23,6 +23,15 @@ Host and device:
   * losses and recorded gate means stay on the device and are fetched once
     per segment, not per step.
 
+Two engines run the chains (``config.hemp_fast_adapt``,
+``overlay_enabled``): the full sweep, where each adapt step updates the
+whole table through the sparse-Adam kernel, and the overlay
+(``ops/overlay_adam.py``), where each adapt step updates a compact f32
+copy of the rows the chain's batches touch through the fused dense Adam
+kernel and the probes read every other row drifted; an overlay chain
+never writes the live table, so its snapshot and restore leave the table
+out.
+
 The JAX package fuses a whole regroup into one dispatch and a segment of
 steps into scans (``fast_adapt_many``, ``SCAN_CHUNK``, ``run_segment``)
 because every dispatch there crosses a slow link to its device; that
@@ -30,12 +39,12 @@ reason does not exist here, so those, and the Pallas kernel window's
 prechecks (``FITS_SLICE``, ``_fits_from_x``, ``_fits_from_idx``,
 ``no_overflow``, ``assume_no_overflow``), have no counterpart: the CUDA
 kernel has no window. Not ported yet, each raising ``NotImplementedError``
-by name: the overlay fast-adapt engine, ``compute_dtype='bfloat16'``,
-``log_dir``, the epoch watchdog, a mesh.
+by name: a mesh and ``embed_lookup='a2a'``.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -47,13 +56,20 @@ import torch
 from aread_tpu_torch.config import Config
 from aread_tpu_torch.data.loader import DomainBatcher, SplitData, pad_batch
 from aread_tpu_torch.models.aread import AREAD
-from aread_tpu_torch.models.base import regularization_loss
+from aread_tpu_torch.models.base import FeatureSpec, regularization_loss
+from aread_tpu_torch.ops import overlay_adam as oa
+from aread_tpu_torch.ops.precision import matmul_precision_ctx
+from aread_tpu_torch.ops.sparse_adam import dedup_rows
+from aread_tpu_torch.parallel.health import epoch_deadline, watchdog
 from aread_tpu_torch.train import metrics as metrics_lib
 from aread_tpu_torch.train.checkpoint import (load_checkpoint, mask_template,
                                               restore_tree_, save_checkpoint,
                                               set_generator_state)
-from aread_tpu_torch.train.trainer import (Trainer, adopt_state_dict,
-                                           bce_with_logits, clone_state,
+from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
+                                           adopt_state_dict,
+                                           bce_with_logits,
+                                           clip_scale_by_global_norm,
+                                           clone_state,
                                            device_data_mode_enabled,
                                            hybrid_init, hybrid_update_sparse,
                                            make_optimizer, masked_mean,
@@ -61,14 +77,44 @@ from aread_tpu_torch.train.trainer import (Trainer, adopt_state_dict,
                                            restored_best, split_table,
                                            strip_table_rule,
                                            table_reg_value)
+from aread_tpu_torch.utils import profiling
 from aread_tpu_torch.utils.masks import HempMaskState, prune_mask
+from aread_tpu_torch.utils.runlog import RunLogger
 
 log = logging.getLogger(__name__)
 
 # Config options of the JAX package's AREADTrainer that are not ported
 # yet, with the only value the port takes
-_UNPORTED_OPTIONS = {"compute_dtype": "float32", "log_dir": "",
-                     "epoch_timeout_s": 0.0, "embed_lookup": "gspmd"}
+_UNPORTED_OPTIONS = {"embed_lookup": "gspmd"}
+TABLE_KEY = "embedding.table"  # the table's state_dict key
+
+# hemp_fast_adapt='auto' picks the overlay from this many table elements
+# (n_rows * E) on. It is the JAX package's selection rule, measured end to
+# end on its TPU, not on this card (PERF.md holds the card's crossover);
+# it is kept so that one config picks the same engine, and so the same
+# numbers on a bf16 table, in both packages.
+OVERLAY_AUTO_MIN_ELEMS = 240_000_000
+
+
+def overlay_mode_enabled(mode: str, sparse_table_grad: bool,
+                         spec: FeatureSpec, embed_dim: int) -> bool:
+    """Whether ``hemp_fast_adapt=mode`` runs the overlay engine for a
+    table of ``spec``'s rows (padded as the model pads them) x
+    ``embed_dim``: 'full' never, 'overlay' always (it needs
+    ``sparse_table_grad``, else ``ValueError``), 'auto' from
+    ``OVERLAY_AUTO_MIN_ELEMS`` table elements on when the gradient is
+    sparse."""
+    if mode == "full":
+        return False
+    if mode == "overlay":
+        if not sparse_table_grad:
+            raise ValueError(
+                "hemp_fast_adapt='overlay' requires sparse_table_grad")
+        return True
+    if mode != "auto":
+        raise ValueError(f"hemp_fast_adapt={mode!r}")
+    elems = int(np.sum(spec.one_hot_dims)) * embed_dim
+    return sparse_table_grad and elems >= OVERLAY_AUTO_MIN_ELEMS
 
 
 def copy_masks(masks) -> List:
@@ -140,6 +186,8 @@ class AREADTrainer:
         self._fast_state: Optional[Dict] = None
         self._device_data = None  # (dxc, dyc, aug_offset)
         self._epoch_examples = 0  # rows stepped in the running epoch
+        # host clock per step: the launches, since no step synchronises
+        self.step_timer = profiling.StepTimer()
         # fail on a hemp_fast_adapt misconfiguration now, not at the first
         # regroup, a warm-up into the first epoch
         overlay = self.overlay_enabled()
@@ -147,19 +195,12 @@ class AREADTrainer:
                  config.hemp_fast_adapt, "overlay" if overlay else "full-sweep")
 
     def overlay_enabled(self) -> bool:
-        """Resolve ``config.hemp_fast_adapt``. 'full' and 'auto' are the
-        full sweep: every chain step updates the whole table through the
-        sparse-Adam sweep. The overlay engine (a compact working-set copy)
-        is not ported; where 'auto' would cross over to it on this card has
-        not been measured."""
-        mode = self.config.hemp_fast_adapt
-        if mode in ("full", "auto"):
-            return False
-        if mode == "overlay":
-            raise NotImplementedError(
-                "hemp_fast_adapt='overlay' is not ported yet (the overlay "
-                "Adam engine); use 'auto' or 'full'")
-        raise ValueError(f"hemp_fast_adapt={mode!r}")
+        """Resolve ``config.hemp_fast_adapt`` for this model
+        (``overlay_mode_enabled``)."""
+        return overlay_mode_enabled(self.config.hemp_fast_adapt,
+                                    self.config.sparse_table_grad,
+                                    self.model.spec,
+                                    self.model.embedding.embed_dim)
 
     # ---------------------------------------------------------------- state
     def init(self) -> Dict:
@@ -174,31 +215,40 @@ class AREADTrainer:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
-    def _snapshot(self) -> Dict[str, torch.Tensor]:
-        """A device-resident copy of the parameters, the table and the
-        BatchNorm statistics."""
-        return clone_state(self.model)
+    def _snapshot(self, table: bool = True) -> Dict[str, torch.Tensor]:
+        """A device-resident copy of the parameters, the table (unless
+        ``table`` is False) and the BatchNorm statistics."""
+        if table:
+            return clone_state(self.model)
+        return {k: v.clone() for k, v in self.model.state_dict().items()
+                if k != TABLE_KEY}
 
     @torch.no_grad()
     def _restore(self, snap: Dict[str, torch.Tensor]) -> None:
-        """Copy a snapshot back into the live tensors, in place."""
+        """Copy a snapshot back into the live tensors it holds, in place."""
         live = self.model.state_dict()
         torch._foreach_copy_([live[k] for k in snap], list(snap.values()))
 
-    def _fresh_fast_state(self) -> Dict:
+    def _fresh_fast_state(self, table: bool = True) -> Dict:
         """The chains' optimizer state with zero moments and t = 0: one
-        allocation (two table-sized moment tensors) for the whole run,
-        zeroed in place for every candidate."""
+        allocation for the whole run, zeroed in place for every candidate.
+        With ``table`` it holds the table's moments (two table-sized
+        tensors, the full sweep's); an overlay chain's table moments are
+        its compact ones, so without ``table`` only the dense leaves'."""
         st = self._fast_state
-        if st is None:
-            st = self._fast_state = hybrid_init(
-                self.fast_optimizer, self.model,
-                moments_dtype=self.config.table_moments_dtype)
+        if st is None or (table and "m" not in st):
+            if table:
+                st = hybrid_init(self.fast_optimizer, self.model,
+                                 moments_dtype=self.config.table_moments_dtype)
+            else:
+                _, rest = split_table(self.model)
+                st = {"inner": self.fast_optimizer.init(rest), "t": 0}
+            self._fast_state = st
             return st
         inner = st["inner"]
         torch._foreach_zero_(list(inner["mu"].values())
                              + list(inner["nu"].values())
-                             + [st["m"], st["v"]])
+                             + ([st["m"], st["v"]] if table else []))
         inner["count"] = 0
         st["t"] = 0
         return st
@@ -234,13 +284,15 @@ class AREADTrainer:
         if isinstance(batch["x"], np.ndarray):
             batch = self.place(batch)
         self.model.train()
-        loss, out = self.bagging_loss(batch, dm, mode)
         _, rest = split_table(self.model)
         names = list(rest)
-        # leaves a mode does not use get zero gradients, as in JAX (the
-        # decay term still moves them)
-        grads = torch.autograd.grad(loss, [rest[n] for n in names] + [out["rows"]],
-                                    materialize_grads=True)
+        with matmul_precision_ctx(cfg.compute_dtype):
+            loss, out = self.bagging_loss(batch, dm, mode)
+            # leaves a mode does not use get zero gradients, as in JAX
+            # (the decay term still moves them)
+            grads = torch.autograd.grad(
+                loss, [rest[n] for n in names] + [out["rows"]],
+                materialize_grads=True)
         ids = self.model.embedding.table_ids(batch["x"])
         l2val = hybrid_update_sparse(
             optimizer, lr, cfg.wd, self.model,
@@ -279,9 +331,10 @@ class AREADTrainer:
         if isinstance(batch["x"], np.ndarray):
             batch = self.place(batch)
         self.model.train()
-        loss, out = self.bagging_loss(batch, dm, "domain_mask_final")
         leaf = {"final_gate/kernel": self.model.final_gate.kernel}
-        (g,) = torch.autograd.grad(loss, list(leaf.values()))
+        with matmul_precision_ctx(cfg.compute_dtype):
+            loss, out = self.bagging_loss(batch, dm, "domain_mask_final")
+            (g,) = torch.autograd.grad(loss, list(leaf.values()))
         loss = loss.detach()
         if cfg.loss_report_table_l2:
             loss = loss + table_reg_value(self.model.embedding.table)
@@ -349,14 +402,30 @@ class AREADTrainer:
     def _place_mask(self, mask) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.as_tensor(m, device=self.device) for m in mask)
 
-    def _fast_adapt(self, mask, fa_batches, probe_batches):
+    def _probe_losses(self, dm, probe_batches) -> torch.Tensor:
+        """[regroup_eval_step] no-grad probe losses (BCE on the
+        'domain_with_mask' prob) of the weights the model holds."""
+        self.model.eval()
+        with torch.no_grad(), matmul_precision_ctx(self.config.compute_dtype):
+            return torch.stack([
+                prob_bce(self.model(b["x"], domain_mask=dm,
+                                    mode="domain_with_mask",
+                                    train=False)["prob"], b["y"], b["valid"])
+                for b in probe_batches])
+
+    def _fast_adapt(self, mask, fa_batches, probe_batches, drift_l2=None):
         """One candidate's chain from the weights the model holds: a fresh
         fast-Adam state, a bagging step at ``update_lr`` per adapt batch
         with a progressive prune of the mask after each, then one no-grad
         probe per probe batch in 'domain_with_mask' mode. Returns (the
         pruned mask, the probe losses [regroup_eval_step] on the device).
         The weights, the BatchNorm statistics and a bf16 table's rounding
-        are left as the chain moved them: the caller restores."""
+        are left as the chain moved them: the caller restores. With
+        ``drift_l2`` (the regroup's ``drift_table_l2``) the chain runs the
+        overlay engine (``_fast_adapt_overlay``)."""
+        if drift_l2 is not None:
+            return self._fast_adapt_overlay(mask, fa_batches, probe_batches,
+                                            drift_l2)
         cfg = self.config
         state = self._fresh_fast_state()
         # uploaded once per prune, not once per forward
@@ -366,18 +435,74 @@ class AREADTrainer:
                                     "domain_mask_bagging", batch, dm)
             mask = self._prune(mask, gms)
             dm = self._place_mask(mask)
-        self.model.eval()
         with torch.no_grad():
             table, rest = split_table(self.model)
             # constant across the probes (the weights are fixed now): the
             # table's term is a pass over the whole table, paid once
             reg = (regularization_loss(rest, self.reg_rules)
                    + table_reg_value(table))
-            losses = [prob_bce(self.model(b["x"], domain_mask=dm,
-                                          mode="domain_with_mask",
-                                          train=False)["prob"],
-                               b["y"], b["valid"]) for b in probe_batches]
-        return mask, torch.stack(losses) + reg
+        return mask, self._probe_losses(dm, probe_batches) + reg
+
+    def _fast_adapt_overlay(self, mask, fa_batches, probe_batches,
+                            drift_l2: torch.Tensor):
+        """``_fast_adapt`` on the overlay engine (``ops/overlay_adam.py``):
+        the table's side of the chain is a compact f32 copy of the rows
+        the adapt batches gather, stepped by the fused dense Adam from the
+        deduplicated row gradients, with a prune after every step; the
+        dense leaves step through ``fast_optimizer`` as in the full sweep.
+        The probes read the working set's chain values and every other row
+        drifted by S decay-only steps, and their table L2 term is
+        ``drift_l2`` corrected to this working set. The live table is
+        never written."""
+        cfg = self.config
+        model = self.model
+        emb = model.embedding
+        table = emb.table
+        hyper = dict(lr=cfg.update_lr, wd=cfg.wd, l2=TABLE_L2)
+        state = self._fresh_fast_state(table=False)
+        ws = oa.build_working_set(emb, torch.stack([b["x"]
+                                                    for b in fa_batches]))
+        w, m, v = oa.overlay_init(table, ws)
+        _, rest = split_table(model)
+        names = list(rest)
+        dm = self._place_mask(mask)
+        # w is stepped in place: the lookup reads the chain's values
+        with emb.lookup_override(functools.partial(
+                oa.overlay_gather, ws=ws, wvals=w, drift_steps=0, **hyper)):
+            for batch in fa_batches:
+                model.train()
+                with matmul_precision_ctx(cfg.compute_dtype):
+                    loss, out = self.bagging_loss(batch, dm,
+                                                  "domain_mask_bagging")
+                    grads = torch.autograd.grad(
+                        loss, [rest[n] for n in names] + [out["rows"]],
+                        materialize_grads=True)
+                g_rest = dict(zip(names, grads[:-1]))
+                ids = emb.table_ids(batch["x"]).reshape(-1)
+                uids, gsum = dedup_rows(
+                    ids.to(torch.int32),
+                    grads[-1].reshape(-1, grads[-1].shape[-1]),
+                    table.shape[0])
+                scale = clip_scale_by_global_norm(
+                    list(g_rest.values()) + [gsum], cfg.grad_clip_norm)
+                if scale is not None:
+                    g_rest = {n: g * scale for n, g in g_rest.items()}
+                    gsum = gsum * scale
+                state["t"] += 1
+                oa.overlay_adam_step(w, m, v, oa.compact_grad(ws, uids, gsum),
+                                     state["t"], **hyper)
+                self.fast_optimizer.update_(rest, g_rest, state["inner"])
+                mask = self._prune(mask, out["gate_means"])
+                dm = self._place_mask(mask)
+        S = len(fa_batches)
+        with emb.lookup_override(functools.partial(
+                oa.overlay_gather, ws=ws, wvals=w, drift_steps=S, **hyper)):
+            losses = self._probe_losses(dm, probe_batches)
+        with torch.no_grad():
+            reg = (regularization_loss(rest, self.reg_rules)
+                   + TABLE_L2 * (drift_l2 + oa.overlay_l2_correction(
+                       table, ws, w, S, **hyper)))
+        return mask, losses + reg
 
     def _mask_evolution(self, train_batcher: DomainBatcher,
                         aug_batcher: DomainBatcher,
@@ -388,7 +513,9 @@ class AREADTrainer:
         main optimizer's state is never touched."""
         cfg = self.config
         ms = self.mask_state
-        snap = self._snapshot()
+        overlay = self.overlay_enabled()
+        # an overlay chain never writes the live table
+        snap = self._snapshot(table=not overlay)
         self.random_modify_sigma *= 0.99
         self.init_active_percent = max(0.1, self.init_active_percent * 0.95)
         self.candidate_mask_num *= 0.99
@@ -398,6 +525,10 @@ class AREADTrainer:
             print(f"regroup {self.regroup_times}: sigma={self.random_modify_sigma:.4f} "
                   f"active%={self.init_active_percent:.3f} candidates={n_cand}")
         t0 = time.time()
+        # the overlay's whole-table drift L2: the same for every chain
+        drift_l2 = (oa.drift_table_l2(
+            self.model.embedding.table, cfg.regroup_update_step,
+            cfg.update_lr, cfg.wd, TABLE_L2) if overlay else None)
         aug_off = self._device_data[2] if self._device_data is not None else 0
         cand_index: List[Tuple[int, int]] = []
         out_masks, out_losses = [], []
@@ -422,7 +553,7 @@ class AREADTrainer:
                           for _ in range(cfg.regroup_eval_step)]
                 if cand_index:
                     self._restore(snap)
-                mask, losses = self._fast_adapt(mask, fa, probes)
+                mask, losses = self._fast_adapt(mask, fa, probes, drift_l2)
                 out_masks.append(mask)
                 out_losses.append(losses)
                 cand_index.append((d, z))
@@ -439,7 +570,7 @@ class AREADTrainer:
         seconds = time.time() - t0
         self.regroup_log.append({
             "seconds": seconds, "chains": len(cand_index),
-            "candidates": n_cand,
+            "candidates": n_cand, "overlay": overlay,
             "active_ratio": ms.current_active_ratio()})
         if verbose:
             print(f"mask evolution took {seconds:.1f}s; "
@@ -470,10 +601,12 @@ class AREADTrainer:
 
         def step(kind, d, mask, record):
             idx = train_batcher.next_batch_indices(d)
-            self._epoch_examples += int((idx >= 0).sum())
-            batch = self._batch(train_batcher, idx)
-            loss, gms = (self.warmup_step(batch) if kind == "warmup"
-                         else self.main_step(batch, mask))
+            n_ex = int((idx >= 0).sum())
+            self._epoch_examples += n_ex
+            with self.step_timer.step(n_examples=n_ex):
+                batch = self._batch(train_batcher, idx)
+                loss, gms = (self.warmup_step(batch) if kind == "warmup"
+                             else self.main_step(batch, mask))
             losses.append(loss)
             if record:
                 recorded.append((d, gms))
@@ -486,13 +619,17 @@ class AREADTrainer:
                 step("warmup", domain_list.pop(), None, True)
             losses.clear()  # warm-up losses are not epoch losses
 
-        for i, d in enumerate(train_batcher.domain_batch_seq):
-            if (epoch_i == 0 and i == 0) or ((i + 1) % regroup_interval == 0):
-                flush_records()
-                self._mask_evolution(train_batcher, aug_batcher, verbose)
-            record = ((i + 1) // regroup_interval
-                      - (i + 1 + warm_up_interval) // regroup_interval) > 0
-            step("main", d, ms.domain_mask[d], record)
+        with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
+            for i, d in enumerate(train_batcher.domain_batch_seq):
+                if (epoch_i == 0 and i == 0) or (
+                        (i + 1) % regroup_interval == 0):
+                    flush_records()
+                    with profiling.annotate("hemp_mask_evolution"):
+                        self._mask_evolution(train_batcher, aug_batcher,
+                                             verbose)
+                record = ((i + 1) // regroup_interval
+                          - (i + 1 + warm_up_interval) // regroup_interval) > 0
+                step("main", d, ms.domain_mask[d], record)
         flush_records()
         return mean_losses(losses)
 
@@ -507,8 +644,11 @@ class AREADTrainer:
         seq.extend(d for d in range(self.n_domain) if d not in present)
         losses = []
         for d in seq:
-            batch = self.place(train_batcher.next_batch(d))
-            loss, _ = self.final_core(opt_state, batch, ms.domain_mask[d])
+            batch_np = train_batcher.next_batch(d)
+            with self.step_timer.step(
+                    n_examples=int(batch_np["valid"].sum())):
+                loss, _ = self.final_core(opt_state, self.place(batch_np),
+                                          ms.domain_mask[d])
             losses.append(loss)
         return mean_losses(losses)
 
@@ -670,16 +810,22 @@ class AREADTrainer:
         epochs repeat what the uninterrupted run would have done. A
         checkpoint without the host-side streams (one carried over from
         the JAX package, whose checkpoints hold none) resumes with them
-        restarted from the seed, as the JAX package resumes."""
+        restarted from the seed, as the JAX package resumes.
+
+        ``config.log_dir``: each main epoch's valid result and the test
+        result go to a ``RunLogger``. ``config.epoch_timeout_s``: each main
+        train epoch runs under the watchdog."""
         try:
-            return self._fit_inner(data, epochs, verbose, final_gate,
-                                   warm_start, ckpt_dir)
+            with RunLogger(self.config.log_dir or None,
+                           config=self.config) as logger:
+                return self._fit_inner(data, epochs, verbose, final_gate,
+                                       warm_start, ckpt_dir, logger)
         finally:
             # release the resident split even when an epoch fails
             self._device_data = None
 
     def _fit_inner(self, data: SplitData, epochs, verbose, final_gate,
-                   warm_start, ckpt_dir) -> Dict:
+                   warm_start, ckpt_dir, logger: RunLogger) -> Dict:
         cfg = self.config
         final_gate = cfg.aread_final if final_gate is None else final_gate
         didx = data.spec.domain_idx
@@ -715,16 +861,24 @@ class AREADTrainer:
         for epoch_i in range(start_epoch,
                              epochs if epochs is not None else cfg.epoch):
             t0 = time.time()
-            train_loss = self.train_epoch(epoch_i, train_b, aug_b, verbose)
+            with watchdog(epoch_deadline(cfg.epoch_timeout_s,
+                                         cfg.epoch_timeout_first_mult),
+                          tag=f"aread_epoch{epoch_i}",
+                          kill_process=cfg.epoch_timeout_kill):
+                train_loss = self.train_epoch(epoch_i, train_b, aug_b,
+                                              verbose)
             train_s = time.time() - t0
             raise_if_nonfinite(train_loss, epoch_i)
             train_b.shuffle_seq()
             result = self.evaluate(valid_b, data.domain_cnt_weight)
             result["train_loss"] = train_loss
             result["epoch_time_s"] = time.time() - t0
-            # evolutions included
+            # evolutions included; the epoch's seconds end in the fetch of
+            # its losses (a StepTimer around an unsynchronised step would
+            # time the launches)
             result["examples_per_s"] = self._epoch_examples / train_s
             history.append(result)
+            logger.log({"valid": result}, step=epoch_i + 1)
             if verbose:
                 print(f"epoch {epoch_i + 1}: train_loss={train_loss:.4f} "
                       f"valid auc={result['total_auc']:.4f} "
@@ -776,5 +930,9 @@ class AREADTrainer:
 
         test_result = self.evaluate(test_b, data.domain_cnt_weight,
                                     final=final_gate)
+        logger.log({"test": test_result,
+                    "domain_mask_active": [
+                        None if m is None else [float(np.mean(mm)) for mm in m]
+                        for m in self.mask_state.domain_mask]})
         return {"history": history, "test": test_result,
                 "domain_mask": self.mask_state.domain_mask}

@@ -38,6 +38,7 @@ from aread_tpu_torch.data.loader import DomainBatcher, SplitData
 from aread_tpu_torch.train import metrics as metrics_lib
 from aread_tpu_torch.train.trainer import (Trainer, adopt_state_dict,
                                            hybrid_init)
+from aread_tpu_torch.utils.runlog import RunLogger
 
 Weights = Dict[str, torch.Tensor]
 
@@ -105,7 +106,17 @@ class MamdrTrainer(Trainer):
         """``warm_start``: a checkpoint dict whose weights and buffers seed
         the model, and so the meta weights. Returns {'history': per-epoch
         valid results, 'test': the test result, 'meta_weights',
-        'domain_weights'}; the model is left holding the meta weights."""
+        'domain_weights'}; the model is left holding the meta weights.
+        ``config.log_dir``: the valid and test results go to a
+        ``RunLogger``. As in the JAX package, the epochs run without the
+        watchdog and without dynamic regrouping (``epoch_timeout_s`` and
+        ``dynamic_regroup`` are taken and not acted on)."""
+        with RunLogger(self.config.log_dir or None,
+                       config=self.config) as logger:
+            return self._fit(data, epochs, verbose, warm_start, logger)
+
+    def _fit(self, data: SplitData, epochs: Optional[int], verbose: bool,
+             warm_start: Optional[Dict], logger: RunLogger) -> Dict:
         cfg = self.config
         nd = self.n_domain
         didx = data.spec.domain_idx
@@ -159,6 +170,7 @@ class MamdrTrainer(Trainer):
             result = self.evaluate_merged(valid_b, data.domain_cnt_weight)
             result["epoch_time_s"] = time.time() - t0
             history.append(result)
+            logger.log({"valid": result}, step=epoch_i + 1)
             if verbose:
                 # Trainer.fit's line; the shared and domain passes report
                 # no train loss, as in the JAX package
@@ -170,6 +182,7 @@ class MamdrTrainer(Trainer):
                 break
 
         test_result = self.evaluate_merged(test_b, data.domain_cnt_weight)
+        logger.log({"test": test_result})
         return {"history": history, "test": test_result,
                 "meta_weights": self.meta_weights,
                 "domain_weights": self.domain_weights}

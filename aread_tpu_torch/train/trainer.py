@@ -14,7 +14,12 @@ in its expression order.
 
 ``Trainer`` is train / evaluate / early stop on the weighted mean AUC for
 single-output and multi-tower models: a multi-tower model computes every
-tower and the loss gathers the sample's group column.
+tower and the loss gathers the sample's group column. Its options:
+``compute_dtype`` (``ops/precision.py``), ``dynamic_regroup`` (the
+domain -> group map recomputed between epochs from the valid split's
+per-(tower, domain) losses, ``train/regroup.py``), ``log_dir``
+(``utils/runlog.py``) and the epoch watchdog (``epoch_timeout_s``,
+``parallel/health.py``).
 """
 
 from __future__ import annotations
@@ -31,11 +36,17 @@ from aread_tpu_torch.config import Config
 from aread_tpu_torch.data.loader import GlobalBatcher, SplitData
 from aread_tpu_torch.models.base import gather_group, regularization_loss
 from aread_tpu_torch.ops.fused_adam import fused_adam_dispatch
+from aread_tpu_torch.ops.precision import matmul_precision_ctx
 from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_dispatch
+from aread_tpu_torch.parallel.health import epoch_deadline, watchdog
 from aread_tpu_torch.train import metrics as metrics_lib
 from aread_tpu_torch.train.checkpoint import (load_checkpoint, restore_tree_,
                                               save_checkpoint,
                                               set_generator_state)
+from aread_tpu_torch.train.regroup import (get_losses_tower_domain,
+                                           regroup_all_domain)
+from aread_tpu_torch.utils import profiling
+from aread_tpu_torch.utils.runlog import RunLogger
 
 MULTI_TOWER_MODELS = ("ple", "mmoe", "pepnet", "epnet", "star", "adl", "hinet")
 CONCAT_GROUP_MODELS = ("star", "adl", "hinet")  # forward consumes group
@@ -258,9 +269,7 @@ def device_data_mode_enabled(config, total_bytes: int, budget: int) -> bool:
 
 # Config options of the JAX package's Trainer that are not ported yet,
 # with the only value the port takes
-_UNPORTED_OPTIONS = {"compute_dtype": "float32", "dynamic_regroup": "off",
-                     "log_dir": "", "epoch_timeout_s": 0.0,
-                     "embed_lookup": "gspmd"}
+_UNPORTED_OPTIONS = {"embed_lookup": "gspmd"}
 
 
 def clone_state(model) -> Dict[str, torch.Tensor]:
@@ -320,6 +329,8 @@ class Trainer:
         self.reg_rules = strip_table_rule(type(model).REG_RULES)
         self.opt_state: Optional[Dict] = None
         self._device_data = None  # (host_x, host_y, dx, dy)
+        # host clock per step: the launches, since no step synchronises
+        self.step_timer = profiling.StepTimer()
         # early-stop state
         self.trial_counter = 0
         self.best_auc, self.best_mean_auc = 0.0, 0.0
@@ -357,20 +368,24 @@ class Trainer:
         model.train()
         x, y, valid = batch["x"], batch["y"], batch["valid"]
         group = batch.get("group")
-        out = model(x, group=group, train=True, mask=valid,
-                    generator=self.generator, tap=True)
-        logit = out["logit"]
-        if self.is_multi_tower and logit.dim() == 2:
-            logit = gather_group(logit, group if group is not None
-                                 else batch["domain"])
         table, rest = split_table(model)
-        loss = (masked_mean(bce_with_logits(logit, y), valid)
-                + regularization_loss(rest, self.reg_rules))
         names = list(rest)
-        # leaves the loss does not reach get zero gradients (the decay
-        # term still moves them)
-        grads = torch.autograd.grad(loss, [rest[n] for n in names] + [out["rows"]],
-                                    materialize_grads=True)
+        # the gradient's products too: the JAX package traces
+        # value_and_grad inside the context
+        with matmul_precision_ctx(cfg.compute_dtype):
+            out = model(x, group=group, train=True, mask=valid,
+                        generator=self.generator, tap=True)
+            logit = out["logit"]
+            if self.is_multi_tower and logit.dim() == 2:
+                logit = gather_group(logit, group if group is not None
+                                     else batch["domain"])
+            loss = (masked_mean(bce_with_logits(logit, y), valid)
+                    + regularization_loss(rest, self.reg_rules))
+            # leaves the loss does not reach get zero gradients (the decay
+            # term still moves them)
+            grads = torch.autograd.grad(
+                loss, [rest[n] for n in names] + [out["rows"]],
+                materialize_grads=True)
         g_rest = dict(zip(names, grads[:-1]))
         ids = model.embedding.table_ids(x)
         loss = loss.detach()
@@ -391,7 +406,11 @@ class Trainer:
     # ------------------------------------------------------------ training
     def train_epoch(self, batcher: Iterable) -> float:
         """One pass over the batcher's host batches; the mean loss."""
-        return mean_losses([self.step(self.place(b)) for b in batcher])
+        losses = []
+        for b in batcher:
+            with self.step_timer.step(n_examples=int(b["valid"].sum())):
+                losses.append(self.step(self.place(b)))
+        return mean_losses(losses)
 
     def device_data_enabled(self, train_x: np.ndarray) -> bool:
         return device_data_mode_enabled(self.config, train_x.nbytes,
@@ -416,21 +435,27 @@ class Trainer:
                 torch.as_tensor(np.ascontiguousarray(batcher.y),
                                 device=self.device))
         _, _, dx, dy = self._device_data
-        perm = torch.as_tensor(batcher.epoch_perm(), device=self.device)
+        perm_np = batcher.epoch_perm()
+        perm = torch.as_tensor(perm_np, device=self.device)
         d2g = (None if batcher.domain2group is None else torch.as_tensor(
             np.asarray(batcher.domain2group), dtype=torch.int32,
             device=self.device))
+        n_valid = (perm_np >= 0).sum(axis=1).tolist()
         losses = []
-        for idx in perm:
-            valid = (idx >= 0).to(torch.float32)
-            gidx = torch.where(idx < 0, idx[0], idx).to(torch.int64)
-            x = dx[gidx]
-            batch = {"x": x, "y": dy[gidx].to(torch.float32) * valid,
-                     "valid": valid,
-                     "domain": x[:, batcher.domain_idx].to(torch.int32)}
-            if d2g is not None:
-                batch["group"] = d2g[batch["domain"].to(torch.int64)]
-            losses.append(self.step(batch))
+        with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
+            for idx, n_ex in zip(perm, n_valid):
+                with self.step_timer.step(n_examples=n_ex):
+                    valid = (idx >= 0).to(torch.float32)
+                    gidx = torch.where(idx < 0, idx[0], idx).to(torch.int64)
+                    x = dx[gidx]
+                    batch = {"x": x,
+                             "y": dy[gidx].to(torch.float32) * valid,
+                             "valid": valid,
+                             "domain": x[:, batcher.domain_idx].to(
+                                 torch.int32)}
+                    if d2g is not None:
+                        batch["group"] = d2g[batch["domain"].to(torch.int64)]
+                    losses.append(self.step(batch))
         return mean_losses(losses)
 
     # ---------------------------------------------------------- evaluation
@@ -483,6 +508,75 @@ class Trainer:
             np.concatenate(targets), torch.cat(preds).cpu().numpy(),
             np.concatenate(domains), domain_cnt_weight,
             multi_domain=self.config.is_evaluate_multi_domain)
+
+    # ------------------------------------------------- dynamic regrouping
+    @torch.no_grad()
+    def tower_domain_losses(self, x: np.ndarray,
+                            y: np.ndarray) -> np.ndarray:
+        """Per-(tower, domain) mean BCE [n_tower, n_domain] of every tower
+        head on a split (NaN for a domain without rows): the loss matrix
+        ``regroup_all_domain`` takes."""
+        self.model.eval()
+        batcher = GlobalBatcher(x, y, self.config.bs * 8,
+                                self.model.spec.domain_idx, self.domain2group,
+                                shuffle=False)
+        preds, targets, domains = [], [], []
+        for batch in batcher:
+            tb = self.place(batch)
+            prob = self.model(tb["x"], group=tb.get("group"),
+                              train=False)["prob"]
+            n = int(batch["valid"].sum())
+            if prob.dim() == 1:  # a single head: one degenerate tower
+                prob = prob[:, None]
+            preds.append(prob[:n])
+            targets.append(batch["y"][:n])
+            domains.append(batch["domain"][:n])
+        pred = torch.cat(preds).cpu().numpy()
+        return get_losses_tower_domain(pred, np.concatenate(targets),
+                                       np.concatenate(domains),
+                                       pred.shape[1], self.n_domain)
+
+    def apply_dynamic_regroup(self, valid_x: np.ndarray, valid_y: np.ndarray,
+                              verbose: bool = True) -> bool:
+        """Recompute domain -> group from the valid split's loss matrix
+        (``config.dynamic_regroup``: comma-separated modes of
+        ``regroup_all_domain``) and take it for what follows. With
+        'served', each tower first keeps the domain among its own that it
+        serves best (its global best when it serves none). A domain that
+        the split lacks (a NaN column) keeps its group. Returns whether the
+        map changed. Raises ``ValueError`` for a model without towers or a
+        map."""
+        modes = tuple(m.strip() for m in
+                      self.config.dynamic_regroup.split(",") if m.strip())
+        if not modes or modes == ("off",):
+            return False
+        if not self.is_multi_tower or self.domain2group is None:
+            raise ValueError(
+                f"dynamic_regroup={self.config.dynamic_regroup!r} needs a "
+                f"multi-tower model with a domain2group map "
+                f"(model={self.model_name})")
+        matrix = self.tower_domain_losses(valid_x, valid_y)
+        cur = np.asarray(self.domain2group)
+        selected = None
+        if "served" in modes:
+            selected = []
+            for g in range(matrix.shape[0]):
+                mine = np.flatnonzero(cur == g)
+                row = matrix[g]
+                if mine.size and np.isfinite(row[mine]).any():
+                    selected.append(int(mine[np.nanargmin(row[mine])]))
+                else:
+                    selected.append(int(np.nanargmin(row)))
+        safe = np.where(np.isnan(matrix), np.inf, matrix)
+        new_d2g = regroup_all_domain(safe, modes, selected_domain=selected)
+        new_d2g = np.where(np.isnan(matrix).all(axis=0), cur, new_d2g)
+        changed = not np.array_equal(new_d2g, cur)
+        if changed:
+            if verbose:
+                print(f"dynamic_regroup({','.join(modes)}): "
+                      f"{int(np.sum(new_d2g != cur))} domain(s) reassigned")
+            self.domain2group = new_d2g.astype(np.int64)
+        return changed
 
     def is_continuable(self, result: Dict, epoch_i: int) -> bool:
         """Early stopping on mean_auc (total_auc when that is missing or
@@ -548,47 +642,67 @@ class Trainer:
         device_data = self.device_data_enabled(data.train_x)
         n_train = data.train_x.shape[0]
         history = []
-        try:
-            for epoch_i in range(start_epoch,
-                                 epochs if epochs is not None else cfg.epoch):
-                t0 = time.time()
-                train_loss = (self.train_epoch_device(batcher) if device_data
-                              else self.train_epoch(batcher))
-                train_s = time.time() - t0
-                raise_if_nonfinite(train_loss, epoch_i)
-                result = self.evaluate(data.valid_x, data.valid_y,
-                                       data.domain_cnt_weight)
-                result["train_loss"] = train_loss
-                result["epoch_time_s"] = time.time() - t0
-                result["examples_per_s"] = n_train / train_s
-                history.append(result)
-                if verbose:
-                    msg = (f"epoch {epoch_i + 1}: train_loss={train_loss:.4f} "
-                           f"valid auc={result['total_auc']:.4f} "
-                           f"loss={result['total_loss']:.4f}")
-                    if "mean_auc" in result:
-                        msg += f" mean_auc={result['mean_auc']:.4f}"
-                    print(msg)
-                cont = self.is_continuable(result, epoch_i)
-                if ckpt_dir and self._improved:
-                    save_checkpoint(ckpt_dir, self.model.state_dict(),
-                                    self.opt_state, epoch=epoch_i + 1,
-                                    best_result=result,
-                                    generator=self.generator)
-                if not cont:
-                    break
-        finally:
-            # release the resident split even when an epoch fails
-            self._device_data = None
-        if self.best_checkpoint is not None:
-            self.model.load_state_dict(self.best_checkpoint[0])
-        # ADL with eval_dlm_update moves its centres in every evaluation
-        # (fit carries the valid pass's into the next epoch); the run's
-        # result is the state before the test pass, as in the JAX package
-        kept = (clone_state(self.model)
-                if getattr(self.model, "eval_dlm_update", False) else None)
-        test_result = self.evaluate(data.test_x, data.test_y,
-                                    data.domain_cnt_weight)
-        if kept is not None:
-            self.model.load_state_dict(kept)
+        with RunLogger(cfg.log_dir or None, config=cfg) as logger:
+            try:
+                n_epochs = epochs if epochs is not None else cfg.epoch
+                for epoch_i in range(start_epoch, n_epochs):
+                    t0 = time.time()
+                    with watchdog(epoch_deadline(cfg.epoch_timeout_s,
+                                                 cfg.epoch_timeout_first_mult),
+                                  tag=f"train_epoch{epoch_i}",
+                                  kill_process=cfg.epoch_timeout_kill):
+                        train_loss = (
+                            self.train_epoch_device(batcher) if device_data
+                            else self.train_epoch(batcher))
+                    train_s = time.time() - t0
+                    raise_if_nonfinite(train_loss, epoch_i)
+                    result = self.evaluate(data.valid_x, data.valid_y,
+                                           data.domain_cnt_weight)
+                    result["train_loss"] = train_loss
+                    result["epoch_time_s"] = time.time() - t0
+                    # the epoch's rows over its seconds, which end in the
+                    # fetch of its losses (a StepTimer around an
+                    # unsynchronised step would time the launches)
+                    result["examples_per_s"] = n_train / train_s
+                    history.append(result)
+                    logger.log({"valid": result}, step=epoch_i + 1)
+                    if verbose:
+                        msg = (f"epoch {epoch_i + 1}: "
+                               f"train_loss={train_loss:.4f} "
+                               f"valid auc={result['total_auc']:.4f} "
+                               f"loss={result['total_loss']:.4f}")
+                        if "mean_auc" in result:
+                            msg += f" mean_auc={result['mean_auc']:.4f}"
+                        print(msg)
+                    cont = self.is_continuable(result, epoch_i)
+                    if cont and cfg.dynamic_regroup != "off":
+                        # the batcher reads its map per batch, the device
+                        # epoch once per epoch; the valid and test passes
+                        # read the trainer's
+                        if self.apply_dynamic_regroup(
+                                data.valid_x, data.valid_y, verbose=verbose):
+                            batcher.domain2group = self.domain2group
+                    if ckpt_dir and self._improved:
+                        save_checkpoint(ckpt_dir, self.model.state_dict(),
+                                        self.opt_state, epoch=epoch_i + 1,
+                                        best_result=result,
+                                        generator=self.generator)
+                    if not cont:
+                        break
+            finally:
+                # release the resident split even when an epoch fails
+                self._device_data = None
+            if self.best_checkpoint is not None:
+                self.model.load_state_dict(self.best_checkpoint[0])
+            # ADL with eval_dlm_update moves its centres in every
+            # evaluation (fit carries the valid pass's into the next
+            # epoch); the run's result is the state before the test pass,
+            # as in the JAX package
+            kept = (clone_state(self.model)
+                    if getattr(self.model, "eval_dlm_update", False) else None)
+            test_result = self.evaluate(data.test_x, data.test_y,
+                                        data.domain_cnt_weight)
+            if kept is not None:
+                self.model.load_state_dict(kept)
+            logger.log({"test": test_result})
         return {"history": history, "test": test_result}

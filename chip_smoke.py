@@ -66,6 +66,18 @@ Phases, each printing one line:
            a malformed one); request times per bucket by both clocks;
            streaming evaluation against the exact one; fit(ckpt_dir=) and
            a resume; both CLIs in subprocesses on a seed-made CSV;
+  options  the trainers' options at full Amazon width: one 50-chain
+           evolution under each fast-adapt engine (the full sweep, kernel
+           1; the overlay, kernel 2 alone, on the schedule's launch
+           counts) with ms, launches and device time per chain; both
+           engines' chains on a 248M-element table and the crossover
+           they imply; the overlay card vs CPU and vs the full sweep (f32,
+           2 domains); an overlay AREADTrainer.fit with log_dir; MMoE
+           fits under each dynamic_regroup mode and the loss matrix card
+           vs CPU; compute_dtype='bfloat16' (a product against f64 on
+           rounded operands, a step card vs CPU, step times, a served
+           checkpoint); the epoch watchdog, a fresh process's first two
+           epochs, and a trace;
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
@@ -76,7 +88,8 @@ Phases, each printing one line:
            go to --profile-dir.
 
 The launch counts are set to 0 just before each path (train, train_dense
-and its parts, zoo's and zoo2's fits and steps, hemp, serve's resumes) and read just after it; a kernel's ``launches`` is the sum
+and its parts, zoo's and zoo2's fits and steps, hemp, serve's resumes,
+options' evolutions and fits) and read just after it; a kernel's ``launches`` is the sum
 over the paths. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -87,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -2717,6 +2731,659 @@ def phase_serve(ctx):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
+# ----------------------------------------------------------------- options
+# One regroup of the hemp phase's shape: 25 domains x int(3 * 0.99) = 2
+# candidates = 50 chains of 3 adapt steps and 2 probes
+OPTIONS_HEMP = {"regroup_update_step": 3, "regroup_eval_step": 2,
+                "candidate_mask_num": 3}
+# the largest field scaled up so that the table passes the JAX package's
+# 'auto' crossover (240M elements): 7,750,095 rows x 32 = 248,003,040
+BIG_DIMS = (7_600_000,) + AMAZON_DIMS[1:]
+
+
+def overlay_launches(chains: int, regroups: int, cfg) -> int:
+    """fused_adam launches of overlay evolutions: per chain S compact
+    steps, S drift steps per probe batch and S for the L2 correction; S
+    per regroup for the whole-table drift (S = regroup_update_step)."""
+    s = cfg.regroup_update_step
+    return chains * s * (2 + cfg.regroup_eval_step) + regroups * s
+
+
+def aread_overlay_trainer(dims, device="cuda", **cfg_kw):
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.train.hemp import AREADTrainer
+
+    cfg = Config(model="aread", dataset_name="amazon", seed=0,
+                 **{**OPTIONS_HEMP, **cfg_kw})
+    return AREADTrainer(build_model(cfg, FeatureSpec(dims, 2, 0, 2, 5),
+                                    N_DOMAIN, device=device), cfg, N_DOMAIN)
+
+
+def chain_fn(tr, d: int, rng, overlay: bool):
+    """One chain of domain ``d`` from a snapshot (restore, adapt steps with
+    their prunes, probes, the fetch of the probe losses), as a callable;
+    the regroup's whole-table drift L2 as another (None for the full
+    sweep); and the snapshot, which the caller restores when it is done
+    timing (a chain leaves the weights as it moved them)."""
+    from aread_tpu_torch.ops import overlay_adam as oa
+    from aread_tpu_torch.train.trainer import TABLE_L2
+
+    cfg, spec = tr.config, tr.model.spec
+    x, y = amazon_rows(rng, spec, (cfg.regroup_update_step
+                                   + cfg.regroup_eval_step) * BS)
+    x[:, spec.domain_idx] = d
+    bs = [tr.place({"x": x[i * BS:(i + 1) * BS], "y": y[i * BS:(i + 1) * BS]
+                    .astype(np.float32), "valid": np.ones(BS, np.float32)})
+          for i in range(len(x) // BS)]
+    fa, probes = bs[:cfg.regroup_update_step], bs[cfg.regroup_update_step:]
+    mask = tr.mask_state.generate_mask("rand", d, 0.7)
+    table = tr.model.embedding.table
+    snap = tr._snapshot(table=not overlay)
+    drift = ((lambda: oa.drift_table_l2(table, cfg.regroup_update_step,
+                                        cfg.update_lr, cfg.wd, TABLE_L2))
+             if overlay else None)
+    state = {"drift": drift() if overlay else None}
+
+    def chain():
+        tr._restore(snap)
+        tr._fast_adapt(mask, fa, probes, state["drift"])[1].cpu()
+
+    return chain, drift, snap
+
+
+def options_overlay(ctx, tmp: str):
+    """One 50-chain evolution of each engine at full Amazon width (bf16
+    table and moments) from the same weights, masks and streams: ms per
+    chain, each kernel's launches, peak memory (a chain's CUDA launches
+    and device time: options_overlay_large)."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+
+    rng = np.random.default_rng(6)
+    runs = {}
+    for engine in ("full", "overlay"):
+        tr = aread_overlay_trainer(AMAZON_DIMS, hemp_fast_adapt=engine)
+        if engine == "full":
+            x, y = amazon_rows(rng, tr.model.spec, N_DOMAIN * 4 * BS)
+            weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        else:
+            tr.model.load_state_dict(weights)
+        tr.init()
+        if tr.overlay_enabled() != (engine == "overlay"):
+            raise AssertionError(f"{engine}: the trainer picked the other "
+                                 "engine")
+        records = spy_evolutions(tr)
+        batchers = [DomainBatcher(x, y, BS, tr.model.spec.domain_idx,
+                                  N_DOMAIN, seed=s) for s in (1, 2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counted(ctx, f"options/evolution_{engine}",
+                lambda: tr._mask_evolution(*batchers, verbose=False))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log = tr.regroup_log[-1]
+        runs[engine] = dict(
+            trainer=tr, records=records, chains=log["chains"],
+            ms_per_chain=log["seconds"] / log["chains"] * 1e3,
+            peak_mem_gb=peak,
+            kernel_launches=ctx["launches_by_path"][
+                f"options/evolution_{engine}"])
+    cfg = runs["overlay"]["trainer"].config
+    chains = runs["full"]["chains"]
+    want = {"full": {"sparse_adam": chains * cfg.regroup_update_step,
+                     "fused_adam": 0},
+            "overlay": {"sparse_adam": 0,
+                        "fused_adam": overlay_launches(chains, 1, cfg)}}
+    for engine, r in runs.items():
+        if r["chains"] != 50 or r["kernel_launches"] != want[engine]:
+            raise AssertionError(f"{engine}: {r['chains']} chains launched "
+                                 f"{r['kernel_launches']}, the schedule "
+                                 f"implies {want[engine]}")
+    a = [l for d in runs["full"]["records"][0]["losses"] for z in d for l in z]
+    b = [l for d in runs["overlay"]["records"][0]["losses"] for z in d
+         for l in z]
+    # on a bf16 table the engines differ by the full sweep's rounding of
+    # w every step; a prune decision can flip with it
+    same = [masks_equal(x, y) for d, e in zip(
+        runs["full"]["records"][0]["candidates"],
+        runs["overlay"]["records"][0]["candidates"]) for x, y in zip(d, e)]
+    if not np.isfinite(b).all():
+        raise AssertionError("non-finite overlay probe losses")
+    elems = runs["full"]["trainer"].model.spec.n_rows * EMBED_DIM
+    say("options", part="overlay_evolution", table_elems=elems,
+        table_dtype=cfg.table_dtype, chains=chains, **{
+            engine: {k: v for k, v in r.items()
+                     if k not in ("trainer", "records")}
+            for engine, r in runs.items()},
+        kernel_launches_per_chain={
+            e: {k: v / chains for k, v in r["kernel_launches"].items()}
+            for e, r in runs.items()},
+        fused_adam_per_regroup_beside_chains=cfg.regroup_update_step,
+        pruned_masks_equal_between_engines_bf16=f"{sum(same)}/{len(same)}",
+        probe_loss_max_abs_diff_bf16_engines=float(
+            np.max(np.abs(np.array(a) - np.array(b)))))
+    ctx["overlay_amazon"] = (runs["full"]["trainer"], elems)
+    del runs
+    torch.cuda.empty_cache()
+
+
+def chain_times(tr):
+    """Per engine, on ``tr``'s table: the host-clock ms of one chain
+    (median of 5, the engines in turns full, overlay, overlay, full), its
+    CUDA launches and device busy ms (torch.profiler, 2 chains), and the
+    whole-table drift L2's ms (once per regroup; 0 for the full sweep)."""
+    fns = {e: chain_fn(tr, 0, np.random.default_rng(9), e == "overlay")
+           for e in ("full", "overlay")}
+    out = {e: {"chain_ms_host_clock": []} for e in fns}
+    for e in ("full", "overlay", "overlay", "full"):
+        chain, _, snap = fns[e]
+        out[e]["chain_ms_host_clock"].append(event_ms(chain, n=5)[1])
+        tr._restore(snap)
+    for e, (chain, drift, snap) in fns.items():
+        launches, busy = launches_and_busy_per_call(chain, n=2)
+        tr._restore(snap)
+        out[e].update(cuda_launches=launches, device_busy_ms=busy,
+                      drift_l2_ms=event_ms(drift, n=3)[1] if drift else 0.0)
+    return out
+
+
+def options_overlay_large(ctx, tmp: str):
+    """Each engine's chain on the Amazon table and on one past 240M
+    elements, and where the two cross: each engine's time per chain (the
+    overlay's whole-table drift shared by a regroup's 50 chains) taken as
+    linear in the table's size between the two tables, once by the host
+    clock (what a regroup takes) and once by device busy time."""
+    from aread_tpu_torch.train.hemp import OVERLAY_AUTO_MIN_ELEMS
+
+    small_tr, e1 = ctx.pop("overlay_amazon")
+    small = chain_times(small_tr)
+    del small_tr
+    torch.cuda.empty_cache()
+    tr = aread_overlay_trainer(BIG_DIMS)
+    e2 = tr.model.spec.n_rows * EMBED_DIM
+    if e2 < OVERLAY_AUTO_MIN_ELEMS or not tr.overlay_enabled():
+        raise AssertionError(f"{e2} elements: not past the crossover")
+    tr.init()
+    big = chain_times(tr)
+
+    def crossing(key):
+        per = {e: [statistics.median(np.atleast_1d(t[e][key]))
+                   + t[e]["drift_l2_ms"] / 50 for t in (small, big)]
+               for e in ("full", "overlay")}
+        slope = ((per["full"][1] - per["full"][0])
+                 - (per["overlay"][1] - per["overlay"][0])) / (e2 - e1)
+        gap = per["overlay"][0] - per["full"][0]
+        return per, (e1 + gap / slope if slope > 0 else None)
+
+    host, host_cross = crossing("chain_ms_host_clock")
+    dev, dev_cross = crossing("device_busy_ms")
+    say("options", part="overlay_crossover", table_elems=[e1, e2],
+        amazon=small, big=big,
+        ms_per_chain_with_drift_share={"host_clock": host, "device": dev},
+        crossover_table_elems={"host_clock": host_cross, "device": dev_cross},
+        jax_package_auto_threshold=OVERLAY_AUTO_MIN_ELEMS)
+    del tr
+    torch.cuda.empty_cache()
+
+
+def options_overlay_reference(ctx, tmp: str):
+    """A 2-domain evolution at full Amazon width with an f32 table and
+    moments (2 candidates each, 2 adapt steps and 2 probes a chain): the
+    overlay on the card against the overlay on the CPU (masks equal,
+    probe losses atol 1e-5 + 2 f32 ulp, as `reference` holds the full
+    sweep), and against the full sweep on the card (masks equal, probe
+    losses rtol 2e-4 atol 2e-5, the JAX package's bound between its two
+    engines)."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.models.base import FeatureSpec
+
+    n_domain = 2
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+    rng = np.random.default_rng(5)
+    x, y = amazon_rows(rng, spec, 8 * BS)
+    x[:, spec.domain_idx] = rng.integers(0, n_domain, size=len(x))
+    runs = {}
+    pat = r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$"
+    for dev, engine in (("cpu", "overlay"), ("cuda", "overlay"),
+                        ("cuda", "full")):
+        tr = build_trainer(
+            spec, dev, n_domain, n_tower=3, dataset_name="amazon", seed=0,
+            dropout=0.0, table_dtype="float32", table_moments_dtype="float32",
+            regroup_update_step=2, regroup_eval_step=2, candidate_mask_num=3,
+            hemp_fast_adapt=engine)
+        tr.optimizer = true_zero_adam(pat, tr.config.lr, tr.config.wd)
+        tr.fast_optimizer = true_zero_adam(pat, tr.config.update_lr,
+                                           tr.config.wd)
+        if runs:
+            tr.model.load_state_dict(runs["cpu"][0].model.state_dict())
+        records = spy_evolutions(tr)
+        batchers = [DomainBatcher(x, y, BS, spec.domain_idx, n_domain, seed=s)
+                    for s in (1, 2)]
+        t0 = time.perf_counter()
+        key = f"options/reference_{engine}"
+        if dev == "cuda":
+            counted(ctx, key, lambda: tr._mask_evolution(*batchers,
+                                                         verbose=False))
+        else:
+            tr._mask_evolution(*batchers, verbose=False)
+        runs[dev if engine == "overlay" else "full"] = (
+            tr, records[0], time.perf_counter() - t0)
+    launches = {k: ctx["launches_by_path"].pop(f"options/reference_{k}")
+                for k in ("overlay", "full")}
+    cfg = runs["cuda"][0].config
+    want = {"overlay": {"sparse_adam": 0,
+                        "fused_adam": overlay_launches(4, 1, cfg)},
+            "full": {"sparse_adam": 4 * 2, "fused_adam": 0}}
+    if launches != want:
+        raise AssertionError(f"reference evolutions launched {launches}, "
+                             f"the schedule implies {want}")
+    diffs = {}
+    for other, rtol, atol in (("cpu", 2 * 2.0 ** -23, 1e-5),
+                              ("full", 2e-4, 2e-5)):
+        a, b = runs[other][1], runs["cuda"][1]
+        diff = 0.0
+        for d in range(n_domain):
+            for ma, mb in zip(a["candidates"][d], b["candidates"][d]):
+                if not masks_equal(ma, mb):
+                    raise AssertionError(f"{other}: domain {d}: a pruned "
+                                         "mask differs")
+            if not masks_equal(a["after"][d], b["after"][d]):
+                raise AssertionError(f"{other}: domain {d}: another mask")
+            la, lb = np.array(a["losses"][d]), np.array(b["losses"][d])
+            diff = max(diff, float(np.max(np.abs(la - lb))))
+            if not np.allclose(lb, la, rtol=rtol, atol=atol):
+                raise AssertionError(f"{other}: probe losses {la} {lb}")
+        diffs[other] = diff
+    say("options", part="overlay_reference", chains=4, adapt_steps=2,
+        probes=2, masks_equal=True,
+        probe_loss_max_abs_diff={"card_overlay_vs_cpu_overlay": diffs["cpu"],
+                                 "card_overlay_vs_card_full": diffs["full"]},
+        tolerance={"vs_cpu": "atol 1e-5 + 2 f32 ulp",
+                   "vs_full": "rtol 2e-4, atol 2e-5"},
+        launches=launches,
+        seconds={k: v[2] for k, v in runs.items()})
+
+
+def options_overlay_fit(ctx, tmp: str):
+    """AREADTrainer.fit with the overlay engine at RESUME_DEPTH, with
+    log_dir and a generous watchdog: finite AUCs, the kernels' launches
+    the schedule's (no sparse-Adam sweep in any chain), the metric
+    files."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.hemp import AREADTrainer
+
+    depth = dict(RESUME_DEPTH)
+    n_train = depth.pop("train_batches") * BS
+    data = amazon_split(np.random.default_rng(10), n_train,
+                        depth.pop("eval_rows"), aug=True)
+    logs = os.path.join(tmp, "overlay_logs")
+    cfg = Config(model="aread", dataset_name="amazon", seed=0,
+                 hemp_fast_adapt="overlay", log_dir=logs,
+                 epoch_timeout_s=600.0, **depth)
+    tr = AREADTrainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
+                      cfg, N_DOMAIN)
+    t0 = time.perf_counter()
+    res = counted(ctx, "options/overlay_fit",
+                  lambda: tr.fit(data, verbose=False))
+    fit_s = time.perf_counter() - t0
+    launches = ctx["launches_by_path"]["options/overlay_fit"]
+    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
+                         minlength=N_DOMAIN)
+    n_seq = int(np.sum(np.ceil(counts / cfg.bs)))
+    warm = cfg.warm_up_interval * 1024 // cfg.bs
+    chains = sum(r["chains"] for r in tr.regroup_log)
+    want = {"sparse_adam": warm + cfg.epoch * n_seq,
+            "fused_adam": overlay_launches(chains, len(tr.regroup_log), cfg)}
+    if launches != want:
+        raise AssertionError(f"the overlay fit launched {launches}, the "
+                             f"schedule implies {want}")
+    check_metrics("overlay fit", [("valid", h) for h in res["history"]]
+                  + [("test", res["test"])])
+    (run,) = os.listdir(logs)
+    lines = open(os.path.join(logs, run, "metrics.jsonl")).read().splitlines()
+    keys = [sorted(set(json.loads(l)) - {"_ts", "_step"}) for l in lines]
+    if keys != [["valid"]] * cfg.epoch + [["domain_mask_active", "test"]]:
+        raise AssertionError(f"metrics.jsonl holds {keys}")
+    if json.load(open(os.path.join(logs, run, "config.json")))[
+            "hemp_fast_adapt"] != "overlay":
+        raise AssertionError("config.json is not the run's")
+    say("options", part="overlay_fit", depth=RESUME_DEPTH, fit_s=fit_s,
+        regroups=len(tr.regroup_log), chains=chains,
+        ms_per_chain=[r["seconds"] / r["chains"] * 1e3
+                      for r in tr.regroup_log],
+        launches=launches, launches_schedule=want,
+        valid_mean_auc=[h["mean_auc"] for h in res["history"]],
+        test_mean_auc=res["test"]["mean_auc"], metrics_lines=len(lines))
+
+
+def options_regroup(ctx, tmp: str):
+    """MMoE with the Amazon domain -> group map and the dense table
+    gradient through Trainer.fit: 2 epochs of 12 steps under each
+    dynamic_regroup mode, the loss matrix timed, the maps it chose; then
+    tower_domain_losses on the card against the CPU at a small width."""
+    from aread_tpu_torch.config import DOMAIN2GROUP, Config
+    from aread_tpu_torch.data.loader import make_synthetic_data
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    d2g = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
+    data = amazon_split(np.random.default_rng(11), 12 * BS, 2048)
+    out = {}
+    for mode in ("towerfirst", "served,besttower"):
+        cfg = Config(model="mmoe", dataset_name="amazon", seed=0,
+                     sparse_table_grad=False, dynamic_regroup=mode,
+                     early_stop=10, epoch_timeout_s=600.0,
+                     log_dir=os.path.join(tmp, f"logs_{mode}"))
+        tr = Trainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
+                     cfg, N_DOMAIN, domain2group=d2g.copy())
+        timing, maps = [], []
+        losses, regroup = tr.tower_domain_losses, tr.apply_dynamic_regroup
+
+        def tower_domain_losses(*a, **kw):
+            t0 = time.perf_counter()
+            m = losses(*a, **kw)
+            timing.append(time.perf_counter() - t0)
+            if m.shape != (3, N_DOMAIN):
+                raise AssertionError(f"loss matrix {m.shape}")
+            return m
+
+        def apply_dynamic_regroup(*a, **kw):
+            changed = regroup(*a, **kw)
+            maps.append(tr.domain2group.copy())
+            return changed
+
+        tr.tower_domain_losses = tower_domain_losses
+        tr.apply_dynamic_regroup = apply_dynamic_regroup
+        res = counted(ctx, f"options/regroup_{mode}",
+                      lambda: tr.fit(data, epochs=2, verbose=False))
+        launches = ctx["launches_by_path"][f"options/regroup_{mode}"]
+        steps = 2 * -(-len(data.train_x) // cfg.bs)
+        if launches != {"sparse_adam": 0, "fused_adam": steps}:
+            raise AssertionError(f"{mode}: launched {launches}, {steps} "
+                                 "dense steps")
+        check_metrics(f"regroup {mode}",
+                      [("valid", h) for h in res["history"]]
+                      + [("test", res["test"])])
+        if len(maps) != 2:
+            raise AssertionError(f"{mode}: {len(maps)} regroups in 2 epochs")
+        out[mode] = {"loss_matrix_s": timing,
+                     "domains_moved": [int(np.sum(m != p)) for p, m in
+                                       zip([d2g] + maps[:-1], maps)],
+                     "map_after": maps[-1].tolist(),
+                     "test_mean_auc": res["test"]["mean_auc"]}
+    # the loss matrix, card against CPU, at a small width
+    small = make_synthetic_data(n_rows=2048, n_domain=4, vocab=300, seed=3)
+    cfg = Config(model="mmoe", embed_dim=8, mmoe_expert_dims=(16, 8),
+                 mmoe_tower_dims=(8,), atten_embed_dim=8, dropout=0.0,
+                 dataset_name="none")
+    mats = {}
+    for i, dev in enumerate(("cpu", "cuda")):
+        m = build_model(cfg, small.spec, 4, device=dev)
+        if i:
+            m.load_state_dict(mats["model"])
+        else:
+            mats["model"] = m.state_dict()
+        mats[dev] = Trainer(m, cfg, 4, domain2group=np.arange(4) % 3
+                            ).tower_domain_losses(small.valid_x, small.valid_y)
+    diff = float(np.nanmax(np.abs(mats["cpu"] - mats["cuda"])))
+    if diff > 1e-6 or mats["cpu"].shape != (3, 4):
+        raise AssertionError(f"loss matrix card vs CPU {diff}")
+    say("options", part="dynamic_regroup", model="mmoe",
+        steps_per_epoch=-(-len(data.train_x) // BS),
+        epochs=2, n_tower=3, **out, small_width_card_vs_cpu_max_abs=diff,
+        tolerance=1e-6)
+
+
+def options_bf16(ctx, tmp: str):
+    """compute_dtype='bfloat16': the product against f64 on rounded
+    operands and against the f32 product; a step's loss and gradients
+    card vs CPU at a small width; 6 timed steps of DeepFM (dense) and of
+    AREAD bagging under each dtype; one bf16 checkpoint served."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.models.base import FeatureSpec, gather_group
+    from aread_tpu_torch.ops.precision import matmul, matmul_precision_ctx
+    from aread_tpu_torch.serve.predictor import Predictor, load_predictor
+    from aread_tpu_torch.train.checkpoint import save_checkpoint
+    from aread_tpu_torch.train.trainer import Trainer, bce_with_logits
+
+    # --- one product
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(1024, 512, device="cuda", generator=g)
+    b = torch.randn(512, 256, device="cuda", generator=g)
+    with matmul_precision_ctx("bfloat16"):
+        got = matmul(a, b).double()
+    f32 = (a @ b).double()
+    a16, b16 = (t.to(torch.bfloat16).double() for t in (a, b))
+    ref = a16 @ b16
+    bound = 512 * 2.0 ** -24 * (a16.abs() @ b16.abs())
+    err = (got - ref).abs()
+    if not bool((err <= bound).all()) or torch.equal(got, f32):
+        raise AssertionError(f"the bf16 product: max err {float(err.max())}")
+    # --- a step's loss and gradients, card vs CPU, small width
+    small = make_synthetic_data(n_rows=512, n_domain=4, vocab=300, seed=4)
+    scfg = Config(model="mmoe", embed_dim=8, mmoe_expert_dims=(16, 8),
+                  mmoe_tower_dims=(8,), atten_embed_dim=8, dropout=0.0,
+                  dataset_name="none")
+    grads = {}
+    batch = pad_batch(small.train_x[:256], small.train_y[:256], 256)
+    for i, dev in enumerate(("cpu", "cuda")):
+        m = build_model(scfg, small.spec, 4, device=dev)
+        if i:
+            m.load_state_dict(grads["model"])
+        else:
+            grads["model"] = m.state_dict()
+        x = torch.as_tensor(batch["x"], device=dev)
+        grp = torch.as_tensor(batch["x"][:, small.spec.domain_idx] % 3,
+                              device=dev)
+        dense = m.dense_named_parameters()
+        with matmul_precision_ctx("bfloat16"):
+            out = m(x, group=grp, train=False)
+            logit = gather_group(out["logit"], grp)
+            loss = torch.mean(bce_with_logits(
+                logit, torch.as_tensor(batch["y"], device=dev)))
+            gs = torch.autograd.grad(loss, list(dense.values()))
+        grads[dev] = [("loss", loss.detach().cpu()), ("logit",
+                                                      logit.detach().cpu())] + [
+            (n, t.cpu()) for n, t in zip(dense, gs)]
+    worst = 0.0
+    for (n, c), (_, d) in zip(grads["cpu"], grads["cuda"]):
+        scale = max(float(c.abs().max()), 1e-3)
+        rel = float((c - d).abs().max()) / scale
+        worst = max(worst, rel)
+        if rel > 2.0 ** -7:
+            raise AssertionError(f"bf16 step card vs CPU: {n} {rel}")
+    # --- step times under each dtype
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+    rng = np.random.default_rng(12)
+    dcfg = Config(model="deepfm", dataset_name="amazon", seed=0,
+                  sparse_table_grad=False)
+    dense_tr = Trainer(build_model(dcfg, spec, N_DOMAIN, device="cuda"),
+                       dcfg, N_DOMAIN)
+    dense_tr.init()
+    x, y = amazon_rows(rng, dense_tr.model.spec, 8 * BS)
+    batches = [dense_tr.place(pad_batch(x[i * BS:(i + 1) * BS],
+                                        y[i * BS:(i + 1) * BS], BS))
+               for i in range(8)]
+    aread = build_trainer(spec, "cuda", N_DOMAIN, dataset_name="amazon",
+                          seed=0)
+    ms = aread.mask_state
+    for d in range(N_DOMAIN):
+        ms.domain_mask[d] = ms.generate_mask("rand", d, 0.7)
+    dm = ms.domain_mask[0]
+    times = {"deepfm_dense": {}, "aread_bagging": {}}
+    per_step = {}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        dense_tr.config = dataclasses.replace(dcfg, compute_dtype=dtype)
+        aread.config = dataclasses.replace(aread.config, compute_dtype=dtype)
+        timed_steps(dense_tr, batches[:2])
+        t, _ = timed_steps(dense_tr, batches[2:])
+        times["deepfm_dense"].setdefault(dtype, []).append(t)
+        for bt in batches[:2]:
+            aread.main_step(bt, dm)
+        ev = []
+        for bt in batches[2:]:
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            aread.main_step(bt, dm)
+            e.record()
+            ev.append((s, e))
+        torch.cuda.synchronize()
+        times["aread_bagging"].setdefault(dtype, []).append(
+            statistics.median(s.elapsed_time(e) for s, e in ev))
+        if dtype not in per_step:
+            per_step[dtype] = {
+                "deepfm_dense": launches_and_busy_per_call(
+                    lambda: dense_tr.step(batches[2]), n=2),
+                "aread_bagging": launches_and_busy_per_call(
+                    lambda: aread.main_step(batches[2], dm), n=2)}
+    # --- serve a bf16 checkpoint
+    dense_tr.config = dataclasses.replace(dcfg, compute_dtype="bfloat16")
+    ck = os.path.join(tmp, "deepfm_bf16")
+    save_checkpoint(ck, dense_tr.model.state_dict(), {}, epoch=1,
+                    spec=dense_tr.model.spec, run_config=dense_tr.config,
+                    n_domain=N_DOMAIN)
+    pred = load_predictor(ck)
+    xs, _ = amazon_rows(rng, spec, SERVE_ROWS)
+    served = pred.predict(xs)
+    same = Predictor(dense_tr.model, N_DOMAIN,
+                     compute_dtype="bfloat16").predict(xs)
+    f32p = Predictor(dense_tr.model, N_DOMAIN).predict(xs)
+    gap = float(np.max(np.abs(served - f32p)))
+    if (pred.compute_dtype != "bfloat16" or not np.isfinite(served).all()
+            or float(np.max(np.abs(served - same))) > 1e-6
+            or not 0 < gap < 1e-2):
+        raise AssertionError(f"the bf16 checkpoint served {gap} from f32")
+    say("options", part="compute_dtype",
+        product={"shape": [1024, 512, 256], "max_abs_err_vs_f64_rounded":
+                 float(err.max()), "bound": "512 * 2^-24 * |a||b|",
+                 "max_abs_diff_vs_f32": float((got - f32).abs().max())},
+        step_card_vs_cpu_max_rel=worst, step_tolerance="2^-7 of each "
+        "tensor's scale",
+        step_ms_events=times,
+        cuda_launches_and_device_busy_ms_per_step=per_step,
+        served_rows=SERVE_ROWS,
+        served_bf16_vs_f32_max_abs=gap)
+    del dense_tr, aread, pred
+    torch.cuda.empty_cache()
+
+
+COLD_START = r'''
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+from aread_tpu_torch.config import Config
+from aread_tpu_torch.data.loader import make_synthetic_data
+from aread_tpu_torch.models import build_model
+from aread_tpu_torch.train.hemp import AREADTrainer
+data = make_synthetic_data(n_rows=4096, n_domain=3, vocab=300, seed=0)
+cfg = Config(model="aread", embed_dim=8, mlp_dims=(16,), bs=256,
+             aread_tower_dims=((8,), (4,)), warm_up_interval=1,
+             regroup_interval=1, regroup_update_step=2, regroup_eval_step=1,
+             candidate_mask_num=2, hemp_fast_adapt="overlay",
+             epoch_timeout_s=float(sys.argv[1]), early_stop=10)
+tr = AREADTrainer(build_model(cfg, data.spec, 3, n_tower=2, device="cuda"),
+                  cfg, 3)
+torch.cuda.synchronize()
+setup_s = time.perf_counter() - t0
+res = tr.fit(data, epochs=2, verbose=False)
+print(json.dumps({"setup_s": setup_s, "epoch_time_s":
+                  [h["epoch_time_s"] for h in res["history"]]}))
+'''
+
+
+def options_health_and_trace(ctx, tmp: str):
+    """The watchdog: a deadline shorter than an epoch raises HealthError
+    when the epoch returns; the first and the second epoch of a fresh
+    process whose kernels are not built yet (a copy of the package with
+    an empty build directory), under a generous deadline. Then trace()
+    over an AREAD epoch of 2 bagging steps and an overlay evolution: the
+    trace holds the hemp_mask_evolution range and both kernels."""
+    import shutil
+
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import make_synthetic_data
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.parallel.health import HealthError
+    from aread_tpu_torch.train.hemp import AREADTrainer
+    from aread_tpu_torch.train.trainer import Trainer
+
+    small = make_synthetic_data(n_rows=1024, n_domain=3, vocab=300, seed=1)
+    cfg = Config(model="deepfm", embed_dim=8, bs=128, dataset_name="none",
+                 epoch_timeout_s=1e-3, epoch_timeout_first_mult=1.0)
+    try:
+        Trainer(build_model(cfg, small.spec, 3, device="cuda"), cfg,
+                3).fit(small, epochs=1, verbose=False)
+        raise AssertionError("a 1 ms epoch deadline did not raise")
+    except HealthError as e:
+        breach = str(e)
+    # --- the cold start of a fresh process
+    root = os.path.dirname(os.path.abspath(__file__))
+    copy = os.path.join(tmp, "cold")
+    shutil.copytree(os.path.join(root, "aread_tpu_torch"),
+                    os.path.join(copy, "aread_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COLD_START, "120"], cwd=copy,
+                          capture_output=True, text=True, timeout=900,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "PYTHONPATH"})
+    if proc.returncode != 0:
+        raise AssertionError(f"the cold-start process exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    cold["process_s"] = time.perf_counter() - t0
+    # --- trace() over an epoch
+    trace_dir = os.path.join(tmp, "trace")
+    os.environ["AREAD_TPU_TRACE"] = trace_dir
+    try:
+        tcfg = Config(model="aread", embed_dim=8, mlp_dims=(16,), bs=256,
+                      aread_tower_dims=((8,), (4,)), warm_up_interval=1,
+                      regroup_interval=1000, regroup_update_step=2,
+                      regroup_eval_step=1, candidate_mask_num=2,
+                      hemp_fast_adapt="overlay", dataset_name="none")
+        tdata = make_synthetic_data(n_rows=640, n_domain=2, vocab=300, seed=2)
+        tr = AREADTrainer(build_model(tcfg, tdata.spec, 2, n_tower=2,
+                                      device="cuda"), tcfg, 2)
+        tr.fit(tdata, epochs=1, verbose=False)
+    finally:
+        del os.environ["AREAD_TPU_TRACE"]
+    (name,) = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    events = json.load(open(os.path.join(trace_dir, name)))["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    # the sparse kernel's sweep is adam_sweep_*, the dense one fused_adam_*
+    kernels = {k: sum(k in n for n, e in zip(names, events)
+                      if e.get("cat") == "kernel")
+               for k in ("adam_sweep", "fused_adam")}
+    if "hemp_mask_evolution" not in names or not all(kernels.values()):
+        raise AssertionError(f"the trace lacks the evolution or a kernel: "
+                             f"{kernels}")
+    say("options", part="health_and_trace", short_deadline_raised=breach,
+        cold_process=cold, first_epoch_over_second=(
+            cold["epoch_time_s"][0] / cold["epoch_time_s"][1]),
+        trace_bytes=os.path.getsize(os.path.join(trace_dir, name)),
+        trace_kernel_events=kernels,
+        trace_has_hemp_mask_evolution=True)
+
+
+def phase_options(ctx):
+    """The trainers' options beside their main paths: the overlay
+    fast-adapt engine, dynamic_regroup, compute_dtype, log_dir, the epoch
+    watchdog and tracing."""
+    torch.cuda.empty_cache()
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="aread_options_") as tmp:
+        for part in (options_overlay, options_overlay_large,
+                     options_overlay_reference, options_overlay_fit,
+                     options_regroup, options_bf16,
+                     options_health_and_trace):
+            t0 = time.perf_counter()
+            part(ctx, tmp)
+            seconds[part.__name__] = time.perf_counter() - t0
+    say("options", part="seconds", **seconds)
+
 
 def profile_steps(ctx, name: str, step):
     """10 calls of ``step`` on the host clock (2 of them warm-up), then 4
@@ -2786,7 +3453,7 @@ PHASES = {"device": phase_device, "build": phase_build,
           "train": phase_train, "eval": phase_eval,
           "train_dense": phase_train_dense, "zoo": phase_zoo,
           "zoo2": phase_zoo2, "hemp": phase_hemp,
-          "serve": phase_serve}
+          "serve": phase_serve, "options": phase_options}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}
 

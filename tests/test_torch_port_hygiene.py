@@ -6,22 +6,25 @@ every shared header; both kernels count their launches in one place; the
 sparse kernel's slot map has one key; chip_smoke.py knows both kernels,
 drives both trainers, the HEMP loop and the serving path and ends with
 the fixed line; what the trainers leave unported raises by name, and what
-they have ported since (streaming_eval, warm_start, ckpt_dir) does not."""
+they have ported since (streaming_eval, warm_start, ckpt_dir, the overlay
+engine, compute_dtype, log_dir, the epoch watchdog) does not."""
 
 import ast
 import dataclasses
+import json
 import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import aread_tpu_torch.ops.cuda as cuda_ops
 from aread_tpu_torch.config import Config
-from aread_tpu_torch.data.loader import make_synthetic_data
+from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
 from aread_tpu_torch.device import resolve_device
 from aread_tpu_torch.models import build_model
 from aread_tpu_torch.models.aread import AREAD
@@ -299,7 +302,7 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     # the default list is PHASES' keys; every earlier phase is still there
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
                                "train", "eval", "train_dense", "zoo", "zoo2",
-                               "hemp", "serve"]
+                               "hemp", "serve", "options"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
             "final_epoch"} <= set(dicts["HEMP_DEPTH"])
@@ -329,6 +332,24 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     assert [k.value for k in last.values[1].keys] == ["platform", "kind",
                                                       "count"]
     assert last.values[1].values[0].value == "gpu"
+
+
+def test_chip_smoke_runs_the_options_phase():
+    """The options phase drives each option through the entry points and
+    holds the overlay's kernel launches to the schedule's."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    src = "".join(v for k, v in funcs.items() if k.startswith(
+        ("phase_options", "options_", "overlay_launches", "chain_")))
+    for name in ("_mask_evolution", "hemp_fast_adapt=engine",
+                 "overlay_launches(", "'sparse_adam': 0", "BIG_DIMS",
+                 "OVERLAY_AUTO_MIN_ELEMS", ".fit(", "dynamic_regroup=mode",
+                 "tower_domain_losses", "matmul_precision_ctx",
+                 "compute_dtype='bfloat16'", "load_predictor",
+                 "epoch_timeout_s=", "HealthError", "log_dir=",
+                 "AREAD_TPU_TRACE", "hemp_mask_evolution", "counted("):
+        assert name in src, name
 
 
 def test_chip_smoke_runs_the_zoo_phase():
@@ -402,10 +423,48 @@ def _toy_aread():
                                         ("log_dir", "logs"),
                                         ("epoch_timeout_s", 5.0),
                                         ("embed_lookup", "a2a")])
-def test_unported_hemp_options_raise_by_name(name, value):
-    _, cfg, model = _toy_aread()
-    with pytest.raises(NotImplementedError, match=name):
-        AREADTrainer(model, dataclasses.replace(cfg, **{name: value}), 3)
+def test_unported_hemp_options_raise_by_name(name, value, tmp_path):
+    """embed_lookup='a2a' (a mesh's gather) still raises by name; the
+    other four options, refused until they were ported, each run one
+    epoch of AREADTrainer.fit at toy size and show their effect."""
+    data, cfg, model = _toy_aread()
+    if name == "embed_lookup":
+        with pytest.raises(NotImplementedError, match=name):
+            AREADTrainer(model, dataclasses.replace(cfg, **{name: value}), 3)
+        return
+    if name == "log_dir":
+        value = str(tmp_path / value)
+    if name == "epoch_timeout_s":
+        value = 600.0  # generous: met on a loaded machine too
+    cfg = dataclasses.replace(cfg, bs=64, warm_up_interval=1,
+                              regroup_interval=1000, regroup_update_step=2,
+                              regroup_eval_step=1, candidate_mask_num=2,
+                              **{name: value})
+    tr = AREADTrainer(model, cfg, 3)
+    res = tr.fit(data, epochs=1, verbose=False)
+    assert len(res["history"]) == 1 and np.isfinite(res["test"]["total_auc"])
+    if name == "hemp_fast_adapt":
+        # the chains ran on the compact copy: no table-sized fast moments
+        assert tr.regroup_log[0]["overlay"] and "m" not in tr._fast_state
+    elif name == "compute_dtype":
+        # one warm-up step from the same weights moves the loss, a little
+        batch = pad_batch(data.train_x[:64], data.train_y[:64], 64)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        losses = []
+        for dtype in ("bfloat16", "float32"):
+            tr.config = dataclasses.replace(cfg, compute_dtype=dtype)
+            model.load_state_dict(sd)
+            tr.init()
+            losses.append(float(tr.warmup_step(batch)[0]))
+        assert 0 < abs(losses[0] - losses[1]) < 1e-2
+    elif name == "log_dir":
+        (run,) = list((tmp_path / value).iterdir())
+        lines = (run / "metrics.jsonl").read_text().splitlines()
+        assert [sorted(json.loads(l))[2:] for l in lines] == [
+            ["valid"], ["domain_mask_active", "test"]]
+        assert json.loads((run / "config.json").read_text())["log_dir"] == value
+    else:
+        assert tr.config.epoch_timeout_s == value  # a generous deadline
 
 
 def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
@@ -433,7 +492,7 @@ def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
                     device="cpu")
     with pytest.raises(ValueError, match="hemp_fast_adapt"):
         AREADTrainer(model, dataclasses.replace(cfg, hemp_fast_adapt="x"), 3)
-    # 'full' and 'auto' are the ported engine
+    # 'full', and 'auto' on a table below the crossover, are the full sweep
     for mode in ("full", "auto"):
         assert not AREADTrainer(model, dataclasses.replace(
             cfg, hemp_fast_adapt=mode), 3).overlay_enabled()

@@ -42,6 +42,7 @@ from aread_tpu_torch.data.loader import (DomainBatcher, GlobalBatcher,
                                          make_synthetic_data)
 from aread_tpu_torch.models import build_model
 from aread_tpu_torch.serve import predictor as P
+from aread_tpu_torch.ops.precision import matmul_precision_ctx
 from aread_tpu_torch.serve.predictor import Predictor, load_predictor
 from aread_tpu_torch.serve.server import make_server
 from aread_tpu_torch.train import checkpoint as ckpt
@@ -381,11 +382,18 @@ def test_load_predictor_modulo_grouping_and_missing_metadata(data, tmp_path):
     ckpt.save_checkpoint(bare, tm.state_dict(), {}, epoch=1)
     with pytest.raises(ValueError, match="lacks spec/config"):
         load_predictor(bare, device="cpu")
+    # a bf16 checkpoint serves every product as one bf16 pass: what the
+    # f32 Predictor gives inside the context, not what it gives outside
     meta["config"]["compute_dtype"] = "bfloat16"
     with open(f"{d}/meta.json", "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        load_predictor(d, device="cpu")
+    bf = load_predictor(d, device="cpu")
+    assert bf.compute_dtype == "bfloat16"
+    with matmul_precision_ctx("bfloat16"):
+        want_bf = want.predict(x)
+    np.testing.assert_array_equal(bf.predict(x), want_bf)
+    gap = np.abs(bf.predict(x) - want.predict(x)).max()
+    assert 0 < gap < 1e-2
 
 
 def test_coerce_like_equals_jax():

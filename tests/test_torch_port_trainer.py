@@ -373,16 +373,40 @@ def test_device_resident_epoch_equals_host_epoch(model):
     assert torch.equal(tables[0], tables[1])
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """embed_lookup='a2a' and a mesh still raise by name; the options
+    refused until they were ported now run (what each does is checked
+    against the JAX package in test_torch_port_options.py): a bf16 step,
+    the regroup's refusal of a single-tower model (as the JAX package's),
+    the metric files, an epoch under a generous watchdog."""
     data = make_synthetic_data(n_rows=256, n_domain=N_DOMAIN, vocab=40)
-    cfg = Config(model="deepfm", embed_dim=E, sparse_table_grad=False)
+    cfg = Config(model="deepfm", embed_dim=E, sparse_table_grad=False,
+                 bs=64)
     model = build_model(cfg, data.spec, N_DOMAIN, device="cpu")
     for name, value in (("compute_dtype", "bfloat16"),
                         ("dynamic_regroup", "towerfirst"),
-                        ("log_dir", "logs"), ("epoch_timeout_s", 5.0),
+                        ("log_dir", str(tmp_path / "logs")),
+                        ("epoch_timeout_s", 5.0),
                         ("embed_lookup", "a2a")):
-        with pytest.raises(NotImplementedError, match=name):
-            Trainer(model, dataclasses.replace(cfg, **{name: value}), N_DOMAIN)
+        ocfg = dataclasses.replace(cfg, **{name: value})
+        if name == "embed_lookup":
+            with pytest.raises(NotImplementedError, match=name):
+                Trainer(model, ocfg, N_DOMAIN)
+            continue
+        tr = Trainer(model, ocfg, N_DOMAIN)
+        if name == "compute_dtype":
+            tr.init()
+            batch = GlobalBatcher(data.train_x, data.train_y, 64,
+                                  2).sample_batch()
+            assert np.isfinite(float(tr.step(batch)))
+        elif name == "dynamic_regroup":
+            with pytest.raises(ValueError, match="multi-tower"):
+                tr.apply_dynamic_regroup(data.valid_x, data.valid_y)
+        else:
+            res = tr.fit(data, epochs=1, verbose=False)
+            assert len(res["history"]) == 1
+    (run,) = list((tmp_path / "logs").iterdir())
+    assert len((run / "metrics.jsonl").read_text().splitlines()) == 2
     with pytest.raises(NotImplementedError, match="mesh"):
         Trainer(model, cfg, N_DOMAIN, mesh=object())
     tr = Trainer(model, cfg, N_DOMAIN)
