@@ -12,12 +12,22 @@ checkpoint that ``python -m aread_tpu_torch.serve`` serves from.
 Runs on the card; ``--device cpu`` asks for the CPU. Every flag of
 ``main.py`` but ``--platform`` is accepted, and ``--compute_dtype`` and
 ``--epoch_timeout_first_mult`` set the config fields of those names, which
-``main.py`` has no flags for. What still raises by name: ``--a2a_capacity``
-and ``--embed_lookup a2a`` (when set to anything but ``main.py``'s
-default) and a mesh (``--mesh_data`` x ``--mesh_model`` > 1).
-``--model mamdr`` trains with the Reptile meta-trainer
-(``train/mamdr.py``), AREAD with ``AREADTrainer``, every other model with
-the generic ``Trainer``.
+``main.py`` has no flags for. ``--model mamdr`` trains with the Reptile
+meta-trainer (``train/mamdr.py``), AREAD with ``AREADTrainer``, every
+other model with the generic ``Trainer``.
+
+A mesh run (``--mesh_data`` x ``--mesh_model`` > 1) is one process per
+rank, started by ``torch.distributed.run``:
+
+  python -m torch.distributed.run --nproc_per_node 4 -m aread_tpu_torch \
+      --mesh_data 2 --mesh_model 2 [--embed_lookup a2a] ...
+
+The process group's backend is ``gloo`` on the CPU and ``nccl`` on cards,
+unless a node runs more ranks than it has cards (NCCL refuses two ranks on
+one card): then ``gloo`` (``parallel/distributed.py``); the ``mesh:`` line
+names it. The vocab is padded to a multiple of ``--mesh_model``, ``--bs``
+must divide over ``--mesh_data``, rank 0 prints and writes the
+checkpoint, and a single process asked for a mesh raises by name.
 """
 
 from __future__ import annotations
@@ -32,11 +42,6 @@ import random
 import numpy as np
 
 from aread_tpu_torch.config import Config
-
-# flags of main.py that this CLI takes but does not act on yet, with the
-# value that main.py defaults to (any other raises by name)
-UNPORTED_FLAGS = {"a2a_capacity": 0}
-
 
 def load_config(argv=None):
     """(Config, device) from the command line."""
@@ -137,11 +142,13 @@ def load_config(argv=None):
     parser.add_argument("--auc_bins", type=int, default=16384)
     parser.add_argument("--embed_lookup", default="gspmd",
                         choices=("gspmd", "a2a"),
-                        help="sharded-embedding gather under a mesh ('a2a' "
-                             "is not ported yet)")
+                        help="the row-sharded table's lookup on a mesh: "
+                             "'gspmd' shard-select, 'a2a' dedup + "
+                             "all-to-all")
     parser.add_argument("--a2a_capacity", type=int, default=0,
                         help="per-owner id-bucket bound of --embed_lookup "
-                             "a2a (not ported yet)")
+                             "a2a: 0 measured before the first step, > 0 "
+                             "checked, < 0 always exact")
     parser.add_argument("--epoch_timeout_s", type=float, default=0.0,
                         help="watchdog deadline per train epoch (0 = off); "
                              "raises once a late epoch returns")
@@ -158,21 +165,12 @@ def load_config(argv=None):
                              "and of serving takes bf16-rounded operands "
                              "and sums in f32")
     args = parser.parse_args(argv)
-    for flag, default in UNPORTED_FLAGS.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)!r} is not ported yet (only "
-                f"{default!r})")
 
     if args.is_set_seed == 0:
         # hashlib and not hash(): python randomizes str hashes per process
         digest = hashlib.sha1(repr(sorted(vars(args).items())).encode())
         args.seed = int(digest.hexdigest(), 16) % 10000
         print("set args.seed:", args.seed)
-    if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: "
-            "mesh runs are not ported yet")
 
     cfg_fields = {f.name for f in dataclasses.fields(Config)}
     kwargs = {k: v for k, v in vars(args).items() if k in cfg_fields}
@@ -189,6 +187,25 @@ def main(argv=None):
     cfg, device = load_config(argv)
     from aread_tpu_torch.device import resolve_device
     device = resolve_device(device)  # no card and no --device cpu: raise now
+    mesh = backend = None
+    if cfg.mesh_data * cfg.mesh_model > 1:
+        from aread_tpu_torch.parallel.distributed import initialize
+        from aread_tpu_torch.parallel.mesh import make_mesh
+        backend = initialize(device)
+        # one process (no process group) asked for a mesh raises by name
+        mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, device=device)
+        device = mesh.device
+        assert cfg.bs % cfg.mesh_data == 0, "bs must divide the data axis"
+    try:
+        _run(cfg, device, mesh, backend)
+    finally:
+        if mesh is not None:
+            from aread_tpu_torch.parallel.distributed import shutdown
+            shutdown()
+
+
+def _run(cfg, device, mesh, backend):
+    is_main = mesh is None or mesh.rank == 0
 
     import pandas as pd
 
@@ -196,7 +213,9 @@ def main(argv=None):
     from aread_tpu_torch.data.loader import load_split_data
     from aread_tpu_torch.data.pipeline import run_preprocessing
     from aread_tpu_torch.models import build_model
-    from aread_tpu_torch.train.checkpoint import (load_checkpoint,
+    from aread_tpu_torch.parallel.health import barrier
+    from aread_tpu_torch.train.checkpoint import (full_state,
+                                                  load_checkpoint,
                                                   save_checkpoint)
     from aread_tpu_torch.train.hemp import AREADTrainer
     from aread_tpu_torch.train.mamdr import MamdrTrainer
@@ -209,26 +228,42 @@ def main(argv=None):
                 if is_aread else None)
     if aug_path is not None and not os.path.exists(aug_path):
         # generate the counterfactually augmented file; the dataset dir
-        # may be read-only, so it goes under save_path
+        # may be read-only, so it goes under save_path. On a mesh rank 0
+        # writes it and the others wait
         out_dir = os.path.join(cfg.save_path, cfg.dataset_name)
         os.makedirs(out_dir, exist_ok=True)
         gen_path = os.path.join(out_dir, os.path.basename(aug_path))
-        if not os.path.exists(gen_path):
+        if is_main and not os.path.exists(gen_path):
             df = pd.read_csv(path)
             aug_df = make_augmentation(df, cfg.dataset_name, cfg.aug_ratio,
                                        rng=np.random.default_rng(cfg.seed))
             aug_df.to_csv(gen_path, index=False)
             print(f"generated augmentation: {gen_path} "
                   f"({len(aug_df) - len(df)} augmented rows)")
+        if mesh is not None:
+            barrier("augmentation")
         aug_path = gen_path
     itemid_all = cfg.itemid_all if cfg.dataset_name == "amazon" else None
     data = load_split_data(path, cfg.dataset_name, cfg.seq_maxlen,
                            itemid_all=itemid_all, aug_path=aug_path,
                            domain_filter=cfg.domain_filter)
 
-    print(f"model:{cfg.model}, lr:{cfg.lr}, bs:{cfg.bs}, embed_dim:"
-          f"{cfg.embed_dim}, epoch:{cfg.epoch}, seed:{cfg.seed}, "
-          f"dataset:{cfg.dataset_name}, n_domain:{data.n_domain}")
+    if is_main:
+        print(f"model:{cfg.model}, lr:{cfg.lr}, bs:{cfg.bs}, embed_dim:"
+              f"{cfg.embed_dim}, epoch:{cfg.epoch}, seed:{cfg.seed}, "
+              f"dataset:{cfg.dataset_name}, n_domain:{data.n_domain}")
+    if mesh is not None:
+        # the table's rows must divide over the model ranks; the a2a
+        # lookup of a lane-packed table exchanges flat rows of 128 / E
+        # table rows, whose count must divide too
+        rows_per_flat = (128 // cfg.embed_dim
+                         if cfg.embed_lookup == "a2a" and cfg.sparse_table_grad
+                         and 128 % cfg.embed_dim == 0 else 1)
+        data = dataclasses.replace(data, spec=data.spec.pad_vocab(
+            cfg.mesh_model * rows_per_flat))
+        if is_main:
+            print(f"mesh: data={cfg.mesh_data} model={cfg.mesh_model} "
+                  f"backend={backend}")
 
     # is_increment: weights, BatchNorm statistics and AREAD masks from the
     # saved best checkpoint, a fresh optimizer
@@ -246,13 +281,14 @@ def main(argv=None):
                    if cfg.elastic else None)
     model = build_model(cfg, data.spec, data.n_domain, device=device)
     if is_aread and "wo" not in cfg.model:
-        result = AREADTrainer(model, cfg, data.n_domain).fit(
-            data, warm_start=warm_start, ckpt_dir=elastic_dir)
+        result = AREADTrainer(model, cfg, data.n_domain, mesh=mesh).fit(
+            data, warm_start=warm_start, ckpt_dir=elastic_dir,
+            verbose=is_main)
     elif cfg.model == "mamdr":
         # as main.py: a warm start but no resumable checkpoint; fit leaves
         # the meta weights in the model, and they are what is saved
-        result = MamdrTrainer(model, cfg, data.n_domain).fit(
-            data, warm_start=warm_start)
+        result = MamdrTrainer(model, cfg, data.n_domain, mesh=mesh).fit(
+            data, warm_start=warm_start, verbose=is_main)
     else:
         d2g = cfg.domain2group()
         if d2g is not None:
@@ -263,19 +299,29 @@ def main(argv=None):
             # domain->group map to gather its tower columns)
             n_groups = min(cfg.n_tower, data.n_domain)
             d2g = np.arange(data.n_domain) % n_groups
-            print(f"no precomputed domain2group for {cfg.dataset_name}: "
-                  f"using modulo-{n_groups} grouping")
-        result = Trainer(model, cfg, data.n_domain, domain2group=d2g).fit(
-            data, warm_start=warm_start, ckpt_dir=elastic_dir)
+            if is_main:
+                print(f"no precomputed domain2group for {cfg.dataset_name}: "
+                      f"using modulo-{n_groups} grouping")
+        result = Trainer(model, cfg, data.n_domain, domain2group=d2g,
+                         mesh=mesh).fit(data, warm_start=warm_start,
+                                        ckpt_dir=elastic_dir, verbose=is_main)
 
     # persist the best model, which fit leaves in the model: one final
-    # save keeps the restart capability of the per-improvement saves
-    save_checkpoint(ckpt_path, model.state_dict(), opt_state={},
-                    epoch=len(result["history"]),
-                    best_result={k: v for k, v in result["test"].items()
-                                 if not isinstance(v, dict)},
-                    domain_mask=result.get("domain_mask"),
-                    spec=data.spec, run_config=cfg, n_domain=data.n_domain)
+    # save keeps the restart capability of the per-improvement saves. On a
+    # mesh the table is gathered and rank 0 writes the one-device format
+    state_dict, _ = full_state(model.state_dict(), None, mesh)
+    if is_main:
+        save_checkpoint(ckpt_path, state_dict, opt_state={},
+                        epoch=len(result["history"]),
+                        best_result={k: v for k, v in result["test"].items()
+                                     if not isinstance(v, dict)},
+                        domain_mask=result.get("domain_mask"),
+                        spec=data.spec, run_config=cfg,
+                        n_domain=data.n_domain)
+    if mesh is not None:
+        barrier("checkpoint")
+    if not is_main:
+        return
     print(f"checkpoint saved: {ckpt_path}")
 
     print("test:", {k: v for k, v in result["test"].items()

@@ -166,9 +166,17 @@ class Config:
     epoch_timeout_s: float = 0.0
     epoch_timeout_kill: bool = False
     epoch_timeout_first_mult: float = 5.0
-    # the sharded-embedding gather of a mesh run; only 'gspmd' (no mesh) is
-    # ported, anything else raises NotImplementedError
+    # the (data, model) rank grid of a mesh run (parallel/mesh.py): batches
+    # split over data, the table's rows over model
+    mesh_data: int = 1
+    mesh_model: int = 1
+    # the row-sharded table's lookup on a mesh: 'gspmd' the shard-select
+    # lookup, 'a2a' the dedup + all-to-all exchange (parallel/embed_shard.py)
+    # with the static per-owner bucket bound a2a_capacity: 0 measured before
+    # the first step (resolve_a2a_capacity), > 0 a manual bound (checked),
+    # < 0 always exact
     embed_lookup: str = "gspmd"
+    a2a_capacity: int = 0
 
     def domain2group(self) -> Optional[Tuple[int, ...]]:
         groups = DOMAIN2GROUP.get(self.dataset_name)

@@ -138,7 +138,8 @@ def _read_arrays(path: str, one_hot_cols: Sequence[str],
         try:
             os.makedirs(cdir, exist_ok=True)
             for name, arr in zip(("x", "y", "split"), out):
-                tmp = os.path.join(cdir, f".{name}.npy.tmp")
+                # per process: the ranks of a mesh run parse at once
+                tmp = os.path.join(cdir, f".{name}.npy.{os.getpid()}.tmp")
                 with open(tmp, "wb") as f:  # np.save(path) would add .npy
                     np.save(f, arr)
                 os.replace(tmp, os.path.join(cdir, f"{name}.npy"))

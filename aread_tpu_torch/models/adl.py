@@ -33,6 +33,7 @@ from aread_tpu_torch.ops.initializers import (linear_bias_init_for,
                                               linear_kernel_init)
 from aread_tpu_torch.ops.mlp import Linear, StackedMLP
 from aread_tpu_torch.ops.precision import einsum, matmul
+from aread_tpu_torch.parallel.mesh import batch_sum
 
 
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
@@ -104,7 +105,8 @@ class ADL(CTRModel):
         route = torch.argmax(coeff, dim=1)
         if update:
             rate = self.dlm_update_rate
-            tmp = l2_normalize(matmul(coeff.T, flat), dim=1)
+            # over the global batch on a mesh
+            tmp = l2_normalize(batch_sum(matmul(coeff.T, flat)), dim=1)
             centers.copy_(l2_normalize(rate * centers + (1 - rate) * tmp,
                                        dim=1))
         return route

@@ -37,6 +37,7 @@ from aread_tpu_torch.ops.cross import CrossNetwork
 from aread_tpu_torch.ops.initializers import embedding_init
 from aread_tpu_torch.ops.mlp import Linear, StackedLinear, StackedMLP
 from aread_tpu_torch.ops.precision import einsum, matmul
+from aread_tpu_torch.parallel.mesh import batch_mean
 
 MODES = ("wo_mask", "domain_with_mask", "domain_mask_bagging",
          "domain_mask_final", "batch_with_mask")
@@ -198,7 +199,8 @@ class AREAD(CTRModel):
                     masked = gate_out * dm[l].T.to(f32)[None]
                 renorm = masked / (masked.sum(dim=-1, keepdim=True) + 1e-8)
                 level_in = einsum("btp,bpd->btd", renorm, outs)
-                gate_means.append(masked.mean(dim=0).detach().T)
+                # over the global batch on a mesh
+                gate_means.append(batch_mean(masked.detach()).T)
             # per example the statistics' gate is undefined and unused
             # (evaluation only)
             body = getattr(self, f"towers_{l}")(

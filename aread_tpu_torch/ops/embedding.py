@@ -21,6 +21,13 @@ package's ``lookup_override``, there a module-level stack read at trace
 time); the overlay fast-adapt chains read their compact working set
 through it (``ops/overlay_adam.py``). The override's rows become the tap
 leaf as the table's own would.
+
+On a mesh (``shard_(mesh)``) the buffer holds the rank's rows of the
+table, ``[n_rows / model, D]``, and the rows are gathered across the model
+ranks by ``parallel.embed_shard.sharded_lookup`` (shard-select plus a sum
+over 'model'); the trainers route them through ``a2a_lookup`` instead with
+``lookup_override`` under ``embed_lookup='a2a'``. ``table_ids`` stays in
+the global row space.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from aread_tpu_torch.ops.initializers import (embedding_init,
                                               linear_kernel_init,
                                               uniform_fan_in)
 from aread_tpu_torch.ops.precision import matmul
+from aread_tpu_torch.parallel.embed_shard import sharded_lookup
 
 
 def compute_offsets(one_hot_dims: Sequence[int], n_multi_hot_slots: int,
@@ -74,6 +82,17 @@ class FeaturesEmbedding(nn.Module):
         self.register_buffer("table", embedding_init(
             (self.n_rows, embed_dim), generator, device, table_dtype))
         self._gather: Optional[Callable] = None
+        self.mesh = None  # set by shard_: the table is the rank's rows
+
+    @torch.no_grad()
+    def shard_(self, mesh) -> None:
+        """Keep only this rank's rows of the table (``mesh.table_rows``):
+        the buffer becomes ``[n_rows / model, D]``, and the rows are then
+        gathered across the model ranks."""
+        if self.mesh is not None:
+            raise RuntimeError("the table is sharded already")
+        self.table = self.table[mesh.table_rows(self.n_rows)].clone()
+        self.mesh = mesh
 
     @contextlib.contextmanager
     def lookup_override(self, gather: Callable) -> Iterator[None]:
@@ -98,8 +117,12 @@ class FeaturesEmbedding(nn.Module):
         of gathered rows (``requires_grad`` when ``tap``)."""
         with torch.no_grad():
             ids = self.table_ids(x)
-            rows = (self.table[ids] if self._gather is None
-                    else self._gather(self.table, ids))
+            if self._gather is not None:
+                rows = self._gather(self.table, ids)
+            elif self.mesh is not None:
+                rows = sharded_lookup(self.table, ids, self.mesh)
+            else:
+                rows = self.table[ids]
         rows = rows.to(torch.float32, copy=True)
         if tap:
             rows.requires_grad_(True)

@@ -43,9 +43,11 @@ _STORAGE = (torch.float32, torch.bfloat16)
 
 def fused_adam_reference(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                          b2: float = 0.99, eps: float = 1e-8,
-                         weight_decay: float = 1e-8, l2: float = 0.0):
+                         weight_decay: float = 1e-8, l2: float = 0.0,
+                         sr_seed=None):
     """Plain version (port of ``reference_adam_update``). Returns new
-    (w, m, v) in the inputs' dtypes. Every scalar that divides is a 0-dim
+    (w, m, v) in the inputs' dtypes; a bf16 leaf rounds stochastically,
+    keyed by ``sr_seed`` (None: ``t``). Every scalar that divides is a 0-dim
     tensor on the data's device: on CUDA, PyTorch turns division by a
     Python scalar into multiplication by its reciprocal, which is not the
     IEEE quotient."""
@@ -63,7 +65,7 @@ def fused_adam_reference(w, m, v, g, t: int, lr: float, b1: float = 0.9,
     if w.dtype == torch.bfloat16:
         idx = torch.arange(w.numel(), dtype=torch.int64,
                            device=dev).reshape(w.shape)
-        new_w = sround(new_w, w.dtype, idx, t)
+        new_w = sround(new_w, w.dtype, idx, t if sr_seed is None else sr_seed)
     return new_w.to(w.dtype), m2.to(m.dtype), v2.to(v.dtype)
 
 
@@ -76,9 +78,11 @@ def takes_vector_kernel(numel: int, aligned: bool) -> bool:
 
 def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                     b2: float = 0.99, eps: float = 1e-8,
-                    weight_decay: float = 1e-8, l2: float = 0.0) -> None:
+                    weight_decay: float = 1e-8, l2: float = 0.0,
+                    sr_seed=None) -> None:
     """Launch ``ops/cuda/fused_adam.cu`` on the current stream: w, m, v
-    updated in place. Raises on anything the kernel does not take and on
+    updated in place; a bf16 leaf rounds keyed by ``sr_seed`` (None:
+    ``t``). Raises on anything the kernel does not take and on
     a failed build or launch."""
     dev = w.device
     if dev.type != "cuda":
@@ -107,17 +111,20 @@ def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
         stream = torch.cuda.current_stream(dev).cuda_stream
         torch.ops.aread_tpu_torch.fused_adam_(
             w, m, v, g, s["lr"], s["b1"], s["b2"], s["eps"], s["decay"],
-            s["b1c"], s["b2c"], s["omb1"], s["omb2"], int(t), vec, stream)
+            s["b1c"], s["b2c"], s["omb1"], s["omb2"],
+            int(t if sr_seed is None else sr_seed), vec, stream)
     launch_counts["fused_adam"] += 1
 
 
 def fused_adam_dispatch(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                         b2: float = 0.99, eps: float = 1e-8,
-                        weight_decay: float = 1e-8, l2: float = 0.0) -> None:
+                        weight_decay: float = 1e-8, l2: float = 0.0,
+                        sr_seed=None) -> None:
     """One torch-semantics Adam step on a leaf from its dense gradient, in
     place. CUDA tensors go through the kernel, CPU tensors through the
-    plain version."""
-    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2)
+    plain version. ``sr_seed`` keys a bf16 leaf's rounding (None: ``t``)."""
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2,
+              sr_seed=sr_seed)
     if w.device.type == "cuda":
         fused_adam_cuda(w, m, v, g, t, **kw)
         return

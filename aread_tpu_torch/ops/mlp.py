@@ -6,6 +6,14 @@ stacked-tower variants (one batched matmul for T parallel towers).
 Kernels keep the JAX package's ``[in, out]`` layout (``[T, in, out]`` when
 stacked), so converted weights are used as they are and ``x @ kernel``
 is the same product.
+
+Under a data-parallel mesh (``parallel.mesh.use``) each rank holds its
+rows of the global batch, and the two layers that reduce over the batch
+reduce over the global one, as the JAX package's GSPMD program does:
+BatchNorm sums its masked count, sum and centred sum of squares over
+'data' (the running statistics stay the same on every rank), and dropout
+draws the global batch's mask from the rank's generator and keeps the
+rank's rows — so a mesh run draws what one device draws.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from aread_tpu_torch.ops.initializers import (linear_bias_init_for,
                                               linear_kernel_init,
                                               uniform_fan_in)
 from aread_tpu_torch.ops.precision import einsum, matmul
+from aread_tpu_torch.parallel import mesh as mesh_lib
 
 
 class Linear(nn.Module):
@@ -44,6 +53,8 @@ class Linear(nn.Module):
 def _masked_moments(x, mask):
     """Mean and biased variance over axis 0 counting only mask == 1 rows,
     and the count."""
+    if mesh_lib.data_parallel() is not None:
+        return _global_masked_moments(x, mask)
     if mask is None:
         mean = x.mean(dim=0)
         var = torch.square(x - mean[None]).mean(dim=0)
@@ -54,6 +65,23 @@ def _masked_moments(x, mask):
         m = m[..., None]
     mean = (x * m).sum(dim=0) / count
     var = (torch.square(x - mean[None]) * m).sum(dim=0) / count
+    return mean, var, count
+
+
+def _global_masked_moments(x, mask):
+    """``_masked_moments`` over the global batch of the active mesh: the
+    count and the sum in one differentiable sum over 'data', then the
+    centred sum of squares in another."""
+    m = (torch.ones(x.shape[:1], dtype=x.dtype, device=x.device)
+         if mask is None else mask.to(x.dtype))
+    mb = m
+    while mb.dim() < x.dim():
+        mb = mb[..., None]
+    head = torch.cat([(x * mb).sum(dim=0).reshape(-1), m.sum().reshape(1)])
+    head = mesh_lib.data_sum(head)
+    count = torch.clamp(head[-1].detach(), min=1.0)
+    mean = head[:-1].reshape(x.shape[1:]) / count
+    var = mesh_lib.data_sum((torch.square(x - mean[None]) * mb).sum(dim=0)) / count
     return mean, var, count
 
 
@@ -113,11 +141,20 @@ class BatchNorm(nn.Module):
 
 def dropout(x, rate: float, train: bool,
             generator: Optional[torch.Generator]):
-    """Inverted dropout with the keep mask drawn from ``generator``."""
+    """Inverted dropout with the keep mask drawn from ``generator`` (under
+    a data-parallel mesh: the global batch's mask, of which the rank keeps
+    its rows)."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    keep_mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mesh = mesh_lib.data_parallel()
+    if mesh is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        n = x.shape[0] * mesh.data
+        u = torch.rand((n,) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)[mesh.rows(n)]
+    keep_mask = u < keep
     return torch.where(keep_mask, x / keep, torch.zeros((), device=x.device))
 
 

@@ -93,15 +93,18 @@ def adam_scalars(t: int, lr: float, b1: float = 0.9, b2: float = 0.99,
 def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
                           b1: float = 0.9, b2: float = 0.99,
                           eps: float = 1e-8, weight_decay: float = 1e-8,
-                          l2: float = 0.0, want_l2: bool = False):
+                          l2: float = 0.0, want_l2: bool = False,
+                          sr_seed=None):
     """Plain two-phase update (port of ``_xla_sparse_adam``). Returns new
     (w, m, v), plus sum(w_pre**2) as a 0-dim f32 tensor with ``want_l2``.
-    A bf16 table is rounded stochastically, keyed by the step ``t``.
+    A bf16 table is rounded stochastically, keyed by ``sr_seed`` (None:
+    the step ``t``) and the element index.
     Every scalar that divides is a 0-dim tensor on the data's device: on
     CUDA, PyTorch turns division by a Python scalar into multiplication by
     its reciprocal, which is not the IEEE quotient."""
     n_rows, d = w.shape
     dev = w.device
+    seed = t if sr_seed is None else sr_seed
     s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
     b1c = torch.tensor(s["b1c"], dtype=torch.float32, device=dev)
     b2c = torch.tensor(s["b2c"], dtype=torch.float32, device=dev)
@@ -121,10 +124,10 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
     # last row and are dropped at the write
     gid = torch.clamp(uids.to(torch.int64), max=n_rows - 1)
     nw, nm, nv = adam(w[gid], m[gid], v[gid], gsum)
-    nw = sround(nw, w.dtype, _row_flat_index(gid, d), t)
+    nw = sround(nw, w.dtype, _row_flat_index(gid, d), seed)
     # phase A: decay-only dense pass
     w2, m2, v2 = adam(w, m, v, torch.zeros_like(w, dtype=torch.float32))
-    w2 = sround(w2, w.dtype, flat_index_grid(n_rows, d, dev), t)
+    w2 = sround(w2, w.dtype, flat_index_grid(n_rows, d, dev), seed)
     # phase B: overwrite the touched rows with their full-gradient update
     live = uids < n_rows
     rows = uids[live].to(torch.int64)
@@ -137,14 +140,16 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
 @torch.no_grad()
 def lazy_sparse_adam_(w, m, v, uids, gsum, t: int, lr: float,
                       b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
-                      weight_decay: float = 1e-8, l2: float = 0.0) -> None:
+                      weight_decay: float = 1e-8, l2: float = 0.0,
+                      sr_seed=None) -> None:
     """SparseAdam-semantics update in place (port of
     ``_lazy_sparse_adam``): only the rows in ``uids`` change, weights and
     moments; the rest of the table is bitwise untouched and its moments do
     not decay. The bias correction uses the global step ``t``; the decay
     and L2 term is applied to the touched rows' gradients ('lazy
     regularization'). A bf16 table is rounded stochastically, keyed by
-    ``t`` and the storage index, as in the dense-semantics update. Work is
+    ``sr_seed`` (None: ``t``) and the storage index, as in the
+    dense-semantics update. Work is
     O(touched rows). Selecting the live entries of ``uids`` waits for the
     device once."""
     n_rows, d = w.shape
@@ -158,7 +163,8 @@ def lazy_sparse_adam_(w, m, v, uids, gsum, t: int, lr: float,
     m2 = s["b1"] * m[rows].to(torch.float32) + s["omb1"] * g
     v2 = s["b2"] * v[rows].to(torch.float32) + s["omb2"] * g * g
     w2 = wf - s["lr"] * (m2 / b1c) / (torch.sqrt(v2 / b2c) + s["eps"])
-    w[rows] = sround(w2, w.dtype, _row_flat_index(rows, d), t)
+    w[rows] = sround(w2, w.dtype, _row_flat_index(rows, d),
+                     t if sr_seed is None else sr_seed)
     m[rows] = m2.to(m.dtype)
     v[rows] = v2.to(v.dtype)
 
@@ -249,10 +255,12 @@ def _slot_map(device: torch.device, n_rows: int) -> _Scratch:
 def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
                      b2: float = 0.99, eps: float = 1e-8,
                      weight_decay: float = 1e-8, l2: float = 0.0,
-                     want_l2: bool = False):
+                     want_l2: bool = False, sr_seed=None):
     """Launch ``ops/cuda/sparse_adam.cu`` (the operator
     ``torch.ops.aread_tpu_torch.sparse_adam_``) on the current stream: w, m,
-    v updated in place, a bf16 table rounded stochastically keyed by ``t``.
+    v updated in place, a bf16 table rounded stochastically keyed by
+    ``sr_seed`` (None: ``t``; a row shard passes its own, so that the shards
+    do not share one stream).
     Returns sum(w_pre**2) as a 0-dim f32 CUDA tensor with ``want_l2``, else
     None; it is a view of scratch that the next update of a table of this
     size overwrites, so use it (or copy it) before that. Raises on
@@ -293,7 +301,8 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
             torch.ops.aread_tpu_torch.sparse_adam_(
                 w, m, v, uids, gsum, scratch.slot, partials, out, count,
                 s["lr"], s["b1"], s["b2"], s["eps"], s["decay"], s["b1c"],
-                s["b2c"], s["omb1"], s["omb2"], int(t), vpr, shift, mul,
+                s["b2c"], s["omb1"], s["omb2"],
+                int(t if sr_seed is None else sr_seed), vpr, shift, mul,
                 stream)
         except RuntimeError:
             # a launch that failed after the scatter leaves the map dirty
@@ -306,14 +315,17 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
 def sparse_adam_dispatch(w, m, v, uids, gsum, t: int, lr: float,
                          b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
                          weight_decay: float = 1e-8, l2: float = 0.0,
-                         want_l2: bool = False, lazy: bool = False):
+                         want_l2: bool = False, lazy: bool = False,
+                         sr_seed=None):
     """One Adam step on the [n_rows, D] table, in place. (uids, gsum) are
     ``dedup_rows``' output. Dense semantics (the default): CUDA tensors go
     through the kernel, CPU tensors through the plain version. ``lazy``:
     the touched rows only, by indexed updates on either device, never the
     kernel. Returns the pre-update sum(w**2) (0-dim f32) with ``want_l2``,
-    else None."""
-    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2)
+    else None. ``sr_seed`` keys a bf16 table's stochastic rounding (None:
+    ``t``)."""
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2,
+              sr_seed=sr_seed)
     if lazy:
         # the sum is a full pass of its own here: no sweep carries it
         l2v = (torch.sum(torch.square(w.to(torch.float32)))

@@ -8,8 +8,11 @@
   train epoch in one (``config.epoch_timeout_s``).
 * ``epoch_deadline``: the per-epoch deadline, with a grace for the first
   wrapped epoch of the process.
-* ``barrier``: a cross-process rendezvous with a deadline; it belongs to
-  the mesh runs, which are not ported yet, and raises by name.
+* ``barrier``: a cross-process rendezvous with a deadline
+  (``torch.distributed.barrier``, ``monitored_barrier`` under gloo, which
+  names the rank that did not arrive), guarded by the watchdog; a no-op
+  in a single process. The trainers of a mesh run meet at it before and
+  after each checkpoint write.
 
 A CUDA call that hangs cannot be interrupted from Python either, so the
 timer thread is the escape here as it is in the JAX package.
@@ -25,7 +28,8 @@ from typing import Iterator, Optional
 
 
 class HealthError(RuntimeError):
-    """A watchdog deadline expired (a stalled epoch)."""
+    """A watchdog deadline expired (a stalled epoch or a rank that did not
+    reach a barrier)."""
 
 
 @contextlib.contextmanager
@@ -95,8 +99,23 @@ def epoch_deadline(timeout_s: Optional[float],
 
 def barrier(tag: str = "barrier", timeout_s: Optional[float] = None,
             kill_process: bool = False) -> None:
-    """A cross-process rendezvous with a deadline. It needs the mesh runs
-    (``torch.distributed``), which are not ported yet."""
-    raise NotImplementedError(
-        f"health.barrier({tag!r}) is not ported yet: it belongs to the mesh "
-        "runs (parallel/)")
+    """A cross-process rendezvous with an optional deadline: a dead or
+    straggling rank shows at a known point (an epoch boundary, a
+    checkpoint) instead of hanging an arbitrary later collective. Raises
+    ``HealthError`` when the deadline passes. Single process: no-op."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() <= 1:
+        return
+    with watchdog(timeout_s, tag=f"barrier:{tag}", kill_process=kill_process):
+        if timeout_s and dist.get_backend() == "gloo":
+            try:
+                dist.monitored_barrier(
+                    timeout=datetime.timedelta(seconds=timeout_s))
+            except RuntimeError as e:
+                raise HealthError(f"barrier '{tag}': {e}") from e
+        else:
+            dist.barrier()

@@ -13,6 +13,12 @@ package's file is read by ``load_predictor``.
 The write is crash-safe: the arrays go into a temporary sibling first, the
 old ``meta.json`` is dropped before the swap, and the new one is written
 last, so a ``meta.json`` that exists always describes complete arrays.
+
+A mesh run (``parallel/mesh.py``) holds the table and its Adam moments as
+each rank's rows. ``full_state`` gathers them over 'model' so that rank 0
+writes the single-device format, which ``load_predictor`` and a run on one
+device read unchanged; ``local_state`` cuts a loaded checkpoint back to
+this rank's rows for a resume or a warm start.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import dataclasses
 import json
 import os
 import shutil
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +35,54 @@ import torch
 from aread_tpu_torch.utils.masks import mask_shapes
 
 ARRAYS_FILE = "tree.pt"
+
+
+TABLE_MOMENTS = ("m", "v")  # the optimizer state's row-sharded entries
+
+
+def _row_sharded(state_dict: Dict[str, torch.Tensor]):
+    from aread_tpu_torch.parallel.mesh import param_shardings
+
+    return [k for k, s in param_shardings(state_dict).items() if s == "model"]
+
+
+def full_state(state_dict: Dict[str, torch.Tensor], opt_state: Optional[Dict],
+               mesh) -> Tuple[Dict[str, torch.Tensor], Optional[Dict]]:
+    """(state_dict, opt_state) of the whole model: on a mesh the
+    row-sharded tensors (the table, its moments) all-gathered over 'model'
+    — every rank must call it — otherwise as they are."""
+    if mesh is None:
+        return state_dict, opt_state
+    from aread_tpu_torch.parallel.mesh import gather_rows
+
+    sd = dict(state_dict)
+    for k in _row_sharded(sd):
+        sd[k] = gather_rows(sd[k], mesh)
+    if opt_state:
+        opt_state = dict(opt_state)
+        for k in TABLE_MOMENTS:
+            if k in opt_state:
+                opt_state[k] = gather_rows(opt_state[k], mesh)
+    return sd, opt_state
+
+
+def local_state(state_dict: Dict[str, torch.Tensor], opt_state: Optional[Dict],
+                mesh) -> Tuple[Dict[str, torch.Tensor], Optional[Dict]]:
+    """``full_state``'s inverse: a whole checkpoint's row-sharded tensors
+    cut to this rank's rows (``shard_rows``)."""
+    if mesh is None:
+        return state_dict, opt_state
+    from aread_tpu_torch.parallel.mesh import shard_rows
+
+    sd = dict(state_dict)
+    for k in _row_sharded(sd):
+        sd[k] = shard_rows(sd[k], mesh)
+    if opt_state:
+        opt_state = dict(opt_state)
+        for k in TABLE_MOMENTS:
+            if k in opt_state:
+                opt_state[k] = shard_rows(opt_state[k], mesh)
+    return sd, opt_state
 
 
 def _mask_to_flat(domain_mask) -> Dict[str, np.ndarray]:

@@ -38,8 +38,17 @@ because every dispatch there crosses a slow link to its device; that
 reason does not exist here, so those, and the Pallas kernel window's
 prechecks (``FITS_SLICE``, ``_fits_from_x``, ``_fits_from_idx``,
 ``no_overflow``, ``assume_no_overflow``), have no counterpart: the CUDA
-kernel has no window. Not ported yet, each raising ``NotImplementedError``
-by name: a mesh and ``embed_lookup='a2a'``.
+kernel has no window.
+
+``AREADTrainer(mesh=)`` runs one rank of a (data, model) grid as
+``Trainer(mesh=)`` does (``train/trainer.py``): the warm-up, bagging and
+chain steps on the rank's batch rows with the losses, gradients and gate
+means completed over 'data' and the table updated per shard, the probe
+losses summed over 'data' so that every rank prunes and selects the same
+masks from the same numbers, snapshots of the rank's own rows, and
+checkpoints gathered to rank 0. The overlay engine is one device's: on a
+mesh 'auto' takes the full sweep and 'overlay' raises, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -60,10 +69,12 @@ from aread_tpu_torch.models.base import FeatureSpec, regularization_loss
 from aread_tpu_torch.ops import overlay_adam as oa
 from aread_tpu_torch.ops.precision import matmul_precision_ctx
 from aread_tpu_torch.ops.sparse_adam import dedup_rows
+from aread_tpu_torch.parallel import mesh as mesh_lib
+from aread_tpu_torch.parallel.embed_shard import resolve_a2a_capacity
 from aread_tpu_torch.parallel.health import epoch_deadline, watchdog
 from aread_tpu_torch.train import metrics as metrics_lib
-from aread_tpu_torch.train.checkpoint import (load_checkpoint, mask_template,
-                                              restore_tree_, save_checkpoint,
+from aread_tpu_torch.train.checkpoint import (load_checkpoint, local_state,
+                                              mask_template, restore_tree_,
                                               set_generator_state)
 from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            adopt_state_dict,
@@ -71,11 +82,13 @@ from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            clip_scale_by_global_norm,
                                            clone_state,
                                            device_data_mode_enabled,
+                                           embed_lookup_ctx,
                                            hybrid_init, hybrid_update_sparse,
                                            make_optimizer, masked_mean,
                                            mean_losses, raise_if_nonfinite,
                                            restored_best, split_table,
-                                           strip_table_rule,
+                                           strip_table_rule, sum_over_data,
+                                           sum_states_over_data,
                                            table_reg_value)
 from aread_tpu_torch.utils import profiling
 from aread_tpu_torch.utils.masks import HempMaskState, prune_mask
@@ -83,9 +96,6 @@ from aread_tpu_torch.utils.runlog import RunLogger
 
 log = logging.getLogger(__name__)
 
-# Config options of the JAX package's AREADTrainer that are not ported
-# yet, with the only value the port takes
-_UNPORTED_OPTIONS = {"embed_lookup": "gspmd"}
 TABLE_KEY = "embedding.table"  # the table's state_dict key
 
 # hemp_fast_adapt='auto' picks the overlay from this many table elements
@@ -97,16 +107,22 @@ OVERLAY_AUTO_MIN_ELEMS = 240_000_000
 
 
 def overlay_mode_enabled(mode: str, sparse_table_grad: bool,
-                         spec: FeatureSpec, embed_dim: int) -> bool:
+                         spec: FeatureSpec, embed_dim: int,
+                         mesh=None) -> bool:
     """Whether ``hemp_fast_adapt=mode`` runs the overlay engine for a
     table of ``spec``'s rows (padded as the model pads them) x
     ``embed_dim``: 'full' never, 'overlay' always (it needs
-    ``sparse_table_grad``, else ``ValueError``), 'auto' from
+    ``sparse_table_grad`` and no mesh, else ``ValueError``), 'auto' from
     ``OVERLAY_AUTO_MIN_ELEMS`` table elements on when the gradient is
-    sparse."""
+    sparse and there is no mesh."""
     if mode == "full":
         return False
     if mode == "overlay":
+        if mesh is not None:
+            raise ValueError(
+                "hemp_fast_adapt='overlay' is single-device only (mesh "
+                "evolutions use the sharded full sweep); use 'auto' or "
+                "'full' on mesh runs")
         if not sparse_table_grad:
             raise ValueError(
                 "hemp_fast_adapt='overlay' requires sparse_table_grad")
@@ -114,7 +130,8 @@ def overlay_mode_enabled(mode: str, sparse_table_grad: bool,
     if mode != "auto":
         raise ValueError(f"hemp_fast_adapt={mode!r}")
     elems = int(np.sum(spec.one_hot_dims)) * embed_dim
-    return sparse_table_grad and elems >= OVERLAY_AUTO_MIN_ELEMS
+    return (mesh is None and sparse_table_grad
+            and elems >= OVERLAY_AUTO_MIN_ELEMS)
 
 
 def copy_masks(masks) -> List:
@@ -145,18 +162,18 @@ def prob_bce(prob, y, valid):
 class AREADTrainer:
     def __init__(self, model: AREAD, config: Config, n_domain: int,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh runs are not ported yet")
-        for name, only in _UNPORTED_OPTIONS.items():
-            if getattr(config, name) != only:
-                raise NotImplementedError(
-                    f"config.{name}={getattr(config, name)!r} is not ported "
-                    f"yet (only {only!r})")
         if config.table_optimizer not in ("adam", "lazy_adam"):
             raise ValueError(f"table_optimizer={config.table_optimizer!r}")
         self.model = model
         self.config = config
         self.n_domain = n_domain
+        # a (data, model) rank grid (parallel/mesh.py): the table is cut to
+        # this rank's rows here, unless it is already
+        self.mesh = mesh
+        if mesh is not None:
+            from aread_tpu_torch.parallel.train_step import shard_params
+            shard_params(model, mesh)
+        self._lookup_ctx = embed_lookup_ctx(config, mesh, model)
         self.device = model.device
         self.mask_state = HempMaskState(model.n_tower, n_domain,
                                         seed=config.seed)
@@ -200,7 +217,13 @@ class AREADTrainer:
         return overlay_mode_enabled(self.config.hemp_fast_adapt,
                                     self.config.sparse_table_grad,
                                     self.model.spec,
-                                    self.model.embedding.embed_dim)
+                                    self.model.embedding.embed_dim, self.mesh)
+
+    # the mesh plumbing is the generic trainer's
+    run_ctx = Trainer.run_ctx
+    place = Trainer.place
+    gather_rows = Trainer.gather_rows
+    save = Trainer.save
 
     # ---------------------------------------------------------------- state
     def init(self) -> Dict:
@@ -210,10 +233,6 @@ class AREADTrainer:
             self.optimizer, self.model,
             moments_dtype=self.config.table_moments_dtype)
         return self.opt_state
-
-    def place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items()}
 
     def _snapshot(self, table: bool = True) -> Dict[str, torch.Tensor]:
         """A device-resident copy of the parameters, the table (unless
@@ -266,11 +285,15 @@ class AREADTrainer:
         if mode in ("wo_mask", "domain_mask_final"):
             bce = prob_bce(out["prob"], y, valid)
         else:
+            # [T_last]; on a mesh the rank's share (the global count)
             per_leaf = (torch.sum(bce_with_logits(out["leaf_logit"], y[:, None])
                                   * valid[:, None], dim=0)
-                        / torch.clamp(torch.sum(valid), min=1.0))  # [T_last]
+                        / torch.clamp(mesh_lib.batch_sum(torch.sum(valid)),
+                                      min=1.0))
             la = out["leaf_active"].to(per_leaf.dtype)
             bce = torch.sum(per_leaf * la) / torch.clamp(la.sum(), min=1e-8)
+        if self.mesh is not None and self.mesh.data_index != 0:
+            return bce, out  # the data ranks' losses are summed: L2 once
         _, rest = split_table(self.model)
         loss = bce + regularization_loss(rest, self.reg_rules)
         return loss, out
@@ -286,21 +309,24 @@ class AREADTrainer:
         self.model.train()
         _, rest = split_table(self.model)
         names = list(rest)
-        with matmul_precision_ctx(cfg.compute_dtype):
+        with matmul_precision_ctx(cfg.compute_dtype), self.run_ctx():
             loss, out = self.bagging_loss(batch, dm, mode)
             # leaves a mode does not use get zero gradients, as in JAX
             # (the decay term still moves them)
             grads = torch.autograd.grad(
                 loss, [rest[n] for n in names] + [out["rows"]],
                 materialize_grads=True)
-        ids = self.model.embedding.table_ids(batch["x"])
-        l2val = hybrid_update_sparse(
-            optimizer, lr, cfg.wd, self.model,
-            dict(zip(names, grads[:-1])), ids, grads[-1], opt_state,
-            want_table_l2=cfg.loss_report_table_l2,
-            clip_norm=cfg.grad_clip_norm,
-            lazy=cfg.table_optimizer == "lazy_adam")
+        g_rest = dict(zip(names, grads[:-1]))
+        ids, row_grads = self.model.embedding.table_ids(batch["x"]), grads[-1]
         loss = loss.detach()
+        if self.mesh is not None:
+            g_rest, loss, ids, row_grads = sum_over_data(
+                self.mesh, g_rest, loss, ids, row_grads)
+        l2val = hybrid_update_sparse(
+            optimizer, lr, cfg.wd, self.model, g_rest, ids, row_grads,
+            opt_state, want_table_l2=cfg.loss_report_table_l2,
+            clip_norm=cfg.grad_clip_norm,
+            lazy=cfg.table_optimizer == "lazy_adam", mesh=self.mesh)
         if l2val is not None:
             loss = loss + l2val
         return loss, out["gate_means"]
@@ -332,12 +358,17 @@ class AREADTrainer:
             batch = self.place(batch)
         self.model.train()
         leaf = {"final_gate/kernel": self.model.final_gate.kernel}
-        with matmul_precision_ctx(cfg.compute_dtype):
+        with matmul_precision_ctx(cfg.compute_dtype), self.run_ctx():
             loss, out = self.bagging_loss(batch, dm, "domain_mask_final")
             (g,) = torch.autograd.grad(loss, list(leaf.values()))
         loss = loss.detach()
+        if self.mesh is not None:
+            both = self.mesh.all_reduce_(
+                torch.cat([g.reshape(-1), loss.reshape(1)]), "data")
+            g, loss = both[:-1].view_as(g), both[-1]
         if cfg.loss_report_table_l2:
-            loss = loss + table_reg_value(self.model.embedding.table)
+            loss = loss + table_reg_value(self.model.embedding.table,
+                                          self.mesh)
         self.final_optimizer.update_(leaf, {"final_gate/kernel": g}, opt_state)
         return loss, out["gate_means"]
 
@@ -348,7 +379,7 @@ class AREADTrainer:
         augmented split together must fit the budget."""
         total = train_x.nbytes + (0 if aug_x is train_x else aug_x.nbytes)
         return device_data_mode_enabled(self.config, total,
-                                        Trainer.DEVICE_DATA_BUDGET)
+                                        Trainer.DEVICE_DATA_BUDGET, self.mesh)
 
     def stage_device_data(self, train_x, train_y, aug_x, aug_y) -> bool:
         """Place [train; augmented] on the device as one array when
@@ -404,14 +435,19 @@ class AREADTrainer:
 
     def _probe_losses(self, dm, probe_batches) -> torch.Tensor:
         """[regroup_eval_step] no-grad probe losses (BCE on the
-        'domain_with_mask' prob) of the weights the model holds."""
+        'domain_with_mask' prob) of the weights the model holds; on a mesh
+        summed over 'data', so that every rank holds the same numbers."""
         self.model.eval()
-        with torch.no_grad(), matmul_precision_ctx(self.config.compute_dtype):
-            return torch.stack([
+        with torch.no_grad(), matmul_precision_ctx(self.config.compute_dtype), \
+                self.run_ctx():
+            losses = torch.stack([
                 prob_bce(self.model(b["x"], domain_mask=dm,
                                     mode="domain_with_mask",
                                     train=False)["prob"], b["y"], b["valid"])
                 for b in probe_batches])
+        if self.mesh is not None:
+            self.mesh.all_reduce_(losses, "data")
+        return losses
 
     def _fast_adapt(self, mask, fa_batches, probe_batches, drift_l2=None):
         """One candidate's chain from the weights the model holds: a fresh
@@ -440,7 +476,7 @@ class AREADTrainer:
             # constant across the probes (the weights are fixed now): the
             # table's term is a pass over the whole table, paid once
             reg = (regularization_loss(rest, self.reg_rules)
-                   + table_reg_value(table))
+                   + table_reg_value(table, self.mesh))
         return mask, self._probe_losses(dm, probe_batches) + reg
 
     def _fast_adapt_overlay(self, mask, fa_batches, probe_batches,
@@ -658,7 +694,9 @@ class AREADTrainer:
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         self.model.eval()
         mode = "domain_mask_final" if final else "domain_with_mask"
-        out = self.model(batch["x"], domain_mask=dm, mode=mode, train=False)
+        with self.run_ctx():
+            out = self.model(batch["x"], domain_mask=dm, mode=mode,
+                             train=False)
         return out["prob"], out["logit"]
 
     def eval_prob(self, batch, dm, final: bool = False) -> torch.Tensor:
@@ -671,7 +709,8 @@ class AREADTrainer:
         total and per-domain AUC / log-loss. With
         ``config.streaming_eval`` the predictions stay on the device: each
         batch goes into per-domain histograms (``StreamingAUC``) and only
-        those are fetched."""
+        those are fetched. On a mesh each rank scores its rows, and the
+        predictions are all-gathered (the histograms summed) over 'data'."""
         ms = self.mask_state
         if self.config.streaming_eval:
             acc = metrics_lib.StreamingAUC(self.n_domain, self.config.auc_bins)
@@ -684,13 +723,13 @@ class AREADTrainer:
                                        batch["domain"], batch["valid"],
                                        logits=logit)
             return acc.finalize(
-                auc_state, domain_cnt_weight,
+                sum_states_over_data(self.mesh, auc_state), domain_cnt_weight,
                 multi_domain=self.config.is_evaluate_multi_domain)
         preds, targets, domains = [], [], []
         for d in batcher.domain_batch_seq:
             batch_np = batcher.next_batch(d)
-            prob = self.eval_prob(self.place(batch_np), ms.domain_mask[d],
-                                  final=final)
+            prob = self.gather_rows(self.eval_prob(
+                self.place(batch_np), ms.domain_mask[d], final=final))
             n = int(batch_np["valid"].sum())
             preds.append(prob[:n])
             targets.append(batch_np["y"][:n])
@@ -755,8 +794,9 @@ class AREADTrainer:
             raise ValueError(
                 f"{ckpt_dir}: the checkpoint's domain masks do not fit "
                 f"n_tower={self.model.n_tower}, n_domain={self.n_domain}")
-        adopt_state_dict(self.model, ck["state_dict"])
-        restore_tree_(self.opt_state, ck["opt_state"], "opt_state")
+        sd, opt = local_state(ck["state_dict"], ck["opt_state"], self.mesh)
+        adopt_state_dict(self.model, sd)
+        restore_tree_(self.opt_state, opt, "opt_state")
         set_generator_state(self.generator, ck["rng_state"])
         self.mask_state.domain_mask = copy_masks(masks)
         host = ck.get("host_state")
@@ -843,13 +883,22 @@ class AREADTrainer:
         aug_b = DomainBatcher(aug_x, aug_y, cfg.bs, didx, self.n_domain,
                               seed=cfg.seed + 1)
         self.stage_device_data(data.train_x, data.train_y, aug_x, aug_y)
+        # the a2a capacity before the first step: train and augmented
+        # batches, and the 8x eval batches
+        cfg.a2a_capacity = resolve_a2a_capacity(
+            cfg, self.mesh, self.model.spec, self.model.embed_dim,
+            [(data.train_x, cfg.bs), (aug_x, cfg.bs),
+             (data.valid_x, eval_bs), (data.test_x, eval_bs)],
+            verbose=verbose)
+        self._lookup_ctx = embed_lookup_ctx(cfg, self.mesh, self.model)
         # the JAX package draws one batch of the largest domain to shape
         # its weights; drawn here too, so that the data streams agree
         train_b.next_batch_indices(
             int(np.argmax([len(i) for i in train_b.domain_indices])))
         self.init()
         if warm_start is not None:
-            adopt_state_dict(self.model, warm_start["state_dict"])
+            adopt_state_dict(self.model, local_state(
+                warm_start["state_dict"], None, self.mesh)[0])
             if warm_start.get("domain_mask"):
                 self.mask_state.domain_mask = copy_masks(
                     warm_start["domain_mask"])
@@ -868,7 +917,7 @@ class AREADTrainer:
                 train_loss = self.train_epoch(epoch_i, train_b, aug_b,
                                               verbose)
             train_s = time.time() - t0
-            raise_if_nonfinite(train_loss, epoch_i)
+            raise_if_nonfinite(train_loss, epoch_i, cfg)
             train_b.shuffle_seq()
             result = self.evaluate(valid_b, data.domain_cnt_weight)
             result["train_loss"] = train_loss
@@ -888,9 +937,8 @@ class AREADTrainer:
             if ckpt_dir and self._improved:
                 if any(m is None for m in self.mask_state.domain_mask):
                     raise RuntimeError("a domain has no mask to checkpoint")
-                save_checkpoint(
-                    ckpt_dir, self.model.state_dict(), self.opt_state,
-                    epoch=epoch_i + 1, best_result=result,
+                self.save(
+                    ckpt_dir, epoch=epoch_i + 1, best_result=result,
                     generator=self.generator,
                     domain_mask=self.mask_state.domain_mask,
                     hemp_schedule=self.hemp_schedule(),
@@ -911,7 +959,7 @@ class AREADTrainer:
                 t0 = time.time()
                 floss = self.train_final_epoch(final_state, epoch_i, train_b,
                                                verbose)
-                raise_if_nonfinite(floss, epoch_i)
+                raise_if_nonfinite(floss, epoch_i, cfg)
                 train_b.shuffle_seq()
                 result = self.evaluate(valid_b, data.domain_cnt_weight,
                                        final=True)

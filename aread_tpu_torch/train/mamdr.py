@@ -23,6 +23,11 @@ sequence starts from ``hybrid_init`` without ``moments_dtype``: the
 table's moments in the table's dtype and the step count at 0, as in the
 JAX package. Per-domain weights start at zero, so merged = meta at first.
 After ``fit`` the model holds the meta weights (what the CLI saves).
+
+On a mesh (``MamdrTrainer(mesh=)``, passed on to ``Trainer``) the steps
+are the mesh steps and the table is each rank's rows; Reptile's passes are
+elementwise, so each rank runs them on its own rows, and evaluation
+all-gathers the predictions over 'data'.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from aread_tpu_torch.config import Config
 from aread_tpu_torch.data.loader import DomainBatcher, SplitData
 from aread_tpu_torch.train import metrics as metrics_lib
+from aread_tpu_torch.train.checkpoint import local_state
 from aread_tpu_torch.train.trainer import (Trainer, adopt_state_dict,
                                            hybrid_init)
 from aread_tpu_torch.utils.runlog import RunLogger
@@ -131,7 +137,8 @@ class MamdrTrainer(Trainer):
         # draw keeps the streams in step with it
         train_b.next_batch(0)
         if warm_start is not None:
-            adopt_state_dict(self.model, warm_start["state_dict"])
+            adopt_state_dict(self.model, local_state(
+                warm_start["state_dict"], None, self.mesh)[0])
         with torch.no_grad():
             self.meta_weights = {n: t.clone()
                                  for n, t in self.live_weights().items()}
@@ -200,7 +207,8 @@ class MamdrTrainer(Trainer):
                 prev_d = d
             batch = batcher.next_batch(d)
             n = int(batch["valid"].sum())
-            preds.append(self.eval_prob(self.place(batch))[:n])
+            preds.append(self.gather_rows(
+                self.eval_prob(self.place(batch)))[:n])
             targets.append(batch["y"][:n])
             domains.append(np.full((n,), d, np.int64))
         self.load_weights(self.meta_weights)

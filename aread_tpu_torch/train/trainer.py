@@ -20,11 +20,29 @@ domain -> group map recomputed between epochs from the valid split's
 per-(tower, domain) losses, ``train/regroup.py``), ``log_dir``
 (``utils/runlog.py``) and the epoch watchdog (``epoch_timeout_s``,
 ``parallel/health.py``).
+
+``Trainer(mesh=)`` (``parallel/mesh.py``) runs one rank of a (data, model)
+grid, and together the ranks compute what one device computes: the rank
+steps on its rows of each global batch, the table is its rows
+(``train_step.shard_params``), the loss is the global masked mean (each
+rank's masked sum over the all-reduced valid count; the dense leaves'
+gradients are summed over 'data'; the L2 terms are added on the first data
+rank only), the table's row gradients are all-gathered over 'data' in rank
+order and the update runs once per shard — the sparse-Adam kernel with its
+own rounding stream (``parallel/sharded_adam.py``), or the fused dense
+Adam on the shard's rows of the dense gradient. Evaluation scores the
+rank's rows and all-gathers the predictions (or sums the streaming
+histograms) over 'data'. The lookup is ``embed_lookup`` ('gspmd': the
+shard-select lookup; 'a2a': the dedup + all-to-all exchange, its capacity
+resolved before the first step). A checkpoint of a mesh run is written
+by rank 0 in the single-device format, with the table gathered.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -38,9 +56,14 @@ from aread_tpu_torch.models.base import gather_group, regularization_loss
 from aread_tpu_torch.ops.fused_adam import fused_adam_dispatch
 from aread_tpu_torch.ops.precision import matmul_precision_ctx
 from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_dispatch
-from aread_tpu_torch.parallel.health import epoch_deadline, watchdog
+from aread_tpu_torch.parallel import mesh as mesh_lib
+from aread_tpu_torch.parallel.embed_shard import (flat_a2a_lookup,
+                                                  resolve_a2a_capacity)
+from aread_tpu_torch.parallel.health import barrier, epoch_deadline, watchdog
+from aread_tpu_torch.parallel.sharded_adam import sharded_sparse_adam_deduped
 from aread_tpu_torch.train import metrics as metrics_lib
-from aread_tpu_torch.train.checkpoint import (load_checkpoint, restore_tree_,
+from aread_tpu_torch.train.checkpoint import (full_state, load_checkpoint,
+                                              local_state, restore_tree_,
                                               save_checkpoint,
                                               set_generator_state)
 from aread_tpu_torch.train.regroup import (get_losses_tower_domain,
@@ -62,7 +85,12 @@ def bce_with_logits(logit, y):
 
 
 def masked_mean(values, valid):
-    return torch.sum(values * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    """Mean of ``values`` over the rows where ``valid`` is 1. Under a
+    data-parallel mesh (``mesh.use``) the count is the global batch's, so
+    the result is this rank's share: the shares sum to the global mean
+    over 'data'."""
+    count = mesh_lib.batch_sum(torch.sum(valid))
+    return torch.sum(values * valid) / torch.clamp(count, min=1.0)
 
 
 def mean_losses(losses: List) -> float:
@@ -76,24 +104,62 @@ def mean_losses(losses: List) -> float:
                  .mean(dtype=torch.float32))
 
 
-def table_reg_value(table: torch.Tensor) -> torch.Tensor:
+def table_reg_value(table: torch.Tensor, mesh=None) -> torch.Tensor:
     """l2 * sum(table^2) without gradient, summed in f32: keeps the
     reported loss equal to the reference's while the term's gradient is
-    folded into the table's Adam."""
+    folded into the table's Adam. On a mesh ``table`` is the rank's rows
+    and their sums are added over 'model'."""
     with torch.no_grad():
-        return TABLE_L2 * torch.sum(torch.square(table.to(torch.float32)))
+        sq = torch.sum(torch.square(table.to(torch.float32)))
+        if mesh is not None:
+            sq = mesh.all_reduce_(sq.reshape(1), "model")[0]
+        return TABLE_L2 * sq
 
 
-def raise_if_nonfinite(train_loss: float, epoch_i: int) -> None:
+def raise_if_nonfinite(train_loss: float, epoch_i: int, config=None) -> None:
     """Guard on the fetched per-epoch train loss. Without it a run
     poisoned by NaN goes on into evaluate(), ``is_continuable`` sees NaN
     metrics (NaN > best is False) and the run stops early as if it had
-    converged."""
+    converged. With a bounded a2a capacity the likely cause is named
+    first: an overflowing batch NaN-poisons its lookup."""
     if np.isfinite(float(train_loss)):
         return
+    hints = ["lr too high", "non-finite rows in the input"]
+    if getattr(config, "embed_lookup", "gspmd") == "a2a" and \
+            int(getattr(config, "a2a_capacity", 0) or 0) > 0:
+        hints.insert(0, (
+            f"a2a_capacity={config.a2a_capacity} overflowed on a batch "
+            "after calibration (the exchange NaN-poisons instead of "
+            "silently dropping rows) — raise it or pass -1 for always-"
+            "exact"))
     raise FloatingPointError(
         f"non-finite train loss {train_loss} at epoch {epoch_i + 1}; "
-        "possible causes: lr too high; non-finite rows in the input")
+        "possible causes: " + "; ".join(hints))
+
+
+def embed_lookup_ctx(config, mesh, model):
+    """Zero-argument context-manager factory that routes the embedding's
+    row gathers per ``config.embed_lookup``: 'gspmd' (the default) leaves
+    the embedding's own lookup (the shard-select ``sharded_lookup`` on a
+    mesh); 'a2a' routes it through the dedup + all-to-all exchange
+    (``flat_a2a_lookup`` in the lane-packed row space under flat storage,
+    where the capacity is measured). An unknown value and 'a2a' without a
+    mesh raise."""
+    if config.embed_lookup == "a2a":
+        if mesh is None:
+            raise ValueError("embed_lookup='a2a' needs a device mesh")
+        cap = int(config.a2a_capacity or 0)
+        embedding = model.embedding
+        rpf = (128 // embedding.embed_dim
+               if getattr(model.spec, "flat_table", False) else 1)
+        # <= 0 -> always-exact; fit() resolves 0 (auto) to a measured bound
+        gather = functools.partial(flat_a2a_lookup, mesh=mesh,
+                                   capacity=cap if cap > 0 else None,
+                                   rows_per_flat=rpf)
+        return lambda: embedding.lookup_override(gather)
+    if config.embed_lookup != "gspmd":
+        raise ValueError(f"embed_lookup={config.embed_lookup!r}")
+    return contextlib.nullcontext
 
 
 def strip_table_rule(rules):
@@ -168,17 +234,26 @@ def hybrid_init(optimizer: DenseAdam, model, moments_dtype=None) -> Dict:
 
 
 def clip_scale_by_global_norm(tensors: Sequence[torch.Tensor],
-                              clip_norm: float) -> Optional[torch.Tensor]:
+                              clip_norm: float, shard: Optional[torch.Tensor] = None,
+                              mesh=None) -> Optional[torch.Tensor]:
     """torch.nn.utils.clip_grad_norm_'s factor min(1, clip/||g||) over all
-    ``tensors``; None when clipping is off."""
+    ``tensors`` and, last, ``shard``: on a mesh the rank's rows of the
+    table gradient, whose squares are summed over 'model'. None when
+    clipping is off."""
     if not clip_norm or clip_norm <= 0.0:
         return None
     sq = sum(torch.sum(torch.square(t.to(torch.float32))) for t in tensors)
+    if shard is not None:
+        ssq = torch.sum(torch.square(shard.to(torch.float32)))
+        if mesh is not None:
+            ssq = mesh.all_reduce_(ssq.reshape(1), "model")[0]
+        sq = sq + ssq
     return torch.clamp(clip_norm / (torch.sqrt(sq) + 1e-6), max=1.0)
 
 
 def dense_table_grad(table_ids: torch.Tensor, row_grads: torch.Tensor,
-                     n_rows: int, dtype: torch.dtype) -> torch.Tensor:
+                     n_rows: int, dtype: torch.dtype,
+                     rows: Optional[slice] = None) -> torch.Tensor:
     """The dense [n_rows, D] table gradient from the tap's row gradients
     [..., D] at ``table_ids`` [...]: what autodiff through the gather
     holds. Duplicate ids are summed by ``dedup_rows`` (sorted segmented
@@ -186,39 +261,50 @@ def dense_table_grad(table_ids: torch.Tensor, row_grads: torch.Tensor,
     same on every run and device. For a bf16 table the gradient is bf16,
     as the gather's cotangent is in the JAX package: the row gradients
     are cast to bf16 before the sum; the sum itself runs in f32 and is
-    rounded once."""
+    rounded once. ``rows``: only those rows of the gradient (a mesh rank's
+    table rows), bitwise the same rows of the whole one."""
     flat = row_grads.reshape(-1, row_grads.shape[-1])
     if dtype == torch.bfloat16:
         flat = flat.to(torch.bfloat16).to(torch.float32)
     uids, gsum = dedup_rows(table_ids.reshape(-1).to(torch.int32), flat,
                             n_rows)
-    # sentinel entries (id n_rows, zero gradient) land in a spare last row
-    g = torch.zeros((n_rows + 1, flat.shape[-1]), dtype=torch.float32,
+    lo, hi = (0, n_rows) if rows is None else (rows.start, rows.stop)
+    u = uids.to(torch.int64) - lo
+    # the sentinel entries (id n_rows, zero gradient) and the rows of other
+    # shards land in a spare last row
+    u = torch.where((u >= 0) & (u < hi - lo), u, hi - lo)
+    g = torch.zeros((hi - lo + 1, flat.shape[-1]), dtype=torch.float32,
                     device=flat.device)
-    g.index_copy_(0, uids.to(torch.int64), gsum)
-    return g[:n_rows].to(dtype)
+    g.index_copy_(0, u, gsum)
+    return g[:hi - lo].to(dtype)
 
 
 def hybrid_update(optimizer: DenseAdam, lr: float, wd: float, model,
                   g_rest: Dict[str, torch.Tensor], g_table: torch.Tensor,
                   opt_state: Dict, table_l2: float = TABLE_L2,
-                  clip_norm: float = 0.0) -> None:
+                  clip_norm: float = 0.0, mesh=None) -> None:
     """One optimizer step from dense gradients, in place: the table
     through the fused dense Adam (``ops/fused_adam.py``: the kernel on the
     card, the plain version on the CPU), the other leaves through
     ``optimizer``. ``clip_norm`` clips by the global norm of all data
     gradients, the table's included; the decay and L2 terms folded into
-    the updates are not clipped."""
+    the updates are not clipped. On a mesh the table and ``g_table`` are
+    the rank's rows, and a row-sharded bf16 table rounds with its shard's
+    own stream (``sr_seed = t * model + model_index``)."""
     table, rest = split_table(model)
-    scale = clip_scale_by_global_norm(list(g_rest.values()) + [g_table],
-                                      clip_norm)
+    scale = clip_scale_by_global_norm(list(g_rest.values()), clip_norm,
+                                      shard=g_table, mesh=mesh)
     if scale is not None:
         g_rest = {n: g * scale for n, g in g_rest.items()}
         g_table = g_table.to(torch.float32) * scale
     opt_state["t"] += 1
+    t = opt_state["t"]
+    sharded = mesh is not None and mesh.model > 1
     fused_adam_dispatch(table, opt_state["m"], opt_state["v"],
-                        g_table.contiguous(), opt_state["t"], lr=lr,
-                        weight_decay=wd, l2=table_l2)
+                        g_table.contiguous(), t, lr=lr,
+                        weight_decay=wd, l2=table_l2,
+                        sr_seed=t * mesh.model + mesh.model_index
+                        if sharded else None)
     optimizer.update_(rest, g_rest, opt_state["inner"])
 
 
@@ -228,7 +314,8 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
                          opt_state: Dict, table_l2: float = TABLE_L2,
                          want_table_l2: bool = False,
                          clip_norm: float = 0.0,
-                         lazy: bool = False) -> Optional[torch.Tensor]:
+                         lazy: bool = False,
+                         mesh=None) -> Optional[torch.Tensor]:
     """One optimizer step, in place: the table from its sparse (ids,
     rows) gradient (``lazy``: the touched rows only,
     ``table_optimizer='lazy_adam'``), the dense leaves through
@@ -236,9 +323,13 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
     table_l2 * sum(table_pre^2) with ``want_table_l2`` (the kernel sums it
     inside its sweep), else None. ``clip_norm`` clips by the global norm
     of the dense gradients and the deduplicated row sums — the norm of
-    the dense table gradient the reference would hold."""
+    the dense table gradient the reference would hold. On a mesh the
+    ids and row gradients are the whole batch's (all-gathered over
+    'data'), the table is the rank's rows, and with model > 1 the update
+    runs on the shard (``sharded_adam.py``) and sum(table_pre^2) is added
+    over 'model'."""
     table, rest = split_table(model)
-    n_rows = table.shape[0]
+    n_rows = model.embedding.n_rows
     opt_state["t"] += 1
     uids, gsum = dedup_rows(table_ids.reshape(-1).to(torch.int32),
                             row_grads.reshape(-1, row_grads.shape[-1]), n_rows)
@@ -246,19 +337,37 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
     if scale is not None:
         g_rest = {n: g * scale for n, g in g_rest.items()}
         gsum = gsum * scale
-    raw_l2 = sparse_adam_dispatch(
-        table, opt_state["m"], opt_state["v"], uids, gsum, opt_state["t"],
-        lr=lr, weight_decay=wd, l2=table_l2, want_l2=want_table_l2,
-        lazy=lazy)
+    kw = dict(lr=lr, weight_decay=wd, l2=table_l2, want_l2=want_table_l2,
+              lazy=lazy)
+    if mesh is not None and mesh.model > 1:
+        raw_l2 = sharded_sparse_adam_deduped(
+            table, opt_state["m"], opt_state["v"], uids, gsum,
+            opt_state["t"], mesh, **kw)
+        if want_table_l2:
+            # the kernel's sum is a view of scratch: copied before the sum
+            raw_l2 = mesh.all_reduce_(raw_l2.reshape(1).clone(), "model")[0]
+    else:
+        raw_l2 = sparse_adam_dispatch(
+            table, opt_state["m"], opt_state["v"], uids, gsum,
+            opt_state["t"], **kw)
     optimizer.update_(rest, g_rest, opt_state["inner"])
     return table_l2 * raw_l2 if want_table_l2 else None
 
 
-def device_data_mode_enabled(config, total_bytes: int, budget: int) -> bool:
+def device_data_mode_enabled(config, total_bytes: int, budget: int,
+                             mesh=None) -> bool:
     """``config.device_data`` gate: '0' off, '1' forced, 'auto' = the
-    split fits the budget."""
+    split fits the budget. A mesh run stages each rank's rows from the
+    host: off, and '1' there is an error, not a silent ignore."""
     cfg = config.device_data
     if cfg == "0":
+        return False
+    if mesh is not None:
+        if cfg == "1":
+            raise ValueError(
+                "device_data=1 is not supported on mesh runs (the epoch "
+                "paths gather from a single-device split); use "
+                "device_data=auto/0 with a mesh")
         return False
     if cfg == "1":
         return True
@@ -267,9 +376,31 @@ def device_data_mode_enabled(config, total_bytes: int, budget: int) -> bool:
     return total_bytes <= budget
 
 
-# Config options of the JAX package's Trainer that are not ported yet,
-# with the only value the port takes
-_UNPORTED_OPTIONS = {"embed_lookup": "gspmd"}
+def sum_over_data(mesh, g_rest: Dict[str, torch.Tensor], loss: torch.Tensor,
+                  ids: torch.Tensor, row_grads: torch.Tensor):
+    """A mesh step's gradients completed over 'data': the dense leaves'
+    gradients and the loss summed (one collective), the table's ids and
+    row gradients all-gathered in rank order — the single-device batch's
+    order, so its dedup sums are the single-device ones."""
+    names = list(g_rest)
+    flat = torch.cat([g_rest[n].reshape(-1) for n in names]
+                     + [loss.reshape(1)])
+    mesh.all_reduce_(flat, "data")
+    out, i = {}, 0
+    for n in names:
+        k = g_rest[n].numel()
+        out[n] = flat[i:i + k].view_as(g_rest[n])
+        i += k
+    return (out, flat[-1], mesh.all_gather(ids, "data"),
+            mesh.all_gather(row_grads, "data"))
+
+
+def sum_states_over_data(mesh, state: Dict[str, torch.Tensor]):
+    """A streaming-AUC state summed over 'data' (each rank added its
+    rows)."""
+    if mesh is None:
+        return state
+    return {k: mesh.all_reduce_(v.clone(), "data") for k, v in state.items()}
 
 
 def clone_state(model) -> Dict[str, torch.Tensor]:
@@ -305,16 +436,16 @@ class Trainer:
 
     def __init__(self, model, config: Config, n_domain: int,
                  domain2group: Optional[np.ndarray] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh runs are not ported yet")
-        for name, only in _UNPORTED_OPTIONS.items():
-            if getattr(config, name) != only:
-                raise NotImplementedError(
-                    f"config.{name}={getattr(config, name)!r} is not ported "
-                    f"yet (only {only!r})")
         self.model = model
         self.config = config
         self.n_domain = n_domain
+        # a (data, model) rank grid (parallel/mesh.py): the model's table is
+        # cut to this rank's rows here, unless it is already
+        self.mesh = mesh
+        if mesh is not None:
+            from aread_tpu_torch.parallel.train_step import shard_params
+            shard_params(model, mesh)
+        self._lookup_ctx = embed_lookup_ctx(config, mesh, model)
         self.device = model.device
         self.model_name = getattr(model, "model_name",
                                   type(model).__name__.lower())
@@ -338,6 +469,14 @@ class Trainer:
         self.best_checkpoint = None
         self._improved = False
 
+    @contextlib.contextmanager
+    def run_ctx(self):
+        """The block every forward pass runs in: the mesh active (the
+        batch reductions of BatchNorm, dropout, ...) and the lookup
+        ``config.embed_lookup`` asks for."""
+        with mesh_lib.use(self.mesh), self._lookup_ctx():
+            yield
+
     # ---------------------------------------------------------------- init
     def init(self) -> Dict:
         """Optimizer state for the model's current weights (the weights
@@ -348,8 +487,17 @@ class Trainer:
         return self.opt_state
 
     def place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host batch on the device; on a mesh this rank's rows of it."""
+        if self.mesh is not None:
+            rows = self.mesh.rows(len(batch["x"]))
+            batch = {k: v[rows] for k, v in batch.items()}
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-row outputs of this rank's rows, completed to the global
+        batch in row order (all-gathered over 'data' on a mesh)."""
+        return t if self.mesh is None else self.mesh.all_gather(t, "data")
 
     # ---------------------------------------------------------------- step
     def step(self, batch) -> torch.Tensor:
@@ -358,8 +506,12 @@ class Trainer:
         ``config.loss_report_table_l2``), not fetched to the host. The
         table's gradient is taken through the embedding's tap and goes
         into the update sparse (``config.sparse_table_grad``) or as the
-        dense [n_rows, D] gradient."""
+        dense [n_rows, D] gradient. On a mesh ``batch`` is a global host
+        batch (``place`` takes this rank's rows) or this rank's placed
+        rows; the loss returned is the global one, the same on every
+        rank."""
         cfg = self.config
+        mesh = self.mesh
         if self.opt_state is None:
             raise RuntimeError("call init() before stepping")
         if isinstance(batch["x"], np.ndarray):
@@ -372,35 +524,44 @@ class Trainer:
         names = list(rest)
         # the gradient's products too: the JAX package traces
         # value_and_grad inside the context
-        with matmul_precision_ctx(cfg.compute_dtype):
+        with matmul_precision_ctx(cfg.compute_dtype), self.run_ctx():
             out = model(x, group=group, train=True, mask=valid,
                         generator=self.generator, tap=True)
             logit = out["logit"]
             if self.is_multi_tower and logit.dim() == 2:
                 logit = gather_group(logit, group if group is not None
                                      else batch["domain"])
-            loss = (masked_mean(bce_with_logits(logit, y), valid)
-                    + regularization_loss(rest, self.reg_rules))
+            loss = masked_mean(bce_with_logits(logit, y), valid)
+            if mesh is None or mesh.data_index == 0:
+                # once over the data ranks, whose losses are summed
+                loss = loss + regularization_loss(rest, self.reg_rules)
             # leaves the loss does not reach get zero gradients (the decay
             # term still moves them)
             grads = torch.autograd.grad(
                 loss, [rest[n] for n in names] + [out["rows"]],
                 materialize_grads=True)
         g_rest = dict(zip(names, grads[:-1]))
-        ids = model.embedding.table_ids(x)
+        ids, row_grads = model.embedding.table_ids(x), grads[-1]
         loss = loss.detach()
+        if mesh is not None:
+            g_rest, loss, ids, row_grads = sum_over_data(
+                mesh, g_rest, loss, ids, row_grads)
         if cfg.sparse_table_grad:
             l2val = hybrid_update_sparse(
-                self.optimizer, cfg.lr, cfg.wd, model, g_rest, ids, grads[-1],
+                self.optimizer, cfg.lr, cfg.wd, model, g_rest, ids, row_grads,
                 self.opt_state, want_table_l2=cfg.loss_report_table_l2,
                 clip_norm=cfg.grad_clip_norm,
-                lazy=cfg.table_optimizer == "lazy_adam")
+                lazy=cfg.table_optimizer == "lazy_adam", mesh=mesh)
             return loss if l2val is None else loss + l2val
         if cfg.loss_report_table_l2:
-            loss = loss + table_reg_value(table)  # the pre-update table
-        g_table = dense_table_grad(ids, grads[-1], table.shape[0], table.dtype)
+            # the pre-update table
+            loss = loss + table_reg_value(table, mesh)
+        n_rows = model.embedding.n_rows
+        g_table = dense_table_grad(
+            ids, row_grads, n_rows, table.dtype,
+            rows=None if mesh is None else mesh.table_rows(n_rows))
         hybrid_update(self.optimizer, cfg.lr, cfg.wd, model, g_rest, g_table,
-                      self.opt_state, clip_norm=cfg.grad_clip_norm)
+                      self.opt_state, clip_norm=cfg.grad_clip_norm, mesh=mesh)
         return loss
 
     # ------------------------------------------------------------ training
@@ -414,7 +575,7 @@ class Trainer:
 
     def device_data_enabled(self, train_x: np.ndarray) -> bool:
         return device_data_mode_enabled(self.config, train_x.nbytes,
-                                        self.DEVICE_DATA_BUDGET)
+                                        self.DEVICE_DATA_BUDGET, self.mesh)
 
     def train_epoch_device(self, batcher: GlobalBatcher) -> float:
         """``train_epoch`` over a device-resident copy of the split: each
@@ -465,7 +626,8 @@ class Trainer:
         outputs gathered at the sample's group column."""
         self.model.eval()
         group = batch.get("group")
-        out = self.model(batch["x"], group=group, train=False)
+        with self.run_ctx():
+            out = self.model(batch["x"], group=group, train=False)
         prob, logit = out["prob"], out["logit"]
         if self.is_multi_tower and prob.dim() == 2:
             prob, logit = gather_group(prob, group), gather_group(logit, group)
@@ -483,7 +645,9 @@ class Trainer:
         this order, on both paths. With
         ``config.streaming_eval`` the predictions stay on the device: each
         batch's logits go into per-domain histograms (``StreamingAUC``)
-        and only those are fetched."""
+        and only those are fetched. On a mesh each rank scores its rows;
+        the predictions are all-gathered (the histograms summed) over
+        'data' before the metrics, which every rank then computes alike."""
         batcher = GlobalBatcher(x, y, self.config.bs * 8,
                                 self.model.spec.domain_idx, self.domain2group,
                                 shuffle=False)
@@ -496,12 +660,12 @@ class Trainer:
                 auc_state = acc.update(auc_state, prob, tb["y"], tb["domain"],
                                        tb["valid"], logits=logit)
             return acc.finalize(
-                auc_state, domain_cnt_weight,
+                sum_states_over_data(self.mesh, auc_state), domain_cnt_weight,
                 multi_domain=self.config.is_evaluate_multi_domain)
         preds, targets, domains = [], [], []
         for batch in batcher:
             n = int(batch["valid"].sum())
-            preds.append(self.eval_prob(self.place(batch))[:n])
+            preds.append(self.gather_rows(self.eval_prob(self.place(batch)))[:n])
             targets.append(batch["y"][:n])
             domains.append(batch["domain"][:n])
         return metrics_lib.full_evaluation(
@@ -523,12 +687,13 @@ class Trainer:
         preds, targets, domains = [], [], []
         for batch in batcher:
             tb = self.place(batch)
-            prob = self.model(tb["x"], group=tb.get("group"),
-                              train=False)["prob"]
+            with self.run_ctx():
+                prob = self.model(tb["x"], group=tb.get("group"),
+                                  train=False)["prob"]
             n = int(batch["valid"].sum())
             if prob.dim() == 1:  # a single head: one degenerate tower
                 prob = prob[:, None]
-            preds.append(prob[:n])
+            preds.append(self.gather_rows(prob)[:n])
             targets.append(batch["y"][:n])
             domains.append(batch["domain"][:n])
         pred = torch.cat(preds).cpu().numpy()
@@ -578,6 +743,30 @@ class Trainer:
             self.domain2group = new_d2g.astype(np.int64)
         return changed
 
+    def resolve_a2a_capacity(self, data: SplitData, verbose: bool) -> None:
+        """``config.a2a_capacity`` resolved (measured when 0) from the
+        train batches and the 8x eval batches, before the first step: one
+        capacity serves every lookup. A no-op unless
+        ``embed_lookup='a2a'``."""
+        cfg = self.config
+        cfg.a2a_capacity = resolve_a2a_capacity(
+            cfg, self.mesh, self.model.spec, self.model.embed_dim,
+            [(data.train_x, cfg.bs), (data.valid_x, cfg.bs * 8),
+             (data.test_x, cfg.bs * 8)], verbose=verbose)
+        self._lookup_ctx = embed_lookup_ctx(cfg, self.mesh, self.model)
+
+    def save(self, path: str, **kw) -> None:
+        """``save_checkpoint`` of the model and the optimizer state. On a
+        mesh every rank takes part in gathering the table and its moments,
+        rank 0 writes the single-device format, and all meet at a barrier
+        after the write."""
+        sd, opt = full_state(self.model.state_dict(), self.opt_state or {},
+                             self.mesh)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_checkpoint(path, sd, opt, **kw)
+        if self.mesh is not None:
+            barrier("checkpoint", self.config.epoch_timeout_s or None)
+
     def is_continuable(self, result: Dict, epoch_i: int) -> bool:
         """Early stopping on mean_auc (total_auc when that is missing or
         NaN) with patience ``config.early_stop``; an improvement keeps a
@@ -623,14 +812,18 @@ class Trainer:
         batcher = GlobalBatcher(data.train_x, data.train_y, cfg.bs,
                                 data.spec.domain_idx, self.domain2group,
                                 seed=cfg.seed)
+        self.resolve_a2a_capacity(data, verbose)
         self.init()
         if warm_start is not None:
-            adopt_state_dict(self.model, warm_start["state_dict"])
+            adopt_state_dict(self.model, local_state(
+                warm_start["state_dict"], None, self.mesh)[0])
         start_epoch = 0
         if ckpt_dir and os.path.exists(os.path.join(ckpt_dir, "meta.json")):
             ck = load_checkpoint(ckpt_dir, map_location=self.device)
-            adopt_state_dict(self.model, ck["state_dict"])
-            restore_tree_(self.opt_state, ck["opt_state"], "opt_state")
+            sd, opt = local_state(ck["state_dict"], ck["opt_state"],
+                                  self.mesh)
+            adopt_state_dict(self.model, sd)
+            restore_tree_(self.opt_state, opt, "opt_state")
             set_generator_state(self.generator, ck["rng_state"])
             start_epoch = int(ck["epoch"])
             batcher.set_epoch(start_epoch)
@@ -655,7 +848,7 @@ class Trainer:
                             self.train_epoch_device(batcher) if device_data
                             else self.train_epoch(batcher))
                     train_s = time.time() - t0
-                    raise_if_nonfinite(train_loss, epoch_i)
+                    raise_if_nonfinite(train_loss, epoch_i, cfg)
                     result = self.evaluate(data.valid_x, data.valid_y,
                                            data.domain_cnt_weight)
                     result["train_loss"] = train_loss
@@ -683,10 +876,9 @@ class Trainer:
                                 data.valid_x, data.valid_y, verbose=verbose):
                             batcher.domain2group = self.domain2group
                     if ckpt_dir and self._improved:
-                        save_checkpoint(ckpt_dir, self.model.state_dict(),
-                                        self.opt_state, epoch=epoch_i + 1,
-                                        best_result=result,
-                                        generator=self.generator)
+                        self.save(ckpt_dir, epoch=epoch_i + 1,
+                                  best_result=result,
+                                  generator=self.generator)
                     if not cont:
                         break
             finally:

@@ -78,6 +78,27 @@ Phases, each printing one line:
            rounded operands, a step card vs CPU, step times, a served
            checkpoint); the epoch watchdog, a fresh process's first two
            epochs, and a trace;
+  mesh     the mesh paths (parallel/, Trainer(mesh=), AREADTrainer(mesh=),
+           the CLI under torch.distributed.run) at full Amazon width,
+           each against the single-process card run: (a) a world-1 NCCL
+           group, an all_reduce and one step on a 1 x 1 mesh; (b) 2 ranks
+           (mesh 1 x 2, 759,192 table rows each) of this script on the
+           one card under gloo: the train phase's 8 warm-up + 16 bagging
+           steps in bf16 and in f32 (losses alike on every rank and at
+           atol 1e-5 + 2 ulp against one process; the f32 shards bitwise
+           the unsharded kernel's rows after 3 steps), one bf16 shard
+           update bitwise the CPU plain version with the shard's seed, the
+           a2a lookup at its measured capacity bitwise the plain gather;
+           (c) 4 ranks (mesh 2 x 2): the reference phase's 4-chain
+           evolution (masks equal), 6 dense DeepFM steps (kernel 2 per
+           shard), one AREADTrainer.fit epoch at RESUME_DEPTH whose
+           gathered checkpoint load_predictor serves to the mesh
+           evaluation (1e-6); (d) the training CLI under
+           torch.distributed.run --nproc_per_node 2 --mesh_model 2 against
+           the single-process CLI (1e-5). Each rank's kernel launches are
+           held to the schedule's and added to the kernels' counts. Times
+           there are of "gloo, N ranks on one H100", not of NCCL across
+           cards;
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
@@ -89,8 +110,9 @@ Phases, each printing one line:
 
 The launch counts are set to 0 just before each path (train, train_dense
 and its parts, zoo's and zoo2's fits and steps, hemp, serve's resumes,
-options' evolutions and fits) and read just after it; a kernel's ``launches`` is the sum
-over the paths. Then one JSON line with every kernel's numbers, and last
+options' evolutions and fits, and in each rank of the mesh phase its
+runs) and read just after it; a kernel's ``launches`` is the sum over the
+paths, the ranks' included. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line. Imports nothing of JAX or of the JAX package.
@@ -461,6 +483,62 @@ def sparse_case(label, w32, m32, v32, uids, gsum, t, want_vpr):
     return worst
 
 
+def sparse_shard_case(w32, m32, v32, ids, t):
+    """Kernel 1 on model rank 1's rows of a 2-way row-sharded table,
+    [n_rows / 2, D], with the shard's local ids (``shard_run``) and its own
+    stochastic-rounding seed t * 2 + 1, against the plain version with the
+    same seed, in every storage variant: bitwise. A bf16 shard keyed on t
+    alone would round otherwise (checked: the seed reaches the kernel).
+    Returns the worst absolute error."""
+    from aread_tpu_torch.ops.sparse_adam import (dedup_rows,
+                                                 sparse_adam_cuda,
+                                                 sparse_adam_reference)
+    from aread_tpu_torch.parallel.sharded_adam import shard_run
+
+    n_rows, d = w32.shape
+    rows = n_rows // 2
+    dev = w32.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids_t = torch.as_tensor(ids.reshape(-1), dtype=torch.int32, device=dev)
+    grads = torch.randn((ids_t.numel(), d), generator=gen, device=dev)
+    uids, gsum = dedup_rows(ids_t, grads, n_rows)
+    local, gloc = shard_run(uids, gsum, rows, rows)
+    seed = t * 2 + 1
+    worst = 0.0
+    for vname, (wdt, mdt, want_l2) in SPARSE_VARIANTS.items():
+        w = w32[rows:].to(wdt).clone()
+        m, v = m32[rows:].to(mdt).clone(), v32[rows:].to(mdt).clone()
+        ref = sparse_adam_reference(w, m, v, local, gloc, t, want_l2=want_l2,
+                                    sr_seed=seed, **SPARSE_KW)
+        got = w.clone(), m.clone(), v.clone()
+        l2k = sparse_adam_cuda(*got, local, gloc, t, want_l2=want_l2,
+                               sr_seed=seed, **SPARSE_KW)
+        torch.cuda.synchronize()
+        line = {"shard": [rows, d], "model_index": 1, "sr_seed": seed,
+                "variant": vname,
+                "touched_rows": int((local < rows).sum()),
+                "bitwise": all(torch.equal(x, y)
+                               for x, y in zip(got, ref[:3])),
+                "max_abs_err": max(float((x.float() - y.float()).abs().max())
+                                   for x, y in zip(got, ref[:3]))}
+        if want_l2:
+            line["l2_rel_err"] = abs(float(l2k) - float(ref[3])) / float(ref[3])
+            if line["l2_rel_err"] > 1e-5:
+                raise AssertionError(f"shard sum(w^2): {line}")
+        if wdt == torch.bfloat16:
+            seed_t = sparse_adam_reference(w, m, v, local, gloc, t,
+                                           **SPARSE_KW)[0]
+            line["differs_from_seed_t"] = not torch.equal(seed_t, ref[0])
+            if not line["differs_from_seed_t"]:
+                raise AssertionError(f"the shard's seed changed nothing: "
+                                     f"{line}")
+        if not line["bitwise"]:
+            raise AssertionError(f"shard kernel != plain version: {line}")
+        worst = max(worst, line["max_abs_err"])
+        say("kernels", **line)
+    return worst
+
+
 def check_sparse_adam(ctx):
     """The sparse sweep, vector and scalar kernel, against its plain version
     at the full Amazon table (two batches) and at small tables whose D takes
@@ -528,6 +606,9 @@ def check_sparse_adam(ctx):
             {"batch": bname, "n_unique": n_unique}, w32, m32, v32, uids, gsum,
             t, d // 8))
         del ids_t, grads
+
+    # a row shard, as a mesh run updates it
+    worst = max(worst, sparse_shard_case(w32, m32, v32, batches["amazon"], t))
 
     # times at the main path's configuration: bf16 table and moments,
     # sum(w^2) wanted (config defaults), Amazon batch
@@ -3448,12 +3529,651 @@ def phase_profile_hemp(ctx):
     profile_steps(ctx, "hemp_chain", ctx["hemp_profile_args"])
 
 
+# ------------------------------------------------------------------ mesh
+# The mesh runs' ranks are processes of this script on cuda:0 (one card:
+# gloo over CUDA tensors, staged through host memory). Their times are of
+# "gloo, N ranks on one H100": not the cost of NCCL across cards.
+MESH_LABEL = "gloo, {n} ranks on one H100"
+# the DeepFM linear biases that feed a BatchNorm
+DEEPFM_PRE_BN_BIAS = r"^mlp/linear_\d+/bias$"
+AREAD_PRE_BN_BIAS = r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_spawn(part: str, world: int, workdir: str, timeout: float = 600.0):
+    """``world`` ranks of this script running ``mesh_part_<part>`` on the
+    card under gloo; returns each rank's result. Every rank is waited
+    for, and killed if it outlives the deadline."""
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(os.path.join(workdir, f"{part}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", part,
+             workdir], cwd=root, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    end = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"{part}_rank{r}.log")) as f:
+                tails.append(f"--- rank {r} (rc {procs[r][0].returncode}):\n"
+                             + f.read()[-3000:])
+        raise AssertionError(f"mesh part {part}: ranks {bad} failed\n"
+                             + "\n".join(tails))
+    return [torch.load(os.path.join(workdir, f"{part}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def mesh_rank_main(part: str, workdir: str) -> int:
+    """One rank of a mesh part: the process group from the environment
+    (gloo: two ranks share the card), the kernels the parent built, the
+    part, its result saved, a barrier."""
+    from aread_tpu_torch.ops.cuda import build
+    from aread_tpu_torch.parallel import distributed, health
+
+    backend = distributed.initialize("cuda")
+    if backend != "gloo":
+        raise AssertionError(f"{backend}: ranks sharing one card take gloo")
+    for name in KERNEL_SOURCES:
+        build.load(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {"b": mesh_part_b, "c": mesh_part_c}[part](workdir)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["backend"] = backend
+    torch.save(out, os.path.join(workdir, f"{part}_rank{rank}.pt"))
+    health.barrier("done", 300.0)
+    distributed.shutdown()
+    return 0
+
+
+def rank_counted(fn):
+    """(result, this rank's launch counts) of ``fn``, the counts set to 0
+    just before it and read just after (the card synchronised)."""
+    from aread_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(launch_counts)
+
+
+def mesh_aread(mesh, device, **cfg_kw):
+    """The train phase's AREAD (config defaults: bf16 table and moments,
+    dropout 0.2) on ``mesh``, or on one process when ``mesh`` is None."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.hemp import AREADTrainer
+
+    cfg = Config(**{"dataset_name": "amazon", "seed": 0, "bs": BS, **cfg_kw})
+    tr = AREADTrainer(build_model(cfg, amazon_spec(), N_DOMAIN,
+                                  device=device), cfg, N_DOMAIN, mesh=mesh)
+    tr.init()
+    return tr
+
+
+def mesh_steps_plan(tr):
+    """The train phase's 8 warm-up and 16 bagging steps (same rows, same
+    'rand' masks from the config's seed)."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+
+    spec = tr.model.spec
+    x, y = amazon_rows(np.random.default_rng(0), spec, N_DOMAIN * 3 * BS)
+    batcher = DomainBatcher(x, y, BS, spec.domain_idx, N_DOMAIN, seed=0)
+    ms = tr.mask_state
+    for d in range(N_DOMAIN):
+        ms.domain_mask[d] = ms.generate_mask("rand", d,
+                                             tr.config.init_active_percent)
+    seq = list(batcher.domain_batch_seq)
+    plan = [("warmup", seq[i]) for i in range(8)] + \
+        [("main", seq[8 + i]) for i in range(16)]
+    return [(kind, d, batcher.next_batch(d)) for kind, d in plan]
+
+
+def mesh_run_steps(tr, plan, snapshot_after=None):
+    """Run ``plan``; (losses, step ms by kind, the table after
+    ``snapshot_after`` steps)."""
+    losses, times, snap = [], [], None
+    for i, (kind, d, batch) in enumerate(plan):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if kind == "warmup":
+            loss, _ = tr.warmup_step(batch)
+        else:
+            loss, _ = tr.main_step(batch, tr.mask_state.domain_mask[d])
+        b.record()
+        losses.append(loss)
+        times.append((kind, a, b))
+        if snapshot_after is not None and i + 1 == snapshot_after:
+            snap = tr.model.embedding.table.cpu()
+    torch.cuda.synchronize()
+    ms = {k: statistics.median(a.elapsed_time(b) for kk, a, b in times
+                               if kk == k)
+          for k in ("warmup", "main") if any(p[0] == k for p in plan)}
+    return [float(l) for l in losses], ms, snap
+
+
+def mesh_part_b(workdir: str):
+    """Mesh (1, 2), sparse table gradient: the production (bf16) steps,
+    the same steps in f32 with the shard after 3 of them, one bf16 shard
+    update against the CPU plain version, the a2a lookup at its measured
+    capacity."""
+    from aread_tpu_torch.ops.sparse_adam import (dedup_rows,
+                                                 sparse_adam_reference)
+    from aread_tpu_torch.parallel import embed_shard as es
+    from aread_tpu_torch.parallel.mesh import gather_rows, make_mesh
+    from aread_tpu_torch.parallel.sharded_adam import (
+        shard_run, sharded_sparse_adam_deduped)
+
+    mesh = make_mesh(1, 2)
+    out = {"mesh": [mesh.data_index, mesh.model_index]}
+    for name, kw in (("bf16", {}), ("f32", {"table_dtype": "float32",
+                                            "table_moments_dtype": "float32"})):
+        tr = mesh_aread(mesh, mesh.device, **kw)
+        plan = mesh_steps_plan(tr)
+        (losses, ms, snap), launches = rank_counted(
+            lambda: mesh_run_steps(tr, plan, 3 if name == "f32" else None))
+        out[name] = {"losses": losses, "step_ms": ms, "launches": launches,
+                     "table_rows": list(tr.model.embedding.table.shape)}
+        if snap is not None:
+            out[name]["shard_after_3"] = snap
+        if name == "bf16":
+            # one more update of the bf16 shard, against the CPU plain
+            # version of the sharded update with the rank's seed
+            emb = tr.model.embedding
+            rng = np.random.default_rng(21)
+            ids = torch.as_tensor(amazon_table_ids(
+                rng, tr.model.spec.one_hot_dims, emb.n_rows).reshape(-1),
+                dtype=torch.int32, device=mesh.device)
+            g = torch.as_tensor(rng.standard_normal((ids.numel(), 32)),
+                                dtype=torch.float32, device=mesh.device)
+            uids, gsum = dedup_rows(ids, g, emb.n_rows)
+            w, m, v = (emb.table.clone(), tr.opt_state["m"].clone(),
+                       tr.opt_state["v"].clone())
+            t = tr.opt_state["t"] + 1
+            cpu_in = [a.cpu().clone() for a in (w, m, v)]
+            sharded_sparse_adam_deduped(w, m, v, uids, gsum, t, mesh,
+                                        lr=1e-3, l2=1e-5)
+            rows = w.shape[0]
+            local, gloc = shard_run(uids.cpu(), gsum.cpu(),
+                                    mesh.model_index * rows, rows)
+            want = sparse_adam_reference(*cpu_in, local, gloc, t, lr=1e-3,
+                                         l2=1e-5,
+                                         sr_seed=t * 2 + mesh.model_index)
+            out["bf16_update_bitwise"] = all(
+                torch.equal(a.cpu(), b) for a, b in zip((w, m, v), want))
+            out["bf16_update_max_abs_err"] = max(
+                float((a.cpu().float() - b.float()).abs().max())
+                for a, b in zip((w, m, v), want))
+            # the a2a lookup of the lane-packed table at the measured
+            # capacity, against the plain gather of the whole table
+            from aread_tpu_torch.config import Config
+            acfg = Config(embed_lookup="a2a", bs=BS, embed_dim=32)
+            x, _ = amazon_rows(np.random.default_rng(0), tr.model.spec,
+                               N_DOMAIN * 3 * BS)
+            cap = es.resolve_a2a_capacity(acfg, mesh, tr.model.spec, 32,
+                                          [(x, BS)])
+            lids, n_flat = es.lookup_ids(tr.model.spec, 32, x[:BS])
+            need = es.a2a_required_capacity(lids, n_flat, 2)
+            xb = torch.as_tensor(x[:BS], device=mesh.device)
+            tids = emb.table_ids(xb)
+            with torch.no_grad():
+                got = es.flat_a2a_lookup(emb.table, tids, mesh, cap, 4)
+                full = gather_rows(emb.table, mesh)
+                plain = full[tids].to(torch.float32)
+            out["a2a"] = {"capacity": cap, "required_one_batch": need,
+                          "bitwise": bool(torch.equal(got, plain)),
+                          "ids": int(tids.numel()),
+                          "unique_flat_rows": int(np.unique(lids).size)}
+            del full, plain
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_evolution_trainer(mesh, device):
+    """The reference phase's evolution trainer: full Amazon width, 2
+    domains, 2 candidates of 2 adapt steps and 2 probes, f32 table and
+    moments, dropout 0, the pre-BatchNorm biases at their true zero."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.train.hemp import AREADTrainer
+
+    cfg = Config(dataset_name="amazon", seed=0, dropout=0.0, bs=BS,
+                 table_dtype="float32", table_moments_dtype="float32",
+                 regroup_update_step=2, regroup_eval_step=2,
+                 candidate_mask_num=3)
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+    tr = AREADTrainer(build_model(cfg, spec, 2, n_tower=3, device=device),
+                      cfg, 2, mesh=mesh)
+    tr.optimizer = true_zero_adam(AREAD_PRE_BN_BIAS, cfg.lr, cfg.wd)
+    tr.fast_optimizer = true_zero_adam(AREAD_PRE_BN_BIAS, cfg.update_lr,
+                                       cfg.wd)
+    tr.init()
+    return tr
+
+
+def mesh_evolution_batchers():
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.models.base import FeatureSpec
+
+    spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)
+    rng = np.random.default_rng(5)
+    x, y = amazon_rows(rng, spec, 8 * BS)
+    x[:, spec.domain_idx] = rng.integers(0, 2, size=len(x))
+    return [DomainBatcher(x, y, BS, spec.domain_idx, 2, seed=s)
+            for s in (1, 2)]
+
+
+def mesh_dense_trainer(mesh, device):
+    """DeepFM with the dense table gradient (kernel 2), f32 table and
+    moments, dropout 0.2, the pre-BatchNorm biases at their true zero."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(model="deepfm", dataset_name="amazon", seed=0, bs=BS,
+                 sparse_table_grad=False, table_dtype="float32",
+                 table_moments_dtype="float32")
+    tr = Trainer(build_model(cfg, amazon_spec(), N_DOMAIN, device=device),
+                 cfg, N_DOMAIN, mesh=mesh)
+    tr.optimizer = true_zero_adam(DEEPFM_PRE_BN_BIAS, cfg.lr, cfg.wd)
+    tr.init()
+    return tr
+
+
+def mesh_dense_batches():
+    from aread_tpu_torch.data.loader import GlobalBatcher
+
+    x, y = amazon_rows(np.random.default_rng(11), amazon_spec(), 6 * BS)
+    return list(GlobalBatcher(x, y, BS, amazon_spec().domain_idx, seed=3))
+
+
+def mesh_timed_steps(tr, batches):
+    losses, ms = [], []
+    for b in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(tr.step(b))
+        e.record()
+        ms.append((a, e))
+    torch.cuda.synchronize()
+    return ([float(l) for l in losses],
+            statistics.median(a.elapsed_time(e) for a, e in ms))
+
+
+def mesh_fit_split():
+    depth = dict(RESUME_DEPTH)
+    n_train = depth.pop("train_batches") * BS
+    return amazon_split(np.random.default_rng(9), n_train,
+                        depth.pop("eval_rows"), aug=True), depth
+
+
+def mesh_part_c(workdir: str):
+    """Mesh (2, 2): the reference phase's evolution, 6 dense DeepFM steps
+    (kernel 2 per shard), one AREADTrainer.fit epoch at RESUME_DEPTH with
+    its checkpoint and the evaluation it is served against."""
+    from aread_tpu_torch.parallel.mesh import make_mesh
+    from aread_tpu_torch.train.checkpoint import full_state
+
+    mesh = make_mesh(2, 2)
+    out = {"mesh": [mesh.data_index, mesh.model_index]}
+    # (1) the evolution
+    tr = mesh_evolution_trainer(mesh, mesh.device)
+    records = spy_evolutions(tr)
+    batchers = mesh_evolution_batchers()
+    t0 = time.perf_counter()
+    _, launches = rank_counted(lambda: tr._mask_evolution(*batchers,
+                                                          verbose=False))
+    rec = records[0]
+    out["evolution"] = {"seconds": time.perf_counter() - t0,
+                        "launches": launches, "losses": rec["losses"],
+                        "candidates": rec["candidates"],
+                        "after": rec["after"]}
+    del tr
+    # (2) dense DeepFM steps
+    tr = mesh_dense_trainer(mesh, mesh.device)
+    (losses, step_ms), launches = rank_counted(
+        lambda: mesh_timed_steps(tr, mesh_dense_batches()))
+    sd, _ = full_state(tr.model.state_dict(), None, mesh)
+    out["dense"] = {"losses": losses, "step_ms": step_ms,
+                    "launches": launches}
+    if mesh.rank == 0:
+        out["dense"]["state"] = {k: v.cpu() for k, v in sd.items()}
+    del tr, sd
+    torch.cuda.empty_cache()
+    # (3) one fit epoch at RESUME_DEPTH, its checkpoint, its evaluation
+    data, depth = mesh_fit_split()
+    tr = mesh_aread(mesh, mesh.device, **depth)
+    t0 = time.perf_counter()
+    res, launches = rank_counted(lambda: tr.fit(
+        data, epochs=1, verbose=False,
+        ckpt_dir=os.path.join(workdir, "c_elastic")))
+    fit_s = time.perf_counter() - t0
+    tr.save(os.path.join(workdir, "c_serve"), epoch=1,
+            domain_mask=res["domain_mask"], spec=amazon_spec(),
+            run_config=tr.config, n_domain=N_DOMAIN)
+    x = data.test_x
+    didx = amazon_spec().domain_idx
+    probs = np.zeros(len(x), np.float32)
+    for d in range(N_DOMAIN):
+        idx = np.nonzero(x[:, didx] == d)[0]
+        if not len(idx):
+            continue
+        pad = np.concatenate([idx, idx[:len(idx) % 2]])  # even rows
+        p = tr.gather_rows(tr.eval_prob(tr.place({"x": x[pad]}),
+                                        res["domain_mask"][d]))
+        probs[idx] = p[:len(idx)].cpu().numpy()
+    out["fit"] = {"seconds": fit_s, "launches": launches,
+                  "history": res["history"], "test": res["test"],
+                  "probs": probs, "x": x,
+                  "masks": res["domain_mask"]}
+    return out
+
+
+def phase_mesh(ctx):
+    """The mesh paths at full Amazon width (see the module docstring):
+    (a) NCCL, world 1, one step on a 1 x 1 mesh; (b) gloo, 2 ranks, mesh
+    (1, 2); (c) gloo, 4 ranks, mesh (2, 2); (d) the CLI under
+    torch.distributed.run. Each against the single-process card run."""
+    import torch.distributed as dist
+
+    from aread_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    # the ranks load what the build phase built; build here when it did not
+    from aread_tpu_torch.ops.cuda import build
+    build.build_all(KERNEL_SOURCES)
+    # (a) a world-1 NCCL group on the card
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        t = torch.full((4,), 3.0, device="cuda")
+        dist.all_reduce(t)
+        if not torch.equal(t, torch.full((4,), 3.0, device="cuda")):
+            raise AssertionError(f"NCCL all_reduce over one rank: {t}")
+        mesh = make_mesh(1, 1)
+        tr = mesh_aread(mesh, "cuda")
+        plan = mesh_steps_plan(tr)[:1]
+        (losses, _, _), launches = rank_counted(
+            lambda: mesh_run_steps(tr, plan))
+        ctx.setdefault("launches_by_path", {})["mesh/a"] = launches
+        if launches != {"sparse_adam": 1, "fused_adam": 0} or not np.isfinite(
+                losses[0]):
+            raise AssertionError(f"1 x 1 mesh step: {losses} {launches}")
+        say("mesh", part="a", backend=dist.get_backend(), world=1,
+            all_reduce="ok", loss=losses[0], launches=launches)
+        del tr
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="aread_mesh_") as tmp:
+        mesh_check_b(ctx, tmp)
+        mesh_check_c(ctx, tmp)
+        mesh_check_d(ctx, tmp)
+    say("mesh", part="done", seconds=time.perf_counter() - t_phase)
+
+
+def mesh_check_b(ctx, tmp):
+    # the single-process card runs of the same steps
+    ref = {}
+    for name, kw in (("bf16", {}), ("f32", {"table_dtype": "float32",
+                                            "table_moments_dtype": "float32"})):
+        tr = mesh_aread(None, "cuda", **kw)
+        losses, ms, snap = mesh_run_steps(tr, mesh_steps_plan(tr),
+                                          3 if name == "f32" else None)
+        ref[name] = {"losses": losses, "step_ms": ms, "snap": snap}
+        del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_spawn("b", 2, tmp)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for name in ("bf16", "f32"):
+            ctx.setdefault("launches_by_path", {})[f"mesh/b_{name}/rank{r}"] = \
+                res[name]["launches"]
+            if res[name]["launches"] != {"sparse_adam": 24, "fused_adam": 0}:
+                raise AssertionError(f"rank {r} {name}: launches "
+                                     f"{res[name]['launches']}, 24 steps")
+            if res[name]["losses"] != ranks[0][name]["losses"]:
+                raise AssertionError(f"{name}: rank {r}'s losses differ")
+    # the reference phase's bound: a reported loss holds the table's L2
+    # term, in the hundreds at this width, where one f32 ulp is 6.1e-5, and
+    # the shards' sums of squares are added in another order
+    f32 = ranks[0]["f32"]["losses"]
+    diff = max_abs(f32, ref["f32"]["losses"])
+    if not np.allclose(f32, ref["f32"]["losses"], rtol=2 * 2.0**-23,
+                       atol=1e-5):
+        raise AssertionError(f"f32 mesh losses != single process: {diff}")
+    bf16 = ranks[0]["bf16"]["losses"]
+    bf16_first = abs(bf16[0] - ref["bf16"]["losses"][0])
+    if not (np.isclose(bf16[0], ref["bf16"]["losses"][0], rtol=2 * 2.0**-23,
+                       atol=1e-5) and np.isfinite(bf16).all()):
+        raise AssertionError(f"bf16 mesh first loss off by {bf16_first}")
+    snap = ref["f32"]["snap"]
+    rows = snap.shape[0] // 2
+    shards_bitwise = [bool(torch.equal(res["f32"]["shard_after_3"],
+                                       snap[r * rows:(r + 1) * rows]))
+                      for r, res in enumerate(ranks)]
+    if not all(shards_bitwise):
+        raise AssertionError(f"f32 shards after 3 steps: {shards_bitwise}")
+    for r, res in enumerate(ranks):
+        if not (res["bf16_update_bitwise"] and res["a2a"]["bitwise"]):
+            raise AssertionError(f"rank {r}: bf16 shard update "
+                                 f"{res['bf16_update_bitwise']}, a2a rows "
+                                 f"{res['a2a']['bitwise']}")
+    ctx["mesh_sharded_err"] = max(r["bf16_update_max_abs_err"] for r in ranks)
+    say("mesh", part="b", mesh=[1, 2], label=MESH_LABEL.format(n=2),
+        backend=ranks[0]["backend"], table_rows_per_rank=ranks[0]["bf16"][
+            "table_rows"],
+        steps={"warmup": 8, "main": 16},
+        step_ms_mesh={n: ranks[0][n]["step_ms"] for n in ("bf16", "f32")},
+        step_ms_single_process={n: ref[n]["step_ms"] for n in ("bf16", "f32")},
+        launches_per_rank=[{n: r[n]["launches"] for n in ("bf16", "f32")}
+                           for r in ranks],
+        f32_losses_max_abs_diff=diff, tolerance="atol 1e-5 + 2 f32 ulp",
+        bf16_first_loss_diff=bf16_first,
+        bf16_loss_last={"mesh": ranks[0]["bf16"]["losses"][-1],
+                        "single": ref["bf16"]["losses"][-1]},
+        f32_shards_after_3_steps_bitwise=shards_bitwise,
+        bf16_shard_update_vs_cpu_plain_bitwise=[
+            r["bf16_update_bitwise"] for r in ranks],
+        a2a=[r["a2a"] for r in ranks],
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        ranks_wall_s=wall)
+
+
+def mesh_check_c(ctx, tmp):
+    from aread_tpu_torch.serve.predictor import load_predictor
+
+    # single-process card references: the evolution and the dense steps
+    tr = mesh_evolution_trainer(None, "cuda")
+    records = spy_evolutions(tr)
+    tr._mask_evolution(*mesh_evolution_batchers(), verbose=False)
+    ref_evo = records[0]
+    del tr
+    tr = mesh_dense_trainer(None, "cuda")
+    ref_losses, ref_ms = mesh_timed_steps(tr, mesh_dense_batches())
+    ref_state = {k: v.cpu() for k, v in tr.model.state_dict().items()}
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_spawn("c", 4, tmp)
+    wall = time.perf_counter() - t0
+    data, depth = mesh_fit_split()
+    from aread_tpu_torch.config import Config
+    want_fit = sparse_adam_launches_of_fit(Config(bs=BS, **depth), data, 1)
+    evo_diff = 0.0
+    for r, res in enumerate(ranks):
+        lb = ctx.setdefault("launches_by_path", {})
+        lb[f"mesh/c_evolution/rank{r}"] = res["evolution"]["launches"]
+        lb[f"mesh/c_dense/rank{r}"] = res["dense"]["launches"]
+        lb[f"mesh/c_fit/rank{r}"] = res["fit"]["launches"]
+        if res["evolution"]["launches"] != {"sparse_adam": 8, "fused_adam": 0}:
+            raise AssertionError(f"rank {r} evolution launched "
+                                 f"{res['evolution']['launches']}")
+        if res["dense"]["launches"] != {"sparse_adam": 0, "fused_adam": 6}:
+            raise AssertionError(f"rank {r} dense launched "
+                                 f"{res['dense']['launches']}")
+        if res["fit"]["launches"] != {"sparse_adam": want_fit,
+                                      "fused_adam": 0}:
+            raise AssertionError(f"rank {r} fit launched "
+                                 f"{res['fit']['launches']}, the schedule "
+                                 f"{want_fit}")
+        evo = res["evolution"]
+        for d in range(2):
+            for a, b in zip(ref_evo["candidates"][d], evo["candidates"][d]):
+                if not masks_equal(a, b):
+                    raise AssertionError(f"rank {r} domain {d}: a candidate "
+                                         "mask differs from one process")
+            if not masks_equal(ref_evo["after"][d], evo["after"][d]):
+                raise AssertionError(f"rank {r} domain {d}: another mask")
+            a, b = np.array(ref_evo["losses"][d]), np.array(evo["losses"][d])
+            evo_diff = max(evo_diff, float(np.max(np.abs(a - b))))
+            if not np.allclose(b, a, rtol=2 * 2.0 ** -23, atol=1e-5):
+                raise AssertionError(f"probe losses: {a} {b}")
+        if res["dense"]["losses"] != ranks[0]["dense"]["losses"]:
+            raise AssertionError(f"rank {r}: dense losses differ by rank")
+    dense_diff = max_abs(ranks[0]["dense"]["losses"], ref_losses)
+    state = ranks[0]["dense"]["state"]
+    # the losses at the reference phase's bound; weights and BatchNorm
+    # statistics at atol 1e-4: the global batch's BatchNorm sums and the
+    # dense gradients are added in another order, and where an entry's
+    # gradient is near 0 Adam turns that round-off into a step of up to lr
+    # (1e-3) per step (the reference phase gives such entries their true
+    # zero; an entry of the first kernel here moved 2.4e-5 in 6 steps)
+    worst = max(((max_abs(state[k].float(), v.float()), k)
+                 for k, v in ref_state.items()))
+    bad = [k for k, v in ref_state.items()
+           if not torch.allclose(state[k].float(), v.float(), rtol=0,
+                                 atol=1e-4)]
+    if not np.allclose(ranks[0]["dense"]["losses"], ref_losses,
+                       rtol=2 * 2.0**-23, atol=1e-5) or bad:
+        raise AssertionError(f"dense mesh != one process: losses {dense_diff}"
+                             f", tensors {bad}, worst {worst}")
+    state_diff = worst[0]
+    fit = ranks[0]["fit"]
+    check_metrics("mesh fit", (("valid", fit["history"][0]),
+                               ("test", fit["test"])))
+    pred = load_predictor(os.path.join(tmp, "c_serve"))
+    if pred.model.embedding.table.shape[0] != amazon_spec().with_flat_table(
+            EMBED_DIM).n_rows:
+        raise AssertionError("the served table is not the whole table")
+    served = predict_per_domain(pred, fit["x"])
+    served_diff = max_abs(served, fit["probs"])
+    if served_diff > 1e-6:
+        raise AssertionError(f"served != the mesh evaluation: {served_diff}")
+    del pred
+    say("mesh", part="c", mesh=[2, 2], label=MESH_LABEL.format(n=4),
+        backend=ranks[0]["backend"],
+        evolution={"chains": 4, "masks_equal": True,
+                   "probe_loss_max_abs_diff": evo_diff,
+                   "tolerance": "atol 1e-5 + 2 f32 ulp",
+                   "seconds_per_rank": [r["evolution"]["seconds"]
+                                        for r in ranks]},
+        dense={"steps": 6, "loss_max_abs_diff": dense_diff,
+               "state_max_abs_diff": state_diff, "state_worst": worst[1],
+               "tolerance": "losses atol 1e-5 + 2 f32 ulp, state atol 1e-4",
+               "step_ms_mesh": ranks[0]["dense"]["step_ms"],
+               "step_ms_single_process": ref_ms},
+        fit={"depth": RESUME_DEPTH, "seconds": fit["seconds"],
+             "sparse_adam_schedule": want_fit,
+             "test_total_auc": fit["test"]["total_auc"],
+             "served_vs_mesh_eval": served_diff, "tolerance": 1e-6},
+        launches_per_rank=[{k: r[k]["launches"] for k in
+                            ("evolution", "dense", "fit")} for r in ranks],
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        ranks_wall_s=wall)
+
+
+def mesh_check_d(ctx, tmp):
+    """The CLI as a user launches a mesh run, against the single-process
+    CLI on the same seed-made CSV (f32 table and moments: a bf16 shard
+    rounds with its own stream)."""
+    from aread_tpu_torch.data.pipeline import preprocessed_csv_path
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data_path = os.path.join(tmp, "cli_dataset")
+    csv = preprocessed_csv_path("aliccp", data_path)
+    os.makedirs(os.path.dirname(csv))
+    canonical_aliccp_frame(3000, seed=11).to_csv(csv, index=False)
+    env = dict(os.environ, AREAD_TPU_CACHE="0")
+    common = ["--model", "aread", "--dataset_name", "aliccp", "--data_path",
+              data_path, "--bs", "256", "--embed_dim", "8", "--epoch", "1",
+              "--warm_up_interval", "1", "--regroup_interval", "8",
+              "--candidate_mask_num", "2", "--regroup_update_step", "2",
+              "--regroup_eval_step", "2", "--table_dtype", "float32",
+              "--table_moments_dtype", "float32"]
+    results = {}
+    for name, launcher in (
+            ("single", [sys.executable, "-m", "aread_tpu_torch"]),
+            ("mesh", [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node", "2", "-m",
+                      "aread_tpu_torch", "--mesh_model", "2"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            launcher + common + ["--save_path", os.path.join(tmp, name)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} CLI exited {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        line = [l for l in proc.stdout.splitlines() if l.startswith("test: ")]
+        if len(line) != 1:
+            raise AssertionError(f"{name} CLI printed {len(line)} test lines")
+        results[name] = (eval(line[0][len("test: "):], {"nan": float("nan")}),
+                         time.perf_counter() - t0, proc.stdout)
+    if "mesh: data=1 model=2 backend=gloo" not in results["mesh"][2]:
+        raise AssertionError("the mesh CLI did not print its mesh line")
+    one, mesh = results["single"][0], results["mesh"][0]
+    diff = max(abs(mesh[k] - v) for k, v in one.items()
+               if np.isfinite(v) or np.isfinite(mesh[k]))
+    if diff > 1e-5 or set(one) != set(mesh):
+        raise AssertionError(f"mesh CLI != single CLI: {one} {mesh}")
+    say("mesh", part="d", launcher="torch.distributed.run --nproc_per_node 2",
+        label=MESH_LABEL.format(n=2), test_metrics_max_abs_diff=diff,
+        tolerance=1e-5, seconds={"single": results["single"][1],
+                                 "mesh": results["mesh"][1]},
+        test_total_auc=mesh["total_auc"])
+
+
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
           "train_dense": phase_train_dense, "zoo": phase_zoo,
           "zoo2": phase_zoo2, "hemp": phase_hemp,
-          "serve": phase_serve, "options": phase_options}
+          "serve": phase_serve, "options": phase_options,
+          "mesh": phase_mesh}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}
 
@@ -3463,7 +4183,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--profile-dir", default="profile",
                     help="where the profile phase writes its tables and trace")
+    ap.add_argument("--mesh-rank", nargs=2, metavar=("PART", "WORKDIR"),
+                    help=argparse.SUPPRESS)  # a rank of the mesh phase
     args = ap.parse_args(argv)
+    if args.mesh_rank and torch.cuda.is_available():
+        return mesh_rank_main(*args.mesh_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on a GPU only", file=sys.stderr)

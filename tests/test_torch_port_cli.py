@@ -6,9 +6,12 @@ with HEMP, writes the augmented file, the self-contained best checkpoint
 aread_tpu_torch.serve`` scores a CSV to the probabilities that
 ``load_predictor(...).predict`` gives in this process (atol 1e-6; the same
 code on the same rows); every ``--flag`` of the root ``main.py`` but
-``--platform`` parses; a flag whose feature is not ported raises by name,
-and the flags of the options ported since run; the zoo's models train,
-save and serve through the CLI in process."""
+``--platform`` parses; the flags of the options ported since run (the
+mesh's: ``--embed_lookup a2a`` without a mesh and a mesh in one process
+raise by name, as they must; ``--a2a_capacity`` without a2a is taken and
+not acted on, as in ``main.py``); the zoo's models train, save and serve
+through the CLI in process. The CLI under ``torch.distributed.run`` is in
+test_torch_port_mesh.py."""
 
 import ast
 import json
@@ -20,7 +23,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from aread_tpu_torch.__main__ import UNPORTED_FLAGS, load_config, main
+from aread_tpu_torch.__main__ import load_config, main
 from aread_tpu_torch.data.loader import (dataset_columns, load_split_data,
                                          tensorize)
 from aread_tpu_torch.data.pipeline import preprocessed_csv_path
@@ -237,11 +240,14 @@ def test_train_cli_runs_the_zoos_second_half(dirs, flags, capsys):
 ])
 def test_unported_flag_is_accepted_and_raises_by_name(dirs, flags, name,
                                                       monkeypatch, capsys):
-    """A mesh, --embed_lookup a2a and --a2a_capacity still raise by name.
-    The other flags, refused until their features were ported, train one
+    """The flags, refused until their features were ported, train one
     epoch through the CLI (in process) and reach what they set: the
     metric files, the between-epoch regroup, the epoch watchdog (with the
-    first epoch's grace) and the overlay chains."""
+    first epoch's grace), the overlay chains, and --a2a_capacity, which
+    without the a2a lookup is taken and not acted on (as in main.py).
+    A mesh in one process and --embed_lookup a2a without a mesh raise by
+    name; under torch.distributed.run the mesh trains
+    (test_torch_port_mesh.py)."""
     from aread_tpu_torch.parallel import health
     from aread_tpu_torch.train import hemp, trainer
     from aread_tpu_torch.train.trainer import Trainer
@@ -252,8 +258,10 @@ def test_unported_flag_is_accepted_and_raises_by_name(dirs, flags, name,
             "--bs", "64", "--embed_dim", "8", "--epoch", "1", *HEMP_FLAGS]
     if "--model" not in flags:
         args += ["--model", "aread"]
-    if name in ("embed_lookup", "mesh", "a2a_capacity"):
-        with pytest.raises(NotImplementedError, match=name):
+    if name in ("embed_lookup", "mesh"):
+        with pytest.raises(ValueError, match={
+                "embed_lookup": "embed_lookup='a2a' needs a device mesh",
+                "mesh": "mesh of data=2 x model=1 needs 2 processes"}[name]):
             main(args + flags)
         return
     if name == "log_dir":
@@ -295,6 +303,10 @@ def test_unported_flag_is_accepted_and_raises_by_name(dirs, flags, name,
     monkeypatch.setattr(hemp.oa, "drift_table_l2", drift)
     main(args + flags)
     assert 0.0 <= test_result(capsys.readouterr().out)["total_auc"] <= 1.0
+    if name == "a2a_capacity":
+        meta = load_checkpoint(os.path.join(save, "aliccp", "aread_best"))
+        assert meta["config"]["a2a_capacity"] == 8
+        assert meta["config"]["embed_lookup"] == "gspmd"
     tag = "train_epoch0" if name == "dynamic_regroup" else "aread_epoch0"
     (timeout, got_tag, kill), = seen["watchdog"]
     assert got_tag == tag
@@ -315,9 +327,12 @@ def test_unported_flag_is_accepted_and_raises_by_name(dirs, flags, name,
 
 
 def test_unported_flag_fails_the_process(dirs):
+    """--embed_lookup a2a without a mesh fails the process by name (a mesh
+    run is launched by torch.distributed.run)."""
     proc = train(dirs, "deepfm", "--embed_lookup", "a2a", expect_ok=False)
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "embed_lookup" in proc.stderr
+    assert "ValueError" in proc.stderr and "embed_lookup" in proc.stderr
+    assert "needs a device mesh" in proc.stderr
     assert "checkpoint saved" not in proc.stdout
 
 
@@ -365,9 +380,8 @@ def _main_py_flags():
 
 def test_every_flag_of_main_py_parses():
     """A main.py command line runs here: each flag, given main.py's
-    default (a store_true flag given alone), parses; the one whose
-    feature is not ported (--a2a_capacity) raises by name when set and
-    parses at its default."""
+    default (a store_true flag given alone), parses, and the mesh's flags
+    with other values too (--a2a_capacity 8, --mesh_model 2)."""
     seen = set()
     for flag, kw in _main_py_flags():
         if flag == "--platform":  # --device takes its place
@@ -378,15 +392,13 @@ def test_every_flag_of_main_py_parses():
         else:
             default = kw.get("default")
             argv = [flag, "[0]" if default is None else str(default)]
-        if flag[2:] in UNPORTED_FLAGS:
-            with pytest.raises(NotImplementedError, match=flag[2:]):
-                load_config(argv if len(argv) == 1 else [flag, "8"])
-            if len(argv) == 1:
-                continue
         cfg, _ = load_config(argv)
         assert isinstance(cfg.model, str)
-    assert set(UNPORTED_FLAGS) | {"prng_impl", "model", "epoch_timeout_s",
-                                  "embed_lookup"} <= seen
+        if flag[2:] in ("a2a_capacity", "mesh_data", "mesh_model"):
+            cfg, _ = load_config([flag, "8"])
+            assert getattr(cfg, flag[2:]) == 8
+    assert {"a2a_capacity", "mesh_data", "mesh_model", "prng_impl", "model",
+            "epoch_timeout_s", "embed_lookup"} <= seen
     assert len(seen) >= 40
     # prng_impl has no meaning here: either value gives the same config
     assert (load_config(["--prng_impl", "threefry"])[0]

@@ -4,10 +4,12 @@ models, load_predictor, both CLIs) raises instead of running on the CPU; the CUD
 the kernel build keeps IEEE arithmetic, names a library by its sources and
 every shared header; both kernels count their launches in one place; the
 sparse kernel's slot map has one key; chip_smoke.py knows both kernels,
-drives both trainers, the HEMP loop and the serving path and ends with
-the fixed line; what the trainers leave unported raises by name, and what
-they have ported since (streaming_eval, warm_start, ckpt_dir, the overlay
-engine, compute_dtype, log_dir, the epoch watchdog) does not."""
+drives both trainers, the HEMP loop, the serving path and the mesh and
+ends with the fixed line; what the trainers had left unported runs
+(streaming_eval, warm_start, ckpt_dir, the overlay engine,
+compute_dtype, log_dir, the epoch watchdog, a mesh and
+embed_lookup='a2a'), and no module of the port refuses a mesh, a2a or
+the barrier as not ported."""
 
 import ast
 import dataclasses
@@ -35,6 +37,9 @@ from aread_tpu_torch.train.hemp import AREADTrainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "aread_tpu")
+PARALLEL_MODULES = ("parallel/mesh.py", "parallel/distributed.py",
+                    "parallel/health.py", "parallel/embed_shard.py",
+                    "parallel/sharded_adam.py", "parallel/train_step.py")
 SERVING_MODULES = ("config.py", "convert.py", "__main__.py",
                    "train/checkpoint.py", "train/metrics.py",
                    "data/loader.py", "data/augment.py", "data/pipeline.py",
@@ -64,6 +69,13 @@ def test_serving_modules_are_among_the_checked_files():
     checked = {str(p.relative_to(ROOT / "aread_tpu_torch"))
                for p in PORT_FILES[:-1]}
     assert set(SERVING_MODULES) <= checked
+    # the mesh layer too: it imports torch.distributed, never jax
+    assert set(PARALLEL_MODULES) <= checked
+    for m in PARALLEL_MODULES:
+        roots = set(_imported_roots(ROOT / "aread_tpu_torch" / m))
+        assert roots <= {"__future__", "contextlib", "os", "datetime",
+                         "threading", "time", "typing", "numpy", "torch",
+                         "aread_tpu_torch"}, (m, roots)
     # the server is standard library and numpy only
     roots = set(_imported_roots(ROOT / "aread_tpu_torch/serve/server.py"))
     assert roots <= {"__future__", "json", "threading", "http", "numpy"}
@@ -302,7 +314,7 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     # the default list is PHASES' keys; every earlier phase is still there
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
                                "train", "eval", "train_dense", "zoo", "zoo2",
-                               "hemp", "serve", "options"]
+                               "hemp", "serve", "options", "mesh"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
             "final_epoch"} <= set(dicts["HEMP_DEPTH"])
@@ -350,6 +362,37 @@ def test_chip_smoke_runs_the_options_phase():
                  "epoch_timeout_s=", "HealthError", "log_dir=",
                  "AREAD_TPU_TRACE", "hemp_mask_evolution", "counted("):
         assert name in src, name
+
+
+def test_chip_smoke_runs_the_mesh_phase():
+    """The mesh phase drives both trainers and the CLI on a mesh (NCCL at
+    world 1, then gloo ranks of the script itself on the one card), holds
+    each rank's kernel launches to the schedule's and adds them to the
+    kernels' counts, labels its times as gloo on one card, and the kernels
+    phase holds kernel 1 on a row shard with its own seed."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    src = "".join(v for k, v in funcs.items() if k.startswith("mesh"))
+    phase = funcs["phase_mesh"]
+    for name in ("'nccl'", "all_reduce", "make_mesh(1, 1)", "mesh_check_b",
+                 "mesh_check_c", "mesh_check_d"):
+        assert name in phase, name
+    for name in ("make_mesh(1, 2)", "make_mesh(2, 2)", "'--mesh-rank'",
+                 "torch.distributed.run", "'--mesh_model', '2'",
+                 "sharded_sparse_adam_deduped", "flat_a2a_lookup",
+                 "resolve_a2a_capacity", "_mask_evolution", ".fit(",
+                 "load_predictor", "launches_by_path", "MESH_LABEL",
+                 "rank_counted(", "sparse_adam_launches_of_fit",
+                 "'fused_adam': 6", "'sparse_adam': 24", "sr_seed=t * 2"):
+        assert name in src, name
+    assert "gloo, {n} ranks on one H100" in (ROOT / "chip_smoke.py").read_text()
+    shard = funcs["sparse_shard_case"]
+    assert "sr_seed=seed" in shard and "shard_run" in shard
+    assert "sparse_shard_case(" in funcs["check_sparse_adam"]
+    main = funcs["main"]
+    assert "mesh_rank_main" in main
+    assert main.index("mesh_rank") < main.index("is_available() is False")
 
 
 def test_chip_smoke_runs_the_zoo_phase():
@@ -424,14 +467,18 @@ def _toy_aread():
                                         ("epoch_timeout_s", 5.0),
                                         ("embed_lookup", "a2a")])
 def test_unported_hemp_options_raise_by_name(name, value, tmp_path):
-    """embed_lookup='a2a' (a mesh's gather) still raises by name; the
-    other four options, refused until they were ported, each run one
-    epoch of AREADTrainer.fit at toy size and show their effect."""
+    """The five options, refused until they were ported, each run one
+    epoch of AREADTrainer.fit at toy size and show their effect;
+    embed_lookup='a2a' (a mesh's gather) on a 1 x 1 mesh, which one
+    process takes without a process group, and by name without a mesh."""
+    from aread_tpu_torch.parallel.mesh import make_mesh
+
     data, cfg, model = _toy_aread()
+    mesh = None
     if name == "embed_lookup":
-        with pytest.raises(NotImplementedError, match=name):
+        with pytest.raises(ValueError, match="a2a.*mesh"):
             AREADTrainer(model, dataclasses.replace(cfg, **{name: value}), 3)
-        return
+        mesh = make_mesh(1, 1, device="cpu")
     if name == "log_dir":
         value = str(tmp_path / value)
     if name == "epoch_timeout_s":
@@ -440,7 +487,7 @@ def test_unported_hemp_options_raise_by_name(name, value, tmp_path):
                               regroup_interval=1000, regroup_update_step=2,
                               regroup_eval_step=1, candidate_mask_num=2,
                               **{name: value})
-    tr = AREADTrainer(model, cfg, 3)
+    tr = AREADTrainer(model, cfg, 3, mesh=mesh)
     res = tr.fit(data, epochs=1, verbose=False)
     assert len(res["history"]) == 1 and np.isfinite(res["test"]["total_auc"])
     if name == "hemp_fast_adapt":
@@ -457,6 +504,9 @@ def test_unported_hemp_options_raise_by_name(name, value, tmp_path):
             tr.init()
             losses.append(float(tr.warmup_step(batch)[0]))
         assert 0 < abs(losses[0] - losses[1]) < 1e-2
+    elif name == "embed_lookup":
+        # the lookup ran through the exchange, at a measured capacity
+        assert tr.config.a2a_capacity > 0 and model.embedding.mesh is mesh
     elif name == "log_dir":
         (run,) = list((tmp_path / value).iterdir())
         lines = (run / "metrics.jsonl").read_text().splitlines()
@@ -481,8 +531,14 @@ def test_unported_fit_arguments_and_ple_raise_by_name(tmp_path):
                  ckpt_dir=str(tmp_path / "ckpt"))
     assert len(res["history"]) == 1
     assert (tmp_path / "ckpt" / "meta.json").exists()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        AREADTrainer(model, cfg, 3, mesh=object())
+    # a mesh is ported: one process takes a 1 x 1 mesh and refuses a
+    # larger one by name; the overlay engine is one device's
+    from aread_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="data=1 x model=2 needs 2"):
+        AREADTrainer(model, cfg, 3, mesh=make_mesh(1, 2, device="cpu"))
+    with pytest.raises(ValueError, match="overlay.*single-device"):
+        AREADTrainer(model, dataclasses.replace(cfg, hemp_fast_adapt="overlay"),
+                     3, mesh=make_mesh(1, 1, device="cpu"))
     # the PLE base builds; an unknown base is refused as in the JAX package
     ple = build_model(dataclasses.replace(cfg, base_model="ple"), data.spec,
                       3, device="cpu")
@@ -544,6 +600,17 @@ def test_resolved_fast_adapt_engine_is_logged_once(caplog):
     lines = [r.getMessage() for r in caplog.records
              if "hemp_fast_adapt" in r.getMessage()]
     assert len(lines) == 1 and "full-sweep" in lines[0]
+
+
+def test_no_mesh_refusal_is_left():
+    """No module of the port refuses a mesh, the a2a lookup or the
+    barrier as not ported."""
+    import re
+
+    for p in PORT_FILES[:-1]:
+        for m in re.finditer(r"NotImplementedError\([^)]*", p.read_text()):
+            assert not re.search(r"mesh|a2a|barrier", m.group(0), re.I), (
+                p, m.group(0))
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

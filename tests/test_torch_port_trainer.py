@@ -16,9 +16,10 @@ aread_tpu_torch/convert.py) on the same seed-made data:
 * two epochs of Trainer.fit: train loss, valid and test metrics, the
   early-stop bookkeeping;
 * the device-resident epoch against the host-batch epoch inside the port;
-* options that are not ported raise NotImplementedError (streaming_eval,
-  warm_start and ckpt_dir are ported: tests/test_torch_port_checkpoint.py,
-  tests/test_torch_port_streaming_auc.py).
+* the options ported since they were refused run (streaming_eval,
+  warm_start and ckpt_dir: tests/test_torch_port_checkpoint.py,
+  tests/test_torch_port_streaming_auc.py; a mesh and embed_lookup='a2a':
+  tests/test_torch_port_parallel.py, tests/test_torch_port_mesh.py).
 
 A linear bias that feeds a BatchNorm has a true gradient of exactly 0; the
 computed one is round-off, which Adam normalizes into a step of up to lr
@@ -374,11 +375,16 @@ def test_device_resident_epoch_equals_host_epoch(model):
 
 
 def test_unported_options_raise(tmp_path):
-    """embed_lookup='a2a' and a mesh still raise by name; the options
-    refused until they were ported now run (what each does is checked
-    against the JAX package in test_torch_port_options.py): a bf16 step,
-    the regroup's refusal of a single-tower model (as the JAX package's),
-    the metric files, an epoch under a generous watchdog."""
+    """The options refused until they were ported now run (what each does
+    is checked against the JAX package in test_torch_port_options.py and
+    test_torch_port_parallel.py): a bf16 step, the regroup's refusal of a
+    single-tower model (as the JAX package's), the metric files, an epoch
+    under a generous watchdog, and embed_lookup='a2a' — an epoch on a
+    1 x 1 mesh, which a process without a process group takes, while
+    without a mesh the option raises by name, as in the JAX package; a
+    larger mesh in one process raises by name."""
+    from aread_tpu_torch.parallel.mesh import make_mesh
+
     data = make_synthetic_data(n_rows=256, n_domain=N_DOMAIN, vocab=40)
     cfg = Config(model="deepfm", embed_dim=E, sparse_table_grad=False,
                  bs=64)
@@ -390,8 +396,13 @@ def test_unported_options_raise(tmp_path):
                         ("embed_lookup", "a2a")):
         ocfg = dataclasses.replace(cfg, **{name: value})
         if name == "embed_lookup":
-            with pytest.raises(NotImplementedError, match=name):
+            with pytest.raises(ValueError, match="a2a.*mesh"):
                 Trainer(model, ocfg, N_DOMAIN)
+            tr = Trainer(build_model(cfg, data.spec, N_DOMAIN, device="cpu"),
+                         ocfg, N_DOMAIN, mesh=make_mesh(1, 1, device="cpu"))
+            res = tr.fit(data, epochs=1, verbose=False)
+            assert tr.config.a2a_capacity > 0  # resolved before the steps
+            assert np.isfinite(res["history"][0]["train_loss"])
             continue
         tr = Trainer(model, ocfg, N_DOMAIN)
         if name == "compute_dtype":
@@ -407,8 +418,8 @@ def test_unported_options_raise(tmp_path):
             assert len(res["history"]) == 1
     (run,) = list((tmp_path / "logs").iterdir())
     assert len((run / "metrics.jsonl").read_text().splitlines()) == 2
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(model, cfg, N_DOMAIN, mesh=object())
+    with pytest.raises(ValueError, match="mesh of data=2 x model=1 needs 2"):
+        Trainer(model, cfg, N_DOMAIN, mesh=make_mesh(2, 1, device="cpu"))
     tr = Trainer(model, cfg, N_DOMAIN)
     # streaming_eval is ported: the option builds a trainer
     Trainer(model, dataclasses.replace(cfg, streaming_eval=True), N_DOMAIN)
