@@ -4,10 +4,13 @@
   python -m aread_tpu_torch --model aread --dataset_name aliccp \\
       --data_path dataset ...
 
-Flow: load the config -> the preprocessed CSV must exist -> (AREAD: the
+Flow: load the config -> the canonical CSV, built from the raw dumps
+under ``data_path`` when missing (``data/pipeline.py``) -> (AREAD: the
 augmented CSV, generated under ``save_path`` when missing) -> train and
 evaluate -> save ``save/{dataset}/{model}_best``, a self-contained
-checkpoint that ``python -m aread_tpu_torch.serve`` serves from.
+checkpoint that ``python -m aread_tpu_torch.serve`` serves from. A
+``stages:`` line gives the seconds of each step and the parser that read
+the CSVs.
 
 Runs on the card; ``--device cpu`` asks for the CPU. Every flag of
 ``main.py`` but ``--platform`` is accepted, and ``--compute_dtype`` and
@@ -26,7 +29,8 @@ The process group's backend is ``gloo`` on the CPU and ``nccl`` on cards,
 unless a node runs more ranks than it has cards (NCCL refuses two ranks on
 one card): then ``gloo`` (``parallel/distributed.py``); the ``mesh:`` line
 names it. The vocab is padded to a multiple of ``--mesh_model``, ``--bs``
-must divide over ``--mesh_data``, rank 0 prints and writes the
+must divide over ``--mesh_data``, rank 0 builds the canonical and the
+augmented CSV while the others wait, rank 0 prints and writes the
 checkpoint, and a single process asked for a mesh raises by name.
 """
 
@@ -36,8 +40,10 @@ import argparse
 import ast
 import dataclasses
 import hashlib
+import json
 import os
 import random
+import time
 
 import numpy as np
 
@@ -204,14 +210,31 @@ def main(argv=None):
             shutdown()
 
 
+def canonical_csv(cfg, mesh=None) -> str:
+    """The canonical CSV's path, built from the raw dumps when it is
+    missing, as ``main.py`` builds it. On a mesh rank 0 builds it while the
+    others wait at a barrier; they then take the skip path."""
+    from aread_tpu_torch.data.pipeline import run_preprocessing
+    from aread_tpu_torch.parallel.health import barrier
+
+    def build():
+        return run_preprocessing(cfg.dataset_name, cfg.data_path,
+                                 prepare2train_month=cfg.prepare2train_month,
+                                 seed=cfg.seed)
+
+    path = build() if mesh is None or mesh.rank == 0 else None
+    if mesh is not None:
+        barrier("preprocessing")
+    return path or build()
+
+
 def _run(cfg, device, mesh, backend):
     is_main = mesh is None or mesh.rank == 0
 
     import pandas as pd
 
     from aread_tpu_torch.data.augment import make_augmentation
-    from aread_tpu_torch.data.loader import load_split_data
-    from aread_tpu_torch.data.pipeline import run_preprocessing
+    from aread_tpu_torch.data.loader import load_split_data, parser_of
     from aread_tpu_torch.models import build_model
     from aread_tpu_torch.parallel.health import barrier
     from aread_tpu_torch.train.checkpoint import (full_state,
@@ -221,8 +244,11 @@ def _run(cfg, device, mesh, backend):
     from aread_tpu_torch.train.mamdr import MamdrTrainer
     from aread_tpu_torch.train.trainer import MULTI_TOWER_MODELS, Trainer
 
-    path = run_preprocessing(cfg.dataset_name, cfg.data_path,
-                             prepare2train_month=cfg.prepare2train_month)
+    stages = {}
+    t0 = time.perf_counter()
+    path = canonical_csv(cfg, mesh)
+    stages["preprocess_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     is_aread = "aread" in cfg.model
     aug_path = (path.replace(".csv", f"_aug{cfg.aug_ratio}.csv")
                 if is_aread else None)
@@ -243,10 +269,15 @@ def _run(cfg, device, mesh, backend):
         if mesh is not None:
             barrier("augmentation")
         aug_path = gen_path
+    stages["augment_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     itemid_all = cfg.itemid_all if cfg.dataset_name == "amazon" else None
     data = load_split_data(path, cfg.dataset_name, cfg.seq_maxlen,
                            itemid_all=itemid_all, aug_path=aug_path,
                            domain_filter=cfg.domain_filter)
+    stages["load_s"] = time.perf_counter() - t0
+    stages["parser"] = parser_of(path)
+    stages["aug_parser"] = None if aug_path is None else parser_of(aug_path)
 
     if is_main:
         print(f"model:{cfg.model}, lr:{cfg.lr}, bs:{cfg.bs}, embed_dim:"
@@ -280,6 +311,7 @@ def _run(cfg, device, mesh, backend):
                                 f"{cfg.model}_elastic")
                    if cfg.elastic else None)
     model = build_model(cfg, data.spec, data.n_domain, device=device)
+    t0 = time.perf_counter()
     if is_aread and "wo" not in cfg.model:
         result = AREADTrainer(model, cfg, data.n_domain, mesh=mesh).fit(
             data, warm_start=warm_start, ckpt_dir=elastic_dir,
@@ -306,6 +338,8 @@ def _run(cfg, device, mesh, backend):
                          mesh=mesh).fit(data, warm_start=warm_start,
                                         ckpt_dir=elastic_dir, verbose=is_main)
 
+    stages["fit_s"] = time.perf_counter() - t0
+
     # persist the best model, which fit leaves in the model: one final
     # save keeps the restart capability of the per-improvement saves. On a
     # mesh the table is gathered and rank 0 writes the one-device format
@@ -323,6 +357,7 @@ def _run(cfg, device, mesh, backend):
     if not is_main:
         return
     print(f"checkpoint saved: {ckpt_path}")
+    print("stages:", json.dumps(stages))
 
     print("test:", {k: v for k, v in result["test"].items()
                     if not isinstance(v, dict)})

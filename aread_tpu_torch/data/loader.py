@@ -6,8 +6,12 @@ parsed, padded with the item vocab's pad id and cut to the last
 ``seq_maxlen``; the split by timestamp quantiles 0.9 / 0.95 (amazon) or by
 the ``train_tag`` column; one-hot dims as column max + 1 over the file
 (the augmented file included), the amazon itemid dim pinned to
-``itemid_all``; train-frequency domain weights. Parsed arrays are cached
-as ``.npy`` files keyed on the file's identity and the parse options.
+``itemid_all``; train-frequency domain weights. A CSV is parsed by the
+native C++ parser (``aread_tpu_torch/native``), by pandas when
+``AREAD_TPU_NO_NATIVE`` is set or the native parser rejects the file
+(with a warning that carries its error); ``parser_of`` says which. Parsed
+arrays are cached as ``.npy`` files keyed on the file's identity and the
+parse options.
 
 Batching: fixed-shape padded batches with a validity mask, shuffled
 batches over a whole split (``GlobalBatcher``), per-domain streams with a
@@ -20,13 +24,17 @@ from __future__ import annotations
 import ast
 import dataclasses
 import hashlib
+import logging
 import os
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
 
+from aread_tpu_torch import native
 from aread_tpu_torch.models.base import FeatureSpec
+
+log = logging.getLogger(__name__)
 
 AMAZON_FEATURES = [
     "itemid", "weekday", "domain", "sales_chart", "sales_rank", "brand", "price",
@@ -94,6 +102,19 @@ def tensorize(df: pd.DataFrame, one_hot_cols: Sequence[str],
     return x, y
 
 
+def read_with_pandas(path: str, one_hot_cols: Sequence[str],
+                     seq_cols: Sequence[str], label_col: str, split_col: str,
+                     seq_maxlen: int, pad_value: int, nrows: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x, y, split) of the first ``nrows`` rows (all: None) of one CSV,
+    parsed by pandas and one ``literal_eval`` per sequence cell."""
+    df = pd.read_csv(path, usecols=list(one_hot_cols) + list(seq_cols)
+                     + [label_col, split_col], nrows=nrows)
+    x, y = tensorize(df, one_hot_cols, seq_cols, label_col, seq_maxlen,
+                     pad_value)
+    return x, y, df[split_col].to_numpy(dtype=np.float64)
+
+
 def _cache_dir() -> Optional[str]:
     """Where parsed arrays are cached: the dataset directory may be
     read-only, so the default is ~/.cache/aread_tpu_torch. AREAD_TPU_CACHE=0
@@ -105,18 +126,31 @@ def _cache_dir() -> Optional[str]:
                                "aread_tpu_torch")
 
 
+# what produced each file's arrays in this process, by absolute path:
+# 'cache', 'native' or 'pandas'
+_PARSED_BY: Dict[str, str] = {}
+
+
+def parser_of(path: str) -> Optional[str]:
+    """'cache', 'native' or 'pandas': what produced the arrays of the
+    last ``_read_arrays`` of ``path`` in this process (None: not read)."""
+    return _PARSED_BY.get(os.path.abspath(path))
+
+
 def _read_arrays(path: str, one_hot_cols: Sequence[str],
                  seq_cols: Sequence[str], label_col: str, split_col: str,
                  seq_maxlen: int, pad_value: int
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(x, y, split) of one CSV: the memory-mapped .npy cache when warm
-    (keyed on the file's identity and the parse options), else parsed with
-    pandas. (The JAX package's native C++ parser is not ported yet.)"""
+    (keyed on the file's identity and the parse options), else the native
+    parser's one multi-threaded pass, else pandas (``AREAD_TPU_NO_NATIVE``
+    set, or a file the native parser rejects)."""
+    where = os.path.abspath(path)
     cache_root = _cache_dir()
     cdir = None
     if cache_root is not None:
         st = os.stat(path)
-        key = hashlib.sha1(repr((os.path.abspath(path), st.st_mtime_ns,
+        key = hashlib.sha1(repr((where, st.st_mtime_ns,
                                  st.st_size, tuple(one_hot_cols),
                                  tuple(seq_cols), label_col, split_col,
                                  seq_maxlen, pad_value)).encode()).hexdigest()
@@ -124,15 +158,24 @@ def _read_arrays(path: str, one_hot_cols: Sequence[str],
         if os.path.exists(os.path.join(cdir, "split.npy")):
             # mmap: downstream only fancy-indexes the arrays (the split
             # filters make copies), so pages load on demand
+            _PARSED_BY[where] = "cache"
             return (np.load(os.path.join(cdir, "x.npy"), mmap_mode="r"),
                     np.load(os.path.join(cdir, "y.npy"), mmap_mode="r"),
                     np.load(os.path.join(cdir, "split.npy"), mmap_mode="r"))
 
-    df = pd.read_csv(path, usecols=list(one_hot_cols) + list(seq_cols)
-                     + [label_col, split_col])
-    x, y = tensorize(df, one_hot_cols, seq_cols, label_col, seq_maxlen,
-                     pad_value)
-    out = (x, y, df[split_col].to_numpy(dtype=np.float64))
+    out = None
+    if native.available():  # a failed build raises
+        try:
+            out = native.load_csv(path, one_hot_cols, seq_cols, label_col,
+                                  split_col, seq_maxlen, pad_value)
+            _PARSED_BY[where] = "native"
+        except RuntimeError as e:  # a cell it cannot read: pandas may
+            log.warning("native parse of %s failed (%s); parsing with "
+                        "pandas", path, e)
+    if out is None:
+        out = read_with_pandas(path, one_hot_cols, seq_cols, label_col,
+                               split_col, seq_maxlen, pad_value)
+        _PARSED_BY[where] = "pandas"
 
     if cdir is not None:
         try:

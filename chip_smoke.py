@@ -99,6 +99,24 @@ Phases, each printing one line:
            held to the schedule's and added to the kernels' counts. Times
            there are of "gloo, N ranks on one H100", not of NCCL across
            cards;
+  data     the data pipeline (layer L1) with a fresh parse cache: the
+           native CSV parser built from csv_loader.cc; (a) seed-made raw
+           dumps (AliCCP skeleton + common features, 120 values of field
+           206; Amazon ratings + metadata over the 25 categories) through
+           the training CLI's main, counted: AREAD from AliCCP (kernel 1)
+           and AREAD with the overlay engine from Amazon (kernel 1 steps,
+           kernel 2 chains), launches held to the schedule, both CSVs read
+           by the native parser, stage seconds; the CLI again (DeepFM) as
+           a process on the same directory: the skip path (the CSV
+           untouched, the cache read); the Cloud-Theme build; (b) a
+           canonical Amazon CSV at the real 25 domain sizes (17,664,862
+           rows, fields over bench.py's dims, two history columns of 0-5
+           ids) written by one numpy-only process per CPU: the native
+           parse in a process of its own (seconds, rows/s, threads, peak
+           RSS), which then parses the first 1,000,000 rows with pandas
+           (bitwise equal) while (a) runs; load_split_data cold and warm,
+           24 AREAD bagging steps of the train phase's model on the parsed
+           rows (kernel 1);
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
@@ -110,8 +128,8 @@ Phases, each printing one line:
 
 The launch counts are set to 0 just before each path (train, train_dense
 and its parts, zoo's and zoo2's fits and steps, hemp, serve's resumes,
-options' evolutions and fits, and in each rank of the mesh phase its
-runs) and read just after it; a kernel's ``launches`` is the sum over the
+options' evolutions and fits, in each rank of the mesh phase its runs,
+data's two CLI runs and its steps) and read just after it; a kernel's ``launches`` is the sum over the
 paths, the ranks' included. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -125,6 +143,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -2572,28 +2591,37 @@ def serve_resume_dense(ctx, tmp: str):
         raise AssertionError(f"resumed != uninterrupted: {diff}, {auc_gap}")
 
 
+def domain_batches(cfg, data) -> int:
+    """Single-domain batches of one epoch of AREADTrainer.fit."""
+    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
+                         minlength=data.n_domain)
+    return int(np.sum(np.ceil(counts / cfg.bs)))
+
+
 def regroups_per_epoch(cfg, data) -> int:
     """Regroup points inside one epoch of AREADTrainer.fit (the first
     regroup, at the start of training, is not among them)."""
-    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
-                         minlength=N_DOMAIN)
-    n_seq = int(np.sum(np.ceil(counts / BS)))
-    interval = cfg.regroup_interval * 1024 // BS
-    return sum((i + 1) % interval == 0 for i in range(n_seq))
+    interval = cfg.regroup_interval * 1024 // cfg.bs
+    return sum((i + 1) % interval == 0
+               for i in range(domain_batches(cfg, data)))
+
+
+def chains_of_fit(cfg, data, epochs: int) -> int:
+    """Fast-adapt chains of ``epochs`` epochs of AREADTrainer.fit: one per
+    domain and candidate at every regroup."""
+    n_regroup = 1 + epochs * regroups_per_epoch(cfg, data)
+    return sum(data.n_domain
+               * max(1, int(cfg.candidate_mask_num * 0.99 ** (r + 1)))
+               for r in range(n_regroup))
 
 
 def sparse_adam_launches_of_fit(cfg, data, epochs: int) -> int:
     """sparse_adam launches of ``epochs`` epochs of AREADTrainer.fit: the
     warm-up steps, every bagging step, and every fast-adapt step of every
     regroup's chains (one chain per domain and candidate)."""
-    counts = np.bincount(data.train_x[:, data.spec.domain_idx],
-                         minlength=N_DOMAIN)
-    n_seq = int(np.sum(np.ceil(counts / BS)))
-    warm = cfg.warm_up_interval * 1024 // BS
-    n_regroup = 1 + epochs * regroups_per_epoch(cfg, data)
-    return warm + epochs * n_seq + sum(
-        N_DOMAIN * max(1, int(cfg.candidate_mask_num * 0.99 ** (r + 1)))
-        * cfg.regroup_update_step for r in range(n_regroup))
+    warm = cfg.warm_up_interval * 1024 // cfg.bs
+    return (warm + epochs * domain_batches(cfg, data)
+            + chains_of_fit(cfg, data, epochs) * cfg.regroup_update_step)
 
 
 def serve_resume_aread(ctx, tmp: str):
@@ -4167,13 +4195,562 @@ def mesh_check_d(ctx, tmp):
         test_total_auc=mesh["total_auc"])
 
 
+# -------------------------------------------------------------------- data
+# the 25 Amazon domain sizes of the real canonical file (aread_tpu/config.py
+# DOMAIN_SIZE, the reference's config.py:59-65): 17,664,862 rows
+AMAZON_DOMAIN_SIZES = (69360, 282546, 776105, 3001846, 88496, 449031,
+                       2859592, 1893, 1437340, 16454, 601698, 1802, 2416380,
+                       197170, 202176, 6931, 317131, 132650, 602500, 585227,
+                       845268, 1107407, 997451, 623565, 44843)
+AMAZON_CATEGORIES = (
+    "Appliances", "Arts, Crafts & Sewing", "Automotive", "Books",
+    "CDs & Vinyl", "Cell Phones & Accessories", "Clothing, Shoes & Jewelry",
+    "Collectibles & Fine Art", "Electronics", "Gift Cards",
+    "Grocery & Gourmet Food", "Home & Business Services", "Home & Kitchen",
+    "Industrial & Scientific", "Kindle Store", "Magazine Subscriptions",
+    "Movies & TV", "Musical Instruments", "Office Products",
+    "Patio, Lawn & Garden", "Pet Supplies", "Sports & Outdoors",
+    "Tools & Home Improvement", "Toys & Games", "Video Games")
+CANONICAL_AMAZON_HEADER = (
+    "userid,itemid,weekday,domain,sales_chart,sales_rank,brand,price,"
+    "user_pos_6month_seq,user_neg_6month_seq,label,timestamp\n")
+DATA_PANDAS_ROWS = 1_000_000
+DATA_STEPS = 24
+DATA_CHUNK_ROWS = 1_000_000
+# the CLI runs of part (a): HEMP at a depth that regroups a few times
+DATA_CLI_FLAGS = ["--bs", "256", "--epoch", "1", "--warm_up_interval", "1",
+                  "--regroup_interval", "8", "--candidate_mask_num", "2",
+                  "--regroup_update_step", "2", "--regroup_eval_step", "2"]
+
+
+def raw_feat(field: str, feat: str, val: str = "1") -> str:
+    return f"{field}\x02{feat}\x03{val}"
+
+
+def aliccp_raw_dumps(base: str, seed: int, n_domain: int = 120,
+                     n_users: int = 600, n_items: int = 600) -> None:
+    """The four raw AliCCP files (\\x01 \\x02 \\x03 fields): one
+    common-feature blob per user (101, the user fields, the user-side
+    dense fields), skeleton rows over ``n_domain`` values of field 206
+    with skewed sizes (150 to 2,650 rows), the item fields and the
+    item-side dense fields, a few click=0 & purchase=1 rows. Enough
+    domains pass thresh 15 for interval_random to pick 30."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(base)
+    common = []
+    for u in range(n_users):
+        blob = [raw_feat("101", f"u{u}")]
+        blob += [raw_feat(f, f"{f}_{rng.integers(0, 4)}") for f in
+                 ("121", "122", "124", "125", "126", "127", "128", "129")]
+        blob += [raw_feat(f, f"{f}_{rng.integers(0, 3)}", f"{rng.random():.4f}")
+                 for f in ("109_14", "110_14", "127_14", "150_14")]
+        common.append(f"c{u},{len(blob)},{chr(1).join(blob)}\n")
+    sizes = 150 + (2500 * 0.96 ** np.arange(n_domain)).astype(int)
+
+    def skeleton(n_rows, first):
+        dom = rng.permutation(np.repeat(np.arange(n_domain),
+                                        np.maximum(1, n_rows)))
+        user = rng.integers(0, n_users, len(dom))
+        item = rng.integers(0, n_items, len(dom))
+        lines = []
+        for i in range(len(dom)):
+            blob = [raw_feat("205", f"i{item[i]}"),
+                    raw_feat("206", f"d{dom[i]}")]
+            blob += [raw_feat(f, f"{f}_{item[i] % 7}")
+                     for f in ("207", "210", "216", "301")]
+            blob += [raw_feat(f, f"{f}_{rng.integers(0, 3)}",
+                              f"{rng.random() * 9:.3f}")
+                     for f in ("508", "509", "702", "853")]
+            click = int(rng.random() < 0.15 + 0.5 * (item[i] % 3 == 0))
+            buy = int(rng.random() < (0.3 if click else 0.01))
+            lines.append(f"{first + i},{click},{buy},c{user[i]},{len(blob)},"
+                         f"{chr(1).join(blob)}\n")
+        return lines
+
+    train = skeleton(sizes, 0)
+    for name, lines in (("sample_skeleton_train", train),
+                        ("sample_skeleton_test",
+                         skeleton(sizes * 3 // 10, len(train))),
+                        ("common_features_train", common),
+                        ("common_features_test", common)):
+        with open(os.path.join(base, f"{name}.csv"), "w") as f:
+            f.writelines(lines)
+
+
+def amazon_raw_dumps(base: str, seed: int, n: int = 40_000,
+                     n_users: int = 2500, n_items: int = 1500) -> None:
+    """all_csv_files.csv (no header: itemid,userid,rating,timestamp, two
+    years to Aug 2018) and All_Amazon_Meta.json (json lines; items over
+    the 25 categories, the price / salesRank / brand forms the pipeline
+    parses)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(base)
+    items = np.array([f"B{i:09d}" for i in range(n_items)])
+    pd.DataFrame({
+        "itemid": items[rng.integers(0, n_items, n)],
+        "userid": [f"A{u:08d}" for u in rng.integers(0, n_users, n)],
+        "rating": rng.integers(1, 6, n).astype(float),
+        "timestamp": rng.integers(1471000000, 1534291200, n),
+    }).to_csv(os.path.join(base, "all_csv_files.csv"), index=False,
+              header=False)
+    with open(os.path.join(base, "All_Amazon_Meta.json"), "w") as f:
+        for i, asin in enumerate(items):
+            cat = AMAZON_CATEGORIES[i % 25]
+            rank = ({cat: int(rng.integers(1, 3_000_000))} if i % 3 else
+                    f"{int(rng.integers(1, 90_000)):,} in {cat}")
+            f.write(json.dumps({
+                "asin": asin,
+                "price": f"${rng.integers(1, 900)}.{rng.integers(0, 99):02d}"
+                if i % 9 else "",
+                "salesRank": rank, "brand": f"brand{i % 40}",
+                "category": [cat, "sub"]}) + "\n")
+
+
+def cloudtheme_raw_dump(base: str, seed: int, n: int = 20_000) -> None:
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(base)
+    pd.DataFrame({
+        "user_id": rng.integers(0, 400, n), "item_id": rng.integers(0, 500, n),
+        "theme_id": rng.integers(0, 40, n),
+        "leaf_cate_id": rng.integers(0, 60, n),
+        "cate_level1_id": rng.integers(0, 8, n),
+        "reach_time": rng.permutation(n) + 1_560_000_000,
+        "clk_cnt": rng.integers(1, 6, n),
+    }).to_csv(os.path.join(base, "theme_click_log.csv"), index=False)
+
+
+def data_cli_run(ctx, path: str, argv):
+    """``python -m aread_tpu_torch``'s main in this process (so its kernel
+    launches are counted): (stdout, its stages line, its test metrics)."""
+    import io
+
+    from aread_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        counted(ctx, path, lambda: cli_main(argv))
+    out = buf.getvalue()
+    return out, *data_cli_lines(out)
+
+
+def data_cli_lines(out: str):
+    stages = [l for l in out.splitlines() if l.startswith("stages: ")]
+    test = [l for l in out.splitlines() if l.startswith("test: {")]
+    if len(stages) != 1 or len(test) != 1:
+        raise AssertionError(f"the CLI printed no stages or test line:\n"
+                             f"{out[-3000:]}")
+    return (json.loads(stages[0][len("stages: "):]),
+            eval(test[0][len("test: "):], {"nan": float("nan")}))
+
+
+def data_cli(ctx, tmp: str):
+    """Part (a): seed-made raw dumps -> the training CLI on the card.
+    AliCCP -> AREAD (kernel 1); Amazon -> AREAD with the overlay engine
+    (kernel 1 for its steps, kernel 2 for its fast-adapt chains: at the
+    CLI's defaults, sparse_table_grad, every model's update runs kernel
+    1 alone). Launches against the schedule's; a second invocation, a
+    process of its own, takes the skip path; the Cloud-Theme build."""
+    from aread_tpu_torch.__main__ import load_config
+    from aread_tpu_torch.data.loader import load_split_data, parser_of
+    from aread_tpu_torch.data.pipeline import (preprocessed_csv_path,
+                                               run_preprocessing)
+
+    raw, save = os.path.join(tmp, "raw"), os.path.join(tmp, "save")
+    t0 = time.perf_counter()
+    aliccp_raw_dumps(os.path.join(raw, "aliccp"), seed=21)
+    amazon_raw_dumps(os.path.join(raw, "amazon"), seed=22)
+    cloudtheme_raw_dump(os.path.join(raw, "cloudtheme"), seed=23)
+    dumps_s = time.perf_counter() - t0
+    for dataset, extra in (("aliccp", []),
+                           ("amazon", ["--hemp_fast_adapt", "overlay"])):
+        argv = ["--model", "aread", "--dataset_name", dataset, "--data_path",
+                raw, "--save_path", save, *extra, *DATA_CLI_FLAGS]
+        t0 = time.perf_counter()
+        out, stages, test = data_cli_run(ctx, f"data/cli_{dataset}", argv)
+        wall_s = time.perf_counter() - t0
+        csv = preprocessed_csv_path(dataset, raw)
+        if f"[preprocess:{dataset}] wrote {csv}" not in out or \
+                "generated augmentation:" not in out:
+            raise AssertionError(f"the CLI built no CSV:\n{out[-3000:]}")
+        if (stages["parser"], stages["aug_parser"]) != ("native", "native"):
+            raise AssertionError(f"parsed by {stages}: the native parser "
+                                 "must read both files")
+        cfg, _ = load_config(argv)
+        aug = os.path.join(save, dataset, os.path.basename(csv).replace(
+            ".csv", f"_aug{cfg.aug_ratio}.csv"))
+        data = load_split_data(
+            csv, dataset, cfg.seq_maxlen, aug_path=aug,
+            itemid_all=cfg.itemid_all if dataset == "amazon" else None)
+        if extra:
+            want = {"sparse_adam": cfg.warm_up_interval * 1024 // cfg.bs
+                    + domain_batches(cfg, data),
+                    "fused_adam": overlay_launches(
+                        chains_of_fit(cfg, data, 1),
+                        1 + regroups_per_epoch(cfg, data), cfg)}
+        else:
+            want = {"sparse_adam": sparse_adam_launches_of_fit(cfg, data, 1),
+                    "fused_adam": 0}
+        got = ctx["launches_by_path"][f"data/cli_{dataset}"]
+        say("data", part=f"cli_{dataset}", model="aread",
+            engine="overlay" if extra else "full", csv_rows=len(
+                data.train_x) + len(data.valid_x) + len(data.test_x),
+            n_domain=data.n_domain, table_rows=int(sum(data.spec.one_hot_dims)),
+            stages=stages, wall_s=wall_s, launches=got, schedule=want,
+            test_total_auc=test["total_auc"], test_total_loss=test["total_loss"])
+        if got != want:
+            raise AssertionError(f"{dataset} CLI launches {got}, the "
+                                 f"schedule implies {want}")
+        if not (np.isfinite(test["total_loss"])
+                and 0.0 <= test["total_auc"] <= 1.0):
+            raise AssertionError(f"{dataset} CLI test metrics {test}")
+        if dataset == "aliccp" and data.n_domain != 30:
+            raise AssertionError(f"{data.n_domain} aliccp domains, not 30")
+        if dataset == "amazon" and data.n_domain != 25:
+            raise AssertionError(f"{data.n_domain} amazon domains, not 25")
+    # the CLI again on the same directory, as a user types it (DeepFM: the
+    # skip path is the point, not a second AREAD fit): the CSV is left as
+    # it is and the parse cache read
+    csv = preprocessed_csv_path("aliccp", raw)
+    mtime = os.stat(csv).st_mtime_ns
+    argv = ["--model", "deepfm", "--dataset_name", "aliccp", "--data_path",
+            raw, "--save_path", save, *DATA_CLI_FLAGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "aread_tpu_torch", *argv],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    again_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"second CLI run exited {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    stages, test = data_cli_lines(proc.stdout)
+    if os.stat(csv).st_mtime_ns != mtime or "[preprocess:" in proc.stdout:
+        raise AssertionError("the second run rebuilt the CSV")
+    if stages["parser"] != "cache":
+        raise AssertionError(f"the second run parsed with {stages['parser']}")
+    # Cloud-Theme: the pipeline and the native parse of what it wrote
+    t0 = time.perf_counter()
+    ct = run_preprocessing("cloudtheme", raw, verbose=False)
+    ct_s = time.perf_counter() - t0
+    ct_data = load_split_data(ct, "cloudtheme")
+    ct_rows = len(ct_data.train_x) + len(ct_data.valid_x) + len(ct_data.test_x)
+    say("data", part="skip_and_cloudtheme", raw_dumps_s=dumps_s,
+        second_run={"model": "deepfm", "wall_s": again_s, "stages": stages,
+                    "test_total_auc": test["total_auc"],
+                    "csv_mtime_unchanged": True},
+        cloudtheme={"preprocess_s": ct_s, "rows": ct_rows,
+                    "n_domain": ct_data.n_domain, "parser": parser_of(ct)})
+    if parser_of(ct) != "native" or ct_rows < 20_000 or not (
+            0 < ct_data.train_y.mean() < 1):
+        raise AssertionError("the Cloud-Theme CSV did not come out right")
+
+
+# One process of the canonical Amazon file's writer (numpy only: the
+# script's own imports would cost each of them torch's): the rows of the
+# given chunks, pandas' to_csv text (a list of 2+ ids quoted, of 0 or 1
+# bare), fields drawn over the dims, 0-5 ids per history cell, the label
+# tied to the item id, each chunk to ``<prefix><chunk>``. Every token is
+# gathered from a table of fixed-width NUL-filled words (the last row of
+# each: an absent token) and the NULs dropped.
+WRITE_CHILD = r'''
+import json, sys
+import numpy as np
+
+prefix, order, seed, rows, dims = (sys.argv[1], sys.argv[2], int(sys.argv[3]),
+                                   int(sys.argv[4]), json.loads(sys.argv[5]))
+chunks = [int(c) for c in sys.argv[6].split(",")]
+domains_all = np.load(order, mmap_mode="r")
+
+
+def table(words, width):
+    out = np.zeros((len(words) + 1, width), np.uint8)
+    out[:-1] = np.frombuffer("".join(w.ljust(width, "\0") for w in words)
+                             .encode(), np.uint8).reshape(len(words), width)
+    return out
+
+
+nums = [str(i) for i in range(1_400_000)]
+ints, seps = table(nums, 7), table([", " + w for w in nums], 9)
+opens, closes = table(["[]", "[", '"['], 2), table(["", "]", ']"'], 2)
+low5 = table([f"{i:05d}" for i in range(100_000)], 5)
+absent = len(ints) - 1
+for chunk in chunks:
+    domains = np.asarray(domains_all[chunk * rows:(chunk + 1) * rows],
+                         np.int64)
+    rng = np.random.default_rng([seed, chunk])
+    n = len(domains)
+    item = rng.integers(0, dims[0], n)
+    cols = [rng.integers(0, 1_000_000, n), item, rng.integers(0, dims[1], n),
+            domains, *(rng.integers(0, d, n) for d in dims[3:])]
+    comma = np.full((n, 1), ord(","), np.uint8)
+    parts = []
+    for c in cols:
+        parts += [ints[c], comma]
+    for _ in range(2):
+        count = rng.integers(0, 6, n)
+        ids = rng.integers(0, dims[0], (n, 5))
+        parts += [opens[np.minimum(count, 2)],
+                  ints[np.where(count > 0, ids[:, 0], absent)]]
+        parts += [seps[np.where(count > j, ids[:, j], absent)]
+                  for j in range(1, 5)]
+        parts += [closes[np.minimum(count, 2)], comma]
+    label = (item % 7) / 3.0 - 1.0 + 0.3 * rng.standard_normal(n) > 0
+    ts = 1_502_000_000 + rng.integers(0, 31_536_000, n)
+    parts += [ints[label.astype(np.int64)], comma, ints[ts // 100_000],
+              low5[ts % 100_000], np.full((n, 1), ord("\n"), np.uint8)]
+    text = np.concatenate(parts, axis=1)
+    text[text != 0].tofile(f"{prefix}{chunk}")
+'''
+
+
+def write_canonical_amazon(path: str, sizes, seed: int) -> int:
+    """The canonical Amazon CSV with ``sizes[d]`` rows of domain d in a
+    seeded order, written chunk by chunk by one process per CPU
+    (WRITE_CHILD); returns its bytes."""
+    import shutil
+
+    order = path + ".domains.npy"
+    np.save(order, np.random.default_rng(seed).permutation(
+        np.repeat(np.arange(len(sizes), dtype=np.int8), sizes)))
+    n_chunks = -(-sum(sizes) // DATA_CHUNK_ROWS)
+    workers = min(n_chunks, len(os.sched_getaffinity(0)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WRITE_CHILD, path + ".part", order, str(seed),
+         str(DATA_CHUNK_ROWS), json.dumps(AMAZON_DIMS),
+         ",".join(str(c) for c in range(w, n_chunks, workers))],
+        stderr=subprocess.PIPE, text=True) for w in range(workers)]
+    try:
+        errors = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"the CSV writer failed: {errors}")
+    with open(path, "wb") as f:
+        f.write(CANONICAL_AMAZON_HEADER.encode())
+        for c in range(n_chunks):
+            with open(f"{path}.part{c}", "rb") as part:
+                shutil.copyfileobj(part, f, 64 << 20)
+            os.remove(f"{path}.part{c}")
+    os.remove(order)
+    return os.path.getsize(path)
+
+
+# The native parse of the whole file in a fresh process that has imported
+# numpy and the binding alone (torch's CUDA libraries come with the
+# loader, after it), then pandas on the first rows, the two held bitwise;
+# the native line goes out at once. Resident memory: the high-water mark
+# (ru_maxrss), and the largest /proc/self/statm reading of a thread that
+# polls it during the parse (None where the file is not there).
+PARSE_CHILD = r'''
+import json, os, resource, sys, threading, time
+from aread_tpu_torch import native
+
+
+def gb(kb):
+    return kb / 2**20
+
+
+def statm_gb():
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+path, n_pandas, pad = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cols = tuple(json.loads(sys.argv[4]))
+native.build()
+before = gb(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+samples, done = [statm_gb()], threading.Event()
+
+
+def poll():
+    while not done.wait(0.005):
+        samples.append(statm_gb())
+
+
+poller = threading.Thread(target=poll)
+poller.start()
+t0 = time.perf_counter()
+x, y, split = native.load_csv(path, *cols, 5, pad)
+native_s = time.perf_counter() - t0
+done.set()
+poller.join()
+print(json.dumps({"rows": len(y), "x_cols": x.shape[1],
+                  "threads": native.default_threads(), "native_s": native_s,
+                  "maxrss_before_parse_gb": before,
+                  "maxrss_gb": gb(resource.getrusage(
+                      resource.RUSAGE_SELF).ru_maxrss),
+                  "statm_before_parse_gb": samples[0],
+                  "statm_peak_gb": None if None in samples else max(samples),
+                  "statm_samples": len(samples),
+                  "arrays_gb": (x.nbytes + y.nbytes + split.nbytes) / 2**30}),
+      flush=True)
+from aread_tpu_torch.data import loader
+
+t0 = time.perf_counter()
+px, py, ps = loader.read_with_pandas(path, *cols, 5, pad, nrows=n_pandas)
+pandas_s = time.perf_counter() - t0
+print(json.dumps({"pandas_rows": len(py), "pandas_s": pandas_s,
+                  "bitwise_equal": all(
+                      a.dtype == b.dtype and a[:n_pandas].tobytes() == b.tobytes()
+                      for a, b in ((x, px), (y, py), (split, ps)))}),
+      flush=True)
+'''
+# A child's ru_maxrss starts from the resident size of the process it was
+# started from (exec keeps the old image's high-water mark), and this
+# script's is gigabytes by now: PARSE_CHILD is started by a small Python
+# process, in a session of its own so that both can be killed together.
+LAUNCH = "import subprocess, sys; sys.exit(subprocess.call(sys.argv[1:]))"
+
+
+def data_big_file(tmp: str):
+    """Part (b), first half: the canonical Amazon CSV at the real file's
+    17,664,862 rows, and the native parse in a process of its own, which
+    then goes on to pandas while part (a) runs. Returns (path, facts,
+    the process)."""
+    path = os.path.join(tmp, "prepare2train_filter_12month.csv")
+    t0 = time.perf_counter()
+    size = write_canonical_amazon(path, AMAZON_DOMAIN_SIZES, seed=31)
+    write_s = time.perf_counter() - t0
+    from aread_tpu_torch.data.loader import dataset_columns
+
+    one_hot, seq, label = dataset_columns("amazon")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", LAUNCH, sys.executable, "-c", PARSE_CHILD, path,
+         str(DATA_PANDAS_ROWS), str(AMAZON_DIMS[0]),
+         json.dumps([one_hot, seq, label, "timestamp"])],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait()
+        raise AssertionError(f"the parse process exited {proc.returncode}\n"
+                             f"{proc.stderr.read()[-3000:]}")
+    return path, {"bytes": size, "write_s": write_s,
+                  **json.loads(line)}, proc
+
+
+def data_parse(ctx, path: str, facts, proc):
+    """Part (b), second half: pandas' result on the first DATA_PANDAS_ROWS
+    rows; load_split_data cold and warm; DATA_STEPS AREAD bagging steps of
+    the train phase's model on batches drawn from the parsed arrays."""
+    from aread_tpu_torch.data.loader import (AMAZON_FEATURES, DomainBatcher,
+                                             load_split_data, parser_of)
+
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the parse process exited {proc.returncode}\n"
+                             f"{err[-3000:]}")
+    parse = {**facts, **json.loads(out.strip().splitlines()[-1])}
+    n_rows = sum(AMAZON_DOMAIN_SIZES)
+    t0 = time.perf_counter()
+    data = load_split_data(path, "amazon", 5, itemid_all=AMAZON_DIMS[0])
+    cold_s = time.perf_counter() - t0
+    cold_parser = parser_of(path)
+    t0 = time.perf_counter()
+    warm = load_split_data(path, "amazon", 5, itemid_all=AMAZON_DIMS[0])
+    warm_s = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(data, k), getattr(warm, k)) for k in
+               ("train_x", "train_y", "valid_x", "test_x", "test_y"))
+    spec = data.spec
+    say("data", part="parse", **parse,
+        native_rows_per_s=n_rows / parse["native_s"],
+        pandas_rows_per_s=parse["pandas_rows"] / parse["pandas_s"],
+        load_split_data_s={"cold": cold_s, "warm": warm_s},
+        parsers={"cold": cold_parser, "warm": parser_of(path)},
+        one_hot_dims=list(spec.one_hot_dims))
+    if parse["rows"] != n_rows or not parse["bitwise_equal"] or \
+            parse["pandas_rows"] != DATA_PANDAS_ROWS:
+        raise AssertionError(f"native != pandas on the first rows: {parse}")
+    if (cold_parser, parser_of(path)) != ("native", "cache") or not same:
+        raise AssertionError("load_split_data: not native then the cache")
+    if tuple(spec.one_hot_dims) != AMAZON_DIMS or \
+            len(AMAZON_FEATURES) + 10 != data.train_x.shape[1]:
+        raise AssertionError(f"not the train phase's layout: {spec}")
+    del warm
+    # the train phase's model on the parsed rows
+    tr = build_trainer(spec, "cuda", N_DOMAIN, dataset_name="amazon", seed=0)
+    if tr.model.spec.n_rows != 1518384:
+        raise AssertionError("not the train phase's table")
+    batcher = DomainBatcher(data.train_x, data.train_y, BS, spec.domain_idx,
+                            N_DOMAIN, seed=0)
+    ms = tr.mask_state
+    for d in range(N_DOMAIN):
+        ms.domain_mask[d] = ms.generate_mask("rand", d,
+                                             tr.config.init_active_percent)
+    batches = [(d, tr.place(batcher.next_batch(d)))
+               for d in batcher.domain_batch_seq[:DATA_STEPS]]
+    table0 = tr.model.embedding.table.clone()
+    losses, times = [], []
+
+    def loop():
+        for d, batch in batches:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses.append(tr.main_step(batch, ms.domain_mask[d])[0])
+            b.record()
+            times.append((a, b))
+
+    counted(ctx, "data/steps", loop)
+    launches = ctx["launches_by_path"]["data/steps"]
+    losses = torch.stack(losses).cpu().numpy()
+    say("data", part="steps", steps=DATA_STEPS, launches=launches,
+        step_ms_median=statistics.median(a.elapsed_time(b) for a, b in times),
+        loss_first=float(losses[0]), loss_last=float(losses[-1]))
+    if launches != {"sparse_adam": DATA_STEPS, "fused_adam": 0} or \
+            not np.isfinite(losses).all() or \
+            torch.equal(tr.model.embedding.table, table0):
+        raise AssertionError(f"steps on the parsed rows: {launches}, "
+                             f"{losses}")
+
+
+def phase_data(ctx):
+    """The data pipeline (layer L1) on the card's host, with a fresh parse
+    cache: the native parser built; (b) the big file written and parsed
+    natively; (a) raw dumps -> the CLI -> kernels 1 and 2, while pandas
+    parses the big file's first rows in (b)'s process; (b) the rest."""
+    from aread_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()  # raises if it does not build
+    say("data", part="build", library=lib.name,
+        seconds=time.perf_counter() - t0, threads=native.default_threads())
+    before = os.environ.get("AREAD_TPU_CACHE")
+    with tempfile.TemporaryDirectory(prefix="aread_data_") as tmp:
+        os.environ["AREAD_TPU_CACHE"] = os.path.join(tmp, "cache")
+        proc = None
+        try:
+            path, facts, proc = data_big_file(tmp)
+            data_cli(ctx, tmp)
+            data_parse(ctx, path, facts, proc)
+        finally:
+            if proc is not None and proc.poll() is None:
+                # the launcher and PARSE_CHILD
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            if before is None:
+                os.environ.pop("AREAD_TPU_CACHE", None)
+            else:
+                os.environ["AREAD_TPU_CACHE"] = before
+
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
           "train_dense": phase_train_dense, "zoo": phase_zoo,
           "zoo2": phase_zoo2, "hemp": phase_hemp,
           "serve": phase_serve, "options": phase_options,
-          "mesh": phase_mesh}
+          "mesh": phase_mesh, "data": phase_data}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}
 

@@ -337,7 +337,10 @@ def test_unported_flag_fails_the_process(dirs):
 
 
 def test_missing_csv_raises_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="raw-dump"):
+    """Neither the CSV nor the raw dumps: main.py's FileNotFoundError,
+    naming both."""
+    with pytest.raises(FileNotFoundError, match="(?s)thresh15.*missing and "
+                       "raw dumps not found.*sample_skeleton_train"):
         main(["--device", "cpu", "--data_path", str(tmp_path),
               "--dataset_name", "aliccp", "--model", "deepfm"])
 

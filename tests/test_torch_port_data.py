@@ -222,17 +222,30 @@ def test_preprocessed_csv_path_equals_jax(dataset, tmp_path):
 
 
 def test_run_preprocessing_returns_the_csv_or_raises_by_name(tmp_path):
+    """The JAX contract: an existing CSV is returned untouched; with
+    neither the CSV nor the raw dumps, FileNotFoundError names both, with
+    the JAX package's message; an unknown dataset is a ValueError."""
     with pytest.raises(ValueError):
         pipeline.preprocessed_csv_path("movielens", "d")
-    with pytest.raises(NotImplementedError, match="raw-dump"):
-        pipeline.run_preprocessing("aliccp", str(tmp_path))
+    for name in ("amazon", "aliccp", "cloudtheme"):
+        errors = []
+        for run in (pipeline.run_preprocessing, jpipeline.run_preprocessing):
+            with pytest.raises(FileNotFoundError,
+                               match="missing and raw dump") as e:
+                run(name, str(tmp_path), verbose=False)
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
     csv = tmp_path / "aliccp" / "thresh15_ndomain30_modeinterval_random.csv"
-    csv.parent.mkdir()
+    csv.parent.mkdir(exist_ok=True)
     csv.write_text("itemid\n0\n")
     assert pipeline.run_preprocessing("aliccp", str(tmp_path)) == str(csv)
     assert jpipeline.run_preprocessing("aliccp", str(tmp_path),
                                        verbose=False) == str(csv)
+    assert csv.read_text() == "itemid\n0\n"
     other = tmp_path / "other.csv"
-    with pytest.raises(NotImplementedError, match="other.csv"):
+    with pytest.raises(FileNotFoundError, match="other.csv"):
         pipeline.run_preprocessing("aliccp", str(tmp_path),
+                                   out_path=str(other))
+    with pytest.raises(ValueError):
+        pipeline.run_preprocessing("movielens", str(tmp_path),
                                    out_path=str(other))

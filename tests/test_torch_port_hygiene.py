@@ -4,8 +4,9 @@ models, load_predictor, both CLIs) raises instead of running on the CPU; the CUD
 the kernel build keeps IEEE arithmetic, names a library by its sources and
 every shared header; both kernels count their launches in one place; the
 sparse kernel's slot map has one key; chip_smoke.py knows both kernels,
-drives both trainers, the HEMP loop, the serving path and the mesh and
-ends with the fixed line; what the trainers had left unported runs
+drives both trainers, the HEMP loop, the serving path, the mesh and the
+data pipeline from raw dumps and ends with the fixed line; the data
+pipeline's modules and the native parser's binding are framework-free; what the trainers had left unported runs
 (streaming_eval, warm_start, ckpt_dir, the overlay engine,
 compute_dtype, log_dir, the epoch watchdog, a mesh and
 embed_lookup='a2a'), and no module of the port refuses a mesh, a2a or
@@ -40,6 +41,9 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "aread_tpu")
 PARALLEL_MODULES = ("parallel/mesh.py", "parallel/distributed.py",
                     "parallel/health.py", "parallel/embed_shard.py",
                     "parallel/sharded_adam.py", "parallel/train_step.py")
+DATA_MODULES = ("native/__init__.py", "native/__main__.py",
+                "data/preprocess.py", "data/aliccp_raw.py",
+                "data/pipeline.py", "data/loader.py", "data/augment.py")
 SERVING_MODULES = ("config.py", "convert.py", "__main__.py",
                    "train/checkpoint.py", "train/metrics.py",
                    "data/loader.py", "data/augment.py", "data/pipeline.py",
@@ -79,6 +83,26 @@ def test_serving_modules_are_among_the_checked_files():
     # the server is standard library and numpy only
     roots = set(_imported_roots(ROOT / "aread_tpu_torch/serve/server.py"))
     assert roots <= {"__future__", "json", "threading", "http", "numpy"}
+
+
+def test_data_pipeline_modules_are_checked_and_framework_free():
+    """The raw-dump pipeline and the native parser's binding are among the
+    checked files and import the standard library, numpy, pandas and the
+    port only (the loader and augment.py are host code too)."""
+    checked = {str(p.relative_to(ROOT / "aread_tpu_torch"))
+               for p in PORT_FILES[:-1]}
+    assert set(DATA_MODULES) <= checked
+    for m in DATA_MODULES:
+        roots = set(_imported_roots(ROOT / "aread_tpu_torch" / m))
+        assert roots <= {"__future__", "ast", "ctypes", "dataclasses",
+                         "datetime", "hashlib", "json", "logging", "os",
+                         "pathlib", "re", "subprocess", "threading", "typing",
+                         "weakref", "argparse", "numpy", "pandas",
+                         "aread_tpu_torch"}, (m, roots)
+    src = (ROOT / "aread_tpu_torch/native/csv_loader.cc").read_text()
+    for name in ("aread_csv_load(", "aread_csv_free(",
+                 "aread_csv_last_error("):
+        assert name in src, name
 
 
 def _no_card():
@@ -314,7 +338,7 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     # the default list is PHASES' keys; every earlier phase is still there
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
                                "train", "eval", "train_dense", "zoo", "zoo2",
-                               "hemp", "serve", "options", "mesh"]
+                               "hemp", "serve", "options", "mesh", "data"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
             "final_epoch"} <= set(dicts["HEMP_DEPTH"])
@@ -451,6 +475,57 @@ def test_chip_smoke_runs_the_zoo2_phase():
                  "AttentionalFactorizationMachine",
                  "CompressedInteractionNetwork", "AnovaKernel"):
         assert name in funcs["zoo2_fm_ops"], name
+
+
+def test_chip_smoke_runs_the_data_phase():
+    """The data phase builds the native parser, drives the CLI from raw
+    dumps of AliCCP (AREAD, kernel 1) and Amazon (AREAD with the overlay
+    engine, kernels 1 and 2) with their launches held to the schedule,
+    requires the native parser, runs the CLI again as a process on the
+    skip path, builds Cloud-Theme, and parses a canonical Amazon CSV at the
+    real 25 domain sizes (written by numpy-only processes), held bitwise
+    against pandas, before AREAD steps on the parsed rows."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id in (
+                  "AMAZON_DOMAIN_SIZES", "DATA_PANDAS_ROWS", "DATA_STEPS")}
+    from aread_tpu_torch.data.preprocess import AMAZON_DOMAIN2ENCODER
+
+    assert len(consts["AMAZON_DOMAIN_SIZES"]) == len(AMAZON_DOMAIN2ENCODER)
+    assert sum(consts["AMAZON_DOMAIN_SIZES"]) == 17_664_862
+    assert consts["DATA_PANDAS_ROWS"] == 1_000_000
+    assert consts["DATA_STEPS"] == 24
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    phase = funcs["phase_data"]
+    for name in ("native.build()", "data_big_file(tmp)", "data_cli(ctx",
+                 "data_parse(ctx", "AREAD_TPU_CACHE", "os.killpg("):
+        assert name in phase, name
+    cli = funcs["data_cli"] + funcs["data_cli_run"]
+    for name in ("aliccp_raw_dumps(", "amazon_raw_dumps(",
+                 "cloudtheme_raw_dump(", "'--hemp_fast_adapt', 'overlay'",
+                 "sparse_adam_launches_of_fit(", "overlay_launches(",
+                 "chains_of_fit(", "counted(ctx, path", "cli_main(argv)",
+                 "'native'", "'cache'", "st_mtime_ns", "'aread_tpu_torch'",
+                 "run_preprocessing('cloudtheme'"):
+        assert name in cli, name
+    parse = funcs["data_big_file"] + funcs["data_parse"]
+    for name in ("write_canonical_amazon(", "PARSE_CHILD", "bitwise_equal",
+                 "load_split_data(", "parser_of(path)", "build_trainer(",
+                 "main_step", "counted(ctx, 'data/steps'",
+                 "'sparse_adam': DATA_STEPS"):
+        assert name in parse, name
+    child = next(ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", "") == "PARSE_CHILD")
+    for name in ("native.load_csv(", "read_with_pandas(", "ru_maxrss",
+                 "default_threads()"):
+        assert name in child, name
+    assert "import torch" not in next(
+        ast.literal_eval(n.value) for n in tree.body
+        if isinstance(n, ast.Assign)
+        and getattr(n.targets[0], "id", "") == "WRITE_CHILD")
 
 
 def _toy_aread():
