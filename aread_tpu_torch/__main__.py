@@ -212,20 +212,37 @@ def main(argv=None):
 
 def canonical_csv(cfg, mesh=None) -> str:
     """The canonical CSV's path, built from the raw dumps when it is
-    missing, as ``main.py`` builds it. On a mesh rank 0 builds it while the
-    others wait at a barrier; they then take the skip path."""
-    from aread_tpu_torch.data.pipeline import run_preprocessing
-    from aread_tpu_torch.parallel.health import barrier
+    missing, as ``main.py`` builds it. On a mesh the local rank 0 of each
+    node (``LOCAL_RANK``) builds it; the node's other ranks poll for the
+    finished file, which ``run_preprocessing`` makes appear whole, and then
+    take the skip path. No collective: a build may outlast the process
+    group's timeout. The wait is bounded by the epoch watchdog's deadline
+    (``epoch_timeout_s``; 0, the default, is no bound, as in the JAX CLI,
+    where every process builds)."""
+    from aread_tpu_torch.data.pipeline import (preprocessed_csv_path,
+                                               run_preprocessing)
+    from aread_tpu_torch.parallel.health import HealthError, watchdog
+    from aread_tpu_torch.parallel.mesh import local_rank
 
     def build():
         return run_preprocessing(cfg.dataset_name, cfg.data_path,
                                  prepare2train_month=cfg.prepare2train_month,
                                  seed=cfg.seed)
 
-    path = build() if mesh is None or mesh.rank == 0 else None
-    if mesh is not None:
-        barrier("preprocessing")
-    return path or build()
+    if mesh is None or local_rank() == 0:
+        return build()
+    path = preprocessed_csv_path(cfg.dataset_name, cfg.data_path,
+                                 cfg.prepare2train_month)
+    timeout = cfg.epoch_timeout_s
+    t0 = time.monotonic()
+    with watchdog(timeout, tag="preprocessing",
+                  kill_process=cfg.epoch_timeout_kill):
+        while not os.path.exists(path):
+            if timeout and time.monotonic() - t0 > timeout:
+                raise HealthError(f"preprocessing: {path} not built within "
+                                  f"{timeout}s by local rank 0")
+            time.sleep(0.1)
+    return build()
 
 
 def _run(cfg, device, mesh, backend):

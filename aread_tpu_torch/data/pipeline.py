@@ -178,7 +178,8 @@ def run_preprocessing(dataset_name: str, data_path: str,
                       sample_mode: str = "interval_random",
                       seed: int = 2022, verbose: bool = True) -> str:
     """Build the canonical CSV from raw dumps if it does not exist yet.
-    Returns the CSV path (existing or newly written). Raises
+    Returns the CSV path (existing or newly written); the file appears
+    whole, by a rename of a temporary one. Raises
     FileNotFoundError when neither the CSV nor the raw files are present."""
     from aread_tpu_torch.data.preprocess import (preprocess_aliccp,
                                                  preprocess_amazon,
@@ -249,7 +250,11 @@ def run_preprocessing(dataset_name: str, data_path: str,
         raise ValueError(dataset_name)
 
     os.makedirs(os.path.dirname(csv_path), exist_ok=True)
-    df.to_csv(csv_path, index=False)
+    # whole or absent: ranks that wait for this file (the CLI on a mesh)
+    # and the skip path above never see half of it
+    tmp = f"{csv_path}.{os.getpid()}.tmp"
+    df.to_csv(tmp, index=False)
+    os.replace(tmp, csv_path)
     log(f"wrote {csv_path} ({len(df)} rows)")
     return csv_path
 

@@ -7,7 +7,8 @@ from typing import Dict
 
 # launches of each kernel's wrapper (one per launch of its kernel, nowhere
 # else); chip_smoke.py zeroes them before a path and reads them after it
-launch_counts: Dict[str, int] = {"sparse_adam": 0, "fused_adam": 0}
+launch_counts: Dict[str, int] = {"sparse_adam": 0, "fused_adam": 0,
+                                 "gather_rows": 0, "adam_attrib": 0}
 
 
 def reset_launch_counts() -> None:

@@ -117,6 +117,20 @@ Phases, each printing one line:
            (bitwise equal) while (a) runs; load_split_data cold and warm,
            24 AREAD bagging steps of the train phase's model on the parsed
            rows (kernel 1);
+  probes   the two probes that replace the benchmark folder's TPU kernels,
+           through their entry points at full size, counted:
+           aread_tpu_torch.benchmarks.prof_dma_issue (16,384 scattered
+           [rows, 128] f32 block copies of a [380,000, 128] table through
+           two shared-memory stages, rows 1 and 8: ns per copy, the TPU
+           script's lazy-step projection, lazy_sparse_adam_ and kernel 1
+           on the bf16 Amazon table by both clocks) and
+           aread_tpu_torch.benchmarks.prof_kernel_attrib (kernel 1's sweep
+           with parts taken out, six modes at [1,521,664, 32] bf16: ms per
+           update over 200 back-to-back updates, shares of the byte bound,
+           the gaps); then gather_rows bitwise against its plain version
+           (rows 1 and 8; 16,384, 37, 1 and 0 copies) and every adam_attrib
+           mode bitwise against its plain version, full against kernel 1
+           too (-0.0 told apart), at the full table and at D = 8, 64, 256;
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
@@ -129,7 +143,7 @@ Phases, each printing one line:
 The launch counts are set to 0 just before each path (train, train_dense
 and its parts, zoo's and zoo2's fits and steps, hemp, serve's resumes,
 options' evolutions and fits, in each rank of the mesh phase its runs,
-data's two CLI runs and its steps) and read just after it; a kernel's ``launches`` is the sum over the
+data's two CLI runs and its steps, the probes' entry points) and read just after it; a kernel's ``launches`` is the sum over the
 paths, the ranks' included. Then one JSON line with every kernel's numbers, and last
 the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
@@ -159,7 +173,17 @@ import torch
 # Amazon layout of bench.py / config defaults
 AMAZON_DIMS = (1368287, 7, 25, 40, 11, 150000, 12)
 EMBED_DIM, BS, N_DOMAIN = 32, 1024, 25
-KERNEL_SOURCES = ["sparse_adam", "fused_adam"]
+KERNEL_SOURCES = ["sparse_adam", "fused_adam", "gather_rows", "adam_attrib"]
+# the phase whose path launches each kernel ("no path launched" is checked
+# for the kernels whose phase ran)
+LAUNCHED_IN = {"sparse_adam": "train", "fused_adam": "train_dense",
+               "gather_rows": "probes", "adam_attrib": "probes"}
+# each kernel's main __global__ function by a part of its name, and the
+# instantiations ptxas must report (every storage variant or mode); none
+# may spill
+MAIN_KERNELS = {"sparse_adam": ("vec8", 8), "fused_adam": ("vec8", 8),
+                "gather_rows": ("gather_rows_sum", 1),
+                "adam_attrib": ("attrib_sweep", 6)}
 # per-kernel times of the final ``kernels`` line (beside library_ms):
 # ms / scalar_ms are device times (back-to-back clock) of the vector and the
 # scalar kernel, call_ms the vector kernel's per-call median (host included)
@@ -168,7 +192,9 @@ ROW_TIMES = ("ms", "call_ms", "scalar_ms", "scalar_call_ms", "plain_ms",
 # TPU kernel each port replaces
 REPLACES = {"sparse_adam":
             "aread_tpu/ops/pallas/sparse_adam_kernel.py:252",
-            "fused_adam": "aread_tpu/ops/pallas/fused_adam.py:63"}
+            "fused_adam": "aread_tpu/ops/pallas/fused_adam.py:63",
+            "gather_rows": "benchmarks/prof_dma_issue.py:69",
+            "adam_attrib": "benchmarks/prof_kernel_attrib.py:139"}
 
 
 def peak_hbm_bytes_per_s(name: str) -> float:
@@ -336,6 +362,14 @@ def say(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
+def path_counts(launch_counts) -> dict:
+    """A path's launch counts: the two Adam kernels' always (every path's
+    check names both), any other kernel's where the path launched it (so
+    an unexpected launch fails those checks)."""
+    return {k: v for k, v in launch_counts.items()
+            if v or k in ("sparse_adam", "fused_adam")}
+
+
 def counted(ctx, path: str, fn):
     """Run ``fn`` with the kernels' launch counts set to 0 just before and
     read just after; the counts go to ctx['launches_by_path'][path]."""
@@ -344,7 +378,7 @@ def counted(ctx, path: str, fn):
     reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    ctx.setdefault("launches_by_path", {})[path] = dict(launch_counts)
+    ctx.setdefault("launches_by_path", {})[path] = path_counts(launch_counts)
     return out
 
 
@@ -380,13 +414,15 @@ def phase_build(ctx):
                                          for n, p in paths.items()},
         ptxas=ptxas)
     for name, kernels in ptxas.items():
-        vector = [k for k in kernels if "vec8" in k["kernel"]]
-        if build.BUILD_LOGS.get(name) and len(vector) != 8:
-            raise AssertionError(f"{name}: ptxas reported {len(vector)} "
-                                 "vector kernels, 8 instantiations expected")
-        spilled = [k for k in vector if k["spill_bytes"]]
+        part, want = MAIN_KERNELS[name]
+        main = [k for k in kernels if part in k["kernel"]]
+        if build.BUILD_LOGS.get(name) and len(main) != want:
+            raise AssertionError(f"{name}: ptxas reported {len(main)} "
+                                 f"{part} kernels, {want} instantiations "
+                                 "expected")
+        spilled = [k for k in main if k.get("spill_bytes")]
         if spilled:
-            raise AssertionError(f"vector kernels spill registers: {spilled}")
+            raise AssertionError(f"kernels spill registers: {spilled}")
 
 
 def ptxas_summary(log: str):
@@ -3650,7 +3686,7 @@ def rank_counted(fn):
     reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(launch_counts)
+    return out, path_counts(launch_counts)
 
 
 def mesh_aread(mesh, device, **cfg_kw):
@@ -4744,13 +4780,199 @@ def phase_data(ctx):
             else:
                 os.environ["AREAD_TPU_CACHE"] = before
 
+# ------------------------------------------------------------------ probes
+PROBE_T = 3  # the attribution checks' step: bias corrections below 1
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise, -0.0 and +0.0 told apart (torch.equal compares values)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return torch.equal(a.view(view[a.dtype]), b.view(view[b.dtype]))
+
+
+def probes_lazy_profile(dma) -> None:
+    """CUDA launches and device busy ms of one lazy_sparse_adam_ update and
+    of one kernel 1 update on the probe's bf16 Amazon table and batch, in
+    turns in one torch.profiler window, told apart by kernel 1's kernel
+    names: the lazy step's back-to-back time holds host waits, its busy
+    time does not. A window that saw no device time reports None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aread_tpu_torch.ops.sparse_adam import (lazy_sparse_adam_,
+                                                 sparse_adam_cuda)
+
+    w, m, v, uids, gsum = dma.lazy_inputs(BS, "cuda")
+    n = 5
+
+    def both():
+        lazy_sparse_adam_(w, m, v, uids, gsum, 1, **SPARSE_KW)
+        sparse_adam_cuda(w, m, v, uids, gsum, 1, **SPARSE_KW)
+
+    both()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            both()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel") / n
+    busy = {"lazy": 0.0, "kernel1": 0.0}
+    for e in ka:
+        if e.device_type == DeviceType.CUDA:
+            who = ("kernel1" if "adam_sweep_vec8" in e.key
+                   or "slot_scatter" in e.key else "lazy")
+            busy[who] += e.self_device_time_total / n / 1e3
+    say("probes", part="lazy_profile", table=list(w.shape),
+        lazy={"cuda_launches": launches - 2,
+              "busy_ms": busy["lazy"] or None},
+        kernel1={"cuda_launches": 2, "busy_ms": busy["kernel1"] or None})
+
+
+def probes_gather_check(dma) -> float:
+    """gather_rows_sum against its plain version on the probe's table and
+    ids, rows 1 and 8, 16,384 copies and a few short runs (an odd count,
+    one copy, none): bitwise. Returns the worst absolute error."""
+    from aread_tpu_torch.ops.gather_rows import (gather_rows_reference,
+                                                 gather_rows_sum)
+
+    data = dma.make_inputs(dma.N_FLAT, dma.N_COPIES, "cuda")
+    worst = 0.0
+    for rows in dma.ROWS:
+        for n in (dma.N_COPIES, 37, 1, 0):
+            ids = data[rows][:n]
+            got = gather_rows_sum(data["table"], ids, rows)
+            want = gather_rows_reference(data["table"], ids, rows)
+            line = {"rows": rows, "n": n, "sum": float(got),
+                    "bitwise": bits_equal(got, want),
+                    "max_abs_err": abs(float(got) - float(want))}
+            say("probes", part="gather_check", **line)
+            if not line["bitwise"]:
+                raise AssertionError(f"gather_rows != plain version: {line}")
+            worst = max(worst, line["max_abs_err"])
+    return worst
+
+
+def probes_attrib_check(attrib) -> float:
+    """Every adam_attrib mode against its plain version, and full against
+    kernel 1 (sparse_adam_cuda), bitwise with -0.0 told apart: at the
+    probe's full table and at small tables of D = 8, 64 and 256, on
+    seed-made w (some weights -0.0), m, v and batches. Returns the worst
+    absolute error."""
+    from aread_tpu_torch.ops.adam_attrib import (MODES, adam_attrib_,
+                                                 adam_attrib_reference)
+    from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for n_rows, d, bs in ((attrib.N_ROWS, attrib.D, attrib.BS), (5003, 8, 64),
+                          (5003, 64, 64), (5003, 256, 16)):
+        def draw(scale, fn):
+            return (scale * fn((n_rows, d), generator=gen, device=dev)
+                    ).to(torch.bfloat16)
+
+        w, m, v = draw(1.0, torch.randn), draw(0.1, torch.randn), \
+            draw(0.01, torch.rand)
+        w.view(-1)[::97] = -0.0
+        ids = torch.randint(0, n_rows, (bs * 17,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        uids, gsum = dedup_rows(
+            ids, torch.randn((bs * 17, d), generator=gen, device=dev), n_rows)
+        for mode in MODES:
+            got = w.clone(), m.clone(), v.clone()
+            adam_attrib_(mode, *got, uids, gsum, PROBE_T, **SPARSE_KW)
+            want = adam_attrib_reference(mode, w, m, v, uids, gsum, PROBE_T,
+                                         **SPARSE_KW)
+            torch.cuda.synchronize()
+            line = {"table": [n_rows, d], "mode": mode,
+                    "bitwise": all(bits_equal(a, b)
+                                   for a, b in zip(got, want)),
+                    "max_abs_err": max(float((a.float() - b.float()).abs()
+                                             .max()) for a, b in zip(got, want)),
+                    "changed": [not bits_equal(a, b)
+                                for a, b in zip(got, (w, m, v))]}
+            if mode == "full":
+                k1 = w.clone(), m.clone(), v.clone()
+                sparse_adam_cuda(*k1, uids, gsum, PROBE_T, **SPARSE_KW)
+                torch.cuda.synchronize()
+                line["equals_kernel1"] = all(bits_equal(a, b)
+                                             for a, b in zip(got, k1))
+            if mode == "noadam":
+                line["neg_zero_to_pos"] = int(
+                    ((w.view(torch.int16) == -32768)
+                     & (got[0].view(torch.int16) == 0)).sum())
+            say("probes", part="attrib_check", **line)
+            if not line["bitwise"] or not line.get("equals_kernel1", True):
+                raise AssertionError(f"adam_attrib != plain version or "
+                                     f"kernel 1: {line}")
+            # what each mode writes: Adam moves w, m and v; noadam only
+            # flips -0.0 weights; copy nothing
+            moved = {"noadam": [True, False, False],
+                     "copy": [False, False, False]}.get(mode, [True] * 3)
+            if line["changed"] != moved or \
+                    line.get("neg_zero_to_pos", 1) == 0:
+                raise AssertionError(f"{mode} wrote what it should not: "
+                                     f"{line}")
+            worst = max(worst, line["max_abs_err"])
+        del w, m, v, ids, uids, gsum
+    return worst
+
+
+def phase_probes(ctx):
+    """The two probes' entry points at their full sizes, counted
+    (aread_tpu_torch.benchmarks.prof_dma_issue: scattered-copy ns at rows
+    1 and 8, the lazy-step projection, lazy_sparse_adam_ and kernel 1 on
+    the Amazon table; prof_kernel_attrib: every mode's ms per update, the
+    shares of the bound, the gaps); then each kernel against its plain
+    version, bitwise."""
+    from aread_tpu_torch.benchmarks import prof_dma_issue as dma
+    from aread_tpu_torch.benchmarks import prof_kernel_attrib as attrib
+
+    gather, attribution = counted(
+        ctx, "probes", lambda: (dma.run("cuda"), attrib.run("cuda")))
+    launches = ctx["launches_by_path"]["probes"]
+    say("probes", part="launches", launches=launches)
+    probes_lazy_profile(dma)
+    worst_gather = probes_gather_check(dma)
+    worst_attrib = probes_attrib_check(attrib)
+    g1, g8 = gather["gather"][1], gather["gather"][8]
+    full = attribution["modes"]["full"]
+    rows = ctx.setdefault("kernel_rows", {})
+    rows["gather_rows"] = {
+        "name": "gather_rows", "route": "cuda",
+        "source": "aread_tpu_torch/ops/cuda/gather_rows.cu",
+        "replaces": REPLACES["gather_rows"], "max_abs_err": worst_gather,
+        "ms": g1["ms"], "call_ms": g1["call_ms"], "plain_ms": g1["plain_ms"],
+        "bound_ms": g1["bound_ms"], "bound_by": "bytes",
+        "library_ms": g1["library_ms"], "rows": 1, "n": g1["n"],
+        "ns_per_copy": g1["ns_per_copy"], "rows8_ms": g8["ms"],
+        "rows8_ns_per_copy": g8["ns_per_copy"],
+        "rows8_plain_ms": g8["plain_ms"], "rows8_library_ms": g8["library_ms"],
+        "rows8_bound_ms": g8["bound_ms"]}
+    rows["adam_attrib"] = {
+        "name": "adam_attrib", "route": "cuda",
+        "source": "aread_tpu_torch/ops/cuda/adam_attrib.cu",
+        "replaces": REPLACES["adam_attrib"], "max_abs_err": worst_attrib,
+        "ms": full["ms"], "call_ms": full["call_ms"],
+        "plain_ms": attribution["beside"]["plain_full_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": "bytes",
+        "library_ms": attribution["beside"]["library_ms"],
+        "modes_ms": {k: v["ms"] for k, v in attribution["modes"].items()}}
+    if not (launches["gather_rows"] and launches["adam_attrib"]):
+        raise AssertionError(f"the probes launched no kernel: {launches}")
+
+
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
           "train_dense": phase_train_dense, "zoo": phase_zoo,
           "zoo2": phase_zoo2, "hemp": phase_hemp,
           "serve": phase_serve, "options": phase_options,
-          "mesh": phase_mesh, "data": phase_data}
+          "mesh": phase_mesh, "data": phase_data, "probes": phase_probes}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}
 
@@ -4780,11 +5002,10 @@ def main(argv=None) -> int:
         {**PHASES, **OPT_IN}[name](ctx)
         print(f"# phase {name} done in {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
-    if {"train", "train_dense"} <= set(wanted):
-        for name in KERNEL_SOURCES:
-            if not any(c.get(name, 0) for c in
-                       ctx["launches_by_path"].values()):
-                raise AssertionError(f"no path launched {name}")
+    for name in KERNEL_SOURCES:
+        if LAUNCHED_IN[name] in wanted and not any(
+                c.get(name, 0) for c in ctx["launches_by_path"].values()):
+            raise AssertionError(f"no path launched {name}")
     say("launches", by_path=ctx.get("launches_by_path", {}))
     rows = []
     for name, row in ctx.get("kernel_rows", {}).items():

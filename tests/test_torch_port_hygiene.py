@@ -3,9 +3,10 @@ of JAX or of the JAX package; without a card every entry point (the
 models, load_predictor, both CLIs) raises instead of running on the CPU; the CUDA wrappers never take CPU tensors;
 the kernel build keeps IEEE arithmetic, names a library by its sources and
 every shared header; both kernels count their launches in one place; the
-sparse kernel's slot map has one key; chip_smoke.py knows both kernels,
-drives both trainers, the HEMP loop, the serving path, the mesh and the
-data pipeline from raw dumps and ends with the fixed line; the data
+sparse kernel's slot map has one key; chip_smoke.py knows the four
+kernels, drives both trainers, the HEMP loop, the serving path, the mesh,
+the data pipeline from raw dumps and the probes and ends with the fixed
+line; the probes' modules are framework-free; the data
 pipeline's modules and the native parser's binding are framework-free; what the trainers had left unported runs
 (streaming_eval, warm_start, ckpt_dir, the overlay engine,
 compute_dtype, log_dir, the epoch watchdog, a mesh and
@@ -44,6 +45,10 @@ PARALLEL_MODULES = ("parallel/mesh.py", "parallel/distributed.py",
 DATA_MODULES = ("native/__init__.py", "native/__main__.py",
                 "data/preprocess.py", "data/aliccp_raw.py",
                 "data/pipeline.py", "data/loader.py", "data/augment.py")
+# the probes that replace the benchmark folder's TPU kernels
+PROBE_MODULES = ("ops/gather_rows.py", "ops/adam_attrib.py",
+                 "benchmarks/__init__.py", "benchmarks/prof_dma_issue.py",
+                 "benchmarks/prof_kernel_attrib.py")
 SERVING_MODULES = ("config.py", "convert.py", "__main__.py",
                    "train/checkpoint.py", "train/metrics.py",
                    "data/loader.py", "data/augment.py", "data/pipeline.py",
@@ -103,6 +108,24 @@ def test_data_pipeline_modules_are_checked_and_framework_free():
     for name in ("aread_csv_load(", "aread_csv_free(",
                  "aread_csv_last_error("):
         assert name in src, name
+
+
+def test_probe_modules_are_checked_and_framework_free():
+    """The probes' wrappers and entry points are among the checked files,
+    import the standard library, numpy, torch and the port only, and
+    chip_smoke.py runs them in its default phase list."""
+    checked = {str(p.relative_to(ROOT / "aread_tpu_torch"))
+               for p in PORT_FILES[:-1]}
+    assert set(PROBE_MODULES) <= checked
+    for m in PROBE_MODULES:
+        roots = set(_imported_roots(ROOT / "aread_tpu_torch" / m))
+        assert roots <= {"__future__", "argparse", "json", "statistics",
+                         "subprocess", "time", "typing", "numpy", "torch",
+                         "aread_tpu_torch"}, (m, roots)
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    phases = next(n.value for n in tree.body if isinstance(n, ast.Assign)
+                  and getattr(n.targets[0], "id", "") == "PHASES")
+    assert "probes" in [k.value for k in phases.keys]
 
 
 def _no_card():
@@ -218,7 +241,9 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                                    lr=1e-3)
 
 
-KERNELS = ["sparse_adam", "fused_adam"]
+KERNELS = ["sparse_adam", "fused_adam", "gather_rows", "adam_attrib"]
+# the kernels built on rounding.cuh's Adam element and stores
+ADAM_KERNELS = ["sparse_adam", "fused_adam", "adam_attrib"]
 
 
 def test_build_flags_keep_ieee_arithmetic():
@@ -229,9 +254,13 @@ def test_build_flags_keep_ieee_arithmetic():
     assert build.BUILD_DIR == ROOT / "aread_tpu_torch" / "_build"
     for name in KERNELS:
         assert all(src.exists() for src in build.sources(name))
+        cu, op = (p.read_text() for p in build.sources(name))
+        assert "torch/" not in cu  # PyTorch's headers stay in the binding
+        assert f"{name}_(" in op and \
+            "TORCH_LIBRARY_FRAGMENT(aread_tpu_torch" in op
 
 
-@pytest.mark.parametrize("name", KERNELS)
+@pytest.mark.parametrize("name", ADAM_KERNELS)
 def test_kernel_sources_share_the_rounding_header(name):
     cu, op = (p.read_text() for p in build.sources(name))
     assert '#include "rounding.cuh"' in cu
@@ -266,12 +295,15 @@ def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch,
 
 
 def test_launch_counts_are_shared_by_both_kernels():
+    from aread_tpu_torch.ops import adam_attrib, gather_rows
+
     assert set(cuda_ops.launch_counts) == set(KERNELS)
-    assert sparse_adam.launch_counts is cuda_ops.launch_counts
-    assert fused_adam.launch_counts is cuda_ops.launch_counts
+    for module in (sparse_adam, fused_adam, gather_rows, adam_attrib):
+        assert module.launch_counts is cuda_ops.launch_counts
     cuda_ops.launch_counts["fused_adam"] += 2
+    cuda_ops.launch_counts["adam_attrib"] += 1
     cuda_ops.reset_launch_counts()
-    assert cuda_ops.launch_counts == {"sparse_adam": 0, "fused_adam": 0}
+    assert cuda_ops.launch_counts == dict.fromkeys(KERNELS, 0)
     # the plain versions on the CPU count nothing
     w = torch.zeros((4, 2))
     fused_adam.fused_adam_dispatch(w, w.clone(), w.clone(), w.clone(), 1,
@@ -304,7 +336,9 @@ def test_chip_smoke_drives_both_kernels_and_trainers():
     assert consts["KERNEL_SOURCES"] == KERNELS
     assert consts["REPLACES"] == {
         "sparse_adam": "aread_tpu/ops/pallas/sparse_adam_kernel.py:252",
-        "fused_adam": "aread_tpu/ops/pallas/fused_adam.py:63"}
+        "fused_adam": "aread_tpu/ops/pallas/fused_adam.py:63",
+        "gather_rows": "benchmarks/prof_dma_issue.py:69",
+        "adam_attrib": "benchmarks/prof_kernel_attrib.py:139"}
     funcs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert {"phase_device", "phase_build", "phase_kernels", "phase_reference",
             "phase_train", "phase_eval", "phase_train_dense",
@@ -338,7 +372,8 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     # the default list is PHASES' keys; every earlier phase is still there
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
                                "train", "eval", "train_dense", "zoo", "zoo2",
-                               "hemp", "serve", "options", "mesh", "data"]
+                               "hemp", "serve", "options", "mesh", "data",
+                               "probes"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
             "final_epoch"} <= set(dicts["HEMP_DEPTH"])

@@ -6,11 +6,26 @@ aread_tpu_torch/_build/ and nothing into the package; a failed build
 raises with the compiler's output instead of falling back;
 AREAD_TPU_NO_NATIVE=1 is the one way to pandas; the loader records the
 parser it used and falls back, with a warning, on a file the native
-parser rejects; load_split_data equals the JAX package's."""
+parser rejects; load_split_data equals the JAX package's.
 
+The JAX binding builds its library with ``make`` in place, and pytest's
+workers import ``tests/test_native_loader.py`` (which builds it while it
+is collected) at once: a worker that loads a half-written file marks the
+library failed for the rest of its life. The module's autouse fixture
+``jax_native_library`` therefore makes the library whole under a file
+lock before any test here runs (``ensure_jax_library``), and
+``test_concurrent_builds_all_load_the_library`` holds that build to
+several processes at once."""
+
+import ctypes
+import fcntl
 import gc
+import inspect
 import logging
 import os
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -20,6 +35,53 @@ from aread_tpu.data import loader as jloader
 from aread_tpu_torch import native
 from aread_tpu_torch.data import loader
 from tests.test_torch_port_data import make_canonical_frame
+
+
+# aread_tpu/native/Makefile's CXXFLAGS and link flag
+JAX_LIB_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-Wall", "-shared")
+JAX_LIB_SRC = os.path.join(os.path.dirname(jnative._LIB_PATH), "csv_loader.cc")
+BUILD_LOCK = os.path.join(tempfile.gettempdir(), "aread_tpu_native_build.lock")
+
+
+def ensure_jax_library(lib_path, src, lock_path):
+    """Under an exclusive flock on ``lock_path``: when ``lib_path`` is
+    missing or will not load, compile ``src`` with the Makefile's flags
+    into a temporary name and ``os.replace`` it onto ``lib_path``, so that
+    no reader of the path ever sees half a file. Returns whether it
+    built."""
+    with open(lock_path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(lib_path):
+                try:
+                    ctypes.CDLL(lib_path)
+                    return False
+                except OSError:
+                    pass  # half a file: build it again
+            tmp = f"{lib_path}.{os.getpid()}.tmp"
+            subprocess.run([os.environ.get("CXX", "g++"), *JAX_LIB_FLAGS,
+                            "-o", tmp, src], check=True, capture_output=True,
+                           timeout=120)
+            os.replace(tmp, lib_path)
+            return True
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library():
+    """This process has the JAX binding's library loaded: a failure that
+    an earlier, racing build left behind (``_build_failed``) is cleared,
+    the library made whole, and ``_load`` must succeed. A build racing
+    this one in place (``make`` from another worker) can still spoil one
+    attempt, so it is tried three times."""
+    for _ in range(3):
+        if jnative._lib is not None:
+            return
+        jnative._build_failed = False
+        ensure_jax_library(jnative._LIB_PATH, JAX_LIB_SRC, BUILD_LOCK)
+        jnative._load()
+    assert jnative._load() is not None, "the JAX native library will not load"
 
 
 def _columns(dataset):
@@ -207,3 +269,32 @@ def test_python_dash_m_builds_the_library(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == f"native library: {native.library_path()}"
+
+
+BUILD_CHILD = """
+import ctypes, fcntl, os, subprocess, sys
+JAX_LIB_FLAGS = {flags!r}
+{source}
+lib, src, lock = sys.argv[1:4]
+built = ensure_jax_library(lib, src, lock)
+ctypes.CDLL(lib).aread_csv_last_error
+print(int(built))
+"""
+
+
+def test_concurrent_builds_all_load_the_library(tmp_path):
+    """Six processes run the fixture's build at once on a path that holds
+    half a library: the first one under the lock builds, the others find
+    a whole file, and every one loads it."""
+    lib = tmp_path / "libaread_native.so"
+    lib.write_bytes(b"\x7fELF" + b"\0" * 60)  # half a file: will not load
+    child = BUILD_CHILD.format(flags=JAX_LIB_FLAGS,
+                               source=inspect.getsource(ensure_jax_library))
+    procs = [subprocess.Popen([sys.executable, "-S", "-c", child, str(lib),
+                               JAX_LIB_SRC, str(tmp_path / "build.lock")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    assert sorted(int(out) for out, _ in outs) == [0] * 5 + [1]
+    assert not list(tmp_path.glob("*.tmp"))

@@ -8,6 +8,9 @@ the CLI on the CSV the JAX package's ``run_preprocessing`` wrote."""
 
 import hashlib
 import json
+import os
+import subprocess
+import sys
 import threading
 from datetime import timedelta
 
@@ -437,20 +440,24 @@ class _Rank:
 
 
 def test_mesh_rank_zero_alone_builds_the_csv(tmp_path, monkeypatch):
-    """On a mesh the CSV step runs on rank 0 while the other ranks wait at
-    the barrier; they then take the skip path. Two threads stand for two
-    ranks, a threading barrier for the process group's; the raw-dump
-    build runs once."""
+    """On a mesh the CSV step runs on the local rank 0 of each node while
+    the node's other ranks poll for the finished file; they then take the
+    skip path. Four threads stand for four ranks on two nodes, each node
+    with a disk of its own; the raw-dump build runs once a node and no
+    collective is called."""
     import aread_tpu_torch.__main__ as cli
     from aread_tpu_torch.config import Config
     from aread_tpu_torch.data import preprocess as port_pre
     from aread_tpu_torch.parallel import health
+    from aread_tpu_torch.parallel import mesh as port_mesh
 
-    write_cloudtheme_raw(tmp_path, 1)
-    cfg = Config(dataset_name="cloudtheme", data_path=str(tmp_path), seed=5)
+    cfgs = {}
+    for node in (0, 1):
+        write_cloudtheme_raw(tmp_path / f"node{node}", 1)
+        cfgs[node] = Config(dataset_name="cloudtheme",
+                            data_path=str(tmp_path / f"node{node}"), seed=5)
     builds, events = [], []
     real = port_pre.preprocess_cloudtheme
-    gate = threading.Barrier(2, timeout=120)
 
     def counting(*a, **kw):
         builds.append(threading.current_thread().name)
@@ -458,35 +465,85 @@ def test_mesh_rank_zero_alone_builds_the_csv(tmp_path, monkeypatch):
 
     def barrier(tag, *a, **kw):
         events.append((threading.current_thread().name, tag))
-        gate.wait()
 
     monkeypatch.setattr(port_pre, "preprocess_cloudtheme", counting)
     monkeypatch.setattr(health, "barrier", barrier)
+    # rank r is local rank r % 2 of node r // 2
+    monkeypatch.setattr(port_mesh, "local_rank", lambda: int(
+        threading.current_thread().name[-1]) % 2)
     out, errors = {}, []
 
     def rank(r):
         try:
-            out[r] = cli.canonical_csv(cfg, _Rank(r))
+            out[r] = cli.canonical_csv(cfgs[r // 2], _Rank(r))
         except Exception as e:  # noqa: BLE001 - reported below
             errors.append(e)
-            gate.abort()
 
     threads = [threading.Thread(target=rank, args=(r,), name=f"rank{r}")
-               for r in (1, 0)]  # rank 1 arrives first
+               for r in (1, 3, 0, 2)]  # the waiting ranks arrive first
     for t in threads:
         t.start()
     for t in threads:
         t.join(180)
     assert not errors, errors
-    assert builds == ["rank0"]
-    assert sorted(events) == [("rank0", "preprocessing"),
-                              ("rank1", "preprocessing")]
-    assert out[0] == out[1] == pipeline.preprocessed_csv_path(
-        "cloudtheme", str(tmp_path))
+    assert sorted(builds) == ["rank0", "rank2"]
+    assert events == []
+    for node in (0, 1):
+        assert out[2 * node] == out[2 * node + 1] == \
+            pipeline.preprocessed_csv_path("cloudtheme",
+                                           str(tmp_path / f"node{node}"))
     write_cloudtheme_raw(tmp_path / "jax", 1)
     want = jpipeline.run_preprocessing("cloudtheme", str(tmp_path / "jax"),
                                        seed=5, verbose=False)
-    assert sha1(out[0]) == sha1(want)
-    # one process: no barrier at all
-    events.clear()
+    assert sha1(out[0]) == sha1(out[2]) == sha1(want)
+    assert not list((tmp_path / "node0" / "cloudtheme").glob("*.tmp"))
+    # one process: no barrier and no wait
+    cfg = cfgs[0]
     assert cli.canonical_csv(cfg) == out[0] and events == []
+
+
+SLOW_BUILD_RANK = """
+import datetime, os, sys, time
+import torch.distributed as dist
+rank, store, data_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+os.environ["LOCAL_RANK"] = str(rank)
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2, timeout=datetime.timedelta(seconds=2))
+import aread_tpu_torch.__main__ as cli
+from aread_tpu_torch.config import Config
+from aread_tpu_torch.data import preprocess
+from aread_tpu_torch.parallel.mesh import make_mesh
+
+real = preprocess.preprocess_cloudtheme
+
+
+def slow(*a, **kw):
+    time.sleep(4.0)  # twice the process group's timeout
+    return real(*a, **kw)
+
+
+preprocess.preprocess_cloudtheme = slow
+mesh = make_mesh(1, 2, device="cpu")
+cfg = Config(dataset_name="cloudtheme", data_path=data_path, seed=5)
+print(cli.canonical_csv(cfg, mesh), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_mesh_csv_build_may_outlast_the_process_group_timeout(tmp_path):
+    """Two gloo ranks whose process group times out after 2 s, and a CSV
+    build of about 4 s on local rank 0: rank 1 waits for the file, not at
+    a collective, and both ranks return the same path."""
+    write_cloudtheme_raw(tmp_path, 1)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SLOW_BUILD_RANK, str(r),
+         str(tmp_path / "store"), str(tmp_path)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    paths = [out.strip().splitlines()[-1] for out, _ in outs]
+    assert paths[0] == paths[1] == pipeline.preprocessed_csv_path(
+        "cloudtheme", str(tmp_path))
