@@ -8,8 +8,8 @@ Each runs on the card unless ``--device cpu`` is given; on the CPU it runs
 the plain versions at a toy size. Every line is one JSON object tagged
 with where its numbers come from: the card's ``nvidia-smi`` name and power
 limit, or ``cpu-plain`` (host-clock times of the plain versions, no device
-metric). This module holds what both share: the tag, the two clocks and
-one Amazon batch's table rows.
+metric). This module holds what both share: the tag, the clocks and one
+Amazon batch's table rows.
 """
 
 from __future__ import annotations
@@ -118,6 +118,34 @@ def cold_ms(fn: Callable[[], object], device: torch.device,
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+# what the device sleeps before device_ms's events: ~10 ms at the H100's
+# 1.98 GHz, longer than the host takes to queue the calls it times
+SLEEP_CYCLES = 20_000_000
+
+
+def device_ms(fn: Callable[[], object], device: torch.device,
+              n: int) -> Optional[float]:
+    """Device time per call of ``fn``: one CUDA event pair around ``n``
+    back-to-back calls, queued while the device sleeps, so the host is
+    ahead and no gap where the device waits for it is counted (the
+    back-to-back clock counts such gaps when a call's host time exceeds
+    its kernels'). ``fn`` must not wait for the device. None on the
+    CPU."""
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def amazon_table_rows(rng: np.random.Generator, dims=AMAZON_DIMS,

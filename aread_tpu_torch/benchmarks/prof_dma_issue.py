@@ -4,17 +4,25 @@
 A touched-rows ("lazy") Adam step reads and writes w, m and v of each
 table row a batch touches: about 6 scattered copies a row. This probe
 copies ``n`` = 16,384 scattered ``[rows, 128]`` f32 blocks (rows 1 and 8:
-512 B and 4 KB) of a ``[380,000, 128]`` table one after another through two
-shared-memory stages (``ops/gather_rows.py``, kernel
-``ops/cuda/gather_rows.cu``) and reports ns per copy, then the TPU script's
-projection of a lazy step (6 x ns x 17,408 rows, 6 x ns_8 x 14,600
-blocks), by the back-to-back clock as the TPU script times it (on the card
-the blocks of rows 1 then stay in L2) and cold (L2 flushed before each
-launch). On the card the projection is not the answer: the probe also
-times ``lazy_sparse_adam_`` itself, on bf16 table and moments
-``[1,518,384, 32]`` and one Amazon batch's ``dedup_rows``, by both
-clocks, beside kernel 1 (``sparse_adam_cuda``, the full sweep) on the same
-inputs.
+512 B and 4 KB) of a ``[380,000, 128]`` table into shared memory
+(``ops/gather_rows.py``, kernel ``ops/cuda/gather_rows.cu``) in both of the
+kernel's forms, in turns (ring, serial, serial, ring): the ring, CTAs on
+every SM each keeping a ring of bulk copies in flight (the card's answer),
+and the serial form, one thread and two stages (the TPU script's
+question: what one issuer costs). For each it reports ns per copy by the
+back-to-back clock the TPU script times with (on the card the blocks of
+rows 1 then stay in L2; a ring launch takes less device time than its
+call takes on the host, so this clock reads the host), with the host
+ahead (``device_ms``: the device's own time a call), and cold (L2 flushed
+before each launch), the byte bound and the cold clock's share of it,
+beside ``table[ids, 0].sum()`` by the same clocks (it reads 4 B a copy,
+not the block: a lower bar than the kernel's function). Then the TPU
+script's projection of a lazy step (6 x ns x 17,408 rows, 6 x ns_8 x
+14,600 blocks) from each form. On the card the projection is not the
+answer: the probe also times
+``lazy_sparse_adam_`` itself, on bf16 table and moments ``[1,518,384, 32]``
+and one Amazon batch's ``dedup_rows``, by both clocks, beside kernel 1
+(``sparse_adam_cuda``, the full sweep) on the same inputs.
 
     python -m aread_tpu_torch.benchmarks.prof_dma_issue [--device cpu]
 
@@ -31,11 +39,12 @@ import numpy as np
 import torch
 
 from aread_tpu_torch.benchmarks import (AMAZON_DIMS, EMBED_DIM, SPARSE_KW,
-                                        amazon_table_rows, clocks, cold_ms,
-                                        device_tag, emit,
+                                        amazon_table_rows, clocks,
+                                        cold_ms, device_ms, device_tag,
+                                        emit,
                                         peak_hbm_bytes_per_s)
-from aread_tpu_torch.ops.gather_rows import (LANES, gather_rows_reference,
-                                             gather_rows_sum)
+from aread_tpu_torch.ops.gather_rows import (FORMS, LANES, PLAIN,
+                                             gather_rows_sum, ring_plan)
 
 N_FLAT = 380_000  # the TPU script's [n_flat, 128] f32 table (194.6 MB)
 N_COPIES = 16_384
@@ -45,7 +54,7 @@ ROWS = (1, 8)
 LAZY_ROWS, LAZY_BLOCKS = 17_408, 14_600
 # the plain versions on the CPU: a 1,000-row table, a thousandth of the
 # Amazon vocabularies
-CPU_SIZES = dict(n_flat=1_000, n=64, bs=64,
+CPU_SIZES = dict(n_flat=1_000, n=200, bs=64,
                  dims=tuple(max(d // 1000, 7) for d in AMAZON_DIMS),
                  reps=2, lazy_reps=2)
 
@@ -88,12 +97,47 @@ def lazy_inputs(bs: int, device, dims=AMAZON_DIMS):
     return w, m, v, uids, gsum
 
 
+def _gather_times(table, ids, rows: int, dev, reps: int) -> Dict[str, float]:
+    """Both forms' clocks (ms, call ms, cold ms, device ms) in turns, ring,
+    serial, serial, ring, each form's mean; their plain versions' and the
+    library call's clocks."""
+    card = dev.type == "cuda"
+    readings: Dict[str, list] = {form: [] for form in FORMS}
+    for form in FORMS + FORMS[::-1]:
+        if card:
+            def fn(form=form):
+                return gather_rows_sum(table, ids, rows, form)
+        else:
+            def fn(form=form):
+                return PLAIN[form](table, ids, rows)
+        readings[form].append((*clocks(fn, dev, reps), cold_ms(fn, dev, reps),
+                               device_ms(fn, dev, reps)))
+    out: Dict[str, float] = {}
+    for form in FORMS:
+        pre = "" if form == "ring" else f"{form}_"
+        ms, call, cold, device = (None if None in col
+                                  else float(np.mean(col))
+                                  for col in zip(*readings[form]))
+        out.update({f"{pre}ms": ms, f"{pre}call_ms": call,
+                    f"{pre}cold_ms": cold, f"{pre}device_ms": device,
+                    f"{pre}plain_ms": clocks(
+                        lambda: PLAIN[form](table, ids, rows), dev, 2)[0]})
+
+    def library():
+        return table[ids, 0].sum()
+
+    out["library_ms"], out["library_call_ms"] = clocks(library, dev, reps)
+    out["library_cold_ms"] = cold_ms(library, dev, reps)
+    out["library_device_ms"] = device_ms(library, dev, reps)
+    return out
+
+
 def run(device="cuda", n_flat: int = N_FLAT, n: int = N_COPIES,
-        bs: int = 1024, dims=AMAZON_DIMS, reps: int = 5,
+        bs: int = 1024, dims=AMAZON_DIMS, reps: int = 20,
         lazy_reps: int = 20) -> Dict[str, object]:
     """Every measurement of the probe; prints its lines and returns them.
-    On a card the kernels (``gather_rows_sum``, ``sparse_adam_cuda``) run;
-    on the CPU their plain versions."""
+    On a card the kernels (both forms of ``gather_rows_sum``,
+    ``sparse_adam_cuda``) run; on the CPU their plain versions."""
     from aread_tpu_torch.device import resolve_device
     from aread_tpu_torch.ops.sparse_adam import (lazy_sparse_adam_,
                                                  sparse_adam_cuda,
@@ -107,35 +151,45 @@ def run(device="cuda", n_flat: int = N_FLAT, n: int = N_COPIES,
     table = data["table"]
     out: Dict[str, object] = {"tag": tag, "gather": {}}
     for rows in ROWS:
-        ids = data[rows]
-        kernel = gather_rows_sum if card else gather_rows_reference
-        ms, call_ms = clocks(lambda: kernel(table, ids, rows), dev, reps)
-        # the blocks of rows 1 (8 MB) stay in the 50 MB L2 from one launch
-        # to the next; a lazy step's rows come from device memory
-        cold = cold_ms(lambda: kernel(table, ids, rows), dev, reps)
-        plain_ms, _ = clocks(lambda: gather_rows_reference(table, ids, rows),
-                             dev, reps)
-        library_ms, _ = clocks(lambda: table[ids, 0].sum(), dev, reps)
+        t = _gather_times(table, data[rows], rows, dev, reps)
+        # each id's whole block read once, and the ids
         nbytes = n * rows * LANES * 4 + n * 4 + 4
+        bound = nbytes / peak * 1e3 if peak else None
+        ctas, stages, smem = ring_plan(n, rows)
+        per_copy = {f"{pre}{k}ns_per_copy": t[f"{pre}{k}ms"] * 1e6 / n
+                    for pre in ("", "serial_")
+                    for k in ("", "cold_", "device_")
+                    if t[f"{pre}{k}ms"] is not None}
+        # the L2-hot clock may pass the HBM bound at rows 1; the cold one
+        # is the kernel's share of it
+        shares = {f"{pre}bound_share_cold": bound / t[f"{pre}cold_ms"]
+                  for pre in ("", "serial_")
+                  if bound and t[f"{pre}cold_ms"]}
         out["gather"][rows] = emit(
             "gather", tag, rows=rows, bytes_per_copy=rows * LANES * 4, n=n,
-            route="kernel" if card else "plain", ms=ms, call_ms=call_ms,
-            ns_per_copy=ms * 1e6 / n, cold_ms=cold,
-            cold_ns_per_copy=cold * 1e6 / n if cold else None,
-            plain_ms=plain_ms,
-            library_ms=library_ms,
-            bound_ms=nbytes / peak * 1e3 if peak else None)
+            route="kernel" if card else "plain", form="ring",
+            ring_ctas=ctas, ring_stages=stages, ring_smem_bytes=smem, **t,
+            **per_copy, bound_ms=bound, **shares,
+            library="table[ids, 0].sum() (reads 4 B a copy)")
     g1, g8 = out["gather"][1], out["gather"][8]
+
+    def projection(pre: str, clock: str) -> Dict[str, float]:
+        ns1, ns8 = (g.get(f"{pre}{clock}ns_per_copy") for g in (g1, g8))
+        return {f"{pre}{clock}row_granular_ms":
+                6 * ns1 * LAZY_ROWS / 1e6 if ns1 else None,
+                f"{pre}{clock}block8_granular_ms":
+                6 * ns8 * LAZY_BLOCKS / 1e6 if ns8 else None}
+
     out["projection"] = emit(
         "lazy_projection", tag,
-        row_granular_ms=6 * g1["ns_per_copy"] * LAZY_ROWS / 1e6,
-        block8_granular_ms=6 * g8["ns_per_copy"] * LAZY_BLOCKS / 1e6,
-        cold_row_granular_ms=(6 * g1["cold_ns_per_copy"] * LAZY_ROWS / 1e6
-                              if card else None),
-        cold_block8_granular_ms=(6 * g8["cold_ns_per_copy"] * LAZY_BLOCKS
-                                 / 1e6 if card else None),
+        **{k: v for pre in ("", "serial_")
+           for clock in ("", "cold_", "device_")
+           for k, v in projection(pre, clock).items()},
         formula="6 x ns_per_copy x 17,408 rows; 6 x ns_per_copy(8) x "
-                "14,600 blocks (benchmarks/prof_dma_issue.py:112-113)")
+                "14,600 blocks (benchmarks/prof_dma_issue.py:112-113); "
+                "unprefixed: the ring (the card's answer), serial_: one "
+                "issuer (the TPU script's question); by the back-to-back, "
+                "cold_ and device_ (the host ahead) clocks")
     del data, table
     w, m, v, uids, gsum = lazy_inputs(bs, dev, dims)
     n_unique = int((uids < w.shape[0]).sum())

@@ -14,7 +14,11 @@ bf16 moments (``ops/cuda/adam_attrib.cu`` says what each isolates):
 
 ``adam_attrib_reference`` is the plain version; ``adam_attrib_`` launches
 the hand-written kernel in place on CUDA tensors and raises on anything
-else. Both take the scalars of ``ops.sparse_adam.adam_scalars``.
+else. Both take the scalars of ``ops.sparse_adam.adam_scalars``. The
+kernel has two sweeps (``FORMS``), which leave the same bits: ``vec8`` (16
+bytes of each of w, m, v a thread, kernel 1's sweep) and ``tma`` (a
+bulk-copy pipeline through shared memory, the default: it moves ``copy``
+faster on the card).
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ from aread_tpu_torch.ops.sparse_adam import (_SLOTS, _slot_key, _slot_map,
                                              sparse_adam_reference)
 
 MODES = ("full", "rtn", "dot1", "noslot", "noadam", "copy")
+# the sweeps, in adam_attrib.cu's Form order
+FORMS = ("vec8", "tma")
+DEFAULT_FORM = "tma"
+# the tma sweep's tiles: TILE contiguous elements of each of w, m and v,
+# whole rows for every width
+TILE = 2048
 # D = 8 * vpr with vpr a power of two dividing 32: a row's vectors are lanes
 # of one warp, which resets the row's slot in the sweep
 WIDTHS = (8, 16, 32, 64, 128, 256)
@@ -86,16 +96,19 @@ def adam_attrib_reference(mode: str, w, m, v, uids, gsum, t: int, lr: float,
 def adam_attrib_(mode: str, w, m, v, uids, gsum, t: int, lr: float,
                  b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
                  weight_decay: float = 1e-8, l2: float = 0.0,
-                 sr_seed=None) -> None:
-    """Launch ``ops/cuda/adam_attrib.cu``'s ``mode`` on the current stream,
-    w, m and v updated in place. Takes CUDA bf16 w, m, v ``[n_rows, D]``
-    with D in ``WIDTHS``, contiguous and 16-byte aligned, int32 uids and
-    f32 gsum ``[K, D]`` (``dedup_rows``' output); raises on anything else
-    (a mode, a dtype or a width before a tensor off the card, all before
-    any build) and on a failed build or launch. The slot map is kernel 1's
-    (``sparse_adam._slot_map``): all -1 between launches of either."""
+                 sr_seed=None, form: str = DEFAULT_FORM) -> None:
+    """Launch ``ops/cuda/adam_attrib.cu``'s ``mode`` in its sweep ``form``
+    on the current stream, w, m and v updated in place. Takes CUDA bf16 w,
+    m, v ``[n_rows, D]`` with D in ``WIDTHS``, contiguous and 16-byte
+    aligned, int32 uids and f32 gsum ``[K, D]`` (``dedup_rows``' output);
+    raises on anything else (a mode, a form, a dtype or a width before a
+    tensor off the card, all before any build) and on a failed build or
+    launch. The slot map is kernel 1's (``sparse_adam._slot_map``): all -1
+    between launches of either."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
+    if form not in FORMS:
+        raise ValueError(f"form {form!r}: one of {FORMS}")
     if not all(x.dtype == torch.bfloat16 for x in (w, m, v)):
         raise TypeError(f"w, m, v dtypes {w.dtype}, {m.dtype}, {v.dtype}: "
                         "bfloat16 only")
@@ -130,7 +143,8 @@ def adam_attrib_(mode: str, w, m, v, uids, gsum, t: int, lr: float,
         stream = torch.cuda.current_stream(dev).cuda_stream
         try:
             torch.ops.aread_tpu_torch.adam_attrib_(
-                w, m, v, uids, gsum, slot, MODES.index(mode), s["lr"],
+                w, m, v, uids, gsum, slot, MODES.index(mode),
+                FORMS.index(form), s["lr"],
                 s["b1"], s["b2"], s["eps"], s["decay"], s["b1c"], s["b2c"],
                 s["omb1"], s["omb2"], int(t if sr_seed is None else sr_seed),
                 (d // 8).bit_length() - 1, stream)

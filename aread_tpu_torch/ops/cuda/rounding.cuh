@@ -67,11 +67,12 @@ __device__ __forceinline__ void load8_cs(const float* p, float (&x)[VEC]) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-// element 2j of the vector is the low half of 32-bit word j, element 2j+1
-// the high half (little-endian), which is __nv_bfloat162's (.x, .y)
-__device__ __forceinline__ void load8_cs(const __nv_bfloat16* p,
-                                         float (&x)[VEC]) {
-  const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
+// 8 bf16 elements as one 16-byte word: element 2j of the vector is the low
+// half of 32-bit word j, element 2j+1 the high half (little-endian), which
+// is __nv_bfloat162's (.x, .y). The bf16 loads and stores below are these
+// conversions around a streaming access; a kernel that moves the words
+// through shared memory (adam_attrib.cu's TMA sweep) calls them directly.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&x)[VEC]) {
   const uint32_t words[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -82,13 +83,7 @@ __device__ __forceinline__ void load8_cs(const __nv_bfloat16* p,
   }
 }
 
-__device__ __forceinline__ void store8_rn(float* p, const float (&x)[VEC]) {
-  __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
-  __stcs(reinterpret_cast<float4*>(p) + 1,
-         make_float4(x[4], x[5], x[6], x[7]));
-}
-__device__ __forceinline__ void store8_rn(__nv_bfloat16* p,
-                                          const float (&x)[VEC]) {
+__device__ __forceinline__ uint4 pack8_rn(const float (&x)[VEC]) {
   uint32_t words[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -96,8 +91,37 @@ __device__ __forceinline__ void store8_rn(__nv_bfloat16* p,
     const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * j + 1]));
     words[j] = lo | (hi << 16);
   }
-  __stcs(reinterpret_cast<uint4*>(p),
-         make_uint4(words[0], words[1], words[2], words[3]));
+  return make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+__device__ __forceinline__ uint4 pack8_w(uint32_t base, const float (&x)[VEC],
+                                         uint32_t seed) {
+  uint32_t words[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t lo =
+        (__float_as_uint(x[2 * j]) + (hash_bits(base + 2 * j, seed) & 0xFFFFu)) >> 16;
+    const uint32_t hi = (__float_as_uint(x[2 * j + 1]) +
+                         (hash_bits(base + 2 * j + 1, seed) & 0xFFFFu)) &
+                        0xFFFF0000u;
+    words[j] = lo | hi;
+  }
+  return make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+__device__ __forceinline__ void load8_cs(const __nv_bfloat16* p,
+                                         float (&x)[VEC]) {
+  unpack8(__ldcs(reinterpret_cast<const uint4*>(p)), x);
+}
+
+__device__ __forceinline__ void store8_rn(float* p, const float (&x)[VEC]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1,
+         make_float4(x[4], x[5], x[6], x[7]));
+}
+__device__ __forceinline__ void store8_rn(__nv_bfloat16* p,
+                                          const float (&x)[VEC]) {
+  __stcs(reinterpret_cast<uint4*>(p), pack8_rn(x));
 }
 
 // weight store of elements base .. base + 7 (p already points at element
@@ -109,18 +133,7 @@ __device__ __forceinline__ void store8_w(float* p, uint32_t,
 }
 __device__ __forceinline__ void store8_w(__nv_bfloat16* p, uint32_t base,
                                          const float (&x)[VEC], uint32_t seed) {
-  uint32_t words[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t lo =
-        (__float_as_uint(x[2 * j]) + (hash_bits(base + 2 * j, seed) & 0xFFFFu)) >> 16;
-    const uint32_t hi = (__float_as_uint(x[2 * j + 1]) +
-                         (hash_bits(base + 2 * j + 1, seed) & 0xFFFFu)) &
-                        0xFFFF0000u;
-    words[j] = lo | hi;
-  }
-  __stcs(reinterpret_cast<uint4*>(p),
-         make_uint4(words[0], words[1], words[2], words[3]));
+  __stcs(reinterpret_cast<uint4*>(p), pack8_w(base, x, seed));
 }
 
 // The f32 scalars of one step (ops/sparse_adam.py::adam_scalars): decay is

@@ -120,17 +120,25 @@ Phases, each printing one line:
   probes   the two probes that replace the benchmark folder's TPU kernels,
            through their entry points at full size, counted:
            aread_tpu_torch.benchmarks.prof_dma_issue (16,384 scattered
-           [rows, 128] f32 block copies of a [380,000, 128] table through
-           two shared-memory stages, rows 1 and 8: ns per copy, the TPU
-           script's lazy-step projection, lazy_sparse_adam_ and kernel 1
-           on the bf16 Amazon table by both clocks) and
+           [rows, 128] f32 block copies of a [380,000, 128] table into
+           shared memory, rows 1 and 8, in both forms in turns: the ring
+           (CTAs on every SM, a ring of bulk copies each) and the serial
+           form (one thread, two stages); ns per copy by both clocks and
+           cold, the byte bound, table[ids, 0].sum() beside them, the
+           lazy-step projection from each form, lazy_sparse_adam_ and
+           kernel 1 on the bf16 Amazon table by both clocks) and
            aread_tpu_torch.benchmarks.prof_kernel_attrib (kernel 1's sweep
-           with parts taken out, six modes at [1,521,664, 32] bf16: ms per
-           update over 200 back-to-back updates, shares of the byte bound,
-           the gaps); then gather_rows bitwise against its plain version
-           (rows 1 and 8; 16,384, 37, 1 and 0 copies) and every adam_attrib
-           mode bitwise against its plain version, full against kernel 1
-           too (-0.0 told apart), at the full table and at D = 8, 64, 256;
+           with parts taken out, six modes at [1,521,664, 32] bf16 in each
+           of two sweeps, vec8 and tma, in turns: ms per update
+           over 200 back-to-back updates, shares of the byte bound, the
+           gaps, copy against three Tensor.copy_); then each gather_rows
+           form bitwise against its own plain version (rows 1 and 8;
+           16,384, 37, 1, 0, CHUNK and CHUNK + 1 copies), ring calls on
+           two streams at once, an id past the table refused by each
+           form's kernel (a process each), and every
+           adam_attrib mode in every sweep bitwise against its plain
+           version, full against kernel 1 too (-0.0 told apart), at the
+           full table and at D = 8, 64, 256;
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
@@ -182,11 +190,14 @@ LAUNCHED_IN = {"sparse_adam": "train", "fused_adam": "train_dense",
 # instantiations ptxas must report (every storage variant or mode); none
 # may spill
 MAIN_KERNELS = {"sparse_adam": ("vec8", 8), "fused_adam": ("vec8", 8),
-                "gather_rows": ("gather_rows_sum", 1),
-                "adam_attrib": ("attrib_sweep", 6)}
+                "gather_rows": ("gather_rows_", 2),
+                "adam_attrib": ("attrib_sweep", 12)}
 # per-kernel times of the final ``kernels`` line (beside library_ms):
-# ms / scalar_ms are device times (back-to-back clock) of the vector and the
-# scalar kernel, call_ms the vector kernel's per-call median (host included)
+# ms / scalar_ms are device times of the vector and the scalar kernel (the
+# back-to-back clock; for the gather, whose ring launch is shorter than its
+# host time, the device_ms clock, and its back-to-back clock under
+# back_to_back_ms), call_ms the vector kernel's per-call median (host
+# included)
 ROW_TIMES = ("ms", "call_ms", "scalar_ms", "scalar_call_ms", "plain_ms",
              "bound_ms", "cuda_launches_per_update", "wrapper_host_us")
 # TPU kernel each port replaces
@@ -4833,36 +4844,117 @@ def probes_lazy_profile(dma) -> None:
 
 
 def probes_gather_check(dma) -> float:
-    """gather_rows_sum against its plain version on the probe's table and
-    ids, rows 1 and 8, 16,384 copies and a few short runs (an odd count,
-    one copy, none): bitwise. Returns the worst absolute error."""
-    from aread_tpu_torch.ops.gather_rows import (gather_rows_reference,
-                                                 gather_rows_sum)
+    """Both forms of gather_rows_sum, each against its own plain version
+    (the ring: chunks in order, then the partials; the serial form: in
+    order), on the probe's table and ids, rows 1 and 8, at 16,384 copies
+    and short runs (an odd count, one copy, none, one chunk and one more):
+    bitwise; then ring calls on two streams at once, bitwise, and the ids'
+    range (probes_id_range_check). Returns the worst absolute error."""
+    from aread_tpu_torch.ops.gather_rows import (CHUNK, FORMS, PLAIN,
+                                                 gather_rows_sum, ring_plan)
 
     data = dma.make_inputs(dma.N_FLAT, dma.N_COPIES, "cuda")
     worst = 0.0
     for rows in dma.ROWS:
-        for n in (dma.N_COPIES, 37, 1, 0):
+        for n in (dma.N_COPIES, 37, 1, 0, CHUNK, CHUNK + 1):
             ids = data[rows][:n]
-            got = gather_rows_sum(data["table"], ids, rows)
-            want = gather_rows_reference(data["table"], ids, rows)
-            line = {"rows": rows, "n": n, "sum": float(got),
-                    "bitwise": bits_equal(got, want),
-                    "max_abs_err": abs(float(got) - float(want))}
-            say("probes", part="gather_check", **line)
-            if not line["bitwise"]:
-                raise AssertionError(f"gather_rows != plain version: {line}")
-            worst = max(worst, line["max_abs_err"])
+            for form in FORMS:
+                got = gather_rows_sum(data["table"], ids, rows, form)
+                want = PLAIN[form](data["table"], ids, rows)
+                line = {"rows": rows, "n": n, "form": form,
+                        "sum": float(got), "bitwise": bits_equal(got, want),
+                        "max_abs_err": abs(float(got) - float(want))}
+                if form == "ring":
+                    line["ctas_stages_smem"] = ring_plan(n, rows)
+                say("probes", part="gather_check", **line)
+                if not line["bitwise"]:
+                    raise AssertionError(f"gather_rows != plain version: "
+                                         f"{line}")
+                worst = max(worst, line["max_abs_err"])
+    # the ring on two streams at once: each call has its own ticket
+    table, ids = data["table"], data[8]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    calls = []
+    for k in range(16):
+        stream = streams[k % 2]
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            part = ids[(k % 8) * 2048:(k % 8 + 1) * 2048]
+            calls.append((part, gather_rows_sum(table, part, 8)))
+    torch.cuda.synchronize()
+    line = {"calls": len(calls), "streams": len(streams), "bitwise": all(
+        bits_equal(got, PLAIN["ring"](table, part, 8))
+        for part, got in calls)}
+    say("probes", part="gather_two_streams", **line)
+    if not line["bitwise"]:
+        raise AssertionError(f"ring calls on two streams: {line}")
+    probes_id_range_check()
     return worst
 
 
+# a process of its own for each gather form: the block that ends at the
+# table's last row is summed bitwise, then an id one past it must make the
+# launch fail (the kernel traps; the CUDA context is lost with it)
+RANGE_CHILD = r"""
+import json, sys
+import torch
+from aread_tpu_torch.ops.gather_rows import PLAIN, gather_rows_sum
+form, rows, n_table = sys.argv[1], 8, 1000
+table = torch.arange(n_table * 128, dtype=torch.float32,
+                     device="cuda").view(n_table, 128)
+edge = torch.tensor([0, 5, n_table - rows], dtype=torch.int32, device="cuda")
+got = gather_rows_sum(table, edge, rows, form).cpu()
+want = PLAIN[form](table, edge, rows).cpu()
+line = {"form": form, "last_block_bitwise": torch.equal(
+    got.reshape(1).view(torch.int32), want.reshape(1).view(torch.int32))}
+try:
+    past = torch.tensor([0, 5, n_table - rows + 1], dtype=torch.int32,
+                        device="cuda")
+    gather_rows_sum(table, past, rows, form)
+    torch.cuda.synchronize()
+    line["refused"] = None
+except RuntimeError as e:
+    line["refused"] = str(e).strip().splitlines()[0]
+print(json.dumps(line), flush=True)
+"""
+
+
+def probes_id_range_check() -> None:
+    """Each gather form in a process of its own (RANGE_CHILD): the last
+    block of the table read bitwise, an id past it refused by the kernel
+    (the launch fails)."""
+    from aread_tpu_torch.ops.gather_rows import FORMS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {form: subprocess.Popen(
+        [sys.executable, "-c", RANGE_CHILD, form], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for form in FORMS}
+    try:
+        for form, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            lines = [x for x in out.splitlines() if x.startswith("{")]
+            if not lines:
+                raise AssertionError(f"the id-range child of {form} printed "
+                                     f"nothing: {err[-2000:]}")
+            line = json.loads(lines[-1])
+            say("probes", part="gather_id_range", **line)
+            if not (line["last_block_bitwise"] and line["refused"]):
+                raise AssertionError(f"gather_rows id range: {line}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def probes_attrib_check(attrib) -> float:
-    """Every adam_attrib mode against its plain version, and full against
-    kernel 1 (sparse_adam_cuda), bitwise with -0.0 told apart: at the
-    probe's full table and at small tables of D = 8, 64 and 256, on
-    seed-made w (some weights -0.0), m, v and batches. Returns the worst
-    absolute error."""
-    from aread_tpu_torch.ops.adam_attrib import (MODES, adam_attrib_,
+    """Every adam_attrib mode in every sweep (vec8, tma) against its
+    plain version, and full against kernel 1 (sparse_adam_cuda), bitwise
+    with -0.0 told apart: at the probe's full table and at small tables of
+    D = 8, 64 and 256, on seed-made w (some weights -0.0), m, v and
+    batches. Returns the worst absolute error."""
+    from aread_tpu_torch.ops.adam_attrib import (FORMS, MODES, adam_attrib_,
                                                  adam_attrib_reference)
     from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_cuda
 
@@ -4882,13 +4974,17 @@ def probes_attrib_check(attrib) -> float:
                             device=dev, dtype=torch.int32)
         uids, gsum = dedup_rows(
             ids, torch.randn((bs * 17, d), generator=gen, device=dev), n_rows)
-        for mode in MODES:
+        k1 = w.clone(), m.clone(), v.clone()
+        sparse_adam_cuda(*k1, uids, gsum, PROBE_T, **SPARSE_KW)
+        for mode, form in ((mode, form) for mode in MODES for form in FORMS):
+            if form == FORMS[0]:
+                want = adam_attrib_reference(mode, w, m, v, uids, gsum,
+                                             PROBE_T, **SPARSE_KW)
             got = w.clone(), m.clone(), v.clone()
-            adam_attrib_(mode, *got, uids, gsum, PROBE_T, **SPARSE_KW)
-            want = adam_attrib_reference(mode, w, m, v, uids, gsum, PROBE_T,
-                                         **SPARSE_KW)
+            adam_attrib_(mode, *got, uids, gsum, PROBE_T, form=form,
+                         **SPARSE_KW)
             torch.cuda.synchronize()
-            line = {"table": [n_rows, d], "mode": mode,
+            line = {"table": [n_rows, d], "mode": mode, "form": form,
                     "bitwise": all(bits_equal(a, b)
                                    for a, b in zip(got, want)),
                     "max_abs_err": max(float((a.float() - b.float()).abs()
@@ -4896,9 +4992,6 @@ def probes_attrib_check(attrib) -> float:
                     "changed": [not bits_equal(a, b)
                                 for a, b in zip(got, (w, m, v))]}
             if mode == "full":
-                k1 = w.clone(), m.clone(), v.clone()
-                sparse_adam_cuda(*k1, uids, gsum, PROBE_T, **SPARSE_KW)
-                torch.cuda.synchronize()
                 line["equals_kernel1"] = all(bits_equal(a, b)
                                              for a, b in zip(got, k1))
             if mode == "noadam":
@@ -4922,6 +5015,29 @@ def probes_attrib_check(attrib) -> float:
     return worst
 
 
+def gather_row_times(g) -> dict:
+    """The gather's times in the ``kernels`` row from one of the probe's
+    gather lines: device times under ``ms`` / ``scalar_ms`` (the
+    ``device_ms`` clock: a ring launch is shorter than its host time, so
+    the back-to-back clock reads the host; kept as ``back_to_back_ms``),
+    the ring's ns a copy by that clock, the cold clock and its share of
+    the bound, the library call's clocks."""
+    return {"ms": g["device_ms"], "call_ms": g["call_ms"],
+            "cold_ms": g["cold_ms"], "back_to_back_ms": g["ms"],
+            "ns_per_copy": g["device_ns_per_copy"],
+            "cold_ns_per_copy": g["cold_ns_per_copy"],
+            "scalar_ms": g["serial_device_ms"],
+            "scalar_call_ms": g["serial_call_ms"],
+            "scalar_cold_ms": g["serial_cold_ms"],
+            "scalar_back_to_back_ms": g["serial_ms"],
+            "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+            "bound_share_cold": g["bound_share_cold"],
+            "library_ms": g["library_device_ms"],
+            "library_call_ms": g["library_call_ms"],
+            "library_cold_ms": g["library_cold_ms"],
+            "library_back_to_back_ms": g["library_ms"]}
+
+
 def phase_probes(ctx):
     """The two probes' entry points at their full sizes, counted
     (aread_tpu_torch.benchmarks.prof_dma_issue: scattered-copy ns at rows
@@ -4931,6 +5047,7 @@ def phase_probes(ctx):
     version, bitwise."""
     from aread_tpu_torch.benchmarks import prof_dma_issue as dma
     from aread_tpu_torch.benchmarks import prof_kernel_attrib as attrib
+    from aread_tpu_torch.ops.adam_attrib import DEFAULT_FORM
 
     gather, attribution = counted(
         ctx, "probes", lambda: (dma.run("cuda"), attrib.run("cuda")))
@@ -4946,22 +5063,27 @@ def phase_probes(ctx):
         "name": "gather_rows", "route": "cuda",
         "source": "aread_tpu_torch/ops/cuda/gather_rows.cu",
         "replaces": REPLACES["gather_rows"], "max_abs_err": worst_gather,
-        "ms": g1["ms"], "call_ms": g1["call_ms"], "plain_ms": g1["plain_ms"],
-        "bound_ms": g1["bound_ms"], "bound_by": "bytes",
-        "library_ms": g1["library_ms"], "rows": 1, "n": g1["n"],
-        "ns_per_copy": g1["ns_per_copy"], "rows8_ms": g8["ms"],
-        "rows8_ns_per_copy": g8["ns_per_copy"],
-        "rows8_plain_ms": g8["plain_ms"], "rows8_library_ms": g8["library_ms"],
-        "rows8_bound_ms": g8["bound_ms"]}
+        "form": "ring", **gather_row_times(g1), "bound_by": "bytes",
+        "rows": 1, "n": g1["n"], "rows8": gather_row_times(g8)}
+    forms = full["forms"]
+    copy = attribution["modes"]["copy"]["forms"]
     rows["adam_attrib"] = {
         "name": "adam_attrib", "route": "cuda",
         "source": "aread_tpu_torch/ops/cuda/adam_attrib.cu",
         "replaces": REPLACES["adam_attrib"], "max_abs_err": worst_attrib,
-        "ms": full["ms"], "call_ms": full["call_ms"],
+        "form": DEFAULT_FORM, "ms": forms[DEFAULT_FORM]["ms"],
+        "call_ms": forms[DEFAULT_FORM]["call_ms"],
+        "scalar_ms": forms["vec8"]["ms"],
+        "scalar_call_ms": forms["vec8"]["call_ms"],
         "plain_ms": attribution["beside"]["plain_full_ms"],
         "bound_ms": full["bound_ms"], "bound_by": "bytes",
         "library_ms": attribution["beside"]["library_ms"],
-        "modes_ms": {k: v["ms"] for k, v in attribution["modes"].items()}}
+        "library_call_ms": attribution["beside"]["library_call_ms"],
+        "library_copy_ms": attribution["beside"]["library_copy_ms"],
+        "library_copy_call_ms": attribution["beside"]["library_copy_call_ms"],
+        "copy_ms": {f: copy[f]["ms"] for f in copy},
+        "modes_ms": {k: {f: x["ms"] for f, x in v["forms"].items()}
+                     for k, v in attribution["modes"].items()}}
     if not (launches["gather_rows"] and launches["adam_attrib"]):
         raise AssertionError(f"the probes launched no kernel: {launches}")
 

@@ -736,3 +736,25 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_counts_every_probe_kernel_form():
+    """MAIN_KERNELS names each probe kernel's __global__ functions by a
+    part of their names and the instantiations ptxas must report: the
+    gather's two forms (the ring and the serial form), the attribution's
+    two sweeps in six modes each."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(ast.literal_eval(n.value) for n in tree.body
+                if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", "") == "MAIN_KERNELS")
+    from aread_tpu_torch.ops import adam_attrib, gather_rows
+
+    assert main["gather_rows"] == ("gather_rows_", len(gather_rows.FORMS))
+    assert main["adam_attrib"] == (
+        "attrib_sweep", len(adam_attrib.FORMS) * len(adam_attrib.MODES))
+    cu = build.sources("gather_rows")[0].read_text()
+    assert cu.count("__global__ void") == 2
+    assert "gather_rows_sum(" in cu and "gather_rows_ring(" in cu
+    cu = build.sources("adam_attrib")[0].read_text()
+    sweeps = [n for n in ("attrib_sweep(", "attrib_sweep_tma(") if n in cu]
+    assert len(sweeps) == len(adam_attrib.FORMS) == 2
