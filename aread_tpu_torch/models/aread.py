@@ -24,7 +24,7 @@ for '/', so ``convert.py`` maps weights one to one.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +113,17 @@ class AREAD(CTRModel):
     def n_level(self) -> int:
         return len(self.n_tower)
 
+    def full_mask_on(self, dev) -> List[torch.Tensor]:
+        """``full_mask`` as tensors on ``dev``, made once: a copy from the
+        host per forward would make the host wait for the device, and a
+        captured CUDA graph cannot hold one."""
+        key, cached = getattr(self, "_full_mask", (None, None))
+        if key != str(dev):
+            cached = [torch.as_tensor(m, device=dev)
+                      for m in full_mask(self.n_tower)]
+            self._full_mask = (str(dev), cached)
+        return cached
+
     def forward(self, x, domain_mask=None, mode: str = "wo_mask",
                 train: bool = False, mask=None, generator=None,
                 tap: bool = False, group=None):
@@ -151,7 +162,7 @@ class AREAD(CTRModel):
 
         if mode == "wo_mask":
             group_embed = torch.zeros_like(domain_embed)
-            dm = [torch.as_tensor(m, device=dev) for m in full_mask(self.n_tower)]
+            dm = self.full_mask_on(dev)
         else:
             if domain_mask is None:
                 raise ValueError("masked modes need a domain_mask")

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from aread_tpu_torch.ops.cuda import launch_counts
+from aread_tpu_torch.ops.cuda import count_launch, launch_counts  # noqa: F401
 from aread_tpu_torch.ops.rounding import flat_index_grid, sround
 from aread_tpu_torch.ops.sparse_adam import (_SLOTS, _slot_key, _slot_map,
                                              adam_scalars, is_aligned16,
@@ -152,4 +152,4 @@ def adam_attrib_(mode: str, w, m, v, uids, gsum, t: int, lr: float,
             # a launch that failed after the scatter leaves the map dirty
             _SLOTS.pop(_slot_key(dev, n_rows), None)
             raise
-    launch_counts["adam_attrib"] += 1
+    count_launch("adam_attrib")

@@ -10,9 +10,14 @@
 //   v' = b2 * v + omb2 * g * g
 //   w' = w - lr * (m' / b1c) / (sqrt(v' / b2c) + eps)
 // w, m and v are updated in place. w is f32 or bf16 (bf16: f32 compute and
-// a stochastically rounded write keyed by murmur3-fmix32(e, seed), which
-// the TPU entry point leaves to its plain version); m and v are f32 or
-// bf16 (round to nearest); the gradient is f32 or bf16.
+// a stochastically rounded write keyed by murmur3-fmix32(index_base + e,
+// seed), which the TPU entry point leaves to its plain version); m and v
+// are f32 or bf16 (round to nearest); the gradient is f32 or bf16.
+// index_base is the global element index of the leaf's first element: 0
+// for a whole leaf, the shard's first element for a row shard of the table
+// on a mesh, so that the shards together round as the whole table does (as
+// the JAX package's reference_adam_update does under GSPMD, keyed on the
+// global element index).
 //
 // Bound: HBM bytes. Each element reads w, m, v, g and writes w, m, v once:
 // 28 B all-f32, 20 B with bf16 moments; a dozen flops per element are far
@@ -50,12 +55,12 @@ using aread::VEC;
 template <typename WT, typename MT, typename GT>
 __device__ __forceinline__ void update_one(WT* w, MT* m, MT* v, const GT* g,
                                            size_t e, const AdamScalars& s,
-                                           uint32_t seed) {
+                                           uint32_t seed, uint32_t base) {
   float w2, m2, v2;
   aread::adam_element(aread::load_f(w, e), aread::load_f(m, e),
                       aread::load_f(v, e), aread::load_f(g, e), s, &w2, &m2,
                       &v2);
-  aread::store_w(w, static_cast<uint32_t>(e), w2, seed);
+  aread::store_w(w, e, static_cast<uint32_t>(e) + base, w2, seed);
   aread::store_rn(m, e, m2);
   aread::store_rn(v, e, v2);
 }
@@ -65,11 +70,12 @@ template <typename WT, typename MT, typename GT>
 __global__ void __launch_bounds__(BLOCK)
     fused_adam_scalar(WT* __restrict__ w, MT* __restrict__ m,
                       MT* __restrict__ v, const GT* __restrict__ g,
-                      size_t n_elems, AdamScalars s, uint32_t seed) {
+                      size_t n_elems, AdamScalars s, uint32_t seed,
+                      uint32_t base) {
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n_elems; e += stride)
-    update_one(w, m, v, g, e, s, seed);
+    update_one(w, m, v, g, e, s, seed, base);
 }
 
 // a thread per 8 consecutive elements; w, m, v, g 16-byte aligned
@@ -77,7 +83,8 @@ template <typename WT, typename MT, typename GT>
 __global__ void __launch_bounds__(BLOCK)
     fused_adam_vec8(WT* __restrict__ w, MT* __restrict__ m,
                     MT* __restrict__ v, const GT* __restrict__ g,
-                    size_t n_elems, AdamScalars s, uint32_t seed) {
+                    size_t n_elems, AdamScalars s, uint32_t seed,
+                    uint32_t base) {
   const size_t n_vec = n_elems / VEC;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -92,18 +99,19 @@ __global__ void __launch_bounds__(BLOCK)
     for (int j = 0; j < VEC; ++j)
       aread::adam_element(wf[j], mf[j], vf[j], gf[j], s, &wf[j], &mf[j],
                           &vf[j]);
-    aread::store8_w(w + e, static_cast<uint32_t>(e), wf, seed);
+    aread::store8_w(w + e, static_cast<uint32_t>(e) + base, wf, seed);
     aread::store8_rn(m + e, mf);
     aread::store8_rn(v + e, vf);
   }
   // the last n_elems % 8 elements
   for (size_t e = n_vec * VEC + tid; e < n_elems; e += stride)
-    update_one(w, m, v, g, e, s, seed);
+    update_one(w, m, v, g, e, s, seed, base);
 }
 
 template <typename WT, typename MT, typename GT>
 cudaError_t launch(void* w, void* m, void* v, const void* g, size_t n_elems,
-                   AdamScalars s, uint32_t seed, int vec, cudaStream_t stream) {
+                   AdamScalars s, uint32_t seed, uint32_t base, int vec,
+                   cudaStream_t stream) {
   static int vec_grid[aread::MAX_DEVICES] = {};
   static int scalar_grid[aread::MAX_DEVICES] = {};
   auto* kernel = vec ? &fused_adam_vec8<WT, MT, GT>
@@ -118,18 +126,18 @@ cudaError_t launch(void* w, void* m, void* v, const void* g, size_t n_elems,
   kernel<<<grid, BLOCK, 0, stream>>>(static_cast<WT*>(w), static_cast<MT*>(m),
                                      static_cast<MT*>(v),
                                      static_cast<const GT*>(g), n_elems, s,
-                                     seed);
+                                     seed, base);
   return cudaGetLastError();
 }
 
 template <typename WT, typename MT>
 cudaError_t launch_g(void* w, void* m, void* v, const void* g, int g_bf16,
-                     size_t n_elems, AdamScalars s, uint32_t seed, int vec,
-                     cudaStream_t stream) {
+                     size_t n_elems, AdamScalars s, uint32_t seed,
+                     uint32_t base, int vec, cudaStream_t stream) {
   return g_bf16 ? launch<WT, MT, __nv_bfloat16>(w, m, v, g, n_elems, s, seed,
-                                                vec, stream)
-                : launch<WT, MT, float>(w, m, v, g, n_elems, s, seed, vec,
-                                        stream);
+                                                base, vec, stream)
+                : launch<WT, MT, float>(w, m, v, g, n_elems, s, seed, base,
+                                        vec, stream);
 }
 
 }  // namespace
@@ -137,15 +145,15 @@ cudaError_t launch_g(void* w, void* m, void* v, const void* g, int g_bf16,
 // Plain C entry point, called by the PyTorch operator in fused_adam_op.cpp
 // (the PyTorch headers stay out of this file, so nvcc compiles it in
 // seconds). Pointers are device pointers; the caller has checked dtypes,
-// shapes, contiguity and devices, that n_elems < 2^32 (the hash's element
-// index is uint32, as in the JAX package), and with vec != 0 that w, m, v
-// and g are 16-byte aligned. The device of the tensors is current. Returns
+// shapes, contiguity and devices, that index_base + n_elems < 2^32 (the
+// hash's element index is uint32, as in the JAX package), and with vec != 0
+// that w, m, v and g are 16-byte aligned. The device of the tensors is current. Returns
 // the cudaError_t of the launch (0 on success).
 extern "C" int aread_fused_adam(
     void* w, int w_bf16, void* m, void* v, int mv_bf16, const void* g,
     int g_bf16, uint64_t n_elems, float lr, float b1, float b2, float eps,
     float decay, float b1c, float b2c, float omb1, float omb2, uint32_t seed,
-    int vec, void* stream_ptr) {
+    uint32_t index_base, int vec, void* stream_ptr) {
   if (n_elems == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const AdamScalars s{lr, b1, b2, eps, decay, b1c, b2c, omb1, omb2};
@@ -153,15 +161,16 @@ extern "C" int aread_fused_adam(
   cudaError_t err;
   if (w_bf16 && mv_bf16) {
     err = launch_g<__nv_bfloat16, __nv_bfloat16>(w, m, v, g, g_bf16, n, s,
-                                                 seed, vec, stream);
+                                                 seed, index_base, vec, stream);
   } else if (w_bf16) {
-    err = launch_g<__nv_bfloat16, float>(w, m, v, g, g_bf16, n, s, seed, vec,
-                                         stream);
+    err = launch_g<__nv_bfloat16, float>(w, m, v, g, g_bf16, n, s, seed,
+                                         index_base, vec, stream);
   } else if (mv_bf16) {
-    err = launch_g<float, __nv_bfloat16>(w, m, v, g, g_bf16, n, s, seed, vec,
-                                         stream);
+    err = launch_g<float, __nv_bfloat16>(w, m, v, g, g_bf16, n, s, seed,
+                                         index_base, vec, stream);
   } else {
-    err = launch_g<float, float>(w, m, v, g, g_bf16, n, s, seed, vec, stream);
+    err = launch_g<float, float>(w, m, v, g, g_bf16, n, s, seed, index_base,
+                                 vec, stream);
   }
   return static_cast<int>(err);
 }

@@ -47,14 +47,25 @@ __device__ __forceinline__ void store_rn(__nv_bfloat16* p, size_t i, float x) {
   p[i] = __float2bfloat16_rn(x);
 }
 
-// weight store: exact for f32, stochastic rounding for bf16, keyed by the
-// element's storage index (below 2^32) and the seed
-__device__ __forceinline__ void store_w(float* p, uint32_t i, float x, uint32_t) { p[i] = x; }
-__device__ __forceinline__ void store_w(__nv_bfloat16* p, uint32_t i, float x,
-                                        uint32_t seed) {
+// weight store of element i: exact for f32, stochastic rounding for bf16,
+// keyed by `key` and the seed. The key is the element's index in the whole
+// table (below 2^32): its storage index, or for a row shard of the table
+// that index plus the shard's first element's.
+__device__ __forceinline__ void store_w(float* p, size_t i, uint32_t, float x,
+                                        uint32_t) {
+  p[i] = x;
+}
+__device__ __forceinline__ void store_w(__nv_bfloat16* p, size_t i,
+                                        uint32_t key, float x, uint32_t seed) {
   uint32_t b = __float_as_uint(x);
-  b = (b + (hash_bits(i, seed) & 0xFFFFu)) & 0xFFFF0000u;
+  b = (b + (hash_bits(key, seed) & 0xFFFFu)) & 0xFFFF0000u;
   p[i] = __ushort_as_bfloat16(static_cast<unsigned short>(b >> 16));
+}
+// keyed by the storage index
+template <typename WT>
+__device__ __forceinline__ void store_w(WT* p, uint32_t i, float x,
+                                        uint32_t seed) {
+  store_w(p, i, i, x, seed);
 }
 
 // ---- 8 consecutive elements from a 16-byte aligned address ----
@@ -124,9 +135,10 @@ __device__ __forceinline__ void store8_rn(__nv_bfloat16* p,
   __stcs(reinterpret_cast<uint4*>(p), pack8_rn(x));
 }
 
-// weight store of elements base .. base + 7 (p already points at element
-// base): element i of the vector is rounded with the hash of storage
-// index base + i, as store_w rounds it
+// weight store of 8 elements (p already points at the first): element i of
+// the vector is rounded with the hash of key base + i, as store_w rounds it
+// (base is the first element's storage index, or its index in the whole
+// table for a shard)
 __device__ __forceinline__ void store8_w(float* p, uint32_t,
                                          const float (&x)[VEC], uint32_t) {
   store8_rn(p, x);

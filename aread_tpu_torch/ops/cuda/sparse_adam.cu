@@ -13,6 +13,14 @@
 // rounding keyed by murmur3-fmix32(e, seed); bf16 moments round to nearest.
 // Optionally it also returns sum(w * w) of the pre-update table.
 //
+// The scalars that change from step to step — lr, b1c, b2c and the seed —
+// are read from the device: `step` holds their 32 bits (the f32 bits of the
+// three, then the seed), written by the host before the launch
+// (ops/sparse_adam.py::step_scalars). A CUDA graph that captured the launch
+// then replays every step with its own values (train/step_graph.py stages a
+// chunk's blocks at once); the step-independent scalars stay arguments.
+// Every thread reads the four words once, before its loop.
+//
 // Bound: HBM bytes. The sweep reads and writes w, m and v once each (12 B
 // per element with bf16 storage, 24 B with f32); everything else (the
 // [K, D] row gradients and the slot map) is a few MB. There is no block
@@ -88,6 +96,17 @@ __global__ void slot_reset(const int32_t* __restrict__ uids, int k_total,
   }
 }
 
+// the launch's step-independent scalars completed with lr, b1c and b2c
+// (their f32 bits) from the step's block on the device; the seed is
+// step[3]
+__device__ __forceinline__ AdamScalars with_step(AdamScalars s,
+                                                 const uint32_t* step) {
+  s.lr = __uint_as_float(__ldg(step + 0));
+  s.b1c = __uint_as_float(__ldg(step + 1));
+  s.b2c = __uint_as_float(__ldg(step + 2));
+  return s;
+}
+
 // fixed-order tree sum of one value per thread; the result is in red[0]
 // (blockDim.x is BLOCK)
 __device__ __forceinline__ void block_sum(double* red, double x) {
@@ -131,9 +150,12 @@ __global__ void __launch_bounds__(BLOCK)
     adam_sweep_scalar(WT* __restrict__ w, MT* __restrict__ m,
                       MT* __restrict__ v, const float* __restrict__ gsum,
                       const int32_t* __restrict__ slot, size_t n_elems,
-                      uint32_t d, AdamScalars s, uint32_t seed,
+                      uint32_t d, AdamScalars consts,
+                      const uint32_t* __restrict__ step,
                       double* l2_partials, float* l2_out,
                       unsigned int* l2_count) {
+  const AdamScalars s = with_step(consts, step);
+  const uint32_t seed = __ldg(step + 3);
   double acc = 0.0;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -167,9 +189,12 @@ __global__ void __launch_bounds__(BLOCK)
     adam_sweep_vec8(WT* __restrict__ w, MT* __restrict__ m,
                     MT* __restrict__ v, const float* __restrict__ gsum,
                     int32_t* slot, uint32_t n_vec, uint32_t d, uint32_t vpr,
-                    uint32_t shift, uint32_t mul, int reset_map, AdamScalars s,
-                    uint32_t seed, double* l2_partials, float* l2_out,
+                    uint32_t shift, uint32_t mul, int reset_map,
+                    AdamScalars consts, const uint32_t* __restrict__ step,
+                    double* l2_partials, float* l2_out,
                     unsigned int* l2_count) {
+  const AdamScalars s = with_step(consts, step);
+  const uint32_t seed = __ldg(step + 3);
   double acc = 0.0;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   const uint32_t lane = threadIdx.x & 31u;
@@ -224,8 +249,8 @@ struct Sweep {
   const float* gsum;
   int32_t* slot;
   uint32_t n_rows, d, vpr, shift, mul;
-  AdamScalars s;
-  uint32_t seed;
+  AdamScalars s;  // lr, b1c and b2c are read from `step` in the kernel
+  const uint32_t* step;
   double* l2_partials;
   int l2_capacity;
   float* l2_out;
@@ -259,7 +284,7 @@ cudaError_t launch_sweep_l2(const Sweep& a) {
     adam_sweep_vec8<WT, MT, WANT_L2>
         <<<clamp_grid(grid, n_vec, a), BLOCK, 0, a.stream>>>(
             w, m, v, a.gsum, a.slot, n_vec, a.d, a.vpr, a.shift, a.mul,
-            32 % a.vpr == 0, a.s, a.seed, a.l2_partials, a.l2_out,
+            32 % a.vpr == 0, a.s, a.step, a.l2_partials, a.l2_out,
             a.l2_count);
   } else {
     cudaError_t err = aread::full_grid(
@@ -269,7 +294,7 @@ cudaError_t launch_sweep_l2(const Sweep& a) {
     const size_t n_elems = static_cast<size_t>(a.n_rows) * a.d;
     adam_sweep_scalar<WT, MT, WANT_L2>
         <<<clamp_grid(grid, n_elems, a), BLOCK, 0, a.stream>>>(
-            w, m, v, a.gsum, a.slot, n_elems, a.d, a.s, a.seed,
+            w, m, v, a.gsum, a.slot, n_elems, a.d, a.s, a.step,
             a.l2_partials, a.l2_out, a.l2_count);
   }
   return cudaGetLastError();
@@ -291,7 +316,10 @@ cudaError_t launch_sweep(const Sweep& a) {
 // package). vpr == 0 asks for the scalar sweep; vpr > 0 for the vector
 // sweep: then d == 8 * vpr, w, m, v and gsum are 16-byte aligned and
 // (shift, mul) divide a vector index by vpr as adam_sweep_vec8 says. slot
-// must hold -1 everywhere on entry and does again on exit. l2_partials /
+// must hold -1 everywhere on entry and does again on exit. step is the
+// step's scalar block on the device: 4 words, the f32 bits of lr, b1c and
+// b2c, then the seed; it must not change until the launch has run.
+// l2_partials /
 // l2_out / l2_count are null unless the pre-update sum(w*w) is wanted:
 // l2_partials then holds l2_capacity doubles, l2_out one float, and
 // l2_count one unsigned int that is 0 on entry and again on exit. Returns
@@ -299,15 +327,15 @@ cudaError_t launch_sweep(const Sweep& a) {
 extern "C" int aread_sparse_adam(
     void* w, int w_bf16, void* m, void* v, int mv_bf16, const int32_t* uids,
     int k_total, const float* gsum, int32_t* slot, uint32_t n_rows, uint32_t d,
-    float lr, float b1, float b2, float eps, float decay, float b1c, float b2c,
-    float omb1, float omb2, uint32_t seed, uint32_t vpr, uint32_t shift,
-    uint32_t mul, double* l2_partials, int l2_capacity, float* l2_out,
+    const uint32_t* step, float b1, float b2, float eps, float decay,
+    float omb1, float omb2, uint32_t vpr, uint32_t shift, uint32_t mul,
+    double* l2_partials, int l2_capacity, float* l2_out,
     unsigned int* l2_count, void* stream_ptr) {
   if (n_rows == 0 || d == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Sweep a{w, m, v, gsum, slot, n_rows, d, vpr, shift, mul,
-                AdamScalars{lr, b1, b2, eps, decay, b1c, b2c, omb1, omb2},
-                seed, l2_partials, l2_capacity, l2_out, l2_count, stream};
+                AdamScalars{0.0f, b1, b2, eps, decay, 0.0f, 0.0f, omb1, omb2},
+                step, l2_partials, l2_capacity, l2_out, l2_count, stream};
   const int kb = (k_total + BLOCK - 1) / BLOCK;
   if (k_total > 0) slot_scatter<<<kb, BLOCK, 0, stream>>>(uids, k_total, n_rows, slot);
   cudaError_t err = cudaGetLastError();

@@ -4,7 +4,9 @@
 // object of sparse_adam.cu; see build.py.
 //
 // The Python wrapper (ops/sparse_adam.py::sparse_adam_cuda) checks dtypes,
-// shapes, devices and contiguity, computes the f32 scalars, picks the
+// shapes, devices and contiguity, computes the step-independent f32 scalars
+// and hands the step's scalar block (lr, b1c, b2c, seed: a [4] int32 tensor
+// on the device, which the kernel reads), picks the
 // vector or the scalar sweep (vpr, shift, mul) and owns the slot map and
 // the sum(w * w) scratch; the launcher sizes the grid. This operator passes
 // the tensors' storage to the launcher on the stream it is given and
@@ -17,9 +19,9 @@
 extern "C" int aread_sparse_adam(
     void* w, int w_bf16, void* m, void* v, int mv_bf16, const int32_t* uids,
     int k_total, const float* gsum, int32_t* slot, uint32_t n_rows, uint32_t d,
-    float lr, float b1, float b2, float eps, float decay, float b1c, float b2c,
-    float omb1, float omb2, uint32_t seed, uint32_t vpr, uint32_t shift,
-    uint32_t mul, double* l2_partials, int l2_capacity, float* l2_out,
+    const uint32_t* step, float b1, float b2, float eps, float decay,
+    float omb1, float omb2, uint32_t vpr, uint32_t shift, uint32_t mul,
+    double* l2_partials, int l2_capacity, float* l2_out,
     unsigned int* l2_count, void* stream_ptr);
 extern "C" const char* aread_sparse_adam_error_string(int err);
 
@@ -31,11 +33,14 @@ void sparse_adam_(const at::Tensor& w, const at::Tensor& m,
                   const at::Tensor& v, const at::Tensor& uids,
                   const at::Tensor& gsum, const at::Tensor& slot,
                   const at::Tensor& l2_partials, const at::Tensor& l2_out,
-                  const at::Tensor& l2_count, double lr, double b1, double b2,
-                  double eps, double decay,
-                  double b1c, double b2c, double omb1, double omb2,
-                  int64_t seed, int64_t vpr, int64_t shift, int64_t mul,
+                  const at::Tensor& l2_count, const at::Tensor& step,
+                  double b1, double b2, double eps, double decay, double omb1,
+                  double omb2, int64_t vpr, int64_t shift, int64_t mul,
                   int64_t stream) {
+  TORCH_CHECK(step.scalar_type() == at::kInt && step.numel() == 4 &&
+                  step.is_contiguous() && step.device() == w.device(),
+              "sparse_adam_: the step's scalars must be a contiguous [4] "
+              "int32 tensor on the table's device");
   const bool want_l2 = l2_partials.numel() > 0;
   TORCH_CHECK(!want_l2 || (l2_partials.scalar_type() == at::kDouble &&
                            l2_out.scalar_type() == at::kFloat &&
@@ -52,11 +57,11 @@ void sparse_adam_(const at::Tensor& w, const at::Tensor& m,
       uids.data_ptr<int32_t>(), static_cast<int>(uids.numel()),
       gsum.data_ptr<float>(), slot.data_ptr<int32_t>(),
       static_cast<uint32_t>(w.size(0)), static_cast<uint32_t>(w.size(1)),
-      static_cast<float>(lr), static_cast<float>(b1), static_cast<float>(b2),
+      reinterpret_cast<const uint32_t*>(step.data_ptr<int32_t>()),
+      static_cast<float>(b1), static_cast<float>(b2),
       static_cast<float>(eps), static_cast<float>(decay),
-      static_cast<float>(b1c), static_cast<float>(b2c),
       static_cast<float>(omb1), static_cast<float>(omb2),
-      static_cast<uint32_t>(seed & 0xFFFFFFFF), static_cast<uint32_t>(vpr),
+      static_cast<uint32_t>(vpr),
       static_cast<uint32_t>(shift), static_cast<uint32_t>(mul),
       want_l2 ? l2_partials.data_ptr<double>() : nullptr,
       static_cast<int>(l2_partials.numel()),
@@ -76,9 +81,9 @@ TORCH_LIBRARY_FRAGMENT(aread_tpu_torch, lib) {
   lib.def(
       "sparse_adam_(Tensor(a!) w, Tensor(b!) m, Tensor(c!) v, Tensor uids, "
       "Tensor gsum, Tensor(d!) slot, Tensor(e!) l2_partials, "
-      "Tensor(f!) l2_out, Tensor(g!) l2_count, float lr, float b1, float b2, "
-      "float eps, float decay, float b1c, float b2c, float omb1, float omb2, "
-      "int seed, int vpr, int shift, int mul, int stream) -> ()");
+      "Tensor(f!) l2_out, Tensor(g!) l2_count, Tensor step, float b1, "
+      "float b2, float eps, float decay, float omb1, float omb2, int vpr, "
+      "int shift, int mul, int stream) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(aread_tpu_torch, CUDA, lib) {

@@ -26,15 +26,19 @@ the whole table takes one Adam step per training step:
 Both take the f32 scalars of ``ops.sparse_adam.adam_scalars``, so the
 dense and the sparse table update agree bitwise on the same gradient. A
 bf16 leaf computes in f32 and is written with stochastic rounding keyed
-by (flat element index, t), in the kernel too (the TPU kernel hands that
-case to its plain version).
+by (global element index, t), in the kernel too (the TPU kernel hands that
+case to its plain version). The global index of the leaf's first element
+is ``index_base``: 0 for a whole leaf, the shard's first element for a
+mesh rank's rows of the table, so that the shards round as the whole
+table does, as in the JAX package, where GSPMD runs the update on the
+row-sharded table with global indices.
 """
 
 from __future__ import annotations
 
 import torch
 
-from aread_tpu_torch.ops.cuda import launch_counts
+from aread_tpu_torch.ops.cuda import count_launch, launch_counts  # noqa: F401
 from aread_tpu_torch.ops.rounding import sround
 from aread_tpu_torch.ops.sparse_adam import VEC, adam_scalars, is_aligned16
 
@@ -44,14 +48,16 @@ _STORAGE = (torch.float32, torch.bfloat16)
 def fused_adam_reference(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                          b2: float = 0.99, eps: float = 1e-8,
                          weight_decay: float = 1e-8, l2: float = 0.0,
-                         sr_seed=None):
+                         sr_seed=None, index_base: int = 0):
     """Plain version (port of ``reference_adam_update``). Returns new
     (w, m, v) in the inputs' dtypes; a bf16 leaf rounds stochastically,
-    keyed by ``sr_seed`` (None: ``t``). Every scalar that divides is a 0-dim
+    keyed by ``sr_seed`` (None: ``t``) and the element's global index
+    ``index_base + e``. Every scalar that divides is a 0-dim
     tensor on the data's device: on CUDA, PyTorch turns division by a
     Python scalar into multiplication by its reciprocal, which is not the
     IEEE quotient."""
     dev = w.device
+    check_index_base(index_base, w.numel())
     s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
     b1c = torch.tensor(s["b1c"], dtype=torch.float32, device=dev)
     b2c = torch.tensor(s["b2c"], dtype=torch.float32, device=dev)
@@ -63,10 +69,19 @@ def fused_adam_reference(w, m, v, g, t: int, lr: float, b1: float = 0.9,
     vhat = v2 / b2c
     new_w = wf - s["lr"] * mhat / (torch.sqrt(vhat) + s["eps"])
     if w.dtype == torch.bfloat16:
-        idx = torch.arange(w.numel(), dtype=torch.int64,
-                           device=dev).reshape(w.shape)
+        idx = torch.arange(index_base, index_base + w.numel(),
+                           dtype=torch.int64, device=dev).reshape(w.shape)
         new_w = sround(new_w, w.dtype, idx, t if sr_seed is None else sr_seed)
     return new_w.to(w.dtype), m2.to(m.dtype), v2.to(v.dtype)
+
+
+def check_index_base(index_base: int, numel: int) -> None:
+    """The stochastic rounding's element index is uint32, as in the JAX
+    package: a leaf's global indices ``index_base .. index_base + numel
+    - 1`` must stay below 2^32."""
+    if index_base < 0 or index_base + numel >= 2**32:
+        raise ValueError(f"index_base {index_base} + numel {numel} is not "
+                         "below 2^32; the element index is uint32")
 
 
 def takes_vector_kernel(numel: int, aligned: bool) -> bool:
@@ -79,11 +94,11 @@ def takes_vector_kernel(numel: int, aligned: bool) -> bool:
 def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                     b2: float = 0.99, eps: float = 1e-8,
                     weight_decay: float = 1e-8, l2: float = 0.0,
-                    sr_seed=None) -> None:
+                    sr_seed=None, index_base: int = 0) -> None:
     """Launch ``ops/cuda/fused_adam.cu`` on the current stream: w, m, v
     updated in place; a bf16 leaf rounds keyed by ``sr_seed`` (None:
-    ``t``). Raises on anything the kernel does not take and on
-    a failed build or launch."""
+    ``t``) and the global element index ``index_base + e``. Raises on
+    anything the kernel does not take and on a failed build or launch."""
     dev = w.device
     if dev.type != "cuda":
         raise ValueError("fused_adam_cuda needs CUDA tensors")
@@ -97,9 +112,7 @@ def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
         raise TypeError(f"w {w.dtype}, g {g.dtype}: float32 or bfloat16")
     if m.dtype != v.dtype or m.dtype not in _STORAGE:
         raise TypeError(f"moment dtypes {m.dtype}, {v.dtype}")
-    if w.numel() >= 2**32:
-        raise ValueError("the leaf has >= 2^32 elements; the element index "
-                         "is uint32")
+    check_index_base(index_base, w.numel())
     if not all(x.is_contiguous() for x in (w, m, v, g)):
         raise ValueError("w, m, v and g must be contiguous")
     from aread_tpu_torch.ops.cuda import build
@@ -112,19 +125,21 @@ def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
         torch.ops.aread_tpu_torch.fused_adam_(
             w, m, v, g, s["lr"], s["b1"], s["b2"], s["eps"], s["decay"],
             s["b1c"], s["b2c"], s["omb1"], s["omb2"],
-            int(t if sr_seed is None else sr_seed), vec, stream)
-    launch_counts["fused_adam"] += 1
+            int(t if sr_seed is None else sr_seed), int(index_base), vec,
+            stream)
+    count_launch("fused_adam")
 
 
 def fused_adam_dispatch(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                         b2: float = 0.99, eps: float = 1e-8,
                         weight_decay: float = 1e-8, l2: float = 0.0,
-                        sr_seed=None) -> None:
+                        sr_seed=None, index_base: int = 0) -> None:
     """One torch-semantics Adam step on a leaf from its dense gradient, in
     place. CUDA tensors go through the kernel, CPU tensors through the
-    plain version. ``sr_seed`` keys a bf16 leaf's rounding (None: ``t``)."""
+    plain version. ``sr_seed`` (None: ``t``) and ``index_base`` (the global
+    index of the leaf's first element) key a bf16 leaf's rounding."""
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2,
-              sr_seed=sr_seed)
+              sr_seed=sr_seed, index_base=index_base)
     if w.device.type == "cuda":
         fused_adam_cuda(w, m, v, g, t, **kw)
         return

@@ -33,7 +33,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from aread_tpu_torch.ops.cuda import launch_counts
+from aread_tpu_torch.ops.cuda import count_launch, launch_counts  # noqa: F401
 
 LANES = 128  # f32 per table row, the TPU's lane width
 MAX_ROWS = 32  # two stages of 32 x 512 B fit the default shared memory
@@ -146,5 +146,5 @@ def gather_rows_sum(table: torch.Tensor, ids: torch.Tensor, rows: int,
                                   device=table.device)
             torch.ops.aread_tpu_torch.gather_rows_ring_(
                 table, ids, out, scratch, rows, stages, stream)
-    launch_counts["gather_rows"] += 1
+    count_launch("gather_rows")
     return out[0]

@@ -32,9 +32,14 @@ _U32 = 0xFFFFFFFF
 
 def hash_bits(idx: torch.Tensor, seed) -> torch.Tensor:
     """murmur3 fmix32 of (element index, seed). ``idx``: integer tensor of
-    uint32 values; ``seed``: int or 0-dim integer tensor. Returns int64
-    holding uint32 values."""
-    seed = int(seed) & _U32
+    uint32 values; ``seed``: int, or a 0-dim integer tensor holding the
+    seed's 32 bits (an int32 holds them as its two's complement), which is
+    read on its device, not fetched. Returns int64 holding uint32
+    values."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(torch.int64) & _U32
+    else:
+        seed = int(seed) & _U32
     h = (idx.to(torch.int64) * _GOLD) & _U32
     h = (h + ((seed * _M1) & _U32)) & _U32
     h = h ^ (h >> 16)

@@ -13,6 +13,15 @@ the rows not gathered this step.
   port of the JAX package's ``_xla_sparse_adam``: a decay-only dense pass,
   then the touched rows recomputed from their pre-step state with the full
   gradient and written over it. It returns new tensors.
+* The scalars that change from step to step (lr, the bias corrections
+  b1c and b2c, the stochastic rounding's seed) reach the kernel and the
+  plain version as a small device tensor, the step's scalar block
+  (``step_scalars``), so that a captured CUDA graph replays each step
+  with its own (``train/step_graph.py`` stages a chunk's blocks in one
+  copy); the host computes every value as ``adam_scalars`` does, and the
+  callers that pass ``t`` and ``lr`` get the block made for them. The
+  step-independent scalars stay launch arguments. Neither the kernel's
+  wrapper nor the plain version reads anything back to the host.
 * ``sparse_adam_dispatch`` updates w, m and v in place: with CPU tensors
   through the plain version, with CUDA tensors through the hand-written
   kernel ``ops/cuda/sparse_adam.cu`` (``sparse_adam_cuda``), always — if
@@ -36,7 +45,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from aread_tpu_torch.ops.cuda import launch_counts
+from aread_tpu_torch.ops.cuda import count_launch, launch_counts  # noqa: F401
 from aread_tpu_torch.ops.rounding import flat_index_grid, sround
 
 
@@ -70,51 +79,105 @@ def _row_flat_index(row_ids: torch.Tensor, d: int) -> torch.Tensor:
     return r * d + c
 
 
+def adam_constants(b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
+                   weight_decay: float = 1e-8,
+                   l2: float = 0.0) -> Dict[str, float]:
+    """The step-independent f32 scalars, each a Python float holding an
+    exact f32 value; ``1 - b`` is taken in double and then rounded, as the
+    JAX package computes it."""
+    f32 = np.float32
+    return {"b1": float(f32(b1)), "b2": float(f32(b2)),
+            "eps": float(f32(eps)), "decay": float(f32(weight_decay + 2.0 * l2)),
+            "omb1": float(f32(1.0 - b1)), "omb2": float(f32(1.0 - b2))}
+
+
 def adam_scalars(t: int, lr: float, b1: float = 0.9, b2: float = 0.99,
                  eps: float = 1e-8, weight_decay: float = 1e-8,
                  l2: float = 0.0) -> Dict[str, float]:
     """The f32 scalars of one step, each a Python float holding an exact
-    f32 value. ``1 - b`` is taken in double and then rounded, and the bias
-    corrections ``1 - b**t`` in f32, as the JAX package computes them;
-    the kernel and the plain version get the same values."""
+    f32 value: ``adam_constants`` and lr and the bias corrections ``1 -
+    b**t``, taken in f32 as the JAX package computes them; the kernel and
+    the plain version get the same values."""
     f32 = np.float32
     # numpy's f32 scalar power, not torch's on two 0-dim tensors: the same
     # bits (tests/test_torch_port_vector_plan.py) in under half the host time
     b1t = f32(b1) ** f32(t)
     b2t = f32(b2) ** f32(t)
+    c = adam_constants(b1, b2, eps, weight_decay, l2)
     return {
-        "lr": float(f32(lr)), "b1": float(f32(b1)), "b2": float(f32(b2)),
-        "eps": float(f32(eps)), "decay": float(f32(weight_decay + 2.0 * l2)),
+        "lr": float(f32(lr)), "b1": c["b1"], "b2": c["b2"], "eps": c["eps"],
+        "decay": c["decay"],
         "b1c": float(f32(1.0) - b1t), "b2c": float(f32(1.0) - b2t),
-        "omb1": float(f32(1.0 - b1)), "omb2": float(f32(1.0 - b2)),
+        "omb1": c["omb1"], "omb2": c["omb2"],
     }
+
+
+def step_scalars(t: int, lr: float, b1: float = 0.9, b2: float = 0.99,
+                 sr_seed=None) -> np.ndarray:
+    """The [4] int32 scalar block of step ``t``: the f32 bits of lr, b1c
+    and b2c, bitwise ``adam_scalars``', then the 32 bits of ``sr_seed``
+    (None: ``t``)."""
+    s = adam_scalars(t, lr, b1, b2)
+    seed = (t if sr_seed is None else int(sr_seed)) & 0xFFFFFFFF
+    return np.concatenate([
+        np.array([s["lr"], s["b1c"], s["b2c"]], np.float32).view(np.int32),
+        np.array([seed], np.uint32).view(np.int32)])
+
+
+def chunk_scalars(t0: int, n: int, lr: float, b1: float = 0.9,
+                  b2: float = 0.99) -> np.ndarray:
+    """[n, 4] int32: the scalar blocks of steps ``t0 + 1 .. t0 + n`` (a
+    chunk of steps after ``t0``), each seeded by its step."""
+    return np.stack([step_scalars(t0 + i + 1, lr, b1, b2) for i in range(n)])
+
+
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``. On CUDA through pinned memory and an
+    asynchronous copy, so that the host does not wait for the device (a
+    copy from pageable memory synchronizes the stream); the caching host
+    allocator keeps the pinned block until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def split_scalars(block: torch.Tensor):
+    """(lr, b1c, b2c, seed) of a [4] int32 scalar block: 0-dim views on its
+    device, f32 for the three and int32 for the seed."""
+    f = block.view(torch.float32)
+    return f[0], f[1], f[2], block[3]
 
 
 def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
                           b1: float = 0.9, b2: float = 0.99,
                           eps: float = 1e-8, weight_decay: float = 1e-8,
                           l2: float = 0.0, want_l2: bool = False,
-                          sr_seed=None):
+                          sr_seed=None, scalars=None):
     """Plain two-phase update (port of ``_xla_sparse_adam``). Returns new
     (w, m, v), plus sum(w_pre**2) as a 0-dim f32 tensor with ``want_l2``.
-    A bf16 table is rounded stochastically, keyed by ``sr_seed`` (None:
-    the step ``t``) and the element index.
+    lr, the bias corrections and the seed are read from ``scalars``, the
+    step's [4] int32 scalar block on the data's device (None: made from
+    ``t``, ``lr`` and ``sr_seed`` by ``step_scalars``; ``sr_seed`` None is
+    ``t``). A bf16 table is rounded stochastically, keyed by the seed and
+    the element index. Nothing is read back to the host.
     Every scalar that divides is a 0-dim tensor on the data's device: on
     CUDA, PyTorch turns division by a Python scalar into multiplication by
     its reciprocal, which is not the IEEE quotient."""
     n_rows, d = w.shape
     dev = w.device
-    seed = t if sr_seed is None else sr_seed
-    s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
-    b1c = torch.tensor(s["b1c"], dtype=torch.float32, device=dev)
-    b2c = torch.tensor(s["b2c"], dtype=torch.float32, device=dev)
+    if scalars is None:
+        scalars = to_device(step_scalars(t, lr, b1, b2, sr_seed), dev)
+    lr_t, b1c, b2c, seed = split_scalars(scalars)
+    s = adam_constants(b1, b2, eps, weight_decay, l2)
 
     def adam(w_, m_, v_, g_):
         wf = w_.to(torch.float32)
         g_ = g_ + s["decay"] * wf
         m2 = s["b1"] * m_.to(torch.float32) + s["omb1"] * g_
         v2 = s["b2"] * v_.to(torch.float32) + s["omb2"] * g_ * g_
-        w2 = wf - s["lr"] * (m2 / b1c) / (torch.sqrt(v2 / b2c) + s["eps"])
+        w2 = wf - lr_t * (m2 / b1c) / (torch.sqrt(v2 / b2c) + s["eps"])
         return w2, m2.to(m.dtype), v2.to(v.dtype)
 
     # f32 squares summed in f64, as the kernel does
@@ -128,12 +191,15 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
     # phase A: decay-only dense pass
     w2, m2, v2 = adam(w, m, v, torch.zeros_like(w, dtype=torch.float32))
     w2 = sround(w2, w.dtype, flat_index_grid(n_rows, d, dev), seed)
-    # phase B: overwrite the touched rows with their full-gradient update
-    live = uids < n_rows
-    rows = uids[live].to(torch.int64)
-    w2[rows] = nw[live]
-    m2[rows] = nm[live]
-    v2[rows] = nv[live]
+    # phase B: overwrite the touched rows with their full-gradient update;
+    # the sentinel entries write a spare last row, dropped after (a boolean
+    # selection of the live entries would read their count back to the host)
+    dst = torch.where(uids < n_rows, uids, n_rows).to(torch.int64)
+
+    def put(full, rows):
+        return torch.cat([full, full[:1]]).index_copy_(0, dst, rows)[:n_rows]
+
+    w2, m2, v2 = put(w2, nw), put(m2, nm), put(v2, nv)
     return (w2, m2, v2, l2v) if want_l2 else (w2, m2, v2)
 
 
@@ -255,12 +321,15 @@ def _slot_map(device: torch.device, n_rows: int) -> _Scratch:
 def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
                      b2: float = 0.99, eps: float = 1e-8,
                      weight_decay: float = 1e-8, l2: float = 0.0,
-                     want_l2: bool = False, sr_seed=None):
+                     want_l2: bool = False, sr_seed=None, scalars=None):
     """Launch ``ops/cuda/sparse_adam.cu`` (the operator
     ``torch.ops.aread_tpu_torch.sparse_adam_``) on the current stream: w, m,
     v updated in place, a bf16 table rounded stochastically keyed by
-    ``sr_seed`` (None: ``t``; a row shard passes its own, so that the shards
-    do not share one stream).
+    the seed (``sr_seed``, None: ``t``; a row shard passes its own, so that
+    the shards do not share one stream). The kernel reads lr, b1c, b2c and
+    the seed from ``scalars``, the step's [4] int32 block on the table's
+    device (None: made from ``t``, ``lr`` and ``sr_seed`` and copied there
+    without a host wait).
     Returns sum(w_pre**2) as a 0-dim f32 CUDA tensor with ``want_l2``, else
     None; it is a view of scratch that the next update of a table of this
     size overwrites, so use it (or copy it) before that. Raises on
@@ -287,10 +356,16 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
                          "is uint32")
     if not all(x.is_contiguous() for x in (w, m, v, uids, gsum)):
         raise ValueError("w, m, v, uids and gsum must be contiguous")
+    if scalars is None:
+        scalars = to_device(step_scalars(t, lr, b1, b2, sr_seed), dev)
+    if (scalars.dtype != torch.int32 or scalars.shape != (4,)
+            or scalars.device != dev or not scalars.is_contiguous()):
+        raise TypeError("scalars must be the step's contiguous [4] int32 "
+                        f"block on {dev}")
     from aread_tpu_torch.ops.cuda import build
 
     build.load("sparse_adam")
-    s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
+    s = adam_constants(b1, b2, eps, weight_decay, l2)
     vpr, shift, mul = sweep_plan(d, is_aligned16(w, m, v, gsum))
     scratch = _slot_map(dev, n_rows)
     partials, out, count = ((scratch.partials, scratch.l2, scratch.count)
@@ -300,15 +375,13 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
         try:
             torch.ops.aread_tpu_torch.sparse_adam_(
                 w, m, v, uids, gsum, scratch.slot, partials, out, count,
-                s["lr"], s["b1"], s["b2"], s["eps"], s["decay"], s["b1c"],
-                s["b2c"], s["omb1"], s["omb2"],
-                int(t if sr_seed is None else sr_seed), vpr, shift, mul,
-                stream)
+                scalars, s["b1"], s["b2"], s["eps"], s["decay"], s["omb1"],
+                s["omb2"], vpr, shift, mul, stream)
         except RuntimeError:
             # a launch that failed after the scatter leaves the map dirty
             _SLOTS.pop(_slot_key(dev, n_rows), None)
             raise
-    launch_counts["sparse_adam"] += 1
+    count_launch("sparse_adam")
     return out[0] if want_l2 else None
 
 
@@ -316,14 +389,15 @@ def sparse_adam_dispatch(w, m, v, uids, gsum, t: int, lr: float,
                          b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
                          weight_decay: float = 1e-8, l2: float = 0.0,
                          want_l2: bool = False, lazy: bool = False,
-                         sr_seed=None):
+                         sr_seed=None, scalars=None):
     """One Adam step on the [n_rows, D] table, in place. (uids, gsum) are
     ``dedup_rows``' output. Dense semantics (the default): CUDA tensors go
-    through the kernel, CPU tensors through the plain version. ``lazy``:
-    the touched rows only, by indexed updates on either device, never the
-    kernel. Returns the pre-update sum(w**2) (0-dim f32) with ``want_l2``,
-    else None. ``sr_seed`` keys a bf16 table's stochastic rounding (None:
-    ``t``)."""
+    through the kernel, CPU tensors through the plain version, both reading
+    the step's scalar block ``scalars`` (None: made from ``t``, ``lr`` and
+    ``sr_seed``). ``lazy``: the touched rows only, by indexed updates on
+    either device, never the kernel, from ``t`` and ``lr``. Returns the
+    pre-update sum(w**2) (0-dim f32) with ``want_l2``, else None.
+    ``sr_seed`` keys a bf16 table's stochastic rounding (None: ``t``)."""
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2,
               sr_seed=sr_seed)
     if lazy:
@@ -332,7 +406,7 @@ def sparse_adam_dispatch(w, m, v, uids, gsum, t: int, lr: float,
                if want_l2 else None)
         lazy_sparse_adam_(w, m, v, uids, gsum, t, **kw)
         return l2v
-    kw["want_l2"] = want_l2
+    kw.update(want_l2=want_l2, scalars=scalars)
     if w.device.type == "cuda":
         return sparse_adam_cuda(w, m, v, uids, gsum, t, **kw)
     out = sparse_adam_reference(w, m, v, uids, gsum, t, **kw)

@@ -32,12 +32,20 @@ kernel and the probes read every other row drifted; an overlay chain
 never writes the live table, so its snapshot and restore leave the table
 out.
 
-The JAX package fuses a whole regroup into one dispatch and a segment of
-steps into scans (``fast_adapt_many``, ``SCAN_CHUNK``, ``run_segment``)
-because every dispatch there crosses a slow link to its device; that
-reason does not exist here, so those, and the Pallas kernel window's
-prechecks (``FITS_SLICE``, ``_fits_from_x``, ``_fits_from_idx``,
-``no_overflow``, ``assume_no_overflow``), have no counterpart: the CUDA
+Steps run in chunks of ``SCAN_CHUNK``, as the JAX package's segments do
+(``run_segment``: a segment is the steps between two evolutions): on one
+CUDA device each chunk replays a captured CUDA graph per step, the
+counterpart of the JAX package's scanned chunk (``make_scan``,
+``make_scan_idx``), and elsewhere the steps are launched one by one
+(``train/step_graph.py``; the configuration alone decides, and ``fit``'s
+result and ``step_timer.dispatch`` say which ran). An AREAD step is some
+1,200 small launches, whose host time is several times the device's, the
+reason the JAX package gives for its scans. The JAX package also runs a
+whole candidate chain, or a whole regroup, in one dispatch
+(``_fast_adapt_impl``, ``fast_adapt_many``); the chains here are still
+launched step by step (ROADMAP.md queues their graphs). The Pallas kernel
+window's prechecks (``FITS_SLICE``, ``_fits_from_x``, ``_fits_from_idx``,
+``no_overflow``, ``assume_no_overflow``) have no counterpart: the CUDA
 kernel has no window.
 
 ``AREADTrainer(mesh=)`` runs one rank of a (data, model) grid as
@@ -76,6 +84,7 @@ from aread_tpu_torch.train import metrics as metrics_lib
 from aread_tpu_torch.train.checkpoint import (load_checkpoint, local_state,
                                               mask_template, restore_tree_,
                                               set_generator_state)
+from aread_tpu_torch.train.step_graph import SCAN_CHUNK, make_chunks
 from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            adopt_state_dict,
                                            bce_with_logits,
@@ -205,6 +214,9 @@ class AREADTrainer:
         self._epoch_examples = 0  # rows stepped in the running epoch
         # host clock per step: the launches, since no step synchronises
         self.step_timer = profiling.StepTimer()
+        # the dispatch of the warm-up, bagging and final-gate steps (made
+        # at the first chunk: step_graph.make_chunks)
+        self._chunks = None
         # fail on a hemp_fast_adapt misconfiguration now, not at the first
         # regroup, a warm-up into the first epoch
         overlay = self.overlay_enabled()
@@ -228,11 +240,22 @@ class AREADTrainer:
     # ---------------------------------------------------------------- state
     def init(self) -> Dict:
         """Optimizer state for the model's current weights (the model's
-        weights are drawn from its seed when it is built)."""
+        weights are drawn from its seed when it is built). Captured steps
+        of an earlier state are dropped."""
         self.opt_state = hybrid_init(
             self.optimizer, self.model,
             moments_dtype=self.config.table_moments_dtype)
+        self._chunks = None
         return self.opt_state
+
+    @property
+    def chunks(self):
+        """The dispatch of the epochs' steps (``step_graph.make_chunks``):
+        CUDA graphs or the eager loop."""
+        if self._chunks is None:
+            self._chunks = make_chunks(self)
+            self.step_timer.dispatch = self._chunks.name
+        return self._chunks
 
     def _snapshot(self, table: bool = True) -> Dict[str, torch.Tensor]:
         """A device-resident copy of the parameters, the table (unless
@@ -299,10 +322,12 @@ class AREADTrainer:
         return loss, out
 
     def step_core(self, optimizer, lr: float, opt_state: Dict, mode: str,
-                  batch, dm) -> Tuple[torch.Tensor, Tuple]:
+                  batch, dm, scalars=None) -> Tuple[torch.Tensor, Tuple]:
         """One training step in place with the given optimizer, learning
         rate and optimizer state. Returns (reported loss, gate means);
-        neither is fetched to the host."""
+        neither is fetched to the host. ``scalars``: the step's scalar
+        block on the device (``hybrid_update_sparse``; None: made from
+        the step count)."""
         cfg = self.config
         if isinstance(batch["x"], np.ndarray):
             batch = self.place(batch)
@@ -326,7 +351,8 @@ class AREADTrainer:
             optimizer, lr, cfg.wd, self.model, g_rest, ids, row_grads,
             opt_state, want_table_l2=cfg.loss_report_table_l2,
             clip_norm=cfg.grad_clip_norm,
-            lazy=cfg.table_optimizer == "lazy_adam", mesh=self.mesh)
+            lazy=cfg.table_optimizer == "lazy_adam", mesh=self.mesh,
+            scalars=scalars)
         if l2val is not None:
             loss = loss + l2val
         return loss, out["gate_means"]
@@ -345,14 +371,15 @@ class AREADTrainer:
                               self._main_state(), "domain_mask_bagging",
                               batch, dm)
 
-    def final_core(self, opt_state: Dict, batch, dm):
+    def final_core(self, opt_state: Dict, batch, dm, scalars=None):
         """One final-gate step: only the ``final_gate`` leaf is in the
         optimizer. The body is frozen in the loss (detached inside the
         model's 'domain_mask_final' mode) and must be frozen in the
         optimizer too: an Adam over the whole tree would walk every frozen
         weight toward zero at about final_lr per step (zero data gradient
         plus the tiny decay term normalizes to a full-lr signed step).
-        ``opt_state`` is ``final_optimizer.init`` of that one leaf."""
+        ``opt_state`` is ``final_optimizer.init`` of that one leaf;
+        ``scalars`` its step's scalar block (None: made from its count)."""
         cfg = self.config
         if isinstance(batch["x"], np.ndarray):
             batch = self.place(batch)
@@ -369,7 +396,8 @@ class AREADTrainer:
         if cfg.loss_report_table_l2:
             loss = loss + table_reg_value(self.model.embedding.table,
                                           self.mesh)
-        self.final_optimizer.update_(leaf, {"final_gate/kernel": g}, opt_state)
+        self.final_optimizer.update_(leaf, {"final_gate/kernel": g}, opt_state,
+                                     scalars=scalars)
         return loss, out["gate_means"]
 
     # ---------------------------------------------------------- device data
@@ -401,21 +429,32 @@ class AREADTrainer:
             aug_off)
         return True
 
-    def _batch(self, batcher: DomainBatcher, idx: np.ndarray,
-               offset: int = 0) -> Dict[str, torch.Tensor]:
-        """The batch of ``batcher``'s rows ``idx`` (-1 = padding) on the
-        device: gathered from the resident split (``offset`` shifts the
-        augmented rows' ids) or staged from the host arrays. The two are
-        the same batch."""
+    def _feed(self, batcher: DomainBatcher, idx: np.ndarray,
+              offset: int = 0):
+        """What a step of ``batcher``'s rows ``idx`` (-1 = padding) is fed:
+        with the split resident on the device the row ids (``offset``
+        shifts the augmented rows'), else the padded host batch."""
         if self._device_data is not None:
-            dxc, dyc, _ = self._device_data
             if offset:
                 idx = np.where(idx >= 0, idx + offset, -1).astype(np.int32)
-            return gather_batch(dxc, dyc,
-                                torch.as_tensor(idx, device=self.device))
+            return idx
         sel = idx[idx >= 0]
-        return self.place(pad_batch(batcher.x[sel], batcher.y[sel],
-                                    self.config.bs))
+        return pad_batch(batcher.x[sel], batcher.y[sel], self.config.bs)
+
+    def feed_batch(self, feed) -> Dict[str, torch.Tensor]:
+        """A step's batch on the device from its feed (``_feed``): a host
+        batch placed (on a mesh this rank's rows), or row ids (numpy or a
+        device tensor) gathered from the resident split. The two are the
+        same batch."""
+        if isinstance(feed, dict):
+            return self.place(feed)
+        dxc, dyc, _ = self._device_data
+        return gather_batch(dxc, dyc, torch.as_tensor(feed, device=self.device))
+
+    def _batch(self, batcher: DomainBatcher, idx: np.ndarray,
+               offset: int = 0) -> Dict[str, torch.Tensor]:
+        """The batch of ``batcher``'s rows ``idx`` on the device."""
+        return self.feed_batch(self._feed(batcher, idx, offset))
 
     # ------------------------------------------------------------ evolution
     def _prune(self, mask, gate_means):
@@ -614,13 +653,35 @@ class AREADTrainer:
         ms.reset_for_mask_update()
 
     # --------------------------------------------------------------- epochs
+    def run_segment(self, kind: str, steps: Sequence,
+                    state: Optional[Dict] = None) -> List:
+        """Run a segment's steps ``[(d, feed, mask, record)]`` of ``kind``
+        ('warmup', 'main' or 'final'; ``state``: the optimizer state, by
+        default the main one) in chunks of ``SCAN_CHUNK`` through
+        ``self.chunks``, as the JAX package's ``run_segment`` does. Returns
+        each chunk's losses [n] and the (domain, gate means) of the steps
+        flagged ``record``, all on the device, unfetched."""
+        state = self._main_state() if state is None else state
+        losses, recorded = [], []
+        for lo in range(0, len(steps), SCAN_CHUNK):
+            chunk = steps[lo:lo + SCAN_CHUNK]
+            ls, gms = self.chunks.run(kind, [st[1] for st in chunk],
+                                      [st[2] for st in chunk], state)
+            losses.append(ls)
+            recorded.extend((d, tuple(g[i] for g in gms))
+                            for i, (d, _, _, record) in enumerate(chunk)
+                            if record)
+        return losses, recorded
+
     def train_epoch(self, epoch_i: int, train_batcher: DomainBatcher,
                     aug_batcher: DomainBatcher, verbose: bool = True) -> float:
         """One pass over the train batcher's domain sequence; at epoch 0 a
         warm-up first ('wo_mask', round-robin over the domains, gate means
         recorded) and an evolution right after it; an evolution at every
         regroup point; gate means recorded in the warm_up_interval steps
-        before each. Returns the mean loss of the bagging steps."""
+        before each. The steps between two evolutions are one segment,
+        run in chunks (``run_segment``). Returns the mean loss of the
+        bagging steps."""
         cfg = self.config
         ms = self.mask_state
         warm_up_interval = (cfg.warm_up_interval * 1024) // cfg.bs
@@ -635,37 +696,44 @@ class AREADTrainer:
                 ms.record_gates(d, [g.cpu().numpy() for g in gms])
             recorded.clear()
 
-        def step(kind, d, mask, record):
+        def pending(d, mask, record):
             idx = train_batcher.next_batch_indices(d)
-            n_ex = int((idx >= 0).sum())
-            self._epoch_examples += n_ex
-            with self.step_timer.step(n_examples=n_ex):
-                batch = self._batch(train_batcher, idx)
-                loss, gms = (self.warmup_step(batch) if kind == "warmup"
-                             else self.main_step(batch, mask))
-            losses.append(loss)
-            if record:
-                recorded.append((d, gms))
+            self._epoch_examples += int((idx >= 0).sum())
+            return (d, self._feed(train_batcher, idx),
+                    None if mask is None else [np.array(m) for m in mask],
+                    record)
+
+        def run(kind, steps):
+            ls, rec = self.run_segment(kind, steps)
+            losses.extend(ls)
+            recorded.extend(rec)
 
         if epoch_i == 0:
             domain_list: List[int] = []
+            steps = []
             for _ in range(warm_up_interval):
                 if not domain_list:
                     domain_list = list(range(self.n_domain))
-                step("warmup", domain_list.pop(), None, True)
+                steps.append(pending(domain_list.pop(), None, True))
+            run("warmup", steps)
             losses.clear()  # warm-up losses are not epoch losses
 
         with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
+            steps = []
             for i, d in enumerate(train_batcher.domain_batch_seq):
                 if (epoch_i == 0 and i == 0) or (
                         (i + 1) % regroup_interval == 0):
+                    # the segment's steps run before the evolution after it
+                    run("main", steps)
+                    steps = []
                     flush_records()
                     with profiling.annotate("hemp_mask_evolution"):
                         self._mask_evolution(train_batcher, aug_batcher,
                                              verbose)
                 record = ((i + 1) // regroup_interval
                           - (i + 1 + warm_up_interval) // regroup_interval) > 0
-                step("main", d, ms.domain_mask[d], record)
+                steps.append(pending(d, ms.domain_mask[d], record))
+            run("main", steps)
         flush_records()
         return mean_losses(losses)
 
@@ -673,19 +741,16 @@ class AREADTrainer:
                           train_batcher: DomainBatcher,
                           verbose: bool = True) -> float:
         """One final-gate epoch: the body frozen, BCE on the gate-mixed
-        prob; every domain is in the sequence at least once."""
+        prob; every domain is in the sequence at least once. Its steps run
+        in chunks, as the main epoch's (``run_segment``)."""
         ms = self.mask_state
         seq = list(train_batcher.domain_batch_seq)
         present = set(seq)
         seq.extend(d for d in range(self.n_domain) if d not in present)
-        losses = []
-        for d in seq:
-            batch_np = train_batcher.next_batch(d)
-            with self.step_timer.step(
-                    n_examples=int(batch_np["valid"].sum())):
-                loss, _ = self.final_core(opt_state, self.place(batch_np),
-                                          ms.domain_mask[d])
-            losses.append(loss)
+        steps = [(d, train_batcher.next_batch(d),
+                  [np.array(m) for m in ms.domain_mask[d]], False)
+                 for d in seq]
+        losses, _ = self.run_segment("final", steps, opt_state)
         return mean_losses(losses)
 
     # ----------------------------------------------------------- evaluation
@@ -834,7 +899,8 @@ class AREADTrainer:
         to ``epochs`` (default ``config.final_epoch``) epochs with the
         patience counter reset. The test split is evaluated on the best
         weights and masks, which the model and the mask state are left
-        holding. Returns {'history', 'test', 'domain_mask'}.
+        holding. Returns {'history', 'test', 'domain_mask', 'dispatch'}
+        (the steps' dispatch, ``step_graph``: 'graph' or 'eager').
 
         ``warm_start``: a checkpoint dict (``load_checkpoint``) whose
         weights and buffers replace the model's and whose domain masks,
@@ -983,4 +1049,5 @@ class AREADTrainer:
                         None if m is None else [float(np.mean(mm)) for mm in m]
                         for m in self.mask_state.domain_mask]})
         return {"history": history, "test": test_result,
-                "domain_mask": self.mask_state.domain_mask}
+                "domain_mask": self.mask_state.domain_mask,
+                "dispatch": self.chunks.name}

@@ -55,7 +55,9 @@ from aread_tpu_torch.data.loader import GlobalBatcher, SplitData
 from aread_tpu_torch.models.base import gather_group, regularization_loss
 from aread_tpu_torch.ops.fused_adam import fused_adam_dispatch
 from aread_tpu_torch.ops.precision import matmul_precision_ctx
-from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_dispatch
+from aread_tpu_torch.ops.sparse_adam import (dedup_rows, sparse_adam_dispatch,
+                                             split_scalars, step_scalars,
+                                             to_device)
 from aread_tpu_torch.parallel import mesh as mesh_lib
 from aread_tpu_torch.parallel.embed_shard import (flat_a2a_lookup,
                                                   resolve_a2a_capacity)
@@ -180,7 +182,11 @@ class DenseAdam:
     p += -lr * (mu/(1-b1^t)) / (sqrt(nu/(1-b2^t)) + eps). Multi-tensor
     (``torch._foreach_*``) ops, a handful of launches per step; they may
     contract a*b+c into an FMA, so results agree with the JAX package to
-    f32 round-off, not bitwise."""
+    f32 round-off, not bitwise. The bias corrections divide as 0-dim
+    tensors on the leaves' device, read from the step's scalar block
+    (``ops/sparse_adam.py::step_scalars``: the same f32 values as
+    ``1 - b**t`` in f32), so that a captured CUDA graph replays each step
+    with its own; nothing is read back to the host."""
 
     lr: float
     wd: float = 1e-8
@@ -195,7 +201,11 @@ class DenseAdam:
 
     @torch.no_grad()
     def update_(self, params: Dict[str, torch.Tensor],
-                grads: Dict[str, torch.Tensor], state: Dict) -> None:
+                grads: Dict[str, torch.Tensor], state: Dict,
+                scalars: Optional[torch.Tensor] = None) -> None:
+        """One step in place. ``scalars``: the step's [4] int32 scalar block
+        on the leaves' device, whose b1c and b2c are this optimizer's bias
+        corrections at ``state['count'] + 1`` (None: made here)."""
         names = list(params)
         p = [params[n] for n in names]
         mu = [state["mu"][n] for n in names]
@@ -206,9 +216,10 @@ class DenseAdam:
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
         state["count"] += 1
-        t = torch.tensor(float(state["count"]), dtype=torch.float32)
-        bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** t)
-        bc2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** t)
+        if scalars is None:
+            scalars = to_device(step_scalars(state["count"], self.lr,
+                                             self.b1, self.b2), p[0].device)
+        _, bc1, bc2, _ = split_scalars(scalars)
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
@@ -289,8 +300,10 @@ def hybrid_update(optimizer: DenseAdam, lr: float, wd: float, model,
     ``optimizer``. ``clip_norm`` clips by the global norm of all data
     gradients, the table's included; the decay and L2 terms folded into
     the updates are not clipped. On a mesh the table and ``g_table`` are
-    the rank's rows, and a row-sharded bf16 table rounds with its shard's
-    own stream (``sr_seed = t * model + model_index``)."""
+    the rank's rows, and a row-sharded bf16 table rounds each element
+    keyed by the step and its global element index (``index_base``, the
+    shard's first element), as the JAX package's update on its row-sharded
+    table does: the shards together are the one-device update, bitwise."""
     table, rest = split_table(model)
     scale = clip_scale_by_global_norm(list(g_rest.values()), clip_norm,
                                       shard=g_table, mesh=mesh)
@@ -298,13 +311,11 @@ def hybrid_update(optimizer: DenseAdam, lr: float, wd: float, model,
         g_rest = {n: g * scale for n, g in g_rest.items()}
         g_table = g_table.to(torch.float32) * scale
     opt_state["t"] += 1
-    t = opt_state["t"]
-    sharded = mesh is not None and mesh.model > 1
+    base = (0 if mesh is None
+            else mesh.table_rows(model.embedding.n_rows).start * table.shape[1])
     fused_adam_dispatch(table, opt_state["m"], opt_state["v"],
-                        g_table.contiguous(), t, lr=lr,
-                        weight_decay=wd, l2=table_l2,
-                        sr_seed=t * mesh.model + mesh.model_index
-                        if sharded else None)
+                        g_table.contiguous(), opt_state["t"], lr=lr,
+                        weight_decay=wd, l2=table_l2, index_base=base)
     optimizer.update_(rest, g_rest, opt_state["inner"])
 
 
@@ -315,7 +326,9 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
                          want_table_l2: bool = False,
                          clip_norm: float = 0.0,
                          lazy: bool = False,
-                         mesh=None) -> Optional[torch.Tensor]:
+                         mesh=None,
+                         scalars: Optional[torch.Tensor] = None
+                         ) -> Optional[torch.Tensor]:
     """One optimizer step, in place: the table from its sparse (ids,
     rows) gradient (``lazy``: the touched rows only,
     ``table_optimizer='lazy_adam'``), the dense leaves through
@@ -327,7 +340,10 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
     ids and row gradients are the whole batch's (all-gathered over
     'data'), the table is the rank's rows, and with model > 1 the update
     runs on the shard (``sharded_adam.py``) and sum(table_pre^2) is added
-    over 'model'."""
+    over 'model'. ``scalars``: the step's scalar block (lr, the bias
+    corrections of step ``opt_state['t'] + 1``, its seed) on the table's
+    device, which the table's update and ``optimizer`` read (None: each
+    makes its own from the step); a captured step is handed it."""
     table, rest = split_table(model)
     n_rows = model.embedding.n_rows
     opt_state["t"] += 1
@@ -349,8 +365,8 @@ def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
     else:
         raw_l2 = sparse_adam_dispatch(
             table, opt_state["m"], opt_state["v"], uids, gsum,
-            opt_state["t"], **kw)
-    optimizer.update_(rest, g_rest, opt_state["inner"])
+            opt_state["t"], scalars=scalars, **kw)
+    optimizer.update_(rest, g_rest, opt_state["inner"], scalars=scalars)
     return table_l2 * raw_l2 if want_table_l2 else None
 
 

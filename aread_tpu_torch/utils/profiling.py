@@ -46,6 +46,9 @@ class StepTimer:
         self.total_steps = 0
         self.total_time = 0.0
         self.total_examples = 0
+        # how the timed steps were dispatched ('graph' or 'eager', set by
+        # the loop that drives them), or None
+        self.dispatch = None
 
     @contextlib.contextmanager
     def step(self, n_examples: int = 0) -> Iterator[None]:
@@ -63,7 +66,8 @@ class StepTimer:
     def summary(self) -> dict:
         n = len(self.durations)
         if n == 0:
-            return {"steps": 0, "mean_ms": 0.0, "examples_per_s": 0.0}
+            return {"steps": 0, "mean_ms": 0.0, "examples_per_s": 0.0,
+                    "dispatch": self.dispatch}
         window_time = sum(self.durations)
         return {
             "steps": self.total_steps,
@@ -71,6 +75,7 @@ class StepTimer:
             "examples_per_s": (sum(self.examples) / window_time
                                if window_time > 0 else 0.0),
             "total_s": self.total_time,
+            "dispatch": self.dispatch,
         }
 
 

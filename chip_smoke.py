@@ -18,10 +18,21 @@ Phases, each printing one line:
            calls timed one by one (host time included), scalar_ms the
            scalar kernel by the first clock in the same run, the plain
            version's and the library call's by both, the bound, and the
-           CUDA launches of one update (torch.profiler);
-  train    the AREAD path at full Amazon width: AREADTrainer.init,
-           warm-up steps (wo_mask) and bagging steps (domain_mask_bagging)
-           under per-domain 'rand' masks, with the kernel launch counts;
+           CUDA launches of one update (torch.profiler); kernel 1 reading
+           its step's scalars from a row of a chunk's staged blocks, and
+           kernel 2 on a row shard's global element indices (index_base),
+           each bitwise its plain version;
+  train    the AREAD path at full Amazon width through AREADTrainer's chunk
+           dispatch (train/step_graph.py): two trainers from one seed, one
+           replaying CUDA graphs and one launching each step, in turns on
+           TRAIN_CHUNKS (8 warm-up steps, 104 bagging steps in chunks of
+           32, 32, 32 and 8) under per-domain 'rand' masks, bitwise equal
+           after every chunk (weights, BatchNorm statistics, all Adam
+           state, losses, gate means, the dropout generator); per dispatch
+           the step time by CUDA events over a chunk and by the host
+           clock, examples/s, launches and kernels per step and the
+           device's idle share (torch.profiler over one chunk), peak
+           memory; the captured step once under sync debug mode 'error';
   eval     AREADTrainer.evaluate over a few per-domain batches;
   train_dense  the generic Trainer at full Amazon width with the dense
            table gradient: build_model + Trainer.fit for DeepFM (one epoch,
@@ -88,7 +99,9 @@ Phases, each printing one line:
            atol 1e-5 + 2 ulp against one process; the f32 shards bitwise
            the unsharded kernel's rows after 3 steps), one bf16 shard
            update bitwise the CPU plain version with the shard's seed, the
-           a2a lookup at its measured capacity bitwise the plain gather;
+           a2a lookup at its measured capacity bitwise the plain gather,
+           one bf16 dense-gradient DeepFM step (kernel 2 per shard,
+           index_base) bitwise one process's;
            (c) 4 ranks (mesh 2 x 2): the reference phase's 4-chain
            evolution (masks equal), 6 dense DeepFM steps (kernel 2 per
            shard), one AREADTrainer.fit epoch at RESUME_DEPTH whose
@@ -144,9 +157,14 @@ Phases, each printing one line:
            the dense DeepFM step, and one small evolution at full width
            (2 domains' chains): they must agree;
   profile, profile_dense, profile_hemp  (opt-in, after train /
-           train_dense / hemp) torch.profiler over 4 AREAD bagging steps /
-           4 dense DeepFM steps / 4 fast-adapt chains; tables and a trace
-           go to --profile-dir.
+           train_dense / hemp) torch.profiler over a chunk of AREAD bagging
+           steps of each dispatch / 4 dense DeepFM steps / 4 fast-adapt
+           chains; tables and a trace go to --profile-dir.
+
+Kernel launches are counted where they run: a wrapper counts its launch,
+or, inside a CUDA graph's capture, records it for the graph, which adds it
+to the counts once per replay (ops/cuda/__init__.py count_launch); the
+train phase holds that count against the profiler's kernel records.
 
 The launch counts are set to 0 just before each path (train, train_dense
 and its parts, zoo's and zoo2's fits and steps, hemp, serve's resumes,
@@ -477,6 +495,75 @@ def amazon_table_ids(rng, spec_dims, n_rows, bs=BS):
 def phase_kernels(ctx):
     check_sparse_adam(ctx)
     check_fused_adam(ctx)
+    check_dense_adam_scalar_forms()
+
+
+def host_float_dense_adam(opt, params, grads, state):
+    """``DenseAdam.update_`` with its bias corrections as host floats (the
+    form before the step's scalar block): the float overloads of
+    ``torch._foreach_div``."""
+    names = list(params)
+    p = [params[n] for n in names]
+    mu = [state["mu"][n] for n in names]
+    nu = [state["nu"][n] for n in names]
+    g = torch._foreach_add([grads[n] for n in names], p, alpha=opt.wd)
+    torch._foreach_mul_(mu, opt.b1)
+    torch._foreach_add_(mu, g, alpha=1 - opt.b1)
+    torch._foreach_mul_(nu, opt.b2)
+    torch._foreach_addcmul_(nu, g, g, value=1 - opt.b2)
+    state["count"] += 1
+    t = torch.tensor(float(state["count"]), dtype=torch.float32)
+    bc1 = float(1 - torch.tensor(opt.b1, dtype=torch.float32) ** t)
+    bc2 = float(1 - torch.tensor(opt.b2, dtype=torch.float32) ** t)
+    den = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, opt.eps)
+    upd = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(upd, den)
+    torch._foreach_add_(p, upd, alpha=-opt.lr)
+
+
+def check_dense_adam_scalar_forms():
+    """The dense leaves' Adam on the card with its bias corrections as 0-dim
+    device tensors (the step's scalar block, what a captured step reads)
+    against the host-float overloads, over the AREAD train model's leaves
+    for 20 steps: the tensor-scalar ``_foreach_div`` may round otherwise.
+    Reported, not required: both dispatches use the tensor form."""
+    from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.ops.sparse_adam import step_scalars, to_device
+    from aread_tpu_torch.train.trainer import DenseAdam
+
+    tr = build_trainer(FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5), "cuda",
+                       N_DOMAIN, dataset_name="amazon", seed=0)
+    params = {n: p.detach().clone()
+              for n, p in tr.model.dense_named_parameters().items()}
+    mine = {n: p.clone() for n, p in params.items()}
+    opt = DenseAdam(lr=1e-3)
+    st, st_mine = opt.init(params), opt.init(mine)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    steps_equal = []
+    for _ in range(20):
+        grads = {n: 1e-3 * torch.randn(p.shape, generator=gen, device="cuda")
+                 for n, p in params.items()}
+        host_float_dense_adam(opt, params, grads, st)
+        opt.update_(mine, grads, st_mine, scalars=to_device(step_scalars(
+            st_mine["count"] + 1, opt.lr, opt.b1, opt.b2), "cuda"))
+        steps_equal.append(all(torch.equal(mine[n], params[n])
+                               for n in params))
+    worst = max(float((mine[n] - params[n]).abs().max()) for n in params)
+    # which overload is the IEEE quotient: against x / bc, bc a 0-dim
+    # tensor on the card (a broadcast division, not a scalar's reciprocal)
+    xs = [st["nu"][n] for n in params]
+    bc = to_device(step_scalars(7, opt.lr, opt.b1, opt.b2), "cuda").view(
+        torch.float32)[2]
+    quotient = [x / bc for x in xs]
+    ieee = {form: all(torch.equal(a, b) for a, b in zip(
+        torch._foreach_div(xs, d), quotient))
+        for form, d in (("tensor", bc), ("float", float(bc)))}
+    say("kernels", check="DenseAdam tensor-scalar vs float _foreach_div",
+        leaves=len(params), steps=20, bitwise_every_step=all(steps_equal),
+        max_abs_diff=worst, ieee_quotient=ieee)
+    del tr
 
 
 SPARSE_KW = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-8,
@@ -605,6 +692,50 @@ def sparse_shard_case(w32, m32, v32, ids, t):
     return worst
 
 
+def sparse_block_case(w32, m32, v32, ids, t):
+    """Kernel 1 reading its step's scalars from row 2 of a chunk's staged
+    blocks ([SCAN_CHUNK, 4] on the card, steps t - 2 .. of the chunk),
+    against the plain version reading the same row and against both made
+    from ``t``: bitwise, in every storage variant."""
+    from aread_tpu_torch.ops.sparse_adam import (chunk_scalars, dedup_rows,
+                                                 sparse_adam_cuda,
+                                                 sparse_adam_reference,
+                                                 to_device)
+    from aread_tpu_torch.train.step_graph import SCAN_CHUNK
+
+    n_rows, d = w32.shape
+    dev = w32.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ids_t = torch.as_tensor(ids.reshape(-1), dtype=torch.int32, device=dev)
+    uids, gsum = dedup_rows(ids_t, torch.randn((ids_t.numel(), d),
+                                               generator=gen, device=dev),
+                            n_rows)
+    blocks = to_device(chunk_scalars(t - 3, SCAN_CHUNK, SPARSE_KW["lr"]), dev)
+    row = blocks[2]
+    worst = 0.0
+    for vname, (wdt, mdt, want_l2) in SPARSE_VARIANTS.items():
+        w, m, v = w32.to(wdt), m32.to(mdt), v32.to(mdt)
+        ref = sparse_adam_reference(w, m, v, uids, gsum, t, want_l2=want_l2,
+                                    scalars=row, **SPARSE_KW)
+        by_t = sparse_adam_reference(w, m, v, uids, gsum, t, want_l2=want_l2,
+                                     **SPARSE_KW)
+        got = w.clone(), m.clone(), v.clone()
+        sparse_adam_cuda(*got, uids, gsum, t, want_l2=want_l2, scalars=row,
+                         **SPARSE_KW)
+        torch.cuda.synchronize()
+        line = {"scalars": "chunk block row", "variant": vname,
+                "bitwise": all(torch.equal(x, y) for x, y in zip(got, ref[:3])),
+                "plain_equals_t_form": all(torch.equal(x, y) for x, y in
+                                           zip(ref[:3], by_t[:3])),
+                "max_abs_err": max(float((x.float() - y.float()).abs().max())
+                                   for x, y in zip(got, ref[:3]))}
+        if not (line["bitwise"] and line["plain_equals_t_form"]):
+            raise AssertionError(f"kernel 1 on a staged block: {line}")
+        worst = max(worst, line["max_abs_err"])
+        say("kernels", **line)
+    return worst
+
+
 def check_sparse_adam(ctx):
     """The sparse sweep, vector and scalar kernel, against its plain version
     at the full Amazon table (two batches) and at small tables whose D takes
@@ -675,6 +806,9 @@ def check_sparse_adam(ctx):
 
     # a row shard, as a mesh run updates it
     worst = max(worst, sparse_shard_case(w32, m32, v32, batches["amazon"], t))
+    # the step's scalars as a captured step reads them: a row of a chunk's
+    # staged blocks on the card
+    worst = max(worst, sparse_block_case(w32, m32, v32, batches["amazon"], t))
 
     # times at the main path's configuration: bf16 table and moments,
     # sum(w^2) wanted (config defaults), Amazon batch
@@ -821,6 +955,25 @@ def check_fused_adam(ctx):
                 del w, m, v, g
     # the full-size f32 state stays for what follows
 
+    # a row shard's global element indices (index_base: the second half of
+    # a 2-way split, as a mesh's model rank 1 updates it): bitwise the
+    # plain version, and a bf16 leaf rounds otherwise than from index 0
+    half = n_rows // 2
+    for vname in ("bf16_sr", "bf16_f32m", "f32"):
+        wdt, mdt, gdt = variants[vname]
+        w, m, v, g = (x[half:].to(dt, copy=True) for x, dt in (
+            (w32, wdt), (m32, mdt), (v32, mdt), (g32, gdt)))
+        base = half * d
+        worst = max(worst, fused_case(
+            {"shape": list(w.shape), "variant": vname, "index_base": base},
+            w, m, v, g, t, dict(kw, index_base=base), want_vector=True))
+        if wdt == bf16:
+            at0 = fused_adam_reference(w, m, v, g, t, **kw)[0]
+            atb = fused_adam_reference(w, m, v, g, t, index_base=base, **kw)[0]
+            if torch.equal(at0, atb):
+                raise AssertionError("index_base changed no rounding")
+        del w, m, v, g
+
     # the sparse sweep on (uids, gsum) and this kernel on the same gradient
     # scattered into a dense g leave the same f32 table and moments
     rng = np.random.default_rng(1)
@@ -918,82 +1071,262 @@ def build_trainer(spec, device, n_domain, n_tower=None, **cfg_kw):
     return tr
 
 
+# the train phase's chunks: (kind, steps). 8 warm-up steps are one short
+# chunk; the bagging steps two full chunks (the first of them captures),
+# a third that is profiled, and a remainder
+TRAIN_CHUNKS = (("warmup", 8), ("main", 32), ("main", 32), ("main", 32),
+                ("main", 8))
+TIMED_CHUNK, PROFILED_CHUNK = 2, 3
+
+
+def trainer_bits(tr):
+    """Everything a step changes, for a bitwise comparison: the weights
+    and BatchNorm statistics, the table's and the dense leaves' Adam state
+    with their counters, the dropout generator's state."""
+    st = tr.opt_state
+    return {"state_dict": tr.model.state_dict(), "m": st["m"], "v": st["v"],
+            "mu": st["inner"]["mu"], "nu": st["inner"]["nu"],
+            "counts": (st["t"], st["inner"]["count"]),
+            "generator": tr.generator.get_state()}
+
+
+def bits_differ(a, b, path="") -> list:
+    """The paths at which two ``trainer_bits`` (or tensors, tuples, dicts)
+    are not bitwise equal."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [path + "/keys"]
+        return [p for k in a for p in bits_differ(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path + "/len"]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in bits_differ(x, y, f"{path}/{i}")]
+    if isinstance(a, torch.Tensor):
+        def raw(t):
+            return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and a.device == b.device and torch.equal(raw(a), raw(b)))
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def chunk_profile(run, n: int, trace_dir=None):
+    """One chunk of ``n`` steps under torch.profiler, per step: host-side
+    launch calls (kernels, graphs, copies), kernels the card ran, device
+    busy ms, the profiled wall ms and the idle share, and the kernel
+    records of the sparse sweep (kernel 1's main kernel). With
+    ``trace_dir`` the tables and a Chrome trace go there."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    ka = prof.key_averages()
+    if trace_dir is not None:
+        os.makedirs(trace_dir, exist_ok=True)
+        with open(os.path.join(trace_dir, "key_averages.txt"), "w") as f:
+            f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.key.startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(e.self_device_time_total for e in dev) / n / 1e3
+
+    def calls(name):
+        return sum(e.count for e in ka if e.key == name) / n
+
+    # which ops make the host-side copies: each cudaMemcpyAsync's chain of
+    # enclosing ops, innermost first, three deep
+    by_op = {}
+    for e in prof.events():
+        if e.name == "cudaMemcpyAsync":
+            chain, p = [], e.cpu_parent
+            while p is not None and len(chain) < 3:
+                chain.append(p.name)
+                p = p.cpu_parent
+            key = " < ".join(chain) or "?"
+            by_op[key] = by_op.get(key, 0) + 1 / n
+
+    return out, {
+        "cudaLaunchKernel": calls("cudaLaunchKernel"),
+        "cudaGraphLaunch": calls("cudaGraphLaunch"),
+        "cudaMemcpyAsync": calls("cudaMemcpyAsync"),
+        "kernels_run": sum(e.count for e in kernels) / n,
+        "device_busy_ms": busy_ms, "wall_ms_profiled": wall_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "copies_by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:6]),
+        "sparse_sweeps": sum(e.count for e in kernels
+                             if "adam_sweep" in e.key)}
+
+
 def phase_train(ctx):
     """The main path at full Amazon width (bench.py's configuration and the
-    config defaults): 8 warm-up and 16 bagging steps."""
+    config defaults), through AREADTrainer's chunk dispatch: two trainers
+    from one seed, one replaying CUDA graphs (the dispatch the trainer
+    takes on a card) and one launching every step eagerly, run in turns on
+    the same chunks (TRAIN_CHUNKS); after every chunk the two must be
+    bitwise equal. Per dispatch: step time by CUDA events over a chunk and
+    by the host clock, examples/s, launches and kernels per step and the
+    device's idle share (torch.profiler over one chunk, whose sparse-sweep
+    kernel records must equal the counted kernel 1 launches), peak
+    memory. Last, the captured step run once eagerly under
+    torch.cuda.set_sync_debug_mode('error')."""
     from aread_tpu_torch.data.loader import DomainBatcher
     from aread_tpu_torch.models.base import FeatureSpec
+    from aread_tpu_torch.ops.cuda import launch_counts
+    from aread_tpu_torch.train.step_graph import EagerChunks
 
     # the config defaults are bench.py's Amazon configuration
     t0 = time.perf_counter()
-    tr = build_trainer(FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5), "cuda",
-                       N_DOMAIN, dataset_name="amazon", seed=0)
+    trs = {k: build_trainer(FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5), "cuda",
+                            N_DOMAIN, dataset_name="amazon", seed=0)
+           for k in ("graph", "eager")}
+    tr = trs["graph"]
+    trs["eager"]._chunks = EagerChunks(trs["eager"])
+    if tr.chunks.name != "graph":
+        raise AssertionError(f"a card trainer dispatches {tr.chunks.name}")
     spec, cfg = tr.model.spec, tr.config
     if (spec.n_rows, tr.model.n_tower, cfg.bs) != (1518384, (3, 6, 12), BS):
         raise AssertionError("not the Amazon configuration of bench.py")
+    if bits_differ(trainer_bits(tr), trainer_bits(trs["eager"])):
+        raise AssertionError("two trainers from one seed differ")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
-    x, y = amazon_rows(rng, spec, N_DOMAIN * 3 * BS)
+    x, y = amazon_rows(rng, spec, N_DOMAIN * 5 * BS)
     ex, ey = amazon_rows(rng, spec, N_DOMAIN * 200)
     batcher = DomainBatcher(x, y, BS, spec.domain_idx, N_DOMAIN, seed=0)
     ctx["eval"] = (tr, DomainBatcher(ex, ey, BS, spec.domain_idx, N_DOMAIN,
                                      seed=1),
                    np.bincount(x[:, spec.domain_idx], minlength=N_DOMAIN) / len(x))
+    for t in trs.values():
+        ms = t.mask_state
+        for d in range(N_DOMAIN):
+            ms.domain_mask[d] = ms.generate_mask("rand", d,
+                                                 cfg.init_active_percent)
     ms = tr.mask_state
-    for d in range(N_DOMAIN):
-        ms.domain_mask[d] = ms.generate_mask("rand", d,
-                                             cfg.init_active_percent)
     table0 = tr.model.embedding.table.clone()
     seq = list(batcher.domain_batch_seq)
-    plan = [("warmup", seq[i]) for i in range(8)] + \
-        [("main", seq[8 + i]) for i in range(16)]
-    batches = [(kind, d, tr.place(batcher.next_batch(d))) for kind, d in plan]
+    chunks, k = [], 0
+    for kind, n in TRAIN_CHUNKS:
+        ds = seq[k:k + n]
+        k += n
+        chunks.append((kind, [batcher.next_batch(d) for d in ds],
+                       [None if kind == "warmup" else ms.domain_mask[d]
+                        for d in ds]))
     torch.cuda.synchronize()
-
-    losses, times = [], []
+    runs = {name: [] for name in trs}
+    outs = {name: [] for name in trs}
+    checked = []
 
     def loop():
-        for kind, d, batch in batches:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            if kind == "warmup":
-                loss, _ = tr.warmup_step(batch)
-            else:
-                loss, _ = tr.main_step(batch, ms.domain_mask[d])
-            b.record()
-            losses.append(loss)
-            times.append((kind, a, b))
+        for ci, (kind, feeds, masks) in enumerate(chunks):
+            order = ("graph", "eager") if ci % 2 == 0 else ("eager", "graph")
+            for name in order:
+                t = trs[name]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = launch_counts["sparse_adam"]
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+
+                def run():
+                    return t.chunks.run(kind, feeds, masks, t.opt_state)
+
+                h0 = time.perf_counter()
+                a.record()
+                if ci == PROFILED_CHUNK:
+                    out, prof = chunk_profile(run, len(feeds))
+                else:
+                    out, prof = run(), None
+                b.record()
+                launch_ms = (time.perf_counter() - h0) * 1e3
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - h0) * 1e3
+                rec = {"chunk": ci, "kind": kind, "steps": len(feeds),
+                       "event_ms": a.elapsed_time(b), "wall_ms": wall_ms,
+                       "launch_ms": launch_ms,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                       "sparse_adam": launch_counts["sparse_adam"] - before}
+                if prof is not None:
+                    rec["profile"] = prof
+                    if prof["sparse_sweeps"] != rec["sparse_adam"]:
+                        raise AssertionError(
+                            f"{name}: the profiler saw {prof['sparse_sweeps']}"
+                            f" sparse sweeps, the counts {rec['sparse_adam']}")
+                runs[name].append(rec)
+                outs[name].append(out)
+            bad = bits_differ(trainer_bits(trs["graph"]),
+                              trainer_bits(trs["eager"]))
+            bad += bits_differ(outs["graph"][-1], outs["eager"][-1], "/out")
+            if bad:
+                raise AssertionError(f"chunk {ci} ({kind}): graph != eager "
+                                     f"at {bad[:8]}")
+            checked.append(ci)
 
     t_loop = time.perf_counter()
     counted(ctx, "train", loop)
     loop_s = time.perf_counter() - t_loop
     launches = ctx["launches_by_path"]["train"]
-    ctx["profile_args"] = (tr, batches[-1][2], ms.domain_mask[batches[-1][1]])
+    n_steps = sum(n for _, n in TRAIN_CHUNKS)
+    if launches["sparse_adam"] != 2 * n_steps:
+        raise AssertionError(f"sparse_adam launched "
+                             f"{launches['sparse_adam']} times in "
+                             f"{n_steps} steps of each dispatch")
+    ctx["profile_args"] = (trs, chunks[PROFILED_CHUNK])
 
-    losses = torch.stack(losses).cpu().numpy()
+    losses = torch.cat([o[0] for o in outs["graph"]]).cpu().numpy()
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite loss: {losses}")
-    step_ms = {k: statistics.median(a.elapsed_time(b) for kk, a, b in times
-                                    if kk == k) for k in ("warmup", "main")}
     table = tr.model.embedding.table
     if torch.equal(table, table0):
         raise AssertionError("the table did not change")
     st = tr.opt_state
     if not (st["m"].float().abs().sum() > 0 and st["v"].float().abs().sum() > 0):
         raise AssertionError("the table's Adam moments did not change")
-    if launches["sparse_adam"] != len(batches):
-        raise AssertionError(f"sparse_adam launched "
-                             f"{launches['sparse_adam']} times in "
-                             f"{len(batches)} steps")
+    if st["t"] != n_steps or tr.step_timer.summary()["dispatch"] != "graph":
+        raise AssertionError(f"t={st['t']}, {tr.step_timer.summary()}")
+    per_step = {}
+    for name, rs in runs.items():
+        timed, prof = rs[TIMED_CHUNK], rs[PROFILED_CHUNK]["profile"]
+        n = timed["steps"]
+        per_step[name] = {
+            "step_ms_events": timed["event_ms"] / n,
+            "step_ms_host_clock": timed["wall_ms"] / n,
+            "launch_ms_per_step": timed["launch_ms"] / n,
+            "examples_per_s": BS * n / (timed["wall_ms"] * 1e-3),
+            "peak_mem_gb": max(r["peak_mem_gb"] for r in rs),
+            **{k: v for k, v in prof.items() if k != "sparse_sweeps"},
+            # the profiler stretches the wall clock: the busy time over the
+            # unprofiled chunk's step time
+            "device_idle_share_unprofiled": 1 - prof["device_busy_ms"] / (
+                timed["wall_ms"] / n)}
+    # the captured step, run once eagerly, must not wait for the device
+    g = tr.chunks
+    kind, feeds, masks = chunks[1]
+    g._stage(g.buf[kind], kind, feeds[:1], masks[:1], tr.opt_state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g._body(kind, g.buf[kind], tr.opt_state)()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
     say("train", table_rows=spec.n_rows, embed_dim=cfg.embed_dim, bs=cfg.bs,
-        n_tower=[3, 6, 12], steps={"warmup": 8, "main": 16},
-        init_s=init_s, loop_s=loop_s, step_ms_median=step_ms,
-        examples_per_s_main=BS / (step_ms["main"] * 1e-3),
-        loss_first=float(losses[0]), loss_last=float(losses[-1]),
-        launches=launches,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        n_tower=[3, 6, 12], chunks=[[k, n] for k, n in TRAIN_CHUNKS],
+        bitwise_after_chunks=checked, init_s=init_s, loop_s=loop_s,
+        per_step=per_step,
+        graph_launches_per_replay={k: v.launches
+                                   for k, v in g.graphs.items()},
+        chunks_by_dispatch=runs, loss_first=float(losses[0]),
+        loss_last=float(losses[-1]), launches=launches,
+        sync_debug_error_step="passed")
 
 
 def phase_eval(ctx):
@@ -1182,9 +1515,10 @@ def true_zero_adam(pre_bn_bias: str, lr: float, wd: float,
         return g
 
     class DenseAdamTrueZero(DenseAdam):
-        def update_(self, params, grads, state):
+        def update_(self, params, grads, state, scalars=None):
             super().update_(params, {n: true_zero(n, g)
-                                     for n, g in grads.items()}, state)
+                                     for n, g in grads.items()}, state,
+                            scalars)
 
     return DenseAdamTrueZero(lr=lr, wd=wd)
 
@@ -1345,9 +1679,15 @@ def reference_evolution(ctx):
         seconds={"cpu": runs["cpu"][2], "cuda": runs["cuda"][2]})
 
 
+# the reference phase's AREAD steps: one warm-up step and a bagging chunk
+# long enough that the card's graph is captured and replayed
+REFERENCE_STEPS = 4
+
+
 def reference_aread(ctx, **model_kw):
-    """The same three steps, from the same weights, on the card (kernel)
-    and on the CPU (plain versions), at a small width with an f32 table,
+    """The same REFERENCE_STEPS steps, from the same weights, on the card
+    (CUDA graphs, kernel 1) and on the CPU (the eager loop, plain versions),
+    at a small width with an f32 table,
     no dropout and the full mask; losses, weights and Adam state must
     agree at atol 1e-5. The linear biases that feed a BatchNorm get their
     true gradient, exactly 0, on both sides: the computed one is round-off,
@@ -1370,19 +1710,32 @@ def reference_aread(ctx, **model_kw):
     trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
     dm = [np.asarray(m) for m in full_mask(trainers["cpu"].model.n_tower)]
     losses = {dev: [] for dev in trainers}
-    for step in range(3):
-        sl = slice(256 * step, 256 * (step + 1))
-        batch = pad_batch(data.train_x[sl], data.train_y[sl], 256)
+    batches = [pad_batch(data.train_x[256 * i:256 * (i + 1)],
+                         data.train_y[256 * i:256 * (i + 1)], 256)
+               for i in range(REFERENCE_STEPS)]
+    # through each trainer's chunk dispatch: a warm-up chunk of one step,
+    # then a bagging chunk (on the card: the captured graph's eager steps,
+    # its capture and a replay; on the CPU the eager loop)
+    for kind, sl in (("warmup", slice(0, 1)),
+                     ("main", slice(1, REFERENCE_STEPS))):
         for dev, tr in trainers.items():
-            loss, _ = (tr.warmup_step(batch) if step == 0
-                       else tr.main_step(batch, dm))
-            losses[dev].append(float(loss))
+            feeds = batches[sl]
+            ls, _ = tr.chunks.run(kind, feeds, [None if kind == "warmup"
+                                                else dm] * len(feeds),
+                                  tr.opt_state)
+            losses[dev].extend(float(x) for x in ls.cpu())
+    if trainers["cuda"].chunks.graphs["main"].launches != {
+            **dict.fromkeys(trainers["cuda"].chunks.graphs["main"].launches,
+                            0), "sparse_adam": 1}:
+        raise AssertionError("the captured bagging step does not launch "
+                             "kernel 1 once")
     worst, diff = state_diffs(trainers["cpu"], trainers["cuda"], losses)
     if diff > 1e-5:
-        raise AssertionError(f"card and CPU disagree after 3 steps: {worst} "
-                             f"{diff}")
-    say("reference", path="aread AREADTrainer steps",
-        base_model=trainers["cpu"].config.base_model, steps=3,
+        raise AssertionError(f"card and CPU disagree after {REFERENCE_STEPS} "
+                             f"steps: {worst} {diff}")
+    say("reference", path="aread AREADTrainer steps, graph on the card",
+        base_model=trainers["cpu"].config.base_model, steps=REFERENCE_STEPS,
+        dispatch={d: t.chunks.name for d, t in trainers.items()},
         max_abs_diff=diff, worst=worst, tolerance=1e-5)
 
 
@@ -3585,9 +3938,17 @@ def profile_steps(ctx, name: str, step):
 
 
 def phase_profile(ctx):
-    """Opt-in, after train: the AREAD bagging step under torch.profiler."""
-    tr, batch, dm = ctx["profile_args"]
-    profile_steps(ctx, "aread_bagging", lambda: tr.main_step(batch, dm))
+    """Opt-in, after train: one chunk of AREAD bagging steps of each
+    dispatch (graph replays, eager launches) under torch.profiler, per
+    step; tables and a trace go to --profile-dir/aread_bagging_<dispatch>."""
+    from pathlib import Path
+
+    trs, (kind, feeds, masks) = ctx["profile_args"]
+    for name, tr in trs.items():
+        _, prof = chunk_profile(
+            lambda: tr.chunks.run(kind, feeds, masks, tr.opt_state),
+            len(feeds), Path(ctx["profile_dir"]) / f"aread_bagging_{name}")
+        say("profile", path=f"aread_bagging_{name}", dispatch=name, **prof)
 
 
 def phase_profile_dense(ctx):
@@ -3831,7 +4192,29 @@ def mesh_part_b(workdir: str):
             del full, plain
         del tr
         torch.cuda.empty_cache()
+    out["dense_bf16"] = mesh_dense_bf16_step(mesh)
     return out
+
+
+def mesh_dense_bf16_step(mesh):
+    """One dense-gradient DeepFM step with a bf16 table and moments (kernel
+    2 on each shard, its rounding keyed on the global element index): the
+    gathered weights, statistics and table moments, and the launches."""
+    from aread_tpu_torch.train.checkpoint import full_state
+
+    tr = mesh_dense_trainer(mesh, "cuda" if mesh is None else mesh.device,
+                            "bfloat16")
+    (losses, _), launches = rank_counted(
+        lambda: mesh_timed_steps(tr, mesh_dense_batches()[:1]))
+    sd, opt = full_state(tr.model.state_dict(), tr.opt_state, mesh)
+    res = {"losses": losses, "launches": launches,
+           "table_rows": list(tr.model.embedding.table.shape)}
+    if mesh is None or mesh.rank == 0:
+        res["state"] = {k: v.cpu() for k, v in sd.items()}
+        res["m"], res["v"] = opt["m"].cpu(), opt["v"].cpu()
+    del tr, sd, opt
+    torch.cuda.empty_cache()
+    return res
 
 
 def mesh_evolution_trainer(mesh, device):
@@ -3869,16 +4252,17 @@ def mesh_evolution_batchers():
             for s in (1, 2)]
 
 
-def mesh_dense_trainer(mesh, device):
-    """DeepFM with the dense table gradient (kernel 2), f32 table and
-    moments, dropout 0.2, the pre-BatchNorm biases at their true zero."""
+def mesh_dense_trainer(mesh, device, dtype: str = "float32"):
+    """DeepFM with the dense table gradient (kernel 2), table and moments
+    in ``dtype`` (f32 by default), dropout 0.2, the pre-BatchNorm biases at
+    their true zero."""
     from aread_tpu_torch.config import Config
     from aread_tpu_torch.models import build_model
     from aread_tpu_torch.train.trainer import Trainer
 
     cfg = Config(model="deepfm", dataset_name="amazon", seed=0, bs=BS,
-                 sparse_table_grad=False, table_dtype="float32",
-                 table_moments_dtype="float32")
+                 sparse_table_grad=False, table_dtype=dtype,
+                 table_moments_dtype=dtype)
     tr = Trainer(build_model(cfg, amazon_spec(), N_DOMAIN, device=device),
                  cfg, N_DOMAIN, mesh=mesh)
     tr.optimizer = true_zero_adam(DEEPFM_PRE_BN_BIAS, cfg.lr, cfg.wd)
@@ -4031,6 +4415,7 @@ def mesh_check_b(ctx, tmp):
         ref[name] = {"losses": losses, "step_ms": ms, "snap": snap}
         del tr
     torch.cuda.empty_cache()
+    ref_dense = mesh_dense_bf16_step(None)
     t0 = time.perf_counter()
     ranks = mesh_spawn("b", 2, tmp)
     wall = time.perf_counter() - t0
@@ -4069,6 +4454,22 @@ def mesh_check_b(ctx, tmp):
                                  f"{res['bf16_update_bitwise']}, a2a rows "
                                  f"{res['a2a']['bitwise']}")
     ctx["mesh_sharded_err"] = max(r["bf16_update_max_abs_err"] for r in ranks)
+    # the bf16 dense step: the shards are one process's update, bitwise
+    dense = ranks[0]["dense_bf16"]
+    for r, res in enumerate(ranks):
+        ctx["launches_by_path"][f"mesh/b_dense_bf16/rank{r}"] = \
+            res["dense_bf16"]["launches"]
+        if res["dense_bf16"]["launches"] != {"sparse_adam": 0,
+                                             "fused_adam": 1}:
+            raise AssertionError(f"rank {r} bf16 dense step launched "
+                                 f"{res['dense_bf16']['launches']}")
+    dense_bad = bits_differ({"state": dense["state"], "m": dense["m"],
+                             "v": dense["v"]},
+                            {"state": ref_dense["state"], "m": ref_dense["m"],
+                             "v": ref_dense["v"]})
+    if dense_bad:
+        raise AssertionError(f"bf16 dense mesh step != one process at "
+                             f"{dense_bad[:8]}")
     say("mesh", part="b", mesh=[1, 2], label=MESH_LABEL.format(n=2),
         backend=ranks[0]["backend"], table_rows_per_rank=ranks[0]["bf16"][
             "table_rows"],
@@ -4084,6 +4485,8 @@ def mesh_check_b(ctx, tmp):
         f32_shards_after_3_steps_bitwise=shards_bitwise,
         bf16_shard_update_vs_cpu_plain_bitwise=[
             r["bf16_update_bitwise"] for r in ranks],
+        bf16_dense_step_vs_one_process_bitwise=True,
+        bf16_dense_table_rows_per_rank=dense["table_rows"],
         a2a=[r["a2a"] for r in ranks],
         peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
         ranks_wall_s=wall)

@@ -63,10 +63,10 @@ def true_zero_adam(pattern: str, lr: float, wd: float) -> DenseAdam:
     rx = re.compile(pattern)
 
     class TrueZero(DenseAdam):
-        def update_(self, params, grads, state):
+        def update_(self, params, grads, state, scalars=None):
             super().update_(params, {
                 n: torch.zeros_like(g) if rx.match(n) else g
-                for n, g in grads.items()}, state)
+                for n, g in grads.items()}, state, scalars)
 
     return TrueZero(lr=lr, wd=wd)
 

@@ -483,14 +483,22 @@ def test_pad_table_rows():
 
 def test_sharded_dense_update_rounds_each_shard_with_its_own_seed():
     """Kernel 2 on a row shard (the dense-gradient mesh step): each shard
-    is the plain update of its rows with ``sr_seed = t * model + index``,
-    bitwise; f32 shards are the one-device update's rows, while bf16
-    shards round otherwise than one device (which keys the whole table on
-    t with global element indices, as GSPMD does in the JAX package: a
-    gap recorded in ROADMAP Queue 3)."""
-    from aread_tpu_torch.models.deepfm import DeepFM
+    rounds with its own rows' stream of the one table, keyed on the step
+    and the global element index (``index_base``, the shard's first
+    element), as the JAX package's GSPMD update on its row-sharded table
+    does. So f32 and bf16 shards are bitwise the one-device update's rows;
+    they agree with JAX's ``reference_adam_update`` on the whole table,
+    sliced, at ``test_torch_port_fused_adam.py``'s tolerances (moments
+    bitwise; the weights within one ulp of their type, bitwise on >= 99.9 %
+    of the elements); and a shard whose global indices would pass 2^32 is
+    refused."""
+    import jax.numpy as jnp
+
+    from aread_tpu.ops.pallas.fused_adam import reference_adam_update
     from aread_tpu_torch.models.base import FeatureSpec
-    from aread_tpu_torch.ops.fused_adam import fused_adam_reference
+    from aread_tpu_torch.models.deepfm import DeepFM
+    from aread_tpu_torch.ops.fused_adam import (fused_adam_dispatch,
+                                                fused_adam_reference)
     from aread_tpu_torch.train.trainer import (DenseAdam, hybrid_init,
                                                hybrid_update)
 
@@ -502,6 +510,10 @@ def test_sharded_dense_update_rounds_each_shard_with_its_own_seed():
         g_table = torch.randn(whole.embedding.table.shape, generator=g)
         opt = DenseAdam(lr=1e-2)
         st = hybrid_init(opt, whole)
+        # moments carried from an earlier step, so that m and v are compared
+        # on values that are not all zero
+        st["m"].copy_(0.1 * torch.randn(st["m"].shape, generator=g))
+        st["v"].copy_(0.01 * torch.rand(st["v"].shape, generator=g))
         rest = {n: torch.zeros_like(p)
                 for n, p in whole.dense_named_parameters().items()}
         before = whole.embedding.table.clone()
@@ -514,17 +526,49 @@ def test_sharded_dense_update_rounds_each_shard_with_its_own_seed():
             model.embedding.shard_(mesh)
             sst = hybrid_init(opt, model)
             sl = mesh.table_rows(spec.n_rows)
+            sst["m"].copy_(m0[sl])
+            sst["v"].copy_(v0[sl])
             hybrid_update(opt, 1e-2, 1e-8, model, dict(rest), g_table[sl],
                           sst, mesh=mesh)
             want = fused_adam_reference(before[sl], m0[sl], v0[sl],
                                         g_table[sl], 1, lr=1e-2,
                                         weight_decay=1e-8, l2=1e-5,
-                                        sr_seed=1 * 2 + mi)
+                                        index_base=sl.start * 8)
             assert torch.equal(model.embedding.table, want[0])
-            shards.append(model.embedding.table)
+            shards.append((model.embedding.table, sst["m"], sst["v"]))
         hybrid_update(opt, 1e-2, 1e-8, whole, dict(rest), g_table, st)
-        same = torch.equal(torch.cat(shards), whole.embedding.table)
-        assert same == (dtype == "float32"), dtype
+        one = (whole.embedding.table, st["m"], st["v"])
+        for i in range(3):
+            assert torch.equal(torch.cat([s[i] for s in shards]), one[i]), \
+                (dtype, "wmv"[i])
+        # JAX's update of the whole table, sliced to each shard's rows
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        jw = reference_adam_update(
+            *(jnp.asarray(x.float().numpy()).astype(jdt)
+              for x in (before, m0, v0)),
+            jnp.asarray(g_table.numpy()),
+            jnp.int32(1), lr=1e-2, b1=0.9, b2=0.99, eps=1e-8,
+            weight_decay=1e-8, l2=1e-5)
+        for mi, shard in enumerate(shards):
+            sl = _mesh_of(1, 2, rank=mi).table_rows(spec.n_rows)
+            for name, a, b in zip("wmv", jw, shard):
+                a = np.asarray(a.astype(jnp.float32))[sl]
+                b = b.float().numpy()
+                if name != "w":
+                    np.testing.assert_array_equal(b, a, err_msg=name)
+                    continue
+                diff = a != b
+                assert diff.mean() <= 1e-3, (dtype, diff.mean())
+                ulp = (np.abs(a) * 2.0**-7 + 1e-30 if dtype == "bfloat16"
+                       else np.spacing(np.abs(a)))
+                assert (np.abs(a - b)[diff] <= ulp[diff]).all(), dtype
+    w = torch.zeros((4, 8))
+    for base in (2**32 - 32, -1):
+        with pytest.raises(ValueError, match="2\\^32"):
+            fused_adam_dispatch(w, w.clone(), w.clone(), w.clone(), 1,
+                                lr=1e-3, index_base=base)
+    fused_adam_dispatch(w, w.clone(), w.clone(), w.clone(), 1, lr=1e-3,
+                        index_base=2**32 - 33)
 
 
 def test_make_sharded_train_step_is_the_trainers_dense_step():

@@ -26,6 +26,8 @@ inputs.
   lines, and raise without a card otherwise."""
 
 import ast
+import contextlib
+import io
 import json
 import re
 from pathlib import Path
@@ -520,9 +522,21 @@ def test_dma_probe_runs_on_the_cpu(capsys):
     assert lazy["kernel1"].endswith("(plain version)")
 
 
-def test_attrib_probe_runs_on_the_cpu(capsys):
-    assert prof_kernel_attrib.main(["--device", "cpu"]) == 0
-    lines = _lines(capsys)
+@pytest.fixture(scope="module")
+def attrib_cpu_run():
+    """``prof_kernel_attrib``'s entry point on the CPU (its plain versions
+    at a toy size), run once for the module's two tests of it: each run
+    takes about two minutes here. Its exit code and its JSON lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = prof_kernel_attrib.main(["--device", "cpu"])
+    return rc, [json.loads(x) for x in out.getvalue().splitlines()
+                if x.startswith("{")]
+
+
+def test_attrib_probe_runs_on_the_cpu(attrib_cpu_run):
+    rc, lines = attrib_cpu_run
+    assert rc == 0
     modes = [x for x in lines if x["probe"] == "attrib"]
     assert [x["mode"] for x in modes] == list(adam_attrib.MODES)
     assert all(len(x["readings"]) == 2 and x["route"] == "plain"
@@ -532,6 +546,24 @@ def test_attrib_probe_runs_on_the_cpu(capsys):
     ms = {x["mode"]: x["ms"] for x in modes}
     assert gaps["adam_math_ms"] == pytest.approx(ms["full"] - ms["noadam"])
     assert lines[-2]["probe"] == "attrib_beside"
+
+
+def test_attrib_probe_reports_every_form_in_turns(attrib_cpu_run):
+    rc, lines = attrib_cpu_run
+    assert rc == 0
+    modes = [x for x in lines if x["probe"] == "attrib"]
+    for x in modes:
+        assert list(x["forms"]) == list(adam_attrib.FORMS)
+        assert x["form"] == prof_kernel_attrib.ATTRIBUTED == "vec8"
+        assert x["ms"] == x["forms"][x["form"]]["ms"]
+        assert all(len(f["readings"]) == 2 for f in x["forms"].values())
+    gaps = lines[-1]
+    assert set(gaps["copy_over_library_copy_by_form"]) == \
+        set(adam_attrib.FORMS)
+    # the gaps attribute kernel 1's sweep, whatever the default form
+    ms = {x["mode"]: x["forms"]["vec8"]["ms"] for x in modes}
+    assert gaps["form"] == "vec8" and gaps["metadata_reads_ms"] == \
+        pytest.approx(ms["noadam"] - ms["copy"])
 
 
 def test_probes_need_a_card_unless_asked_for_the_cpu():
@@ -668,21 +700,3 @@ def test_dma_probe_reports_both_forms_and_both_projections(capsys):
     assert proj["serial_block8_granular_ms"] == pytest.approx(
         6 * lines[1]["serial_ns_per_copy"] * 14_600 / 1e6)
     assert proj["serial_cold_row_granular_ms"] is None
-
-
-def test_attrib_probe_reports_every_form_in_turns(capsys):
-    assert prof_kernel_attrib.main(["--device", "cpu"]) == 0
-    lines = _lines(capsys)
-    modes = [x for x in lines if x["probe"] == "attrib"]
-    for x in modes:
-        assert list(x["forms"]) == list(adam_attrib.FORMS)
-        assert x["form"] == prof_kernel_attrib.ATTRIBUTED == "vec8"
-        assert x["ms"] == x["forms"][x["form"]]["ms"]
-        assert all(len(f["readings"]) == 2 for f in x["forms"].values())
-    gaps = lines[-1]
-    assert set(gaps["copy_over_library_copy_by_form"]) == \
-        set(adam_attrib.FORMS)
-    # the gaps attribute kernel 1's sweep, whatever the default form
-    ms = {x["mode"]: x["forms"]["vec8"]["ms"] for x in modes}
-    assert gaps["form"] == "vec8" and gaps["metadata_reads_ms"] == \
-        pytest.approx(ms["noadam"] - ms["copy"])

@@ -49,10 +49,10 @@ PRE_BN_BIAS = re.compile(r"^(mmoe_experts|towers_\d+)/linear_\d+/bias$")
 
 
 class DenseAdamTrueZero(DenseAdam):
-    def update_(self, params, grads, state):
+    def update_(self, params, grads, state, scalars=None):
         grads = {n: torch.zeros_like(g) if PRE_BN_BIAS.match(n) else g
                  for n, g in grads.items()}
-        super().update_(params, grads, state)
+        super().update_(params, grads, state, scalars)
 
 
 def _true_zero_jax(g_rest):
