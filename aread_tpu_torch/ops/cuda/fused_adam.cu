@@ -19,6 +19,15 @@
 // the JAX package's reference_adam_update does under GSPMD, keyed on the
 // global element index).
 //
+// The scalars that change from step to step — lr, b1c, b2c and the seed —
+// are read from the device, as sparse_adam.cu reads them: `step` holds
+// their 32 bits (the f32 bits of the three, then the seed), written by the
+// host before the launch (ops/sparse_adam.py::step_scalars). A CUDA graph
+// that captured the launch then replays every step with its own values
+// (train/step_graph.py stages a chunk's blocks at once). Every thread reads
+// the four words once, before its loop. The step-independent scalars and
+// index_base (constant per leaf) stay arguments.
+//
 // Bound: HBM bytes. Each element reads w, m, v, g and writes w, m, v once:
 // 28 B all-f32, 20 B with bf16 moments; a dozen flops per element are far
 // below the card's rate at that traffic. What the design does about it:
@@ -51,6 +60,7 @@ namespace {
 using aread::AdamScalars;
 using aread::BLOCK;
 using aread::VEC;
+using aread::with_step;
 
 template <typename WT, typename MT, typename GT>
 __device__ __forceinline__ void update_one(WT* w, MT* m, MT* v, const GT* g,
@@ -70,8 +80,10 @@ template <typename WT, typename MT, typename GT>
 __global__ void __launch_bounds__(BLOCK)
     fused_adam_scalar(WT* __restrict__ w, MT* __restrict__ m,
                       MT* __restrict__ v, const GT* __restrict__ g,
-                      size_t n_elems, AdamScalars s, uint32_t seed,
-                      uint32_t base) {
+                      size_t n_elems, AdamScalars consts,
+                      const uint32_t* __restrict__ step, uint32_t base) {
+  const AdamScalars s = with_step(consts, step);
+  const uint32_t seed = __ldg(step + 3);
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n_elems; e += stride)
@@ -83,8 +95,10 @@ template <typename WT, typename MT, typename GT>
 __global__ void __launch_bounds__(BLOCK)
     fused_adam_vec8(WT* __restrict__ w, MT* __restrict__ m,
                     MT* __restrict__ v, const GT* __restrict__ g,
-                    size_t n_elems, AdamScalars s, uint32_t seed,
-                    uint32_t base) {
+                    size_t n_elems, AdamScalars consts,
+                    const uint32_t* __restrict__ step, uint32_t base) {
+  const AdamScalars s = with_step(consts, step);
+  const uint32_t seed = __ldg(step + 3);
   const size_t n_vec = n_elems / VEC;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -110,8 +124,8 @@ __global__ void __launch_bounds__(BLOCK)
 
 template <typename WT, typename MT, typename GT>
 cudaError_t launch(void* w, void* m, void* v, const void* g, size_t n_elems,
-                   AdamScalars s, uint32_t seed, uint32_t base, int vec,
-                   cudaStream_t stream) {
+                   AdamScalars s, const uint32_t* step, uint32_t base,
+                   int vec, cudaStream_t stream) {
   static int vec_grid[aread::MAX_DEVICES] = {};
   static int scalar_grid[aread::MAX_DEVICES] = {};
   auto* kernel = vec ? &fused_adam_vec8<WT, MT, GT>
@@ -126,17 +140,17 @@ cudaError_t launch(void* w, void* m, void* v, const void* g, size_t n_elems,
   kernel<<<grid, BLOCK, 0, stream>>>(static_cast<WT*>(w), static_cast<MT*>(m),
                                      static_cast<MT*>(v),
                                      static_cast<const GT*>(g), n_elems, s,
-                                     seed, base);
+                                     step, base);
   return cudaGetLastError();
 }
 
 template <typename WT, typename MT>
 cudaError_t launch_g(void* w, void* m, void* v, const void* g, int g_bf16,
-                     size_t n_elems, AdamScalars s, uint32_t seed,
+                     size_t n_elems, AdamScalars s, const uint32_t* step,
                      uint32_t base, int vec, cudaStream_t stream) {
-  return g_bf16 ? launch<WT, MT, __nv_bfloat16>(w, m, v, g, n_elems, s, seed,
+  return g_bf16 ? launch<WT, MT, __nv_bfloat16>(w, m, v, g, n_elems, s, step,
                                                 base, vec, stream)
-                : launch<WT, MT, float>(w, m, v, g, n_elems, s, seed, base,
+                : launch<WT, MT, float>(w, m, v, g, n_elems, s, step, base,
                                         vec, stream);
 }
 
@@ -147,29 +161,32 @@ cudaError_t launch_g(void* w, void* m, void* v, const void* g, int g_bf16,
 // seconds). Pointers are device pointers; the caller has checked dtypes,
 // shapes, contiguity and devices, that index_base + n_elems < 2^32 (the
 // hash's element index is uint32, as in the JAX package), and with vec != 0
-// that w, m, v and g are 16-byte aligned. The device of the tensors is current. Returns
-// the cudaError_t of the launch (0 on success).
+// that w, m, v and g are 16-byte aligned. The device of the tensors is current.
+// step is the step's scalar block on the device: 4 words, the f32 bits of
+// lr, b1c and b2c, then the seed. Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int aread_fused_adam(
     void* w, int w_bf16, void* m, void* v, int mv_bf16, const void* g,
-    int g_bf16, uint64_t n_elems, float lr, float b1, float b2, float eps,
-    float decay, float b1c, float b2c, float omb1, float omb2, uint32_t seed,
-    uint32_t index_base, int vec, void* stream_ptr) {
+    int g_bf16, uint64_t n_elems, const uint32_t* step, float b1, float b2,
+    float eps, float decay, float omb1, float omb2, uint32_t index_base,
+    int vec, void* stream_ptr) {
   if (n_elems == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const AdamScalars s{lr, b1, b2, eps, decay, b1c, b2c, omb1, omb2};
+  // lr, b1c and b2c are read from `step` in the kernel
+  const AdamScalars s{0.0f, b1, b2, eps, decay, 0.0f, 0.0f, omb1, omb2};
   const size_t n = static_cast<size_t>(n_elems);
   cudaError_t err;
   if (w_bf16 && mv_bf16) {
     err = launch_g<__nv_bfloat16, __nv_bfloat16>(w, m, v, g, g_bf16, n, s,
-                                                 seed, index_base, vec, stream);
+                                                 step, index_base, vec, stream);
   } else if (w_bf16) {
-    err = launch_g<__nv_bfloat16, float>(w, m, v, g, g_bf16, n, s, seed,
+    err = launch_g<__nv_bfloat16, float>(w, m, v, g, g_bf16, n, s, step,
                                          index_base, vec, stream);
   } else if (mv_bf16) {
-    err = launch_g<float, __nv_bfloat16>(w, m, v, g, g_bf16, n, s, seed,
+    err = launch_g<float, __nv_bfloat16>(w, m, v, g, g_bf16, n, s, step,
                                          index_base, vec, stream);
   } else {
-    err = launch_g<float, float>(w, m, v, g, g_bf16, n, s, seed, index_base,
+    err = launch_g<float, float>(w, m, v, g, g_bf16, n, s, step, index_base,
                                  vec, stream);
   }
   return static_cast<int>(err);

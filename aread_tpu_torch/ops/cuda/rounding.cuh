@@ -155,6 +155,19 @@ struct AdamScalars {
   float lr, b1, b2, eps, decay, b1c, b2c, omb1, omb2;
 };
 
+// the launch's step-independent scalars completed with lr, b1c and b2c
+// (their f32 bits) from the step's [4]-word block on the device
+// (ops/sparse_adam.py::step_scalars: lr, b1c, b2c, then the seed, which the
+// kernels read as step[3]). The block is written before the launch, so a
+// CUDA graph that captured the launch replays each step with its own.
+__device__ __forceinline__ AdamScalars with_step(AdamScalars s,
+                                                 const uint32_t* step) {
+  s.lr = __uint_as_float(__ldg(step + 0));
+  s.b1c = __uint_as_float(__ldg(step + 1));
+  s.b2c = __uint_as_float(__ldg(step + 2));
+  return s;
+}
+
 // One element of torch-semantics Adam from its data gradient gd:
 //   g  = gd + decay * w
 //   m' = b1 * m + omb1 * g

@@ -77,6 +77,7 @@ namespace {
 using aread::AdamScalars;
 using aread::BLOCK;
 using aread::VEC;
+using aread::with_step;
 
 __global__ void slot_scatter(const int32_t* __restrict__ uids, int k_total,
                              uint32_t n_rows, int32_t* __restrict__ slot) {
@@ -94,17 +95,6 @@ __global__ void slot_reset(const int32_t* __restrict__ uids, int k_total,
     int32_t u = uids[k];
     if (u >= 0 && static_cast<uint32_t>(u) < n_rows) slot[u] = -1;
   }
-}
-
-// the launch's step-independent scalars completed with lr, b1c and b2c
-// (their f32 bits) from the step's block on the device; the seed is
-// step[3]
-__device__ __forceinline__ AdamScalars with_step(AdamScalars s,
-                                                 const uint32_t* step) {
-  s.lr = __uint_as_float(__ldg(step + 0));
-  s.b1c = __uint_as_float(__ldg(step + 1));
-  s.b2c = __uint_as_float(__ldg(step + 2));
-  return s;
 }
 
 // fixed-order tree sum of one value per thread; the result is in red[0]

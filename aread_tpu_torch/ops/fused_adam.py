@@ -24,7 +24,13 @@ the whole table takes one Adam step per training step:
   tensors through the plain version.
 
 Both take the f32 scalars of ``ops.sparse_adam.adam_scalars``, so the
-dense and the sparse table update agree bitwise on the same gradient. A
+dense and the sparse table update agree bitwise on the same gradient. The
+scalars that change from step to step (lr, the bias corrections, the
+rounding's seed) reach the kernel and the plain version as the step's
+scalar block on the device (``ops/sparse_adam.py::step_scalars``, ``scalars=``),
+as kernel 1's do, so that a captured CUDA graph replays each step with its
+own; a caller that passes only ``t`` and ``lr`` gets the block made for it.
+Neither reads anything back to the host. A
 bf16 leaf computes in f32 and is written with stochastic rounding keyed
 by (global element index, t), in the kernel too (the TPU kernel hands that
 case to its plain version). The global index of the leaf's first element
@@ -40,7 +46,9 @@ import torch
 
 from aread_tpu_torch.ops.cuda import count_launch, launch_counts  # noqa: F401
 from aread_tpu_torch.ops.rounding import sround
-from aread_tpu_torch.ops.sparse_adam import VEC, adam_scalars, is_aligned16
+from aread_tpu_torch.ops.sparse_adam import (VEC, adam_constants,
+                                             is_aligned16, split_scalars,
+                                             step_block)
 
 _STORAGE = (torch.float32, torch.bfloat16)
 
@@ -48,30 +56,32 @@ _STORAGE = (torch.float32, torch.bfloat16)
 def fused_adam_reference(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                          b2: float = 0.99, eps: float = 1e-8,
                          weight_decay: float = 1e-8, l2: float = 0.0,
-                         sr_seed=None, index_base: int = 0):
+                         sr_seed=None, index_base: int = 0, scalars=None):
     """Plain version (port of ``reference_adam_update``). Returns new
     (w, m, v) in the inputs' dtypes; a bf16 leaf rounds stochastically,
-    keyed by ``sr_seed`` (None: ``t``) and the element's global index
-    ``index_base + e``. Every scalar that divides is a 0-dim
-    tensor on the data's device: on CUDA, PyTorch turns division by a
-    Python scalar into multiplication by its reciprocal, which is not the
-    IEEE quotient."""
+    keyed by the seed and the element's global index ``index_base + e``.
+    lr, the bias corrections and the seed are read from ``scalars``, the
+    step's [4] int32 block on the data's device (None: made from ``t``,
+    ``lr`` and ``sr_seed``; ``sr_seed`` None is ``t``). Nothing is read
+    back to the host. Every scalar that divides is a 0-dim tensor on the
+    data's device: on CUDA, PyTorch turns division by a Python scalar into
+    multiplication by its reciprocal, which is not the IEEE quotient."""
     dev = w.device
     check_index_base(index_base, w.numel())
-    s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
-    b1c = torch.tensor(s["b1c"], dtype=torch.float32, device=dev)
-    b2c = torch.tensor(s["b2c"], dtype=torch.float32, device=dev)
+    lr_t, b1c, b2c, seed = split_scalars(
+        step_block(t, lr, b1, b2, sr_seed, scalars, dev))
+    s = adam_constants(b1, b2, eps, weight_decay, l2)
     wf = w.to(torch.float32)
     g = g.to(torch.float32) + s["decay"] * wf
     m2 = s["b1"] * m.to(torch.float32) + s["omb1"] * g
     v2 = s["b2"] * v.to(torch.float32) + s["omb2"] * g * g
     mhat = m2 / b1c
     vhat = v2 / b2c
-    new_w = wf - s["lr"] * mhat / (torch.sqrt(vhat) + s["eps"])
+    new_w = wf - lr_t * mhat / (torch.sqrt(vhat) + s["eps"])
     if w.dtype == torch.bfloat16:
         idx = torch.arange(index_base, index_base + w.numel(),
                            dtype=torch.int64, device=dev).reshape(w.shape)
-        new_w = sround(new_w, w.dtype, idx, t if sr_seed is None else sr_seed)
+        new_w = sround(new_w, w.dtype, idx, seed)
     return new_w.to(w.dtype), m2.to(m.dtype), v2.to(v.dtype)
 
 
@@ -94,11 +104,15 @@ def takes_vector_kernel(numel: int, aligned: bool) -> bool:
 def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                     b2: float = 0.99, eps: float = 1e-8,
                     weight_decay: float = 1e-8, l2: float = 0.0,
-                    sr_seed=None, index_base: int = 0) -> None:
+                    sr_seed=None, index_base: int = 0,
+                    scalars=None) -> None:
     """Launch ``ops/cuda/fused_adam.cu`` on the current stream: w, m, v
-    updated in place; a bf16 leaf rounds keyed by ``sr_seed`` (None:
-    ``t``) and the global element index ``index_base + e``. Raises on
-    anything the kernel does not take and on a failed build or launch."""
+    updated in place; a bf16 leaf rounds keyed by the seed and the global
+    element index ``index_base + e``. The kernel reads lr, b1c, b2c and
+    the seed from ``scalars``, the step's [4] int32 block on the leaf's
+    device (None: made from ``t``, ``lr`` and ``sr_seed``, None meaning
+    ``t``, and copied there without a host wait). Raises on anything the
+    kernel does not take and on a failed build or launch."""
     dev = w.device
     if dev.type != "cuda":
         raise ValueError("fused_adam_cuda needs CUDA tensors")
@@ -117,29 +131,31 @@ def fused_adam_cuda(w, m, v, g, t: int, lr: float, b1: float = 0.9,
         raise ValueError("w, m, v and g must be contiguous")
     from aread_tpu_torch.ops.cuda import build
 
+    scalars = step_block(t, lr, b1, b2, sr_seed, scalars, dev)
     build.load("fused_adam")
-    s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
+    s = adam_constants(b1, b2, eps, weight_decay, l2)
     vec = takes_vector_kernel(w.numel(), is_aligned16(w, m, v, g))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         torch.ops.aread_tpu_torch.fused_adam_(
-            w, m, v, g, s["lr"], s["b1"], s["b2"], s["eps"], s["decay"],
-            s["b1c"], s["b2c"], s["omb1"], s["omb2"],
-            int(t if sr_seed is None else sr_seed), int(index_base), vec,
-            stream)
+            w, m, v, g, scalars, s["b1"], s["b2"], s["eps"], s["decay"],
+            s["omb1"], s["omb2"], int(index_base), vec, stream)
     count_launch("fused_adam")
 
 
 def fused_adam_dispatch(w, m, v, g, t: int, lr: float, b1: float = 0.9,
                         b2: float = 0.99, eps: float = 1e-8,
                         weight_decay: float = 1e-8, l2: float = 0.0,
-                        sr_seed=None, index_base: int = 0) -> None:
+                        sr_seed=None, index_base: int = 0,
+                        scalars=None) -> None:
     """One torch-semantics Adam step on a leaf from its dense gradient, in
     place. CUDA tensors go through the kernel, CPU tensors through the
-    plain version. ``sr_seed`` (None: ``t``) and ``index_base`` (the global
-    index of the leaf's first element) key a bf16 leaf's rounding."""
+    plain version, both reading the step's scalar block ``scalars`` (None:
+    made from ``t``, ``lr`` and ``sr_seed``). The seed (``sr_seed``, None:
+    ``t``) and ``index_base`` (the global index of the leaf's first
+    element) key a bf16 leaf's rounding."""
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2,
-              sr_seed=sr_seed, index_base=index_base)
+              sr_seed=sr_seed, index_base=index_base, scalars=scalars)
     if w.device.type == "cuda":
         fused_adam_cuda(w, m, v, g, t, **kw)
         return

@@ -143,6 +143,21 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def step_block(t: int, lr: float, b1: float, b2: float, sr_seed,
+               scalars, dev) -> torch.Tensor:
+    """``scalars``, the step's [4] int32 block on ``dev``, checked; or,
+    when it is None, the block of step ``t`` with ``lr`` and ``sr_seed``
+    (None: ``t``) made by ``step_scalars`` and copied there without a host
+    wait."""
+    if scalars is None:
+        return to_device(step_scalars(t, lr, b1, b2, sr_seed), dev)
+    if (scalars.dtype != torch.int32 or scalars.shape != (4,)
+            or scalars.device != dev or not scalars.is_contiguous()):
+        raise TypeError("scalars must be the step's contiguous [4] int32 "
+                        f"block on {dev}")
+    return scalars
+
+
 def split_scalars(block: torch.Tensor):
     """(lr, b1c, b2c, seed) of a [4] int32 scalar block: 0-dim views on its
     device, f32 for the three and int32 for the seed."""
@@ -167,9 +182,8 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
     its reciprocal, which is not the IEEE quotient."""
     n_rows, d = w.shape
     dev = w.device
-    if scalars is None:
-        scalars = to_device(step_scalars(t, lr, b1, b2, sr_seed), dev)
-    lr_t, b1c, b2c, seed = split_scalars(scalars)
+    lr_t, b1c, b2c, seed = split_scalars(
+        step_block(t, lr, b1, b2, sr_seed, scalars, dev))
     s = adam_constants(b1, b2, eps, weight_decay, l2)
 
     def adam(w_, m_, v_, g_):
@@ -356,12 +370,7 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
                          "is uint32")
     if not all(x.is_contiguous() for x in (w, m, v, uids, gsum)):
         raise ValueError("w, m, v, uids and gsum must be contiguous")
-    if scalars is None:
-        scalars = to_device(step_scalars(t, lr, b1, b2, sr_seed), dev)
-    if (scalars.dtype != torch.int32 or scalars.shape != (4,)
-            or scalars.device != dev or not scalars.is_contiguous()):
-        raise TypeError("scalars must be the step's contiguous [4] int32 "
-                        f"block on {dev}")
+    scalars = step_block(t, lr, b1, b2, sr_seed, scalars, dev)
     from aread_tpu_torch.ops.cuda import build
 
     build.load("sparse_adam")

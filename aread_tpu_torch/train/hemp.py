@@ -84,14 +84,15 @@ from aread_tpu_torch.train import metrics as metrics_lib
 from aread_tpu_torch.train.checkpoint import (load_checkpoint, local_state,
                                               mask_template, restore_tree_,
                                               set_generator_state)
-from aread_tpu_torch.train.step_graph import SCAN_CHUNK, make_chunks
+from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chunks,
+                                              aread_step)
 from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            adopt_state_dict,
                                            bce_with_logits,
                                            clip_scale_by_global_norm,
                                            clone_state,
                                            device_data_mode_enabled,
-                                           embed_lookup_ctx,
+                                           embed_lookup_ctx, gather_batch,
                                            hybrid_init, hybrid_update_sparse,
                                            make_optimizer, masked_mean,
                                            mean_losses, raise_if_nonfinite,
@@ -149,18 +150,6 @@ def copy_masks(masks) -> List:
             for m in masks]
 
 
-def gather_batch(dxc: torch.Tensor, dyc: torch.Tensor,
-                 idx: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """A batch from the device-resident split by row ids (``idx`` [bs]
-    int32, -1 = padding), with ``pad_batch``'s semantics: pad rows
-    replicate the batch's first row (padding is a suffix), y zeros, the
-    validity mask."""
-    valid = (idx >= 0).to(torch.float32)
-    gidx = torch.where(idx < 0, idx[0], idx).to(torch.int64)
-    return {"x": dxc[gidx], "y": dyc[gidx].to(torch.float32) * valid,
-            "valid": valid}
-
-
 def prob_bce(prob, y, valid):
     """Masked mean BCE on a probability."""
     prob = torch.clamp(prob, 1e-7, 1 - 1e-7)
@@ -215,7 +204,7 @@ class AREADTrainer:
         # host clock per step: the launches, since no step synchronises
         self.step_timer = profiling.StepTimer()
         # the dispatch of the warm-up, bagging and final-gate steps (made
-        # at the first chunk: step_graph.make_chunks)
+        # at the first chunk: step_graph.Chunks)
         self._chunks = None
         # fail on a hemp_fast_adapt misconfiguration now, not at the first
         # regroup, a warm-up into the first epoch
@@ -248,14 +237,12 @@ class AREADTrainer:
         self._chunks = None
         return self.opt_state
 
-    @property
-    def chunks(self):
-        """The dispatch of the epochs' steps (``step_graph.make_chunks``):
-        CUDA graphs or the eager loop."""
-        if self._chunks is None:
-            self._chunks = make_chunks(self)
-            self.step_timer.dispatch = self._chunks.name
-        return self._chunks
+    # the dispatch of the steps: CUDA graphs or the eager loop
+    chunks = Chunks()
+
+    def chunk_step(self, kind: str, state: Dict):
+        """The step a chunk runs (``step_graph.aread_step``)."""
+        return aread_step(self, kind, state)
 
     def _snapshot(self, table: bool = True) -> Dict[str, torch.Tensor]:
         """A device-resident copy of the parameters, the table (unless

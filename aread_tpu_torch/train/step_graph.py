@@ -1,50 +1,67 @@
 """Chunks of training steps, each chunk in as few dispatches as the device
-allows (counterpart of ``make_scan`` / ``make_scan_idx`` and of the
-``SCAN_CHUNK`` chunk loop of ``aread_tpu/train/hemp.py``).
+allows (counterpart of the JAX package's scanned steps: ``make_scan`` /
+``make_scan_idx`` and the ``SCAN_CHUNK`` chunk loop of
+``aread_tpu/train/hemp.py``; ``_build_train_scan`` / ``_build_epoch_scan``
+of ``aread_tpu/train/trainer.py``).
 
-The JAX package runs ``SCAN_CHUNK`` steps of a segment as one jitted
-``lax.scan``, because a step launched from Python pays host dispatch
-several times the device step itself. The same holds for the port: an
-AREAD step is some 1,200 small launches, and the card sits idle while the
-host issues them. The counterpart of a jitted program replayed over a
-chunk is a captured CUDA graph. Two dispatches run a chunk:
+The JAX package runs ``SCAN_CHUNK`` steps as one jitted ``lax.scan``,
+because a step launched from Python pays host dispatch several times the
+device step itself. The same holds for the port: an AREAD step is some
+1,200 small launches, a zoo model's step 300 to 1,000, and the card sits
+idle while the host issues them. The counterpart of a jitted program
+replayed over a chunk is a captured CUDA graph. Two dispatches run a chunk:
 
-* ``GraphChunks``: one CUDA graph per step function (warm-up, bagging,
-  final gate), captured once and replayed once per step. Its inputs are
-  static device buffers for a whole chunk — the batches (or, with the
-  split resident on the device, their row ids), the domain masks and the
-  step's scalar blocks (``ops/sparse_adam.py::step_scalars``: lr, the bias
-  corrections, the seed) — staged in one asynchronous copy each; a step
-  counter on the device picks the step's slice, and the step writes its
-  loss and gate means into static outputs at that slice. The losses and
-  gate means are read once per chunk, on the device. A graph is made by
-  PyTorch's whole-network recipe: a few eager steps on a side stream (they
-  are the chunk's first steps, and they build kernel 1 and its scratch
-  before the capture), then the capture, with the dropout generator
-  registered so that each replay draws the next numbers. Host counters
-  that a captured step would advance (the optimizer's ``t``, the dense
-  leaves' ``count``) are put back after the capture and advanced once per
-  replay; so are the kernels' launch counts (``ops/cuda.count_launch``).
-  A capture that fails raises; nothing falls back to the eager loop.
+* ``GraphChunks``: one CUDA graph per step function (AREAD's warm-up,
+  bagging and final gate; the generic ``Trainer``'s step), captured once
+  and replayed once per step. Its inputs are static device buffers for a
+  whole chunk — the batches (or, with the split resident on the device,
+  their row ids), the domain masks and the step's scalar blocks
+  (``ops/sparse_adam.py::step_scalars``: lr, the bias corrections, the
+  seed, which both Adam kernels and ``DenseAdam`` read) — staged in one
+  asynchronous copy each; a step counter on the device picks the step's
+  slice, and the step writes its loss and per-step outputs (AREAD's gate
+  means) into static outputs at that slice. The losses are read once per
+  chunk, on the device. A graph is made by PyTorch's whole-network recipe:
+  a few eager steps on a side stream (they are the chunk's first steps,
+  and they build the kernels and their scratch before the capture), then
+  the capture, with the dropout generator registered so that each replay
+  draws the next numbers. Host counters that a captured step would advance
+  (the optimizer's ``t``, the dense leaves' ``count``) are put back after
+  the capture and advanced once per replay; so are the kernels' launch
+  counts (``ops/cuda.count_launch``). A capture that fails raises by name;
+  nothing falls back to the eager loop.
 * ``EagerChunks``: the same steps launched one by one, the loop the port
   always ran.
 
-The configuration alone picks (``graph_dispatch``): the graph on one CUDA
-device with ``table_optimizer='adam'``; the eager loop on the CPU, on a
-mesh (its collectives are not captured: gloo stages them through the
-host) and with ``lazy_adam`` (whose update waits for the device). Both
-leave the same bits.
+A trainer states each of its step functions as a ``Step``
+(``trainer.chunk_step(kind, state)``): the function, the keys of a host
+feed, the host counters one step advances, its step count, learning rate
+and betas, and what a captured step holds besides the model; and it turns
+a feed into a batch (``trainer.feed_batch``). The configuration alone picks
+the dispatch (``graph_dispatch``): the graph on one CUDA device with
+``table_optimizer='adam'``; the eager loop on the CPU, on a mesh (its
+collectives are not captured: gloo stages them through the host), with
+``lazy_adam`` (whose update waits for the device). Both leave the same
+bits. A trainer's ``chunks`` (``Chunks``) makes its dispatch at the first
+chunk. ``MamdrTrainer`` never asks for one: its Reptile steps are single
+steps, as the JAX package's ``_train_on_sequence`` runs them.
 
 A graph holds the storage of everything it touches: the model's tensors,
-the optimizer state, the resident split. Mask evolution, ``_load_best``
-and ``_resume`` write those in place, so a graph stays valid across them;
-a graph is captured again when a step would read another tensor (a new
-optimizer state, a new resident split) or another learning rate.
+the optimizer state, the resident split and its domain -> group map. Mask
+evolution, ``_load_best``, a warm start's or a resume's weights and the
+best weights' reload write those in place, so a graph stays valid across
+them; a graph is captured again when a step would read another tensor (a
+new optimizer state, a new resident split, a regrouped domain -> group map
+of the resident split, which is a new tensor as the JAX package's regroup
+drops its ``_epoch_scan``) or another learning rate. Host state that picks
+the kernels, as ``matmul_precision_ctx``'s TF32 switch, is set inside the
+step and so holds at the capture; a replay runs the kernels it picked.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +89,37 @@ def make_chunks(trainer):
         EagerChunks(trainer)
 
 
+class Chunks:
+    """A trainer's ``chunks``: the dispatch of its epochs' steps
+    (``make_chunks``), made at the first use and kept in
+    ``trainer._chunks``, which a new optimizer state sets back to None; the
+    trainer's ``step_timer`` records which dispatch it is."""
+
+    def __get__(self, trainer, owner=None):
+        if trainer is None:
+            return self
+        if trainer._chunks is None:
+            trainer._chunks = make_chunks(trainer)
+            trainer.step_timer.dispatch = trainer._chunks.name
+        return trainer._chunks
+
+
+@dataclasses.dataclass
+class Step:
+    """One step function of a trainer, as a chunk runs it."""
+    name: str                   # for messages: "AREAD main", ...
+    fn: Callable                # (batch, dm, scalars) -> (loss, outputs)
+    feed_keys: Tuple[str, ...]  # the arrays of a host feed
+    counters: List[Tuple[Dict, str]]  # host counters a step advances
+    count: int                  # the optimizer's step count before a step
+    lr: float
+    betas: Tuple[float, float]  # the optimizer's (b1, b2)
+    holds: Tuple                # objects a captured step reads
+    resident: Tuple = ()        # ... and, fed row ids, the resident split's
+    lrs: Tuple = ()             # the learning rates it is captured with
+
+
+# ----------------------------------------------------- the AREAD trainer
 @dataclasses.dataclass
 class Kind:
     """One step function of the AREAD trainer: ``mode`` is the model's
@@ -82,10 +130,12 @@ class Kind:
 
 KINDS = {"warmup": Kind("wo_mask"), "main": Kind("domain_mask_bagging"),
          "final": Kind("domain_mask_final", final=True)}
+# a host feed of the AREAD steps (``pad_batch``)
+AREAD_FEED = ("x", "y", "valid")
 
 
 def step_fn(trainer, kind: str, state: Dict) -> Callable:
-    """``(batch, dm, scalars) -> (loss, gate means)`` of one step of
+    """``(batch, dm, scalars) -> (loss, gate means)`` of one AREAD step of
     ``kind`` with the optimizer state ``state`` (the main state, or the
     final gate's)."""
     k = KINDS[kind]
@@ -102,7 +152,8 @@ def step_lr(trainer, kind: str) -> float:
 
 
 def counters(kind: str, state: Dict) -> List[Tuple[Dict, str]]:
-    """The host counters one step of ``kind`` advances: (dict, key)."""
+    """The host counters one AREAD step of ``kind`` advances: (dict,
+    key)."""
     if KINDS[kind].final:
         return [(state, "count")]
     return [(state, "t"), (state["inner"], "count")]
@@ -119,11 +170,76 @@ def step_count(kind: str, state: Dict) -> int:
     return state["t"]
 
 
+def aread_step(trainer, kind: str, state: Dict) -> Step:
+    """``AREADTrainer.chunk_step``: its warm-up, bagging or final-gate
+    step on ``state``."""
+    opt = trainer.final_optimizer if KINDS[kind].final else trainer.optimizer
+    data = trainer._device_data
+    lr = step_lr(trainer, kind)
+    return Step(name=f"AREAD {kind}", fn=step_fn(trainer, kind, state),
+                feed_keys=AREAD_FEED, counters=counters(kind, state),
+                count=step_count(kind, state), lr=lr, betas=(opt.b1, opt.b2),
+                holds=(opt, state),
+                resident=(None if data is None else data[0],),
+                lrs=(opt.lr, lr))
+
+
+# --------------------------------------------------- the generic Trainer
+def trainer_step(trainer, kind: str, state: Dict) -> Step:
+    """``Trainer.chunk_step``: the generic step (``kind`` 'train') on
+    ``state``, fed a ``GlobalBatcher`` batch or row ids into the resident
+    split."""
+    if kind != "train":
+        raise ValueError(f"the generic Trainer has no {kind!r} step")
+    opt = trainer.optimizer
+    data, d2g = trainer._device_data, trainer._device_d2g
+    keys = ("x", "y", "valid", "domain") + (
+        () if trainer.domain2group is None else ("group",))
+    return Step(name="generic Trainer", fn=lambda batch, dm, scalars: (
+        trainer.step_core(batch, scalars=scalars), ()),
+        feed_keys=keys, counters=[(state, "t"), (state["inner"], "count")],
+        count=step_count("main", state), lr=trainer.config.lr,
+        betas=(opt.b1, opt.b2), holds=(opt, state),
+        resident=(None if data is None else data[2],
+                  None if d2g is None else d2g[1]),
+        lrs=(opt.lr, trainer.config.lr))
+
+
+_SIDE_STREAMS: Dict[str, object] = {}
+
+
+def side_stream(dev):
+    """The stream of the recipe's eager steps before a capture, one per
+    device, kept: PyTorch keeps a cuBLAS workspace (64 MiB on the H100)
+    for every stream that ran a product, so a new stream per capture
+    would hold another workspace each time."""
+    key = str(dev)
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[key]
+
+
 def capture(graph, pool, fn: Callable) -> None:
     """Record one call of ``fn`` into ``graph``: CUDA stream capture, its
     allocations from the memory pool ``pool``; nothing runs."""
     with torch.cuda.graph(graph, pool=pool):
         fn()
+
+
+def feed_examples(feed) -> int:
+    """The rows a step's host feed holds."""
+    if isinstance(feed, dict):
+        return int(feed["valid"].sum())
+    return int((np.asarray(feed) >= 0).sum())
+
+
+def stage_ids(feeds, staged, dev) -> torch.Tensor:
+    """[n, bs] int32 row ids of a chunk on ``dev``: ``staged`` when the
+    caller staged them (a slice of a larger block already on the device),
+    else the host ids in one asynchronous copy."""
+    if staged is not None:
+        return staged
+    return to_device(np.stack(feeds).astype(np.int32), dev)
 
 
 class EagerChunks:
@@ -132,31 +248,31 @@ class EagerChunks:
     name = "eager"
 
     def __init__(self, trainer):
-        self.tr = trainer
+        # the trainer owns its runner: a weak reference, so that a dropped
+        # trainer (its model, optimizer state and graphs) is freed at once
+        self.tr = weakref.proxy(trainer)
 
     def run(self, kind: str, feeds: Sequence, masks: Sequence,
-            state: Dict) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+            state: Dict, staged: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         """Run ``len(feeds)`` steps of ``kind`` on ``state``. ``feeds``: per
-        step its host batch (x, y, valid) or, with the split on the device,
-        its row ids; ``masks``: per step its domain mask (None in the
-        warm-up). Returns the losses [n] and the gate means, each [n, ...],
-        on the device, not fetched."""
+        step its host batch or, with the split on the device, its host row
+        ids (``staged``: the same ids already on the device, [n, bs]);
+        ``masks``: per step its domain mask (None without one). Returns the
+        losses [n] and the per-step outputs, each [n, ...], on the device,
+        not fetched."""
         tr = self.tr
-        fn = step_fn(tr, kind, state)
-        losses, gms = [], []
-        for feed, mask in zip(feeds, masks):
+        fn = tr.chunk_step(kind, state).fn
+        if not isinstance(feeds[0], dict):
+            staged = stage_ids(feeds, staged, tr.device)
+        losses, outs = [], []
+        for j, (feed, mask) in enumerate(zip(feeds, masks)):
             with tr.step_timer.step(n_examples=feed_examples(feed)):
-                loss, g = fn(tr.feed_batch(feed), mask, None)
+                batch = tr.feed_batch(feed if staged is None else staged[j])
+                loss, out = fn(batch, mask, None)
             losses.append(loss)
-            gms.append(g)
-        return torch.stack(losses), tuple(torch.stack(x) for x in zip(*gms))
-
-
-def feed_examples(feed) -> int:
-    """The rows a step's feed holds."""
-    if isinstance(feed, dict):
-        return int(feed["valid"].sum())
-    return int((feed >= 0).sum())
+            outs.append(out)
+        return torch.stack(losses), tuple(torch.stack(x) for x in zip(*outs))
 
 
 @dataclasses.dataclass
@@ -170,22 +286,23 @@ class _Graph:
 
 class GraphChunks:
     """The steps of a chunk as replays of a captured CUDA graph (one per
-    step function), on static chunk buffers."""
+    step function and feed form), on static chunk buffers."""
 
     name = "graph"
 
     def __init__(self, trainer):
-        self.tr = trainer
+        self.tr = weakref.proxy(trainer)  # as EagerChunks'
         self.dev = trainer.device
         self.graphs: Dict[str, _Graph] = {}
+        self.captures = 0  # graphs captured, re-captures included
         self.pool = None
         self.buf: Dict[str, object] = {}
 
     # ----------------------------------------------------------- buffers
-    def _buffers(self, key, feeds, masks) -> Dict:
+    def _buffers(self, key, step: Step, feeds, masks) -> Dict:
         """The static buffers of a graph (``key``: its step function and
-        feed), made at its first chunk: inputs for ``SCAN_CHUNK`` steps,
-        the step counter; the outputs follow at its first step."""
+        feed form), made at its first chunk: inputs for ``SCAN_CHUNK``
+        steps, the step counter; the outputs follow at its first step."""
         buf = self.buf.get(key)
         if buf is not None:
             return buf
@@ -194,96 +311,92 @@ class GraphChunks:
         buf = {"i": torch.zeros((1,), dtype=torch.int64, device=dev),
                "scalars": torch.zeros((S, 4), dtype=torch.int32, device=dev)}
         if isinstance(first, dict):
-            for k in ("x", "y", "valid"):
+            buf["feed"] = {}
+            for k in step.feed_keys:
                 a = np.asarray(first[k])
-                buf[k] = torch.empty((S,) + a.shape,
-                                     dtype=torch.from_numpy(a).dtype,
-                                     device=dev)
+                buf["feed"][k] = torch.empty(
+                    (S,) + a.shape, dtype=torch.from_numpy(a).dtype,
+                    device=dev)
         else:
-            buf["ids"] = torch.empty((S,) + first.shape, dtype=torch.int32,
-                                     device=dev)
+            buf["ids"] = torch.empty((S,) + np.shape(first),
+                                     dtype=torch.int32, device=dev)
         buf["masks"] = (None if masks[0] is None else
                         [torch.empty((S,) + np.shape(m), dtype=torch.bool,
                                      device=dev) for m in masks[0]])
         self.buf[key] = buf
         return buf
 
-    def _stage(self, buf: Dict, kind: str, feeds, masks, state: Dict) -> None:
+    def _stage(self, buf: Dict, kind: str, feeds, masks, state: Dict,
+               staged: Optional[torch.Tensor] = None) -> None:
         """The chunk's inputs into the static buffers: one asynchronous copy
-        each (the batches or their row ids, each layer's masks, the scalar
-        blocks), and the step counter to 0."""
+        each (the batches' arrays or their row ids, each layer's masks, the
+        scalar blocks), and the step counter to 0."""
         n = len(feeds)
-        tr = self.tr
+        step = self.tr.chunk_step(kind, state)
         if "ids" in buf:
-            buf["ids"][:n].copy_(to_device(
-                np.stack(feeds).astype(np.int32), self.dev))
+            buf["ids"][:n].copy_(stage_ids(feeds, staged, self.dev))
         else:
-            for k in ("x", "y", "valid"):
-                buf[k][:n].copy_(to_device(
+            for k, dst in buf["feed"].items():
+                dst[:n].copy_(to_device(
                     np.stack([np.asarray(f[k]) for f in feeds]), self.dev))
         if buf["masks"] is not None:
             for li, dst in enumerate(buf["masks"]):
                 dst[:n].copy_(to_device(
                     np.stack([np.asarray(m[li], dtype=bool) for m in masks]),
                     self.dev))
-        opt = tr.final_optimizer if KINDS[kind].final else tr.optimizer
         buf["scalars"][:n].copy_(to_device(
-            chunk_scalars(step_count(kind, state), n, step_lr(tr, kind),
-                          opt.b1, opt.b2), self.dev))
+            chunk_scalars(step.count, n, step.lr, *step.betas), self.dev))
         buf["i"].zero_()
 
     def _body(self, kind: str, buf: Dict, state: Dict) -> Callable:
         """One step that reads its inputs at the device counter's slice of
-        the static buffers and writes its loss and gate means there."""
+        the static buffers and writes its loss and outputs there."""
         tr = self.tr
-        fn = step_fn(tr, kind, state)
+        fn = tr.chunk_step(kind, state).fn
 
         def body():
             i = buf["i"]
             if "ids" in buf:
                 batch = tr.feed_batch(buf["ids"].index_select(0, i)[0])
             else:
-                batch = {k: buf[k].index_select(0, i)[0]
-                         for k in ("x", "y", "valid")}
+                batch = {k: v.index_select(0, i)[0]
+                         for k, v in buf["feed"].items()}
             dm = (None if buf["masks"] is None else
                   tuple(m.index_select(0, i)[0] for m in buf["masks"]))
-            loss, gms = fn(batch, dm, buf["scalars"].index_select(0, i)[0])
+            loss, outs = fn(batch, dm, buf["scalars"].index_select(0, i)[0])
             if "loss" not in buf:
                 # the outputs, shaped at the first (eager) step
                 buf["loss"] = torch.zeros((SCAN_CHUNK,), dtype=loss.dtype,
                                           device=self.dev)
-                buf["gms"] = [torch.zeros((SCAN_CHUNK,) + tuple(g.shape),
-                                          dtype=g.dtype, device=self.dev)
-                              for g in gms]
+                buf["outs"] = [torch.zeros((SCAN_CHUNK,) + tuple(g.shape),
+                                           dtype=g.dtype, device=self.dev)
+                               for g in outs]
             buf["loss"].index_copy_(0, i, loss.reshape(1))
-            for out, g in zip(buf["gms"], gms):
+            for out, g in zip(buf["outs"], outs):
                 out.index_copy_(0, i, g[None])
             i.add_(1)
 
         return body
 
-    def _reads(self, kind: str, state: Dict) -> Tuple[Tuple, Tuple]:
-        """What a captured step of ``kind`` holds besides the model: the
-        optimizer, its state and the resident split (objects), and the
-        learning rates (the optimizer's, the table's)."""
-        tr = self.tr
-        opt = tr.final_optimizer if KINDS[kind].final else tr.optimizer
-        data = tr._device_data
-        return ((opt, state, None if data is None else data[0]),
-                (opt.lr, step_lr(tr, kind)))
+    @staticmethod
+    def _reads(step: Step, idx: bool) -> Tuple:
+        """The objects a captured step holds besides the model: its
+        optimizer and state and, fed row ids, the resident split."""
+        return step.holds + (step.resident if idx else ())
 
-    def _current(self, key: str, kind: str, state: Dict) -> Optional[_Graph]:
+    def _current(self, key: str, step: Step, idx: bool) -> Optional[_Graph]:
         """The graph of ``key`` if it still reads what a step would read
         now."""
         g = self.graphs.get(key)
         if g is None:
             return None
-        holds, lrs = self._reads(kind, state)
-        if lrs != g.lrs or any(a is not b for a, b in zip(holds, g.holds)):
+        holds = self._reads(step, idx)
+        if step.lrs != g.lrs or len(holds) != len(g.holds) or any(
+                a is not b for a, b in zip(holds, g.holds)):
             return None
         return g
 
-    def _capture(self, kind: str, body: Callable, state: Dict) -> _Graph:
+    def _capture(self, step: Step, body: Callable, idx: bool) -> _Graph:
         """Capture one step of ``body``; the host counters and launch counts
         that the capture advanced are put back."""
         tr = self.tr
@@ -292,7 +405,7 @@ class GraphChunks:
                 "this PyTorch cannot register a torch.Generator with a CUDA "
                 "graph (CUDAGraph.register_generator_state): the captured "
                 "step's dropout would replay one mask")
-        saved = [(d, k, d[k]) for d, k in counters(kind, state)]
+        saved = [(d, k, d[k]) for d, k in step.counters]
         for k in cuda_ops.captured_counts:
             cuda_ops.captured_counts[k] = 0
         if self.pool is None:
@@ -302,37 +415,40 @@ class GraphChunks:
         try:
             capture(graph, self.pool, body)
         except Exception as e:
-            raise RuntimeError(f"capturing the AREAD {kind} step into a CUDA "
+            raise RuntimeError(f"capturing the {step.name} step into a CUDA "
                                f"graph failed: {e}") from e
         finally:
             for d, k, v in saved:
                 d[k] = v
-        holds, lrs = self._reads(kind, state)
-        return _Graph(graph=graph, holds=holds, lrs=lrs,
-                      launches=dict(cuda_ops.captured_counts))
+        self.captures += 1
+        return _Graph(graph=graph, holds=self._reads(step, idx),
+                      lrs=step.lrs, launches=dict(cuda_ops.captured_counts))
 
     def run(self, kind: str, feeds: Sequence, masks: Sequence,
-            state: Dict) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+            state: Dict, staged: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         """``EagerChunks.run`` as graph replays: at most ``SCAN_CHUNK``
         steps."""
         n = len(feeds)
         if not 0 < n <= SCAN_CHUNK:
             raise ValueError(f"a chunk holds 1 to {SCAN_CHUNK} steps, not {n}")
         tr = self.tr
-        # a graph per step function and feed: host batches, or row ids into
-        # the resident split (the JAX package's make_scan / make_scan_idx)
-        key = kind if isinstance(feeds[0], dict) else f"{kind}_idx"
-        buf = self._buffers(key, feeds, masks)
-        self._stage(buf, kind, feeds, masks, state)
+        step = tr.chunk_step(kind, state)
+        # a graph per step function and feed form: host batches, or row ids
+        # into the resident split (the JAX package's scan and index scan)
+        idx = not isinstance(feeds[0], dict)
+        key = f"{kind}_idx" if idx else kind
+        buf = self._buffers(key, step, feeds, masks)
+        self._stage(buf, kind, feeds, masks, state, staged)
         examples = [feed_examples(f) for f in feeds]
         body = self._body(kind, buf, state)
         done = 0
-        g = self._current(key, kind, state)
+        g = self._current(key, step, idx)
         if g is None:
             # the recipe's eager steps on a side stream: the chunk's first
             # steps, real ones
             warm = min(WARMUP_STEPS, n)
-            side = torch.cuda.Stream(self.dev)
+            side = side_stream(self.dev)
             side.wait_stream(torch.cuda.current_stream(self.dev))
             with torch.cuda.stream(side):
                 for _ in range(warm):
@@ -343,11 +459,11 @@ class GraphChunks:
             if done == n:
                 return self._outputs(buf, n)
             self.graphs.pop(key, None)
-            g = self.graphs[key] = self._capture(kind, body, state)
+            g = self.graphs[key] = self._capture(step, body, idx)
         for j in range(done, n):
             with tr.step_timer.step(n_examples=examples[j]):
                 g.graph.replay()
-            for d, k in counters(kind, state):
+            for d, k in step.counters:
                 d[k] += 1
             for k, c in g.launches.items():
                 cuda_ops.launch_counts[k] += c
@@ -357,4 +473,4 @@ class GraphChunks:
     def _outputs(buf: Dict, n: int):
         # copies: the next chunk overwrites the static outputs
         return (buf["loss"][:n].clone(),
-                tuple(g[:n].clone() for g in buf["gms"]))
+                tuple(g[:n].clone() for g in buf["outs"]))

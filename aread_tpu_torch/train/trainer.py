@@ -14,7 +14,13 @@ in its expression order.
 
 ``Trainer`` is train / evaluate / early stop on the weighted mean AUC for
 single-output and multi-tower models: a multi-tower model computes every
-tower and the loss gathers the sample's group column. Its options:
+tower and the loss gathers the sample's group column. An epoch's steps
+run in chunks of ``SCAN_CHUNK`` through ``train/step_graph.py``, as the
+JAX package's ``_build_train_scan`` / ``_build_epoch_scan`` run them:
+each step a replay of a captured CUDA graph on one card
+(``GraphChunks``), each launched from Python elsewhere (``EagerChunks``:
+the CPU, a mesh, ``lazy_adam``); ``step_timer.dispatch`` says which. Its
+options:
 ``compute_dtype`` (``ops/precision.py``), ``dynamic_regroup`` (the
 domain -> group map recomputed between epochs from the valid split's
 per-(tower, domain) losses, ``train/regroup.py``), ``log_dir``
@@ -70,6 +76,8 @@ from aread_tpu_torch.train.checkpoint import (full_state, load_checkpoint,
                                               set_generator_state)
 from aread_tpu_torch.train.regroup import (get_losses_tower_domain,
                                            regroup_all_domain)
+from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chunks,
+                                              trainer_step)
 from aread_tpu_torch.utils import profiling
 from aread_tpu_torch.utils.runlog import RunLogger
 
@@ -293,7 +301,8 @@ def dense_table_grad(table_ids: torch.Tensor, row_grads: torch.Tensor,
 def hybrid_update(optimizer: DenseAdam, lr: float, wd: float, model,
                   g_rest: Dict[str, torch.Tensor], g_table: torch.Tensor,
                   opt_state: Dict, table_l2: float = TABLE_L2,
-                  clip_norm: float = 0.0, mesh=None) -> None:
+                  clip_norm: float = 0.0, mesh=None,
+                  scalars: Optional[torch.Tensor] = None) -> None:
     """One optimizer step from dense gradients, in place: the table
     through the fused dense Adam (``ops/fused_adam.py``: the kernel on the
     card, the plain version on the CPU), the other leaves through
@@ -303,7 +312,11 @@ def hybrid_update(optimizer: DenseAdam, lr: float, wd: float, model,
     the rank's rows, and a row-sharded bf16 table rounds each element
     keyed by the step and its global element index (``index_base``, the
     shard's first element), as the JAX package's update on its row-sharded
-    table does: the shards together are the one-device update, bitwise."""
+    table does: the shards together are the one-device update, bitwise.
+    ``scalars``: the step's scalar block (lr, the bias corrections of step
+    ``opt_state['t'] + 1``, its seed) on the table's device, which the
+    table's update and ``optimizer`` read (None: each makes its own from
+    the step); a captured step is handed it."""
     table, rest = split_table(model)
     scale = clip_scale_by_global_norm(list(g_rest.values()), clip_norm,
                                       shard=g_table, mesh=mesh)
@@ -315,8 +328,9 @@ def hybrid_update(optimizer: DenseAdam, lr: float, wd: float, model,
             else mesh.table_rows(model.embedding.n_rows).start * table.shape[1])
     fused_adam_dispatch(table, opt_state["m"], opt_state["v"],
                         g_table.contiguous(), opt_state["t"], lr=lr,
-                        weight_decay=wd, l2=table_l2, index_base=base)
-    optimizer.update_(rest, g_rest, opt_state["inner"])
+                        weight_decay=wd, l2=table_l2, index_base=base,
+                        scalars=scalars)
+    optimizer.update_(rest, g_rest, opt_state["inner"], scalars=scalars)
 
 
 def hybrid_update_sparse(optimizer: DenseAdam, lr: float, wd: float, model,
@@ -441,6 +455,18 @@ def restored_best(ck: Dict) -> Dict[str, float]:
             "best_mean_loss": best.get("mean_loss") or np.inf}
 
 
+def gather_batch(dxc: torch.Tensor, dyc: torch.Tensor,
+                 idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A batch from the device-resident split by row ids (``idx`` [bs]
+    int32, -1 = padding), with ``pad_batch``'s semantics: pad rows
+    replicate the batch's first row (padding is a suffix), y zeros, the
+    validity mask."""
+    valid = (idx >= 0).to(torch.float32)
+    gidx = torch.where(idx < 0, idx[0], idx).to(torch.int64)
+    return {"x": dxc[gidx], "y": dyc[gidx].to(torch.float32) * valid,
+            "valid": valid}
+
+
 class Trainer:
     """Generic trainer for single-output and multi-tower models. The
     model's weights and BatchNorm statistics live in the model and are
@@ -476,8 +502,13 @@ class Trainer:
         self.reg_rules = strip_table_rule(type(model).REG_RULES)
         self.opt_state: Optional[Dict] = None
         self._device_data = None  # (host_x, host_y, dx, dy)
+        # the resident split's domain -> group map: (host map, device map)
+        self._device_d2g = None
         # host clock per step: the launches, since no step synchronises
         self.step_timer = profiling.StepTimer()
+        # the dispatch of the epochs' steps (made at the first chunk:
+        # step_graph.Chunks)
+        self._chunks = None
         # early-stop state
         self.trial_counter = 0
         self.best_auc, self.best_mean_auc = 0.0, 0.0
@@ -496,11 +527,20 @@ class Trainer:
     # ---------------------------------------------------------------- init
     def init(self) -> Dict:
         """Optimizer state for the model's current weights (the weights
-        are drawn from the model's seed when it is built)."""
+        are drawn from the model's seed when it is built). Captured steps
+        of an earlier state are dropped."""
         self.opt_state = hybrid_init(
             self.optimizer, self.model,
             moments_dtype=self.config.table_moments_dtype)
+        self._chunks = None
         return self.opt_state
+
+    # the dispatch of the epochs' steps: CUDA graphs or the eager loop
+    chunks = Chunks()
+
+    def chunk_step(self, kind: str, state: Dict):
+        """The step a chunk runs (``step_graph.trainer_step``)."""
+        return trainer_step(self, kind, state)
 
     def place(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A host batch on the device; on a mesh this rank's rows of it."""
@@ -515,23 +555,50 @@ class Trainer:
         batch in row order (all-gathered over 'data' on a mesh)."""
         return t if self.mesh is None else self.mesh.all_gather(t, "data")
 
+    def feed_batch(self, feed) -> Dict[str, torch.Tensor]:
+        """A step's batch on the device from its feed: a host batch placed
+        (on a mesh this rank's rows), or row ids [bs] (numpy or a device
+        tensor, -1 = padding) gathered from the resident split with its
+        domain column and, with a map, its group. The two are the same
+        batch."""
+        if isinstance(feed, dict):
+            return self.place(feed)
+        _, _, dx, dy = self._device_data
+        batch = gather_batch(dx, dy, torch.as_tensor(feed, device=self.device))
+        batch["domain"] = batch["x"][:, self.model.spec.domain_idx].to(
+            torch.int32)
+        if self._device_d2g is not None:
+            batch["group"] = self._device_d2g[1][
+                batch["domain"].to(torch.int64)]
+        return batch
+
     # ---------------------------------------------------------------- step
     def step(self, batch) -> torch.Tensor:
         """One training step in place; returns the reported loss (data
         loss + L2 terms, the table's included with
-        ``config.loss_report_table_l2``), not fetched to the host. The
-        table's gradient is taken through the embedding's tap and goes
-        into the update sparse (``config.sparse_table_grad``) or as the
-        dense [n_rows, D] gradient. On a mesh ``batch`` is a global host
-        batch (``place`` takes this rank's rows) or this rank's placed
-        rows; the loss returned is the global one, the same on every
-        rank."""
-        cfg = self.config
-        mesh = self.mesh
+        ``config.loss_report_table_l2``), not fetched to the host. On a
+        mesh ``batch`` is a global host batch (``place`` takes this rank's
+        rows) or this rank's placed rows; the loss returned is the global
+        one, the same on every rank."""
         if self.opt_state is None:
             raise RuntimeError("call init() before stepping")
         if isinstance(batch["x"], np.ndarray):
             batch = self.place(batch)
+        return self.step_core(batch)
+
+    def step_core(self, batch: Dict[str, torch.Tensor],
+                  scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``step`` on a placed batch (the counterpart of the JAX package's
+        ``_build_step_core``), which a CUDA graph captures. The table's
+        gradient is taken through the embedding's tap and goes into the
+        update sparse (``config.sparse_table_grad``) or as the dense
+        [n_rows, D] gradient. ``scalars``: the step's scalar block on the
+        device (lr, the bias corrections of step ``t + 1``, its seed;
+        ``ops/sparse_adam.py::step_scalars``), which the table's kernel and
+        the dense leaves' Adam read (None: each makes its own from the step
+        count). Nothing is read back to the host."""
+        cfg = self.config
+        mesh = self.mesh
         model = self.model
         model.train()
         x, y, valid = batch["x"], batch["y"], batch["valid"]
@@ -567,7 +634,8 @@ class Trainer:
                 self.optimizer, cfg.lr, cfg.wd, model, g_rest, ids, row_grads,
                 self.opt_state, want_table_l2=cfg.loss_report_table_l2,
                 clip_norm=cfg.grad_clip_norm,
-                lazy=cfg.table_optimizer == "lazy_adam", mesh=mesh)
+                lazy=cfg.table_optimizer == "lazy_adam", mesh=mesh,
+                scalars=scalars)
             return loss if l2val is None else loss + l2val
         if cfg.loss_report_table_l2:
             # the pre-update table
@@ -577,29 +645,69 @@ class Trainer:
             ids, row_grads, n_rows, table.dtype,
             rows=None if mesh is None else mesh.table_rows(n_rows))
         hybrid_update(self.optimizer, cfg.lr, cfg.wd, model, g_rest, g_table,
-                      self.opt_state, clip_norm=cfg.grad_clip_norm, mesh=mesh)
+                      self.opt_state, clip_norm=cfg.grad_clip_norm, mesh=mesh,
+                      scalars=scalars)
         return loss
 
     # ------------------------------------------------------------ training
+    def _train_chunk(self, feeds: Sequence, staged=None) -> torch.Tensor:
+        """One chunk of steps through ``self.chunks``: its losses [n] on
+        the device."""
+        if self.opt_state is None:
+            raise RuntimeError("call init() before stepping")
+        return self.chunks.run("train", feeds, [None] * len(feeds),
+                               self.opt_state, staged=staged)[0]
+
     def train_epoch(self, batcher: Iterable) -> float:
-        """One pass over the batcher's host batches; the mean loss."""
-        losses = []
-        for b in batcher:
-            with self.step_timer.step(n_examples=int(b["valid"].sum())):
-                losses.append(self.step(self.place(b)))
+        """One pass over the batcher's host batches in chunks of
+        ``SCAN_CHUNK`` and the remainder (the JAX package's
+        ``train_epoch``: a scan a full chunk, single steps after); the mean
+        loss, fetched once."""
+        losses, pending = [], []
+        with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
+            for b in batcher:
+                pending.append(b)
+                if len(pending) == SCAN_CHUNK:
+                    losses.append(self._train_chunk(pending))
+                    pending = []
+            if pending:
+                losses.append(self._train_chunk(pending))
         return mean_losses(losses)
 
     def device_data_enabled(self, train_x: np.ndarray) -> bool:
         return device_data_mode_enabled(self.config, train_x.nbytes,
                                         self.DEVICE_DATA_BUDGET, self.mesh)
 
+    # rows of the epoch's permutation staged on the device at once (the
+    # JAX package's DEVICE_EPOCH_CHUNK, its steps a dispatch)
+    DEVICE_EPOCH_CHUNK = 2048
+
     def train_epoch_device(self, batcher: GlobalBatcher) -> float:
-        """``train_epoch`` over a device-resident copy of the split: each
-        step gathers its batch by index, and only the [n_batches, bs]
-        permutation is transferred per epoch. Same shuffle stream and
-        padded-batch semantics as the host path (pad slots carry -1 and
-        replicate the batch's first row), so the two give the same
-        result."""
+        """``train_epoch`` over a device-resident copy of the split: the
+        epoch's [n_batches, bs] permutation goes to the device
+        ``DEVICE_EPOCH_CHUNK`` rows at a time, and each step gathers its
+        batch by index there, in chunks of ``SCAN_CHUNK``. Same shuffle
+        stream and padded-batch semantics as the host path (pad slots
+        carry -1 and replicate the batch's first row), so the two give the
+        same result."""
+        self.stage_device_data(batcher)
+        perm_np = batcher.epoch_perm()
+        losses = []
+        with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
+            for lo in range(0, len(perm_np), self.DEVICE_EPOCH_CHUNK):
+                block = perm_np[lo:lo + self.DEVICE_EPOCH_CHUNK]
+                staged = to_device(block, self.device)
+                for s in range(0, len(block), SCAN_CHUNK):
+                    losses.append(self._train_chunk(
+                        list(block[s:s + SCAN_CHUNK]),
+                        staged=staged[s:s + SCAN_CHUNK]))
+        return mean_losses(losses)
+
+    def stage_device_data(self, batcher: GlobalBatcher) -> None:
+        """The batcher's split on the device (kept while it is the same
+        split) and its domain -> group map (read once per epoch; a
+        regrouped map is a new tensor, so a captured step of the old one
+        is captured again): what a step fed row ids gathers from."""
         # keyed on the host arrays themselves (`is`): a second fit() on
         # new data must not gather from the previous split's copy
         if (self._device_data is None
@@ -611,29 +719,12 @@ class Trainer:
                                 device=self.device),
                 torch.as_tensor(np.ascontiguousarray(batcher.y),
                                 device=self.device))
-        _, _, dx, dy = self._device_data
-        perm_np = batcher.epoch_perm()
-        perm = torch.as_tensor(perm_np, device=self.device)
-        d2g = (None if batcher.domain2group is None else torch.as_tensor(
-            np.asarray(batcher.domain2group), dtype=torch.int32,
-            device=self.device))
-        n_valid = (perm_np >= 0).sum(axis=1).tolist()
-        losses = []
-        with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
-            for idx, n_ex in zip(perm, n_valid):
-                with self.step_timer.step(n_examples=n_ex):
-                    valid = (idx >= 0).to(torch.float32)
-                    gidx = torch.where(idx < 0, idx[0], idx).to(torch.int64)
-                    x = dx[gidx]
-                    batch = {"x": x,
-                             "y": dy[gidx].to(torch.float32) * valid,
-                             "valid": valid,
-                             "domain": x[:, batcher.domain_idx].to(
-                                 torch.int32)}
-                    if d2g is not None:
-                        batch["group"] = d2g[batch["domain"].to(torch.int64)]
-                    losses.append(self.step(batch))
-        return mean_losses(losses)
+        d2g = batcher.domain2group
+        if d2g is None:
+            self._device_d2g = None
+        elif self._device_d2g is None or self._device_d2g[0] is not d2g:
+            self._device_d2g = (d2g, torch.as_tensor(
+                np.asarray(d2g), dtype=torch.int32, device=self.device))
 
     # ---------------------------------------------------------- evaluation
     @torch.no_grad()
@@ -811,7 +902,8 @@ class Trainer:
         """Train up to ``epochs`` (default ``config.epoch``) epochs with
         early stopping on the valid split, then evaluate the best weights
         on the test split; the model is left holding them. Returns
-        {'history': per-epoch valid results, 'test': the test result}.
+        {'history': per-epoch valid results, 'test': the test result,
+        'dispatch': 'graph' or 'eager', how the steps ran}.
 
         ``warm_start``: a checkpoint dict (``load_checkpoint``) whose
         weights and buffers replace the model's; the optimizer starts
@@ -899,7 +991,7 @@ class Trainer:
                         break
             finally:
                 # release the resident split even when an epoch fails
-                self._device_data = None
+                self._device_data = self._device_d2g = None
             if self.best_checkpoint is not None:
                 self.model.load_state_dict(self.best_checkpoint[0])
             # ADL with eval_dlm_update moves its centres in every
@@ -913,4 +1005,5 @@ class Trainer:
             if kept is not None:
                 self.model.load_state_dict(kept)
             logger.log({"test": test_result})
-        return {"history": history, "test": test_result}
+        return {"history": history, "test": test_result,
+                "dispatch": self.chunks.name}

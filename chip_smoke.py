@@ -18,10 +18,11 @@ Phases, each printing one line:
            calls timed one by one (host time included), scalar_ms the
            scalar kernel by the first clock in the same run, the plain
            version's and the library call's by both, the bound, and the
-           CUDA launches of one update (torch.profiler); kernel 1 reading
-           its step's scalars from a row of a chunk's staged blocks, and
-           kernel 2 on a row shard's global element indices (index_base),
-           each bitwise its plain version;
+           CUDA launches of one update (torch.profiler); both kernels
+           reading their step's scalars from a row of a chunk's staged
+           blocks (kernel 2 in every check and timing above), kernel 2 on
+           a row shard's global element indices (index_base), each
+           bitwise its plain version;
   train    the AREAD path at full Amazon width through AREADTrainer's chunk
            dispatch (train/step_graph.py): two trainers from one seed, one
            replaying CUDA graphs and one launching each step, in turns on
@@ -35,21 +36,34 @@ Phases, each printing one line:
            memory; the captured step once under sync debug mode 'error';
   eval     AREADTrainer.evaluate over a few per-domain batches;
   train_dense  the generic Trainer at full Amazon width with the dense
-           table gradient: build_model + Trainer.fit for DeepFM (one epoch,
-           valid and test passes), then a few steps each of DCN and MMoE,
-           and of DeepFM with the sparse table gradient;
+           table gradient: build_model + Trainer.fit for DeepFM (one epoch
+           of graph replays, valid and test passes), then a few steps each
+           of DCN and MMoE, and of DeepFM with the sparse table gradient;
+           then its chunk dispatch (train/step_graph.py): two DeepFM
+           trainers from one seed, graph and eager, in turns on
+           DENSE_CHUNKS (32, 32, 8) for each table gradient (kernel 2,
+           kernel 1) and each feed (host batches, row ids into the
+           resident split), bitwise after every chunk, per dispatch the
+           step time, launch calls, kernels, busy ms, idle share and peak
+           memory, the counted launches against the profiler's kernel
+           records, the captured step under sync debug mode 'error'; and
+           dense from host batches under compute_dtype='bfloat16';
   zoo      the zoo's first half at full Amazon width: build_model +
-           Trainer.fit (12 dense-gradient steps, valid and test passes) for
-           dcnv2, autoint, ple, pepnet, epnet, epnet-single and star, each
-           step timed with its launches, device busy time and peak memory;
+           Trainer.fit by graph replays and by its eager twin from one
+           seed (40 dense-gradient steps: a full chunk and a remainder;
+           valid and test passes), bitwise after the fit, for dcnv2,
+           autoint, ple, pepnet, epnet, epnet-single and star; then the
+           twins in turns on ZOO_CHUNKS of host batches: step ms by both
+           dispatches with launches, kernels, busy time, idle share and
+           peak memory; an MMoE dynamic_regroup fit of 2 epochs, graph
+           bitwise eager (a moved map captured again);
            one step of each on the card against the CPU at a small width;
            then AREAD on a PLE base (bf16 table and moments): 8 warm-up +
            16 bagging steps, 3 steps card vs CPU, one epoch of
            AREADTrainer.fit at RESUME_DEPTH, the model saved, rebuilt by
            load_predictor and served against the trainer's evaluation;
-  zoo2     the zoo's second half at full Amazon width: build_model +
-           Trainer.fit (12 dense-gradient steps, valid and test passes) for
-           hinet, adasparse and adl, timed as in zoo; ADL's DLM centres
+  zoo2     the zoo's second half at full Amazon width: hinet, adasparse
+           and adl fitted, held graph against eager and timed as in zoo; ADL's DLM centres
            unit vectors after fit, left bitwise alone by an evaluation and
            moved by one with eval_dlm_update; one step of each card vs CPU
            at a small width, and ADL's centres after such an evaluation;
@@ -183,6 +197,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import platform
 import signal
 import statistics
 import subprocess
@@ -425,7 +440,30 @@ def phase_device(ctx):
     ctx["peak_bw"] = peak_hbm_bytes_per_s(ctx["name"])
     say("device", torch_name=ctx["name"], smi=ctx["smi"],
         torch=torch.__version__, cuda=torch.version.cuda,
-        count=torch.cuda.device_count(), peak_hbm_bytes_per_s=ctx["peak_bw"])
+        count=torch.cuda.device_count(), peak_hbm_bytes_per_s=ctx["peak_bw"],
+        host_cpu=host_cpu(),
+        cpu_capability=torch.backends.cpu.get_cpu_capability())
+
+
+def host_cpu() -> str:
+    """The host CPU (model name, else vendor, family and model) and its
+    widest vector set: the CPU references' last bits follow the
+    instruction set that MKL and ATen pick for it."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = info.get("model name") or " ".join(
+        f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model")
+        if k in info) or platform.processor() or platform.machine()
+    flags = info.get("flags", "").split()
+    widest = next((f for f in ("avx512f", "avx2", "sse4_2") if f in flags),
+                  "flags unknown")
+    return f"{name}, {widest}"
 
 
 def phase_build(ctx):
@@ -863,15 +901,21 @@ def check_sparse_adam(ctx):
 
 def fused_case(label, w, m, v, g, t, kw, want_vector):
     """Vector (the wrapper's choice, which must be the vector kernel iff
-    ``want_vector``) and scalar kernel against the plain version: bitwise,
-    repeatable, and the leaf really changed. Returns the worst absolute
-    error."""
+    ``want_vector``) and scalar kernel against the plain version, both fed
+    the step's scalar block ``kw['scalars']`` (a row of a chunk's blocks
+    staged on the card): bitwise, repeatable, and the leaf really changed;
+    the plain version on the block bitwise its form made from ``t``.
+    Returns the worst absolute error."""
     from aread_tpu_torch.ops.fused_adam import (fused_adam_cuda,
                                                 fused_adam_reference,
                                                 takes_vector_kernel)
     from aread_tpu_torch.ops.sparse_adam import is_aligned16
 
     ref = fused_adam_reference(w, m, v, g, t, **kw)
+    by_t = fused_adam_reference(w, m, v, g, t, **dict(kw, scalars=None))
+    if not all(torch.equal(x, y) for x, y in zip(ref, by_t)):
+        raise AssertionError(f"{label}: the plain version on the staged "
+                             "block differs from its form made from t")
     vec = takes_vector_kernel(w.numel(), is_aligned16(w, m, v, g))
     if vec != want_vector:
         raise AssertionError(f"{label}: the wrapper picks vector={vec}")
@@ -879,7 +923,8 @@ def fused_case(label, w, m, v, g, t, kw, want_vector):
     for form, forced in kernel_forms():
         if form == "vector" and not vec:
             continue
-        line = {"kernel": "fused_adam", **label, "form": form}
+        line = {"kernel": "fused_adam", **label, "form": form,
+                "scalars": "chunk block row"}
         with forced:
             for _ in range(2):  # the second launch must repeat the first
                 w0, m0, v0 = w.clone(), m.clone(), v.clone()
@@ -908,16 +953,23 @@ def check_fused_adam(ctx):
     not multiples of 8), on misaligned views (which the wrapper itself must
     hand to the scalar kernel) and at the dense path's unpadded Amazon
     table, in every storage variant; against the sparse sweep fed the same
-    gradient; and its times at the full table."""
+    gradient; and its times at the full table. Every launch reads lr, the
+    bias corrections and the seed from row 2 of a chunk's scalar blocks
+    staged on the card (step t), as a captured step's launch does."""
     from aread_tpu_torch.models.base import FeatureSpec
     from aread_tpu_torch.ops.fused_adam import (fused_adam_cuda,
                                                 fused_adam_reference)
-    from aread_tpu_torch.ops.sparse_adam import dedup_rows, sparse_adam_cuda
+    from aread_tpu_torch.ops.sparse_adam import (chunk_scalars, dedup_rows,
+                                                 sparse_adam_cuda, to_device)
+    from aread_tpu_torch.train.step_graph import SCAN_CHUNK
 
     dev = torch.device("cuda")
     spec = FeatureSpec(AMAZON_DIMS, 2, 0, 2, 5)  # the dense path pads nothing
     n_rows, d = spec.n_rows, EMBED_DIM
-    kw = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-8, l2=1e-5)
+    t = 7
+    blocks = to_device(chunk_scalars(t - 3, SCAN_CHUNK, 1e-3), dev)
+    kw = dict(lr=1e-3, b1=0.9, b2=0.99, eps=1e-8, weight_decay=1e-8, l2=1e-5,
+              scalars=blocks[2])
     bf16, f32 = torch.bfloat16, torch.float32
     variants = {  # name: (w, moments, g) storage
         "f32": (f32, f32, f32),
@@ -926,7 +978,6 @@ def check_fused_adam(ctx):
         "bf16_f32m": (bf16, f32, f32),
     }
     gen = torch.Generator(device=dev).manual_seed(2)
-    t = 7
     worst = 0.0
     for shape in [(1000, 33), (128,), (7, 5, 3), (5,), (100003,),
                   (n_rows, d)]:
@@ -969,7 +1020,8 @@ def check_fused_adam(ctx):
             w, m, v, g, t, dict(kw, index_base=base), want_vector=True))
         if wdt == bf16:
             at0 = fused_adam_reference(w, m, v, g, t, **kw)[0]
-            atb = fused_adam_reference(w, m, v, g, t, index_base=base, **kw)[0]
+            atb = fused_adam_reference(w, m, v, g, t,
+                                       **dict(kw, index_base=base))[0]
             if torch.equal(at0, atb):
                 raise AssertionError("index_base changed no rounding")
         del w, m, v, g
@@ -1116,7 +1168,8 @@ def chunk_profile(run, n: int, trace_dir=None):
     """One chunk of ``n`` steps under torch.profiler, per step: host-side
     launch calls (kernels, graphs, copies), kernels the card ran, device
     busy ms, the profiled wall ms and the idle share, and the kernel
-    records of the sparse sweep (kernel 1's main kernel). With
+    records of the sparse sweep (kernel 1's main kernel) and of the dense
+    update (kernel 2's). With
     ``trace_dir`` the tables and a Chrome trace go there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1162,7 +1215,115 @@ def chunk_profile(run, n: int, trace_dir=None):
         "device_idle_share": 1 - busy_ms / wall_ms,
         "copies_by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:6]),
         "sparse_sweeps": sum(e.count for e in kernels
-                             if "adam_sweep" in e.key)}
+                             if "adam_sweep" in e.key),
+        "fused_updates": sum(e.count for e in kernels
+                             if "fused_adam" in e.key)}
+
+
+# profiler kernel records of each Adam kernel, by the chunk_profile key
+KERNEL_RECORDS = {"sparse_adam": "sparse_sweeps", "fused_adam": "fused_updates"}
+
+
+def twin_chunks(ctx, path, trs, chunks, run, timed: int, profiled: int):
+    """Two trainers from one seed, ``trs['graph']`` replaying CUDA graphs
+    and ``trs['eager']`` launching every step, run in turns on ``chunks``
+    (each (label, feeds, ...); ``run(trainer, chunk)`` returns its
+    (losses, outputs)), counted as ``path``; after every chunk the two
+    must be bitwise equal (``trainer_bits`` and the chunk's outputs).
+    Chunk ``timed`` is timed by CUDA events and by the host clock, chunk
+    ``profiled`` runs under ``chunk_profile``, whose kernel records of
+    each Adam kernel must equal its counted launches. Returns (per
+    dispatch its per-step numbers, per dispatch its chunks' records, per
+    dispatch its chunks' outputs, the chunks checked)."""
+    from aread_tpu_torch.ops.cuda import launch_counts
+
+    runs = {name: [] for name in trs}
+    outs = {name: [] for name in trs}
+    checked, miss = [], []
+
+    def loop():
+        for ci, chunk in enumerate(chunks):
+            n = len(chunk[1])
+            order = ("graph", "eager") if ci % 2 == 0 else ("eager", "graph")
+            for name in order:
+                t = trs[name]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = dict(launch_counts)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                a.record()
+                if ci == profiled:
+                    out, prof = chunk_profile(lambda: run(t, chunk), n)
+                else:
+                    out, prof = run(t, chunk), None
+                b.record()
+                launch_ms = (time.perf_counter() - h0) * 1e3
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - h0) * 1e3
+                rec = {"chunk": ci, "kind": chunk[0], "steps": n,
+                       "event_ms": a.elapsed_time(b), "wall_ms": wall_ms,
+                       "launch_ms": launch_ms,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                       **{k: launch_counts[k] - before[k]
+                          for k in KERNEL_RECORDS}}
+                if prof is not None:
+                    rec["profile"] = prof
+                    miss.extend(f"{name}: the profiler saw {prof[key]} {k} "
+                                f"kernels, the counts {rec[k]} (kernels run "
+                                f"{prof['kernels_run'] * n:.0f})"
+                                for k, key in KERNEL_RECORDS.items()
+                                if prof[key] != rec[k])
+                runs[name].append(rec)
+                outs[name].append(out)
+            bad = bits_differ(trainer_bits(trs["graph"]),
+                              trainer_bits(trs["eager"]))
+            bad += bits_differ(outs["graph"][-1], outs["eager"][-1], "/out")
+            # the bitwise verdict first, so that a miscount says both
+            if miss:
+                raise AssertionError(f"{path} chunk {ci}: {'; '.join(miss)}"
+                                     f"; graph {'!=' if bad else '=='} "
+                                     f"eager {bad[:8]}")
+            if bad:
+                raise AssertionError(f"{path} chunk {ci} ({chunk[0]}): "
+                                     f"graph != eager at {bad[:8]}")
+            checked.append(ci)
+
+    counted(ctx, path, loop)
+    per_step = {}
+    for name, rs in runs.items():
+        tm, prof = rs[timed], rs[profiled]["profile"]
+        n = tm["steps"]
+        per_step[name] = {
+            "step_ms_events": tm["event_ms"] / n,
+            "step_ms_host_clock": tm["wall_ms"] / n,
+            "launch_ms_per_step": tm["launch_ms"] / n,
+            "examples_per_s": BS * n / (tm["wall_ms"] * 1e-3),
+            "peak_mem_gb": max(r["peak_mem_gb"] for r in rs),
+            **{k: v for k, v in prof.items()
+               if k not in KERNEL_RECORDS.values()},
+            # the profiler stretches the wall clock: the busy time over the
+            # unprofiled chunk's step time
+            "device_idle_share_unprofiled": 1 - prof["device_busy_ms"] / (
+                tm["wall_ms"] / n)}
+    return per_step, runs, outs, checked
+
+
+def sync_debug_step(tr, kind: str, key: str, feeds, masks) -> None:
+    """The step ``tr``'s graph ``key`` captured, its body run once eagerly
+    on the first of ``feeds`` under torch.cuda.set_sync_debug_mode('error'):
+    a step that waited for the device (a host read, a pageable copy)
+    raises."""
+    g = tr.chunks
+    g._stage(g.buf[key], kind, feeds[:1], masks[:1], tr.opt_state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g._body(kind, g.buf[key], tr.opt_state)()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def phase_train(ctx):
@@ -1179,7 +1340,6 @@ def phase_train(ctx):
     torch.cuda.set_sync_debug_mode('error')."""
     from aread_tpu_torch.data.loader import DomainBatcher
     from aread_tpu_torch.models.base import FeatureSpec
-    from aread_tpu_torch.ops.cuda import launch_counts
     from aread_tpu_torch.train.step_graph import EagerChunks
 
     # the config defaults are bench.py's Amazon configuration
@@ -1221,57 +1381,14 @@ def phase_train(ctx):
                        [None if kind == "warmup" else ms.domain_mask[d]
                         for d in ds]))
     torch.cuda.synchronize()
-    runs = {name: [] for name in trs}
-    outs = {name: [] for name in trs}
-    checked = []
 
-    def loop():
-        for ci, (kind, feeds, masks) in enumerate(chunks):
-            order = ("graph", "eager") if ci % 2 == 0 else ("eager", "graph")
-            for name in order:
-                t = trs[name]
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                before = launch_counts["sparse_adam"]
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-
-                def run():
-                    return t.chunks.run(kind, feeds, masks, t.opt_state)
-
-                h0 = time.perf_counter()
-                a.record()
-                if ci == PROFILED_CHUNK:
-                    out, prof = chunk_profile(run, len(feeds))
-                else:
-                    out, prof = run(), None
-                b.record()
-                launch_ms = (time.perf_counter() - h0) * 1e3
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - h0) * 1e3
-                rec = {"chunk": ci, "kind": kind, "steps": len(feeds),
-                       "event_ms": a.elapsed_time(b), "wall_ms": wall_ms,
-                       "launch_ms": launch_ms,
-                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-                       "sparse_adam": launch_counts["sparse_adam"] - before}
-                if prof is not None:
-                    rec["profile"] = prof
-                    if prof["sparse_sweeps"] != rec["sparse_adam"]:
-                        raise AssertionError(
-                            f"{name}: the profiler saw {prof['sparse_sweeps']}"
-                            f" sparse sweeps, the counts {rec['sparse_adam']}")
-                runs[name].append(rec)
-                outs[name].append(out)
-            bad = bits_differ(trainer_bits(trs["graph"]),
-                              trainer_bits(trs["eager"]))
-            bad += bits_differ(outs["graph"][-1], outs["eager"][-1], "/out")
-            if bad:
-                raise AssertionError(f"chunk {ci} ({kind}): graph != eager "
-                                     f"at {bad[:8]}")
-            checked.append(ci)
+    def run(t, chunk):
+        kind, feeds, masks = chunk
+        return t.chunks.run(kind, feeds, masks, t.opt_state)
 
     t_loop = time.perf_counter()
-    counted(ctx, "train", loop)
+    per_step, runs, outs, checked = twin_chunks(
+        ctx, "train", trs, chunks, run, TIMED_CHUNK, PROFILED_CHUNK)
     loop_s = time.perf_counter() - t_loop
     launches = ctx["launches_by_path"]["train"]
     n_steps = sum(n for _, n in TRAIN_CHUNKS)
@@ -1292,32 +1409,9 @@ def phase_train(ctx):
         raise AssertionError("the table's Adam moments did not change")
     if st["t"] != n_steps or tr.step_timer.summary()["dispatch"] != "graph":
         raise AssertionError(f"t={st['t']}, {tr.step_timer.summary()}")
-    per_step = {}
-    for name, rs in runs.items():
-        timed, prof = rs[TIMED_CHUNK], rs[PROFILED_CHUNK]["profile"]
-        n = timed["steps"]
-        per_step[name] = {
-            "step_ms_events": timed["event_ms"] / n,
-            "step_ms_host_clock": timed["wall_ms"] / n,
-            "launch_ms_per_step": timed["launch_ms"] / n,
-            "examples_per_s": BS * n / (timed["wall_ms"] * 1e-3),
-            "peak_mem_gb": max(r["peak_mem_gb"] for r in rs),
-            **{k: v for k, v in prof.items() if k != "sparse_sweeps"},
-            # the profiler stretches the wall clock: the busy time over the
-            # unprofiled chunk's step time
-            "device_idle_share_unprofiled": 1 - prof["device_busy_ms"] / (
-                timed["wall_ms"] / n)}
-    # the captured step, run once eagerly, must not wait for the device
     g = tr.chunks
     kind, feeds, masks = chunks[1]
-    g._stage(g.buf[kind], kind, feeds[:1], masks[:1], tr.opt_state)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        g._body(kind, g.buf[kind], tr.opt_state)()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    sync_debug_step(tr, kind, kind, feeds, masks)
     say("train", table_rows=spec.n_rows, embed_dim=cfg.embed_dim, bs=cfg.bs,
         n_tower=[3, 6, 12], chunks=[[k, n] for k, n in TRAIN_CHUNKS],
         bitwise_after_chunks=checked, init_s=init_s, loop_s=loop_s,
@@ -1360,6 +1454,86 @@ def timed_steps(tr, batches):
     return statistics.median(a.elapsed_time(b) for a, b in events), losses
 
 
+# the train_dense phase's graph-and-eager chunks of DeepFM steps: the
+# first full chunk captures, the second is timed, the third, a remainder,
+# is profiled (the profiler costs seconds a chunk of eager steps)
+DENSE_CHUNKS = (32, 32, 8)
+DENSE_TIMED, DENSE_PROFILED = 1, 2
+
+
+def dense_twins(ctx, make, spec, d2g, sparse: bool, resident: bool,
+                compute_dtype: str = "float32"):
+    """The generic Trainer's chunk dispatch at full Amazon width: two
+    DeepFM trainers from one seed (f32 table, bf16 moments), one replaying
+    CUDA graphs and one launching every step, in turns on DENSE_CHUNKS of
+    one epoch's batches (``twin_chunks``), fed host batches or row ids
+    into the resident split; the table's update is kernel 1 (``sparse``)
+    or kernel 2; ``compute_dtype='bfloat16'``: the products' bf16 pass,
+    set around the step and so held by the capture. Their launches are
+    held to two per step, and the captured step runs once under sync
+    debug mode 'error'."""
+    from aread_tpu_torch.data.loader import GlobalBatcher
+    from aread_tpu_torch.train.step_graph import EagerChunks
+
+    trs = {k: make("deepfm", sparse, compute_dtype=compute_dtype)
+           for k in ("graph", "eager")}
+    for t in trs.values():
+        t.init()
+    trs["eager"]._chunks = EagerChunks(trs["eager"])
+    g = trs["graph"]
+    if g.chunks.name != "graph":
+        raise AssertionError(f"a card Trainer dispatches {g.chunks.name}")
+    if bits_differ(trainer_bits(g), trainer_bits(trs["eager"])):
+        raise AssertionError("two trainers from one seed differ")
+    n_steps = sum(DENSE_CHUNKS)
+    x, y = amazon_rows(np.random.default_rng(8), spec, n_steps * BS)
+    batcher = GlobalBatcher(x, y, BS, spec.domain_idx, d2g, seed=1)
+    if resident:
+        for t in trs.values():
+            t.stage_device_data(batcher)
+        feeds = list(batcher.epoch_perm())
+    else:
+        feeds = list(batcher)
+    chunks, k = [], 0
+    for n in DENSE_CHUNKS:
+        chunks.append(("train", feeds[k:k + n]))
+        k += n
+
+    def run(t, chunk):
+        return t.chunks.run("train", chunk[1], [None] * len(chunk[1]),
+                            t.opt_state)
+
+    grad, feed = ("sparse" if sparse else "dense",
+                  "resident" if resident else "host")
+    path = f"train_dense/deepfm_{grad}_{feed}" + (
+        "" if compute_dtype == "float32" else f"_{compute_dtype}")
+    per_step, runs, outs, checked = twin_chunks(
+        ctx, path, trs, chunks, run, DENSE_TIMED, DENSE_PROFILED)
+    kernel = "sparse_adam" if sparse else "fused_adam"
+    launches = ctx["launches_by_path"][path]
+    want = {"sparse_adam": 0, "fused_adam": 0, kernel: 2 * n_steps}
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, want {want}")
+    losses = torch.cat([o[0] for o in outs["graph"]]).cpu().numpy()
+    if not np.isfinite(losses).all() or g.opt_state["t"] != n_steps:
+        raise AssertionError(f"{path}: losses {losses}, t={g.opt_state['t']}")
+    sync_debug_step(g, "train", "train_idx" if resident else "train",
+                    chunks[1][1], [None])
+    table = g.model.embedding.table
+    say("train_dense", part="graph_vs_eager", model="deepfm",
+        table_grad=grad, feed=feed, compute_dtype=compute_dtype,
+        table=[list(table.shape), str(table.dtype)],
+        moments=str(g.opt_state["m"].dtype), chunks=list(DENSE_CHUNKS),
+        bitwise_after_chunks=checked, per_step=per_step,
+        chunk_event_ms={k: [r["event_ms"] for r in rs]
+                        for k, rs in runs.items()},
+        graph_launches_per_replay={k: v.launches
+                                   for k, v in g.chunks.graphs.items()},
+        captures=g.chunks.captures, launches=launches,
+        loss_first=float(losses[0]), loss_last=float(losses[-1]),
+        sync_debug_error_step="passed")
+
+
 def phase_train_dense(ctx):
     """The generic Trainer at full Amazon width. DeepFM with the dense
     table gradient, an f32 table and bf16 moments — the configuration in
@@ -1368,7 +1542,9 @@ def phase_train_dense(ctx):
     test pass with the best weights. Then timed steps of the same trainer,
     a few dense steps each of DCN and MMoE (3 towers, DCN and attention
     side nets, Amazon domain2group), and DeepFM steps with the sparse
-    table gradient (the sparse-Adam kernel through the same Trainer)."""
+    table gradient (the sparse-Adam kernel through the same Trainer). Last,
+    the chunk dispatch graph against eager (``dense_twins``) for each
+    table gradient, from host batches and from the resident split."""
     from aread_tpu_torch.config import DOMAIN2GROUP, Config
     from aread_tpu_torch.data.loader import GlobalBatcher, SplitData
     from aread_tpu_torch.models import build_model
@@ -1390,9 +1566,9 @@ def phase_train_dense(ctx):
         n_domain=N_DOMAIN)
     d2g = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
 
-    def make(model, sparse=False):
+    def make(model, sparse=False, **kw):
         cfg = Config(model=model, dataset_name="amazon", seed=0,
-                     sparse_table_grad=sparse, table_dtype="float32")
+                     sparse_table_grad=sparse, table_dtype="float32", **kw)
         if (cfg.bs, cfg.embed_dim, cfg.table_moments_dtype, cfg.dropout) != (
                 BS, EMBED_DIM, "bfloat16", 0.2):
             raise AssertionError("not the Amazon defaults")
@@ -1420,6 +1596,8 @@ def phase_train_dense(ctx):
     launches = ctx["launches_by_path"]["train_dense/deepfm_fit"]
     if launches != {"sparse_adam": 0, "fused_adam": n_steps}:
         raise AssertionError(f"fit of {n_steps} dense steps launched {launches}")
+    if res["dispatch"] != "graph":
+        raise AssertionError(f"a card fit dispatched {res['dispatch']}")
     hist = res["history"][0]
     for name, r in (("valid", hist), ("test", res["test"])):
         for k in ("total_auc", "mean_auc", "total_loss"):
@@ -1451,6 +1629,7 @@ def phase_train_dense(ctx):
         valid_total_auc=hist["total_auc"], valid_mean_auc=hist["mean_auc"],
         test_total_auc=res["test"]["total_auc"],
         test_mean_auc=res["test"]["mean_auc"], fit_launches=launches,
+        fit_dispatch=res["dispatch"],
         step_ms_median=step_ms, examples_per_s=BS / (step_ms * 1e-3),
         dense_grad_build_ms=dense_grad_ms,
         step_launches=ctx["launches_by_path"]["train_dense/deepfm_steps"],
@@ -1484,6 +1663,15 @@ def phase_train_dense(ctx):
             ctx["dense"]["mmoe"] = tr2
         say("train_dense", **line)
         del tr2
+
+    # --- graph against eager, dense and sparse table gradient, host
+    # batches and the resident split
+    for sparse in (False, True):
+        for resident in (False, True):
+            dense_twins(ctx, make, spec, d2g, sparse, resident)
+            torch.cuda.empty_cache()
+    # the bf16 products under capture
+    dense_twins(ctx, make, spec, d2g, False, False, "bfloat16")
 
 
 def true_zero_adam(pre_bn_bias: str, lr: float, wd: float,
@@ -1742,7 +1930,11 @@ def reference_aread(ctx, **model_kw):
 # ------------------------------------------------------------------- zoo
 ZOO_MODELS = ("dcnv2", "autoint", "ple", "pepnet", "epnet", "epnet-single",
               "star")
-ZOO_STEPS = 12
+# one fit epoch: a full chunk of SCAN_CHUNK steps and a remainder
+ZOO_STEPS = 40
+# the chunks of host batches run after a fit, graph against eager: the
+# first captures, the second is timed, the third profiled
+ZOO_CHUNKS = (4, 16, 4)
 # biases whose shift reaches a BatchNorm through linear maps alone, per
 # model: their true gradient is 0 (STAR's partitioned normalization feeds
 # the first linear layer, which feeds a BatchNorm)
@@ -1781,17 +1973,74 @@ def phase_zoo(ctx):
     """The first half of the zoo at full Amazon width through the generic
     Trainer, then AREAD on a PLE base through both of its paths."""
     zoo_fit(ctx)
+    zoo_regroup_twins(ctx)
     zoo_reference(ctx)
     zoo_aread_ple(ctx)
 
 
+def fit_results_equal(a, b) -> bool:
+    """Two fit results equal in every metric (NaN equal to NaN), their
+    clocks aside."""
+    def metrics(r):
+        return [{k: v for k, v in h.items()
+                 if k not in ("epoch_time_s", "examples_per_s")}
+                for h in r["history"]] + [r["test"]]
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return set(x) == set(y) and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, list):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y or (x != x and y != y)
+
+    return same(metrics(a), metrics(b))
+
+
+def fit_twins(ctx, path: str, make, fit):
+    """Two trainers from one seed (``make()``) through Trainer.fit
+    (``fit(trainer)``), one by CUDA graph replays (the card's dispatch) and
+    one eager (the dispatch rule, ``step_graph.graph_dispatch``, answers
+    False for it during the fits), each counted as ``path`` and
+    ``path``_eager;
+    after the fits the two must be bitwise equal (``trainer_bits``) and
+    their results equal. Returns ({'graph', 'eager'}: trainer, result,
+    fit seconds)."""
+    from aread_tpu_torch.train import step_graph
+
+    trs = {"graph": make(), "eager": make()}
+    res, secs = {}, {}
+    card_rule = step_graph.graph_dispatch
+    step_graph.graph_dispatch = lambda t: (t is not trs["eager"]
+                                           and card_rule(t))
+    try:
+        for k, t in trs.items():
+            t0 = time.perf_counter()
+            res[k] = counted(ctx, path + ("" if k == "graph" else "_eager"),
+                             lambda: fit(t))
+            secs[k] = time.perf_counter() - t0
+            if res[k]["dispatch"] != k:
+                raise AssertionError(f"{path}: the {k} trainer dispatched "
+                                     f"{res[k]['dispatch']}")
+    finally:
+        step_graph.graph_dispatch = card_rule
+    bad = bits_differ(trainer_bits(trs["graph"]), trainer_bits(trs["eager"]))
+    if bad or not fit_results_equal(res["graph"], res["eager"]):
+        raise AssertionError(f"{path}: the graph fit != the eager fit at "
+                             f"{bad[:8]}")
+    return trs, res, secs
+
+
 def zoo_fit(ctx, models=ZOO_MODELS, phase: str = "zoo", keep: bool = False):
-    """Each of ``models`` through build_model + Trainer.fit: one epoch of
+    """Each of ``models`` through build_model + Trainer.fit, by graph
+    replays and eagerly from one seed (``fit_twins``): one epoch of
     ZOO_STEPS dense-gradient steps (f32 table, bf16 moments, dropout 0.2,
-    Amazon domain2group), the valid and test passes; then its step timed
-    alone, its launches and device busy time per step (torch.profiler) and
-    its peak memory. With ``keep``, returns ({name: trainer}, the split);
-    else each trainer is dropped before the next is built."""
+    Amazon domain2group) on the resident split, a full chunk and a
+    remainder, the valid and test passes; the two bitwise equal after the
+    fit. Then the two in turns on ZOO_CHUNKS of host batches
+    (``twin_chunks``): the step's ms by each dispatch, its launches,
+    kernels and device busy time per step, the idle share and peak memory.
+    With ``keep``, returns ({name: graph trainer}, the split); else each
+    trainer is dropped before the next is built."""
     from aread_tpu_torch.config import DOMAIN2GROUP, Config
     from aread_tpu_torch.data.loader import GlobalBatcher
     from aread_tpu_torch.models import build_model
@@ -1808,61 +2057,172 @@ def zoo_fit(ctx, models=ZOO_MODELS, phase: str = "zoo", keep: bool = False):
         if (cfg.bs, cfg.embed_dim, cfg.table_moments_dtype, cfg.dropout) != (
                 BS, EMBED_DIM, "bfloat16", 0.2):
             raise AssertionError("not the Amazon defaults")
-        t0 = time.perf_counter()
-        tr = Trainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
-                     cfg, N_DOMAIN, d2g)
+
+        def make():
+            return Trainer(build_model(cfg, data.spec, N_DOMAIN,
+                                       device="cuda"), cfg, N_DOMAIN, d2g)
+
+        trs, res, fit_s = fit_twins(
+            ctx, f"{phase}/{name}_fit", make,
+            lambda t: t.fit(data, epochs=1, verbose=False))
+        tr = trs["graph"]
         model = tr.model
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res = counted(ctx, f"{phase}/{name}_fit",
-                      lambda: tr.fit(data, epochs=1, verbose=False))
-        fit_s = time.perf_counter() - t0
-        launches = ctx["launches_by_path"][f"{phase}/{name}_fit"]
-        if launches != {"fused_adam": ZOO_STEPS, "sparse_adam": 0}:
-            raise AssertionError(f"{name}: fit of {ZOO_STEPS} dense steps "
-                                 f"launched {launches}")
-        hist = res["history"][0]
-        check_metrics(name, (("valid", hist), ("test", res["test"])))
+        launches = {k: ctx["launches_by_path"][f"{phase}/{name}_fit{sfx}"]
+                    for k, sfx in (("graph", ""), ("eager", "_eager"))}
+        for k, got in launches.items():
+            if got != {"fused_adam": ZOO_STEPS, "sparse_adam": 0}:
+                raise AssertionError(f"{name}: the {k} fit of {ZOO_STEPS} "
+                                     f"dense steps launched {got}")
+        hist = res["graph"]["history"][0]
+        check_metrics(name, (("valid", hist), ("test", res["graph"]["test"])))
         if not np.isfinite(hist["train_loss"]) or tr.opt_state["t"] != ZOO_STEPS:
             raise AssertionError(f"{name}: train loss {hist['train_loss']}, "
                                  f"t={tr.opt_state['t']}")
-        batches = [tr.place(b) for b, _ in zip(GlobalBatcher(
+        batches = [b for b, _ in zip(GlobalBatcher(
             data.train_x, data.train_y, BS, data.spec.domain_idx, d2g,
-            seed=1), range(6))]
+            seed=1), range(sum(ZOO_CHUNKS)))]
         with torch.no_grad():
-            logit = model(batches[0]["x"], group=batches[0]["group"],
-                          train=False)["logit"]
+            b0 = tr.place(batches[0])
+            logit = model(b0["x"], group=b0["group"], train=False)["logit"]
         multi = (name in MULTI_TOWER_MODELS
                  and name not in TOWER_SELECTED_IN_FORWARD)
         want = (BS, 3) if multi else (BS,)
         if tuple(logit.shape) != want or not torch.isfinite(logit).all():
             raise AssertionError(f"{name}: logit {tuple(logit.shape)}, "
                                  f"want {want}")
-        step_ms, losses = counted(ctx, f"{phase}/{name}_steps",
-                                  lambda: timed_steps(tr, batches))
-        per_step, busy_ms = launches_and_busy_per_call(
-            lambda: tr.step(batches[0]))
+        chunks, lo = [], 0
+        for n in ZOO_CHUNKS:
+            chunks.append(("train", batches[lo:lo + n]))
+            lo += n
+        per_step, _, _, checked = twin_chunks(
+            ctx, f"{phase}/{name}_steps", trs, chunks,
+            lambda t, c: t.chunks.run("train", c[1], [None] * len(c[1]),
+                                      t.opt_state), 1, 2)
+        step_launches = ctx["launches_by_path"][f"{phase}/{name}_steps"]
+        if step_launches != {"fused_adam": 2 * sum(ZOO_CHUNKS),
+                             "sparse_adam": 0}:
+            raise AssertionError(f"{name}: steps launched {step_launches}")
         table = model.embedding.table
         say(phase, model=name, logit_shape=list(want),
             params=sum(p.numel() for p in model.parameters()) + table.numel(),
             dense_params=sum(p.numel() for p in model.parameters()),
             table=[list(table.shape), str(table.dtype)],
-            init_s=init_s, fit_s=fit_s, fit_launches=launches,
+            fit_s=fit_s, fit_launches=launches["graph"],
+            fit_graph_bitwise_eager=True, captures=tr.chunks.captures,
             train_loss=hist["train_loss"], valid_total_auc=hist["total_auc"],
             valid_mean_auc=hist["mean_auc"],
-            test_total_auc=res["test"]["total_auc"],
-            test_mean_auc=res["test"]["mean_auc"], step_ms_median=step_ms,
-            examples_per_s=BS / (step_ms * 1e-3),
-            step_launches=ctx["launches_by_path"][f"{phase}/{name}_steps"],
-            cuda_launches_per_step=per_step,
-            device_busy_ms_per_step=busy_ms,
-            device_idle_share=1 - busy_ms / step_ms,
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+            test_total_auc=res["graph"]["test"]["total_auc"],
+            test_mean_auc=res["graph"]["test"]["mean_auc"],
+            step_ms={k: v["step_ms_events"] for k, v in per_step.items()},
+            examples_per_s={k: v["examples_per_s"]
+                            for k, v in per_step.items()},
+            chunks=list(ZOO_CHUNKS), bitwise_after_chunks=checked,
+            step_launches=step_launches, per_step=per_step)
         if keep:
             kept[name] = tr
-        del tr, model, table, batches
+        del tr, trs, model, table, batches
     return kept, data
+
+
+def zoo_regroup_twins(ctx):
+    """MMoE (Amazon domain2group, dense table gradient) through
+    Trainer.fit under dynamic_regroup='towerfirst', two epochs of
+    ZOO_STEPS on the resident split, by graph replays and eagerly
+    (``fit_twins``): bitwise equal after the fit; whether the map moved
+    (a moved map is a new device map, which the graph trainer captures
+    again for its second epoch)."""
+    from aread_tpu_torch.config import DOMAIN2GROUP, Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    data = amazon_split(np.random.default_rng(12), ZOO_STEPS * BS, 2048)
+    d2g = np.asarray(DOMAIN2GROUP["amazon"]["dcn_3groups_kl"])
+    cfg = Config(model="mmoe", dataset_name="amazon", seed=0,
+                 sparse_table_grad=False, table_dtype="float32",
+                 dynamic_regroup="towerfirst", early_stop=10)
+    moved, made = [], []  # per regroup of the graph trainer: map moved
+
+    def make():
+        tr = Trainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
+                     cfg, N_DOMAIN, d2g.copy())
+        if not made:  # the graph trainer, made first
+            regroup = tr.apply_dynamic_regroup
+
+            def spy(*a, **kw):
+                moved.append(regroup(*a, **kw))
+                return moved[-1]
+
+            tr.apply_dynamic_regroup = spy
+        made.append(tr)
+        return tr
+
+    trs, res, fit_s = fit_twins(
+        ctx, "zoo/mmoe_regroup_fit", make,
+        lambda t: t.fit(data, epochs=2, verbose=False))
+    tr = trs["graph"]
+    launches = ctx["launches_by_path"]["zoo/mmoe_regroup_fit"]
+    if launches != {"fused_adam": 2 * ZOO_STEPS, "sparse_adam": 0}:
+        raise AssertionError(f"regroup fit launches {launches}")
+    # one graph for the first epoch's row ids; a map moved after it is a
+    # new device map, captured again
+    if tr.chunks.captures != 1 + bool(moved[0]):
+        raise AssertionError(f"{tr.chunks.captures} captures, the map "
+                             f"moved after each epoch: {moved}")
+    say("zoo", part="dynamic_regroup", model="mmoe", mode="towerfirst",
+        epochs=2, steps_per_epoch=ZOO_STEPS, map_moved=moved,
+        domains_moved=int(np.sum(tr.domain2group != d2g)),
+        captures=tr.chunks.captures, fit_graph_bitwise_eager=True,
+        fit_s=fit_s, launches=launches,
+        valid_auc=[h["total_auc"] for h in res["graph"]["history"]])
+
+
+ZOO_REFERENCE_D2G = np.array([0, 1, 2, 1])
+
+
+def zoo_reference_batch():
+    """The data and the one batch of ``zoo_reference``."""
+    from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
+
+    data = make_synthetic_data(n_rows=1024, n_domain=4, vocab=300, seed=3)
+    batch = pad_batch(data.train_x[:256], data.train_y[:256], 256)
+    batch["group"] = ZOO_REFERENCE_D2G[
+        batch["x"][:, data.spec.domain_idx]].astype(np.int32)
+    return data, batch
+
+
+def zoo_reference_trainer(name: str, data, dev: str):
+    """A Trainer of ``zoo_reference``'s small width for model ``name`` on
+    ``dev``, its weights drawn from the config's seed, its state made."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(model=name, embed_dim=8, dropout=0.0,
+                 sparse_table_grad=False, table_dtype="float32",
+                 table_moments_dtype="float32", mlp_dims=(16, 8),
+                 tower_dims=(16, 8), sei_dims=(16, 8),
+                 ple_expert_dims=((16,), (8,)), ple_tower_dims=(8, 4),
+                 atten_embed_dim=8, att_layer_num=1)
+    tr = Trainer(build_model(cfg, data.spec, 4, device=dev), cfg, 4,
+                 ZOO_REFERENCE_D2G)
+    tr.optimizer = true_zero_adam(ZOO_PRE_BN_BIAS[name], cfg.lr, cfg.wd,
+                                  cfg.atten_embed_dim)
+    tr.init()
+    return tr
+
+
+def state_digest(tr) -> str:
+    """sha256 (its first 16 hex digits) of a trainer's model state and
+    table moments as f32 bytes on the host: which side of a card-vs-CPU
+    check moved between two runs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in list(tr.model.state_dict().items()) + [
+            (k, tr.opt_state[k]) for k in ("m", "v")]:
+        h.update(k.encode())
+        h.update(v.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def zoo_reference(ctx, models=ZOO_MODELS):
@@ -1880,32 +2240,11 @@ def zoo_reference(ctx, models=ZOO_MODELS):
     whose gradient is within a few eps of 0 turns the f32 round-off of
     its sum into a difference of up to ~1e-5; the default widths hold
     ~1M dense entries, enough to meet one."""
-    from aread_tpu_torch.config import Config
-    from aread_tpu_torch.data.loader import make_synthetic_data, pad_batch
-    from aread_tpu_torch.models import build_model
-    from aread_tpu_torch.train.trainer import Trainer
-
-    data = make_synthetic_data(n_rows=1024, n_domain=4, vocab=300, seed=3)
-    d2g = np.array([0, 1, 2, 1])
-    batch = pad_batch(data.train_x[:256], data.train_y[:256], 256)
-    batch["group"] = d2g[batch["x"][:, data.spec.domain_idx]].astype(np.int32)
-    diffs, pairs = {}, {}
+    data, batch = zoo_reference_batch()
+    diffs, pairs, digests = {}, {}, {}
     for name in models:
-        trainers = {}
-        for dev in ("cpu", "cuda"):
-            cfg = Config(model=name, embed_dim=8, dropout=0.0,
-                         sparse_table_grad=False, table_dtype="float32",
-                         table_moments_dtype="float32", mlp_dims=(16, 8),
-                         tower_dims=(16, 8), sei_dims=(16, 8),
-                         ple_expert_dims=((16,), (8,)),
-                         ple_tower_dims=(8, 4), atten_embed_dim=8,
-                         att_layer_num=1)
-            tr = Trainer(build_model(cfg, data.spec, 4, device=dev), cfg, 4,
-                         d2g)
-            tr.optimizer = true_zero_adam(ZOO_PRE_BN_BIAS[name], cfg.lr,
-                                          cfg.wd, cfg.atten_embed_dim)
-            tr.init()
-            trainers[dev] = tr
+        trainers = {dev: zoo_reference_trainer(name, data, dev)
+                    for dev in ("cpu", "cuda")}
         trainers["cuda"].model.load_state_dict(
             trainers["cpu"].model.state_dict())
         losses = {"cpu": [float(trainers["cpu"].step(batch))],
@@ -1915,10 +2254,12 @@ def zoo_reference(ctx, models=ZOO_MODELS):
             raise AssertionError(f"{name}: the card's step did not launch "
                                  "fused_adam")
         diffs[name] = state_diffs(trainers["cpu"], trainers["cuda"], losses)
+        digests[name] = {d: state_digest(t) for d, t in trainers.items()}
         pairs[name] = trainers
     say("reference", path="zoo Trainer.step (dense)", steps=1,
         max_abs_diff={n: d for n, (_, d) in diffs.items()},
-        worst={n: w for n, (w, _) in diffs.items()}, tolerance=1e-5)
+        worst={n: w for n, (w, _) in diffs.items()}, digests=digests,
+        tolerance=1e-5)
     bad = {n: wd for n, wd in diffs.items() if wd[1] > 1e-5}
     if bad:
         raise AssertionError(f"card and CPU disagree after one step: {bad}")

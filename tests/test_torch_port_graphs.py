@@ -574,11 +574,25 @@ def test_chip_smoke_holds_graph_against_eager_on_the_card():
                       / "chip_smoke.py").read_text())
     funcs = {n.name: ast.unparse(n) for n in tree.body
              if isinstance(n, ast.FunctionDef)}
-    train = funcs["phase_train"]
+    # the turns, the checks and the sync debug step are helpers that the
+    # generic Trainer's twins (phase train_dense) share
+    assert "twin_chunks(" in funcs["phase_train"]
+    assert "sync_debug_step(" in funcs["phase_train"]
+    train = (funcs["phase_train"] + funcs["twin_chunks"]
+             + funcs["sync_debug_step"])
     for name in ("EagerChunks", "bits_differ(trainer_bits", "chunk_profile(",
-                 "sparse_sweeps", "set_sync_debug_mode('error')",
+                 "KERNEL_RECORDS", "set_sync_debug_mode('error')",
                  "TRAIN_CHUNKS", "reset_peak_memory_stats", "counted(ctx"):
         assert name in train, name
+    # each Adam kernel's counted launches are held to the profiler's
+    # records of its kernels
+    records = next(ast.literal_eval(n.value) for n in tree.body
+                   if isinstance(n, ast.Assign)
+                   and getattr(n.targets[0], "id", "") == "KERNEL_RECORDS")
+    assert records == {"sparse_adam": "sparse_sweeps",
+                       "fused_adam": "fused_updates"}
+    for key in records.values():
+        assert key in funcs["chunk_profile"]
     assert "'generator'" in funcs["trainer_bits"]
     assert "scalars=row" in funcs["sparse_block_case"]
     assert "sparse_block_case(" in funcs["check_sparse_adam"]

@@ -473,12 +473,88 @@ def test_chip_smoke_runs_the_zoo_phase():
     for name in ("Trainer(build_model(", ".fit(data, epochs=1",
                  "MULTI_TOWER_MODELS", "fused_adam"):
         assert name in funcs["zoo_fit"], name
-    assert "true_zero_adam" in funcs["zoo_reference"]
+    assert "true_zero_adam" in funcs["zoo_reference_trainer"]
+    assert "zoo_reference_trainer(" in funcs["zoo_reference"]
     ple = funcs["zoo_aread_ple"]
     for name in ("base_model='ple'", "main_step", "reference_aread(",
                  "sparse_adam_launches_of_fit", "serve_checkpoints(",
                  "validate_mask"):
         assert name in ple, name
+
+
+def _say_keys(func: ast.FunctionDef, **match):
+    """The keyword names of each ``say(...)`` call in ``func`` whose
+    constant keywords equal ``match``."""
+    out = []
+    for n in ast.walk(func):
+        if isinstance(n, ast.Call) and getattr(n.func, "id", "") == "say":
+            kw = {k.arg: k.value for k in n.keywords}
+            if all(isinstance(kw.get(k), ast.Constant) and kw[k].value == v
+                   for k, v in match.items()):
+                out.append({k.arg for k in n.keywords})
+    return out
+
+
+def test_chip_smoke_holds_the_generic_trainer_graph_against_eager():
+    """The train_dense phase runs DeepFM's graph and eager twins for both
+    table gradients and both feeds in chunks (a full chunk captures, one
+    is timed, a remainder is profiled), and the zoo phases fit each
+    model by both dispatches over a full chunk and a remainder, and a
+    dynamic_regroup fit: the shape of their lines."""
+    from aread_tpu_torch.train.step_graph import SCAN_CHUNK
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    consts = {}
+    for n in tree.body:
+        if isinstance(n, ast.Assign) and len(n.targets) == 1:
+            t = n.targets[0]
+            names = ([e.id for e in t.elts] if isinstance(t, ast.Tuple)
+                     else [getattr(t, "id", None)])
+            if set(names) & {"DENSE_CHUNKS", "DENSE_TIMED", "ZOO_STEPS",
+                             "ZOO_CHUNKS"}:
+                value = ast.literal_eval(n.value)
+                consts.update(zip(names, value) if len(names) > 1
+                              else [(names[0], value)])
+    chunks = consts["DENSE_CHUNKS"]
+    assert chunks[:2] == (SCAN_CHUNK,) * 2 and 0 < chunks[2] < SCAN_CHUNK
+    assert (consts["DENSE_TIMED"], consts["DENSE_PROFILED"]) == (1, 2)
+    assert consts["ZOO_STEPS"] // SCAN_CHUNK >= 1
+    assert consts["ZOO_STEPS"] % SCAN_CHUNK > 0  # a remainder
+    assert len(consts["ZOO_CHUNKS"]) == 3
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    src = {k: ast.unparse(v) for k, v in funcs.items()}
+    assert "dense_twins(ctx, make, spec, d2g, sparse, resident)" in src[
+        "phase_train_dense"]
+    assert "dense_twins(ctx, make, spec, d2g, False, False, 'bfloat16')" in \
+        src["phase_train_dense"]
+    for name in ("twin_chunks(", "sync_debug_step(", "stage_device_data(",
+                 "epoch_perm()", "EagerChunks", "2 * n_steps",
+                 "compute_dtype"):
+        assert name in src["dense_twins"], name
+    (keys,) = _say_keys(funcs["dense_twins"], part="graph_vs_eager")
+    assert {"table_grad", "feed", "per_step", "bitwise_after_chunks",
+            "launches", "captures", "graph_launches_per_replay",
+            "sync_debug_error_step", "chunk_event_ms"} <= keys
+    for name in ("fit_twins(", "twin_chunks(", ".fit(data, epochs=1"):
+        assert name in src["zoo_fit"], name
+    (keys,) = _say_keys(funcs["zoo_fit"])
+    assert {"model", "step_ms", "per_step", "fit_graph_bitwise_eager",
+            "bitwise_after_chunks", "fit_launches", "step_launches",
+            "captures"} <= keys
+    for name in ("step_graph.graph_dispatch = ", "trainer_bits(",
+                 "fit_results_equal("):
+        assert name in src["fit_twins"], name
+    assert "zoo_regroup_twins(ctx)" in src["phase_zoo"]
+    (keys,) = _say_keys(funcs["zoo_regroup_twins"], part="dynamic_regroup")
+    assert {"map_moved", "captures", "fit_graph_bitwise_eager"} <= keys
+    assert "dynamic_regroup='towerfirst'" in src["zoo_regroup_twins"]
+    # kernel 2 fed a row of a chunk's staged blocks, in every mode
+    assert "scalars=blocks[2]" in src["check_fused_adam"]
+    assert "by_t" in src["fused_case"]
+    # the per-step numbers of both dispatches
+    for name in ("step_ms_events", "device_idle_share_unprofiled",
+                 "peak_mem_gb", "KERNEL_RECORDS"):
+        assert name in src["twin_chunks"], name
 
 
 def test_chip_smoke_runs_the_zoo2_phase():

@@ -248,10 +248,10 @@ def test_operator_schema_launcher_and_call_agree(name, module):
               and a.value.id == "s"]
     assert passed == [a for a in schema if a in (
         "lr", "b1", "b2", "eps", "decay", "b1c", "b2c", "omb1", "omb2")]
-    # kernel 1 reads the scalars that change per step (lr, b1c, b2c, seed)
-    # from its step's block on the device, passed as the tensor `step`;
-    # kernel 2 takes all nine as arguments
-    per_step = {"sparse_adam": ["step"], "fused_adam": []}[name]
+    # both kernels read the scalars that change per step (lr, b1c, b2c,
+    # seed) from the step's block on the device, passed as the tensor
+    # `step`; the other six are arguments
+    per_step = {"sparse_adam": ["step"], "fused_adam": ["step"]}[name]
     assert len(passed) == 9 - 3 * len(per_step)
     assert [a for a in schema if a == "step"] == per_step
     if per_step:

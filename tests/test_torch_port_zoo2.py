@@ -319,14 +319,15 @@ def test_adl_fit_carries_eval_centres_and_returns_the_pre_test_state():
         return out
 
     tr.evaluate = spy
-    step = tr.step
+    # the epoch's steps run through the chunk loop, which calls step_core
+    step = tr.step_core
     starts = []
 
-    def step_spy(batch):
+    def step_spy(batch, scalars=None):
         starts.append(tr.model.cluster_centers.clone())
-        return step(batch)
+        return step(batch, scalars=scalars)
 
-    tr.step = step_spy
+    tr.step_core = step_spy
     tr.fit(data, epochs=2, verbose=False)
     n_steps = len(starts) // 2
     # epoch 2's first step sees the centres of epoch 1's valid pass
