@@ -12,14 +12,17 @@ are updated in place; the main optimizer's state is ``self.opt_state``.
 Host and device:
   * mask generation and selection are numpy on the host
     (``utils/masks.py``): masks are tiny;
-  * one evolution is a plain loop over its candidates, in place, on the
+  * one evolution draws every candidate's mask and batches first, in the
+    JAX package's staging order, stages them in static device buffers
+    (one copy per array), and then runs one chain per candidate on the
     one model: restore the snapshot, zero the one fast-Adam state, run
     ``regroup_update_step`` bagging steps at ``update_lr`` with a prune
-    after each, then ``regroup_eval_step`` no-grad probes. The snapshot
-    stays on the device and is restored with in-place copies, so no tensor
-    that the optimizer states or the kernel's scratch refer to is
-    replaced, and the main optimizer's state and step count come out of an
-    evolution untouched;
+    on the device after each, then ``regroup_eval_step`` no-grad probes.
+    The snapshot stays on the device and is restored with in-place copies,
+    so no tensor that the optimizer states or the kernel's scratch refer
+    to is replaced, and the main optimizer's state and step count come out
+    of an evolution untouched. Every pruned mask and probe loss is fetched
+    once per evolution;
   * losses and recorded gate means stay on the device and are fetched once
     per segment, not per step.
 
@@ -40,13 +43,14 @@ counterpart of the JAX package's scanned chunk (``make_scan``,
 (``train/step_graph.py``; the configuration alone decides, and ``fit``'s
 result and ``step_timer.dispatch`` say which ran). An AREAD step is some
 1,200 small launches, whose host time is several times the device's, the
-reason the JAX package gives for its scans. The JAX package also runs a
-whole candidate chain, or a whole regroup, in one dispatch
-(``_fast_adapt_impl``, ``fast_adapt_many``); the chains here are still
-launched step by step (ROADMAP.md queues their graphs). The Pallas kernel
-window's prechecks (``FITS_SLICE``, ``_fits_from_x``, ``_fits_from_idx``,
-``no_overflow``, ``assume_no_overflow``) have no counterpart: the CUDA
-kernel has no window.
+reason the JAX package gives for its scans. The JAX package runs a whole
+regroup in one dispatch (``_fast_adapt_impl``, ``fast_adapt_many*``); the
+port's counterpart is one CUDA graph replay per candidate chain, through
+the same dispatch (``run_chains``, ``chain_step``; a chain is some 4,000
+launches, so one graph per chain and not one per regroup). The Pallas
+kernel window's prechecks (``FITS_SLICE``, ``_fits_from_x``,
+``_fits_from_idx``, ``no_overflow``, ``assume_no_overflow``) have no
+counterpart: the CUDA kernel has no window.
 
 ``AREADTrainer(mesh=)`` runs one rank of a (data, model) grid as
 ``Trainer(mesh=)`` does (``train/trainer.py``): the warm-up, bagging and
@@ -76,7 +80,8 @@ from aread_tpu_torch.models.aread import AREAD
 from aread_tpu_torch.models.base import FeatureSpec, regularization_loss
 from aread_tpu_torch.ops import overlay_adam as oa
 from aread_tpu_torch.ops.precision import matmul_precision_ctx
-from aread_tpu_torch.ops.sparse_adam import dedup_rows
+from aread_tpu_torch.ops import cuda as cuda_ops
+from aread_tpu_torch.ops.sparse_adam import chunk_scalars, dedup_rows, to_device
 from aread_tpu_torch.parallel import mesh as mesh_lib
 from aread_tpu_torch.parallel.embed_shard import resolve_a2a_capacity
 from aread_tpu_torch.parallel.health import epoch_deadline, watchdog
@@ -84,7 +89,7 @@ from aread_tpu_torch.train import metrics as metrics_lib
 from aread_tpu_torch.train.checkpoint import (load_checkpoint, local_state,
                                               mask_template, restore_tree_,
                                               set_generator_state)
-from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chunks,
+from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chain, Chunks,
                                               aread_step)
 from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            adopt_state_dict,
@@ -101,7 +106,7 @@ from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            sum_states_over_data,
                                            table_reg_value)
 from aread_tpu_torch.utils import profiling
-from aread_tpu_torch.utils.masks import HempMaskState, prune_mask
+from aread_tpu_torch.utils.masks import HempMaskState, prune_mask_tensor
 from aread_tpu_torch.utils.runlog import RunLogger
 
 log = logging.getLogger(__name__)
@@ -199,6 +204,10 @@ class AREADTrainer:
         self.opt_state: Optional[Dict] = None
         # the chains' optimizer state: allocated once, zeroed per chain
         self._fast_state: Optional[Dict] = None
+        # the chains' snapshot and staged buffers, kept from regroup to
+        # regroup (``_stage_chains``)
+        self._chain_snap: Optional[Dict[str, torch.Tensor]] = None
+        self._chain_io: Dict[str, Dict] = {}
         self._device_data = None  # (dxc, dyc, aug_offset)
         self._epoch_examples = 0  # rows stepped in the running epoch
         # host clock per step: the launches, since no step synchronises
@@ -244,13 +253,10 @@ class AREADTrainer:
         """The step a chunk runs (``step_graph.aread_step``)."""
         return aread_step(self, kind, state)
 
-    def _snapshot(self, table: bool = True) -> Dict[str, torch.Tensor]:
-        """A device-resident copy of the parameters, the table (unless
-        ``table`` is False) and the BatchNorm statistics."""
-        if table:
-            return clone_state(self.model)
-        return {k: v.clone() for k, v in self.model.state_dict().items()
-                if k != TABLE_KEY}
+    def _snapshot(self) -> Dict[str, torch.Tensor]:
+        """A device-resident copy of the parameters, the table and the
+        BatchNorm statistics."""
+        return clone_state(self.model)
 
     @torch.no_grad()
     def _restore(self, snap: Dict[str, torch.Tensor]) -> None:
@@ -444,20 +450,12 @@ class AREADTrainer:
         return self.feed_batch(self._feed(batcher, idx, offset))
 
     # ------------------------------------------------------------ evolution
-    def _prune(self, mask, gate_means):
-        """The chain's progressive prune, on the host: one fetch of the
-        step's gate means (90 floats at Amazon width; the host waits for
-        the device, which a host-bound step leaves nearly idle anyway) and
-        numpy. The tensor twin (``utils.masks.prune_mask_tensor``) gives
-        the same mask without the wait but costs some 90 small launches;
-        timed alone on the H100 it is the dearer one, and inside a chain
-        the two cannot be told apart (chip_smoke.py, phase hemp, times
-        both; PERF.md)."""
-        return prune_mask(mask, [g.cpu().numpy() for g in gate_means],
-                          prun_ratio=0.05)
-
-    def _place_mask(self, mask) -> Tuple[torch.Tensor, ...]:
-        return tuple(torch.as_tensor(m, device=self.device) for m in mask)
+    def _prune(self, mask, gate_means) -> Tuple[torch.Tensor, ...]:
+        """The chain's progressive prune of a mask (its levels as bool
+        tensors) by a step's gate means, on the device
+        (``utils.masks.prune_mask_tensor``, bitwise the host ``prune_mask``):
+        nothing waits for the device, so a CUDA graph holds the chain."""
+        return prune_mask_tensor(mask, gate_means, prun_ratio=0.05)
 
     def _probe_losses(self, dm, probe_batches) -> torch.Tensor:
         """[regroup_eval_step] no-grad probe losses (BCE on the
@@ -475,47 +473,50 @@ class AREADTrainer:
             self.mesh.all_reduce_(losses, "data")
         return losses
 
-    def _fast_adapt(self, mask, fa_batches, probe_batches, drift_l2=None):
+    def _fast_adapt(self, dm, fa_batches, probe_batches, scalars,
+                    drift_l2=None):
         """One candidate's chain from the weights the model holds: a fresh
         fast-Adam state, a bagging step at ``update_lr`` per adapt batch
         with a progressive prune of the mask after each, then one no-grad
-        probe per probe batch in 'domain_with_mask' mode. Returns (the
-        pruned mask, the probe losses [regroup_eval_step] on the device).
-        The weights, the BatchNorm statistics and a bf16 table's rounding
-        are left as the chain moved them: the caller restores. With
-        ``drift_l2`` (the regroup's ``drift_table_l2``) the chain runs the
-        overlay engine (``_fast_adapt_overlay``)."""
+        probe per probe batch in 'domain_with_mask' mode. ``dm``: the
+        mask's levels as bool tensors; the batches on the device;
+        ``scalars``: the chain's [S, 4] scalar block (``chain_scalars``),
+        row s for adapt step s. Returns (the pruned mask's levels, the probe
+        losses [regroup_eval_step]), on the device. The weights, the
+        BatchNorm statistics and a bf16 table's rounding are left as the
+        chain moved them: the caller restores. With ``drift_l2`` (the
+        regroup's ``drift_table_l2``) the chain runs the overlay engine
+        (``_fast_adapt_overlay``)."""
         if drift_l2 is not None:
-            return self._fast_adapt_overlay(mask, fa_batches, probe_batches,
-                                            drift_l2)
+            return self._fast_adapt_overlay(dm, fa_batches, probe_batches,
+                                            scalars, drift_l2)
         cfg = self.config
         state = self._fresh_fast_state()
-        # uploaded once per prune, not once per forward
-        dm = self._place_mask(mask)
-        for batch in fa_batches:
+        for s, batch in enumerate(fa_batches):
             _, gms = self.step_core(self.fast_optimizer, cfg.update_lr, state,
-                                    "domain_mask_bagging", batch, dm)
-            mask = self._prune(mask, gms)
-            dm = self._place_mask(mask)
+                                    "domain_mask_bagging", batch, dm,
+                                    scalars=scalars[s])
+            dm = self._prune(dm, gms)
         with torch.no_grad():
             table, rest = split_table(self.model)
             # constant across the probes (the weights are fixed now): the
             # table's term is a pass over the whole table, paid once
             reg = (regularization_loss(rest, self.reg_rules)
                    + table_reg_value(table, self.mesh))
-        return mask, self._probe_losses(dm, probe_batches) + reg
+        return dm, self._probe_losses(dm, probe_batches) + reg
 
-    def _fast_adapt_overlay(self, mask, fa_batches, probe_batches,
+    def _fast_adapt_overlay(self, dm, fa_batches, probe_batches, scalars,
                             drift_l2: torch.Tensor):
         """``_fast_adapt`` on the overlay engine (``ops/overlay_adam.py``):
         the table's side of the chain is a compact f32 copy of the rows
-        the adapt batches gather, stepped by the fused dense Adam from the
-        deduplicated row gradients, with a prune after every step; the
-        dense leaves step through ``fast_optimizer`` as in the full sweep.
-        The probes read the working set's chain values and every other row
-        drifted by S decay-only steps, and their table L2 term is
-        ``drift_l2`` corrected to this working set. The live table is
-        never written."""
+        the adapt batches gather (a static working set, duplicates kept),
+        stepped by the fused dense Adam from the deduplicated row
+        gradients, with a prune after every step; the dense leaves step
+        through ``fast_optimizer`` as in the full sweep. The probes read
+        the working set's chain values and every other row drifted by S
+        decay-only steps, and their table L2 term is ``drift_l2``
+        corrected to this working set. Every Adam step reads its scalars
+        from ``scalars``. The live table is never written."""
         cfg = self.config
         model = self.model
         emb = model.embedding
@@ -527,11 +528,10 @@ class AREADTrainer:
         w, m, v = oa.overlay_init(table, ws)
         _, rest = split_table(model)
         names = list(rest)
-        dm = self._place_mask(mask)
         # w is stepped in place: the lookup reads the chain's values
         with emb.lookup_override(functools.partial(
                 oa.overlay_gather, ws=ws, wvals=w, drift_steps=0, **hyper)):
-            for batch in fa_batches:
+            for s, batch in enumerate(fa_batches):
                 model.train()
                 with matmul_precision_ctx(cfg.compute_dtype):
                     loss, out = self.bagging_loss(batch, dm,
@@ -552,32 +552,208 @@ class AREADTrainer:
                     gsum = gsum * scale
                 state["t"] += 1
                 oa.overlay_adam_step(w, m, v, oa.compact_grad(ws, uids, gsum),
-                                     state["t"], **hyper)
-                self.fast_optimizer.update_(rest, g_rest, state["inner"])
-                mask = self._prune(mask, out["gate_means"])
-                dm = self._place_mask(mask)
+                                     state["t"], scalars=scalars[s], **hyper)
+                self.fast_optimizer.update_(rest, g_rest, state["inner"],
+                                            scalars=scalars[s])
+                dm = self._prune(dm, out["gate_means"])
         S = len(fa_batches)
         with emb.lookup_override(functools.partial(
-                oa.overlay_gather, ws=ws, wvals=w, drift_steps=S, **hyper)):
+                oa.overlay_gather, ws=ws, wvals=w, drift_steps=S,
+                blocks=scalars, **hyper)):
             losses = self._probe_losses(dm, probe_batches)
         with torch.no_grad():
             reg = (regularization_loss(rest, self.reg_rules)
                    + TABLE_L2 * (drift_l2 + oa.overlay_l2_correction(
-                       table, ws, w, S, **hyper)))
-        return mask, losses + reg
+                       table, ws, w, S, blocks=scalars, **hyper)))
+        return dm, losses + reg
+
+    def chain_scalars(self, n_steps: int) -> np.ndarray:
+        """[n_steps, 4] int32: the scalar blocks of a chain's fresh Adam
+        steps t = 1 .. n_steps at ``update_lr``, the same for every chain
+        (``ops/sparse_adam.py::chunk_scalars``)."""
+        fo = self.fast_optimizer
+        return chunk_scalars(0, n_steps, self.config.update_lr, fo.b1, fo.b2)
+
+    def _chain_snapshot(self, table: bool) -> Dict[str, torch.Tensor]:
+        """The chains' snapshot of the live weights (``_snapshot``'s keys)
+        in tensors kept from regroup to regroup and refilled in place, so
+        that a captured chain that restores from them stays valid."""
+        snap = self._chain_snap
+        live = {k: v for k, v in self.model.state_dict().items()
+                if table or k != TABLE_KEY}
+        if snap is None or list(snap) != list(live) or any(
+                snap[k].shape != v.shape for k, v in live.items()):
+            self._chain_snap = {k: v.clone() for k, v in live.items()}
+        else:
+            with torch.no_grad():
+                torch._foreach_copy_(list(snap.values()), list(live.values()))
+        return self._chain_snap
+
+    def _stage_chains(self, overlay: bool, masks, fa_feeds, probe_feeds
+                      ) -> Tuple[Chain, Dict]:
+        """A regroup's candidates in static device buffers, one copy per
+        array, as the JAX package stages ``fast_adapt_many*``'s stacks:
+        every candidate's mask, its adapt and probe feeds (host batches, on
+        a mesh this rank's rows, or row ids into the resident split) and
+        the chain's scalar block; the snapshot refilled and, for the
+        overlay, the regroup's whole-table drift L2. The buffers of one
+        (engine, feed form, S, P) are kept from regroup to regroup and
+        grow when a regroup has more candidates. Returns the chain
+        (``chain_step``) and the buffers."""
+        n, S, P = len(masks), len(fa_feeds[0]), len(probe_feeds[0])
+        idx = not isinstance(fa_feeds[0][0], dict)
+        key = (f"{'overlay' if overlay else 'full'}"
+               f"{'_idx' if idx else ''}_S{S}_P{P}")
+
+        def stack(feeds):
+            if idx:
+                return np.stack(feeds).astype(np.int32)  # [n, S, bs]
+            out = {k: np.stack([[f[k] for f in c] for c in feeds])
+                   for k in feeds[0][0]}
+            if self.mesh is not None:
+                rows = self.mesh.rows(out["x"].shape[2])
+                out = {k: v[:, :, rows] for k, v in out.items()}
+            return out
+
+        host = {"masks": [np.stack([np.asarray(m[li], dtype=bool)
+                                    for m in masks])
+                          for li in range(len(masks[0]))],
+                "fa": stack(fa_feeds), "probe": stack(probe_feeds)}
+        io = self._chain_io.get(key)
+        if io is None or io["n"] < n:
+            io = self._chain_io[key] = self._chain_buffers(host, n, S, P)
+        dev = self.device
+
+        def put(dst, arr):
+            dst[:n].copy_(to_device(arr, dev))
+
+        for dst, arr in zip(io["masks"], host["masks"]):
+            put(dst, arr)
+        for name in ("fa", "probe"):
+            if idx:
+                put(io[name], host[name])
+            else:
+                for k, dst in io[name].items():
+                    put(dst, host[name][k])
+        io["scalars"].copy_(to_device(self.chain_scalars(S), dev))
+        io["i"].zero_()
+        # allocated now, outside any capture, and zeroed by every chain
+        self._fresh_fast_state(table=not overlay)
+        snap = self._chain_snapshot(table=not overlay)
+        if overlay:
+            cfg = self.config
+            io["drift_l2"].copy_(oa.drift_table_l2(
+                self.model.embedding.table, S, cfg.update_lr, cfg.wd,
+                TABLE_L2, blocks=io["scalars"]))
+        return self.chain_step(overlay, key, io, snap), io
+
+    def _chain_buffers(self, host: Dict, n: int, S: int, P: int) -> Dict:
+        """Static buffers for ``n`` candidates shaped as ``host``'s staged
+        arrays: inputs, the outputs (pruned masks, probe losses), the
+        candidate counter, the scalar block and the drift L2."""
+        dev = self.device
+
+        def empty(arr):
+            return torch.empty((n,) + arr.shape[1:],
+                               dtype=torch.from_numpy(arr[:1]).dtype,
+                               device=dev)
+
+        io = {"n": n, "i": torch.zeros((1,), dtype=torch.int64, device=dev),
+              "masks": [empty(m) for m in host["masks"]],
+              "out_masks": [empty(m) for m in host["masks"]],
+              "out_losses": torch.zeros((n, P), dtype=torch.float32,
+                                        device=dev),
+              "scalars": torch.zeros((S, 4), dtype=torch.int32, device=dev),
+              "drift_l2": torch.zeros((), dtype=torch.float32, device=dev)}
+        for name in ("fa", "probe"):
+            src = host[name]
+            io[name] = (empty(src) if not isinstance(src, dict) else
+                        {k: empty(v) for k, v in src.items()})
+        return io
+
+    def chain_step(self, overlay: bool, key: str, io: Dict,
+                   snap: Dict[str, torch.Tensor]) -> Chain:
+        """One candidate chain as both dispatches run it
+        (``step_graph.Chain``): restore the snapshot in place, read the
+        candidate at the counter ``io['i']`` (its mask, its adapt and probe
+        batches), ``_fast_adapt``, write its pruned mask and probe losses
+        at that slice and advance the counter. A captured chain holds the
+        snapshot, the fast-Adam state, the buffers and, fed row ids, the
+        resident split; it is captured again when one of them is a new
+        tensor or ``update_lr`` changes."""
+        idx = not isinstance(io["fa"], dict)
+        drift_l2 = io["drift_l2"] if overlay else None
+
+        def batches(src, i):
+            if idx:
+                ids = src.index_select(0, i)[0]
+                return [self.feed_batch(ids[s]) for s in range(ids.shape[0])]
+            cand = {k: v.index_select(0, i)[0] for k, v in src.items()}
+            return [{k: v[s] for k, v in cand.items()}
+                    for s in range(cand["x"].shape[0])]
+
+        def body():
+            i = io["i"]
+            self._restore(snap)
+            dm = tuple(m.index_select(0, i)[0] for m in io["masks"])
+            mask, losses = self._fast_adapt(
+                dm, batches(io["fa"], i), batches(io["probe"], i),
+                io["scalars"], drift_l2)
+            for out, m in zip(io["out_masks"], mask):
+                out.index_copy_(0, i, m[None])
+            io["out_losses"].index_copy_(0, i, losses[None])
+            i.add_(1)
+
+        st = self._fast_state
+        fo = self.fast_optimizer
+        resident = ((self._device_data[0], self._device_data[1]) if idx
+                    else ())
+        return Chain(
+            name=f"HEMP {'overlay' if overlay else 'full-sweep'} chain",
+            key=key, fn=body,
+            counters=[(st, "t"), (st["inner"], "count")],
+            holds=(fo, st, snap, io) + resident,
+            lrs=(fo.lr, self.config.update_lr))
+
+    def run_chains(self, masks, fa_feeds, probe_feeds, overlay: bool
+                   ) -> Tuple[List[np.ndarray], np.ndarray]:
+        """Every candidate chain of a regroup from the weights the model
+        holds, through ``self.chunks`` (CUDA graph replays or the eager
+        loop, ``step_graph``): staged first, one chain each, then every
+        pruned mask and probe loss fetched at once, and the weights
+        restored. ``masks``: per candidate its mask (numpy levels);
+        ``fa_feeds`` / ``probe_feeds``: per candidate its S / P feeds
+        (``_feed``). Returns (per level the pruned masks [n, ...], the probe
+        losses [n, P])."""
+        n = len(masks)
+        chain, io = self._stage_chains(overlay, masks, fa_feeds, probe_feeds)
+        self.chunks.run_chains(chain, n)
+        self._restore(self._chain_snap)
+        # one fetch: the masks' bytes and the losses' side by side
+        outs = [m[:n].reshape(n, -1).view(torch.uint8)
+                for m in io["out_masks"]]
+        outs.append(io["out_losses"][:n].contiguous().view(torch.uint8))
+        host = torch.cat(outs, dim=1).cpu().numpy()
+        levels, lo = [], 0
+        for m in io["out_masks"]:
+            size = int(np.prod(m.shape[1:]))
+            levels.append(host[:, lo:lo + size].view(bool)
+                          .reshape((n,) + tuple(m.shape[1:])))
+            lo += size
+        return levels, np.ascontiguousarray(host[:, lo:]).view(np.float32)
 
     def _mask_evolution(self, train_batcher: DomainBatcher,
                         aug_batcher: DomainBatcher,
                         verbose: bool = True) -> None:
         """HEMP candidate generation, fast adaptation, probes and
-        selection. Every candidate's chain starts from the snapshot taken
-        here; the weights and statistics are restored at the end, and the
-        main optimizer's state is never touched."""
+        selection. Every candidate's mask and batches are drawn first, in
+        the JAX package's staging order, then every chain runs from the
+        snapshot taken here (``run_chains``); the weights and statistics
+        are restored at the end, and the main optimizer's state is never
+        touched."""
         cfg = self.config
         ms = self.mask_state
         overlay = self.overlay_enabled()
-        # an overlay chain never writes the live table
-        snap = self._snapshot(table=not overlay)
         self.random_modify_sigma *= 0.99
         self.init_active_percent = max(0.1, self.init_active_percent * 0.95)
         self.candidate_mask_num *= 0.99
@@ -587,13 +763,9 @@ class AREADTrainer:
             print(f"regroup {self.regroup_times}: sigma={self.random_modify_sigma:.4f} "
                   f"active%={self.init_active_percent:.3f} candidates={n_cand}")
         t0 = time.time()
-        # the overlay's whole-table drift L2: the same for every chain
-        drift_l2 = (oa.drift_table_l2(
-            self.model.embedding.table, cfg.regroup_update_step,
-            cfg.update_lr, cfg.wd, TABLE_L2) if overlay else None)
         aug_off = self._device_data[2] if self._device_data is not None else 0
         cand_index: List[Tuple[int, int]] = []
-        out_masks, out_losses = [], []
+        masks, fa_feeds, probe_feeds = [], [], []
         # the numpy streams (mask generator, both batchers) are drawn
         # domain-major, a candidate's mask, then its adapt batches, then
         # its probe batches: the JAX package's staging order
@@ -603,36 +775,35 @@ class AREADTrainer:
             use_aug = len(aug_batcher.domain_indices[d]) > 0
             fa_batcher = aug_batcher if use_aug else train_batcher
             for z in range(n_cand):
-                mask = ms.generate_mask(
+                masks.append(ms.generate_mask(
                     "mask_max_gate", d,
                     init_active_percent=self.init_active_percent,
-                    random_modify_sigma=self.random_modify_sigma)
-                fa = [self._batch(fa_batcher, fa_batcher.next_batch_indices(d),
-                                  aug_off if use_aug else 0)
-                      for _ in range(cfg.regroup_update_step)]
-                probes = [self._batch(train_batcher,
-                                      train_batcher.next_batch_indices(d))
-                          for _ in range(cfg.regroup_eval_step)]
-                if cand_index:
-                    self._restore(snap)
-                mask, losses = self._fast_adapt(mask, fa, probes, drift_l2)
-                out_masks.append(mask)
-                out_losses.append(losses)
+                    random_modify_sigma=self.random_modify_sigma))
+                fa_feeds.append([
+                    self._feed(fa_batcher, fa_batcher.next_batch_indices(d),
+                               aug_off if use_aug else 0)
+                    for _ in range(cfg.regroup_update_step)])
+                probe_feeds.append([
+                    self._feed(train_batcher,
+                               train_batcher.next_batch_indices(d))
+                    for _ in range(cfg.regroup_eval_step)])
                 cand_index.append((d, z))
-        # one fetch for the whole regroup
-        all_losses = torch.stack(out_losses).cpu().numpy()
+        before = dict(cuda_ops.launch_counts)
+        out_masks, all_losses = self.run_chains(masks, fa_feeds, probe_feeds,
+                                                overlay)
         for i, (d, z) in enumerate(cand_index):
-            ms.candidate_domain_mask[d].append(out_masks[i])
+            ms.candidate_domain_mask[d].append([m[i].copy()
+                                                for m in out_masks])
             for loss in all_losses[i]:
                 ms.add_eval_loss(float(loss), d=d, mask_z=z)
         ms.update_all_mask()
-        self._restore(snap)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
         seconds = time.time() - t0
         self.regroup_log.append({
             "seconds": seconds, "chains": len(cand_index),
             "candidates": n_cand, "overlay": overlay,
+            "dispatch": self.chunks.name,
+            "launches": {k: v - before[k]
+                         for k, v in cuda_ops.launch_counts.items()},
             "active_ratio": ms.current_active_ratio()})
         if verbose:
             print(f"mask evolution took {seconds:.1f}s; "

@@ -33,6 +33,16 @@ replayed over a chunk is a captured CUDA graph. Two dispatches run a chunk:
 * ``EagerChunks``: the same steps launched one by one, the loop the port
   always ran.
 
+The candidates of a HEMP regroup (the JAX package's ``fast_adapt_many*``,
+a whole regroup as one ``lax.map`` of chains) take the same two routes
+(``run_chains``): a trainer stages every candidate's inputs in static
+buffers and states its chain as a ``Chain``, whose body runs the candidate
+that a device counter picks and writes its outputs at that slice; the
+graph route captures the body once per (engine, feed form, S, P), after
+its first candidates ran eagerly, and replays it once per candidate. A
+chain sets its host counters (the fast optimizer's ``t`` and ``count``)
+from zero, so each replay puts them where one chain leaves them.
+
 A trainer states each of its step functions as a ``Step``
 (``trainer.chunk_step(kind, state)``): the function, the keys of a host
 feed, the host counters one step advances, its step count, learning rate
@@ -60,6 +70,7 @@ step and so holds at the capture; a replay runs the kernels it picked.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -117,6 +128,20 @@ class Step:
     holds: Tuple                # objects a captured step reads
     resident: Tuple = ()        # ... and, fed row ids, the resident split's
     lrs: Tuple = ()             # the learning rates it is captured with
+
+
+@dataclasses.dataclass
+class Chain:
+    """One HEMP candidate chain of a trainer, as a regroup runs it
+    (``AREADTrainer.chain_step``): ``fn`` runs the candidate that a device
+    counter picks from the regroup's staged buffers, writes its outputs at
+    that slice and advances the counter."""
+    name: str                   # for messages: "HEMP full-sweep chain", ...
+    key: str                    # its graph: engine, feed form, S and P
+    fn: Callable[[], None]
+    counters: List[Tuple[Dict, str]]  # host counters a chain sets
+    holds: Tuple                # objects a captured chain reads
+    lrs: Tuple                  # the learning rates it is captured with
 
 
 # ----------------------------------------------------- the AREAD trainer
@@ -274,19 +299,29 @@ class EagerChunks:
             outs.append(out)
         return torch.stack(losses), tuple(torch.stack(x) for x in zip(*outs))
 
+    @staticmethod
+    def run_chains(chain: Chain, n: int) -> None:
+        """Run ``n`` candidates of a staged regroup, one ``chain.fn`` each."""
+        for _ in range(n):
+            chain.fn()
+
 
 @dataclasses.dataclass
 class _Graph:
-    """One captured step and what it reads and writes."""
+    """One captured step or chain and what it reads and writes."""
     graph: object
     holds: Tuple          # the objects it reads (``GraphChunks._reads``)
     lrs: Tuple            # the learning rates it was captured with
     launches: Dict[str, int]  # kernel launches per replay
+    # the host counters as the captured call left them: where a chain's
+    # replay puts them (a step's replay advances each by one instead)
+    sets: List
 
 
 class GraphChunks:
     """The steps of a chunk as replays of a captured CUDA graph (one per
-    step function and feed form), on static chunk buffers."""
+    step function and feed form), on static chunk buffers; and the
+    candidates of a HEMP regroup as replays of one captured chain each."""
 
     name = "graph"
 
@@ -384,28 +419,31 @@ class GraphChunks:
         optimizer and state and, fed row ids, the resident split."""
         return step.holds + (step.resident if idx else ())
 
-    def _current(self, key: str, step: Step, idx: bool) -> Optional[_Graph]:
-        """The graph of ``key`` if it still reads what a step would read
-        now."""
+    def _current(self, key: str, holds: Tuple, lrs: Tuple
+                 ) -> Optional[_Graph]:
+        """The graph of ``key`` if it still reads what a step (or chain)
+        would read now: the same objects ``holds`` and learning rates."""
         g = self.graphs.get(key)
         if g is None:
             return None
-        holds = self._reads(step, idx)
-        if step.lrs != g.lrs or len(holds) != len(g.holds) or any(
+        if lrs != g.lrs or len(holds) != len(g.holds) or any(
                 a is not b for a, b in zip(holds, g.holds)):
             return None
         return g
 
-    def _capture(self, step: Step, body: Callable, idx: bool) -> _Graph:
-        """Capture one step of ``body``; the host counters and launch counts
-        that the capture advanced are put back."""
+    def _capture(self, what: str, counters, body: Callable, holds: Tuple,
+                 lrs: Tuple) -> _Graph:
+        """Capture one call of ``body`` (``what``: the step or chain, for
+        the message); the host counters and launch counts that the capture
+        advanced are put back, and a chain's end values kept for its
+        replays."""
         tr = self.tr
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
                 "this PyTorch cannot register a torch.Generator with a CUDA "
                 "graph (CUDAGraph.register_generator_state): the captured "
                 "step's dropout would replay one mask")
-        saved = [(d, k, d[k]) for d, k in step.counters]
+        saved = [(d, k, d[k]) for d, k in counters]
         for k in cuda_ops.captured_counts:
             cuda_ops.captured_counts[k] = 0
         if self.pool is None:
@@ -414,15 +452,35 @@ class GraphChunks:
         graph.register_generator_state(tr.generator)
         try:
             capture(graph, self.pool, body)
+            sets = [d[k] for d, k in counters]
         except Exception as e:
-            raise RuntimeError(f"capturing the {step.name} step into a CUDA "
-                               f"graph failed: {e}") from e
+            raise RuntimeError(f"capturing the {what} into a CUDA graph "
+                               f"failed: {e}") from e
         finally:
             for d, k, v in saved:
                 d[k] = v
         self.captures += 1
-        return _Graph(graph=graph, holds=self._reads(step, idx),
-                      lrs=step.lrs, launches=dict(cuda_ops.captured_counts))
+        return _Graph(graph=graph, holds=holds, lrs=lrs,
+                      launches=dict(cuda_ops.captured_counts), sets=sets)
+
+    def _eager_first(self, fn: Callable, n: int, examples=None) -> int:
+        """The recipe's eager calls on a side stream before a capture: the
+        first ``min(WARMUP_STEPS, n)`` steps or chains, real ones (with
+        ``examples``, each step timed). Returns how many ran."""
+        warm = min(WARMUP_STEPS, n)
+        side = side_stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            for j in range(warm):
+                with (contextlib.nullcontext() if examples is None else
+                      self.tr.step_timer.step(n_examples=examples[j])):
+                    fn()
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        return warm
+
+    def _count_replay(self, g: _Graph) -> None:
+        for k, c in g.launches.items():
+            cuda_ops.launch_counts[k] += c
 
     def run(self, kind: str, feeds: Sequence, masks: Sequence,
             state: Dict, staged: Optional[torch.Tensor] = None
@@ -443,31 +501,41 @@ class GraphChunks:
         examples = [feed_examples(f) for f in feeds]
         body = self._body(kind, buf, state)
         done = 0
-        g = self._current(key, step, idx)
+        holds = self._reads(step, idx)
+        g = self._current(key, holds, step.lrs)
         if g is None:
-            # the recipe's eager steps on a side stream: the chunk's first
-            # steps, real ones
-            warm = min(WARMUP_STEPS, n)
-            side = side_stream(self.dev)
-            side.wait_stream(torch.cuda.current_stream(self.dev))
-            with torch.cuda.stream(side):
-                for _ in range(warm):
-                    with tr.step_timer.step(n_examples=examples[done]):
-                        body()
-                    done += 1
-            torch.cuda.current_stream(self.dev).wait_stream(side)
+            done = self._eager_first(body, n, examples)
             if done == n:
                 return self._outputs(buf, n)
             self.graphs.pop(key, None)
-            g = self.graphs[key] = self._capture(step, body, idx)
+            g = self.graphs[key] = self._capture(
+                f"{step.name} step", step.counters, body, holds, step.lrs)
         for j in range(done, n):
             with tr.step_timer.step(n_examples=examples[j]):
                 g.graph.replay()
             for d, k in step.counters:
                 d[k] += 1
-            for k, c in g.launches.items():
-                cuda_ops.launch_counts[k] += c
+            self._count_replay(g)
         return self._outputs(buf, n)
+
+    def run_chains(self, chain: Chain, n: int) -> None:
+        """``EagerChunks.run_chains`` as replays of the chain's graph: its
+        first candidates run eagerly when it is (re)captured, the rest are
+        one replay each."""
+        done = 0
+        g = self._current(chain.key, chain.holds, chain.lrs)
+        if g is None:
+            done = self._eager_first(chain.fn, n)
+            if done == n:
+                return
+            self.graphs.pop(chain.key, None)
+            g = self.graphs[chain.key] = self._capture(
+                chain.name, chain.counters, chain.fn, chain.holds, chain.lrs)
+        for _ in range(done, n):
+            g.graph.replay()
+            for (d, k), v in zip(chain.counters, g.sets):
+                d[k] = v
+            self._count_replay(g)
 
     @staticmethod
     def _outputs(buf: Dict, n: int):

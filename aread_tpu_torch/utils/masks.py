@@ -146,10 +146,12 @@ def prune_mask_tensor(mask: Sequence[torch.Tensor],
     device, with no host round trip: the threshold is quantile(prun_ratio)
     over the positive entries by numpy's 'linear' rule, spelled out on the
     sorted values; the pruned mask is validated and the input kept if the
-    output dies or no gate value is positive."""
+    output dies or no gate value is positive. Nothing is read back to the
+    host and nothing is copied from it, so a CUDA graph can capture it:
+    the quantile's two order statistics are gathers by device indices."""
     f32 = torch.float32
     dev = gate_means[0].device
-    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    inf = torch.full((), float("inf"), dtype=f32, device=dev)
     threshold = inf
     any_pos = torch.zeros((), dtype=torch.bool, device=dev)
     for gv in gate_means:
@@ -161,8 +163,8 @@ def prune_mask_tensor(mask: Sequence[torch.Tensor],
         q = prun_ratio * (npos - 1).to(f32)
         lo = torch.clamp(torch.floor(q).to(torch.int64), 0, n - 1)
         frac = q - lo.to(f32)
-        a = flat[torch.clamp(start + lo, 0, n - 1)]
-        b = flat[torch.clamp(start + lo + 1, 0, n - 1)]
+        a, b = flat.index_select(0, torch.clamp(
+            start + lo + torch.arange(2, device=dev), 0, n - 1)).unbind()
         lvl = torch.where(npos > 0,
                           torch.where(lo + 1 < npos,
                                       a * (1 - frac) + b * frac, a), inf)

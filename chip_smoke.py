@@ -77,10 +77,14 @@ Phases, each printing one line:
   hemp     the HEMP loop at full Amazon width: build_model +
            AREADTrainer.fit — warm-up, bagging steps, a mask evolution at
            every regroup point (fresh fast-Adam chains from a snapshot,
-           a prune after each step, probes), the valid pass, the
-           final-gate phase, the test pass; depth cut to HEMP_DEPTH. Then
-           the evolution's parts timed one by one (adapt step, probe,
-           snapshot restore, the prune by both routes);
+           a prune on the card after each step, probes; one CUDA graph
+           replay a chain), the valid pass, the final-gate phase, the test
+           pass; depth cut to HEMP_DEPTH. Then the evolution's parts timed
+           one by one (adapt step, probe, snapshot restore, the prune by
+           both routes); a regroup at the default depth (225 chains of
+           5 + 5) by graph and by an eager twin, bitwise, its seconds by
+           each; ms, launches, kernels and idle share of a chain by each
+           dispatch; a chain under sync debug mode 'error';
   serve    the path from a trained model to an answered request, at full
            Amazon width: the hemp phase's AREAD (evolved masks), the
            train_dense phase's DeepFM and MMoE each saved with
@@ -95,7 +99,8 @@ Phases, each printing one line:
            evolution under each fast-adapt engine (the full sweep, kernel
            1; the overlay, kernel 2 alone, on the schedule's launch
            counts) with ms, launches and device time per chain; both
-           engines' chains on a 248M-element table and the crossover
+           engines' chains by graph and by an eager twin, bitwise, on the
+           Amazon table and on a 248M-element one, and the crossover
            they imply; the overlay card vs CPU and vs the full sweep (f32,
            2 domains); an overlay AREADTrainer.fit with log_dir; MMoE
            fits under each dynamic_regroup mode and the loss matrix card
@@ -169,7 +174,8 @@ Phases, each printing one line:
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
-           (2 domains' chains): they must agree;
+           (2 domains' chains, replays of a graph on the card): they
+           must agree;
   profile, profile_dense, profile_hemp  (opt-in, after train /
            train_dense / hemp) torch.profiler over a chunk of AREAD bagging
            steps of each dispatch / 4 dense DeepFM steps / 4 fast-adapt
@@ -1847,6 +1853,9 @@ def reference_evolution(ctx):
     launches = ctx["launches_by_path"].pop("reference_evolution")
     if launches["sparse_adam"] != n_domain * 2 * 2:
         raise AssertionError(f"the card's evolution launched {launches}")
+    dispatch = runs["cuda"][0].regroup_log[-1]["dispatch"]
+    if dispatch != "graph":
+        raise AssertionError(f"the card's chains ran {dispatch}")
     cpu, gpu = runs["cpu"][1][0], runs["cuda"][1][0]
     diff = 0.0
     for d in range(n_domain):
@@ -1863,7 +1872,7 @@ def reference_evolution(ctx):
     say("reference", path="aread _mask_evolution, full width", chains=4,
         adapt_steps=2, probes=2, masks_equal=True,
         probe_loss_max_abs_diff=diff, tolerance="atol 1e-5 + 2 f32 ulp",
-        probe_losses_card=gpu["losses"],
+        card_chain_dispatch=dispatch, probe_losses_card=gpu["losses"],
         seconds={"cpu": runs["cpu"][2], "cuda": runs["cuda"][2]})
 
 
@@ -2693,6 +2702,242 @@ def event_ms(fn, n: int = 10, warmup: int = 2):
     return statistics.median(ev), statistics.median(host)
 
 
+def chain_inputs(tr, batcher, n: int, seed: int = 9):
+    """A regroup's inputs for ``run_chains``: ``n`` candidates, candidate c
+    of domain c % n_domain, each a random mask of its own stream (so that
+    the trainers' mask streams stay as they were) and its adapt and probe
+    feeds from ``batcher`` as ``tr`` feeds a chain (row ids with the split
+    resident, else host batches). Twins share one draw."""
+    from aread_tpu_torch.utils.masks import HempMaskState
+
+    cfg = tr.config
+    ms = HempMaskState(tr.model.n_tower, tr.n_domain, seed=seed)
+    masks, fa, probe = [], [], []
+    for c in range(n):
+        d = c % tr.n_domain
+        masks.append(ms.generate_mask("rand", d, 0.7))
+        fa.append([tr._feed(batcher, batcher.next_batch_indices(d))
+                   for _ in range(cfg.regroup_update_step)])
+        probe.append([tr._feed(batcher, batcher.next_batch_indices(d))
+                      for _ in range(cfg.regroup_eval_step)])
+    return masks, fa, probe
+
+
+def chain_replays(tr, inputs, overlay: bool, ctx, path: str,
+                  profiled: int = 2):
+    """``tr``'s dispatch over the staged ``inputs`` without the staging:
+    ms per chain by CUDA events and by the host clock (median of 3 runs
+    of every candidate, after one), then the first ``profiled`` chains
+    under chunk_profile (per chain: launch calls, kernels run, device busy
+    ms; the idle share against the unprofiled host clock), their launches
+    counted as ``path`` and held to the profiler's kernel records. The
+    weights are restored after."""
+    chain, io = tr._stage_chains(overlay, *inputs)
+    n = len(inputs[0])
+
+    def run(k):
+        io["i"].zero_()
+        tr.chunks.run_chains(chain, k)
+
+    ev, host = event_ms(lambda: run(n), n=3, warmup=1)
+    _, prof = counted(ctx, path, lambda: chunk_profile(
+        lambda: run(profiled), profiled))
+    launches = ctx["launches_by_path"].pop(path)
+    miss = [f"{k}: profiler {prof[key]}, counted {launches[k]}"
+            for k, key in KERNEL_RECORDS.items() if prof[key] != launches[k]]
+    if miss:
+        raise AssertionError(f"{path}: {'; '.join(miss)}")
+    tr._restore(tr._chain_snap)
+    return {"chain_ms_events": ev / n, "chain_ms_host_clock": host / n,
+            "chains_timed": n, "chains_profiled": profiled,
+            "launches_per_chain": {k: v / profiled
+                                   for k, v in launches.items()},
+            **{k: v for k, v in prof.items()
+               if k not in KERNEL_RECORDS.values()},
+            # the profiler stretches the wall clock: the busy time over the
+            # unprofiled chain's time
+            "device_idle_share_unprofiled": 1 - prof["device_busy_ms"] / (
+                host / n)}
+
+
+def sync_debug_chain(tr, inputs, overlay: bool) -> None:
+    """The chain that ``tr``'s graph captured, its body run once eagerly on
+    the first staged candidate under torch.cuda.set_sync_debug_mode
+    ('error'): a chain that waited for the device (a host read, a
+    pageable copy) raises. The weights are restored after."""
+    chain, _ = tr._stage_chains(overlay, *inputs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chain.fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    tr._restore(tr._chain_snap)
+
+
+def chain_twins(ctx, path, trs, inputs, overlay: bool, orders, want):
+    """``trs['graph']`` (CUDA graph replays) and ``trs['eager']`` (its eager
+    twin from the same seed) each run the regroup ``inputs`` through
+    ``run_chains``, once per entry of ``orders`` (the dispatches in the
+    order they run); after each entry that ran both, every candidate's
+    pruned mask and probe loss, the weights and the dropout generator
+    must be bitwise equal. Each run's kernel launches must equal ``want``.
+    Returns per dispatch its runs: seconds (host clock, synchronised) and
+    ms per chain by CUDA events and by the host clock, staging and the one
+    fetch included."""
+    runs = {name: [] for name in trs}
+    for ri, order in enumerate(orders):
+        got = {}
+        for name in order:
+            t = trs[name]
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            a.record()
+            key = f"{path}/{name}"
+            got[name] = counted(ctx, key, lambda: t.run_chains(
+                *inputs, overlay))
+            b.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - h0
+            launches = ctx["launches_by_path"].pop(key)
+            if launches != want:
+                raise AssertionError(f"{key} run {ri} launched {launches}, "
+                                     f"the schedule implies {want}")
+            n = len(inputs[0])
+            runs[name].append({"seconds": wall, "chains": n,
+                               "ms_per_chain_events": a.elapsed_time(b) / n,
+                               "ms_per_chain_host_clock": wall * 1e3 / n,
+                               "captures": getattr(t.chunks, "captures", 0)})
+        if len(got) < 2:
+            continue
+        (gm, gl), (em, el) = got["graph"], got["eager"]
+        bad = [f"level {li}" for li, (x, y) in enumerate(zip(gm, em))
+               if not np.array_equal(x, y)]
+        if gl.tobytes() != el.tobytes():
+            bad.append(f"losses {gl.tolist()} {el.tolist()}")
+        bad += bits_differ(
+            {"state_dict": trs["graph"].model.state_dict(),
+             "generator": trs["graph"].generator.get_state()},
+            {"state_dict": trs["eager"].model.state_dict(),
+             "generator": trs["eager"].generator.get_state()})
+        if bad:
+            raise AssertionError(f"{path} run {ri}: graph != eager at "
+                                 f"{bad[:8]}")
+        if not np.isfinite(gl).all():
+            raise AssertionError(f"{path}: non-finite probe losses")
+    return runs
+
+
+def chain_twin_trainers(make):
+    """Two trainers from one seed (``make()``), the second with the eager
+    dispatch; they must start bitwise equal."""
+    from aread_tpu_torch.train.step_graph import EagerChunks
+
+    trs = {"graph": make(), "eager": make()}
+    trs["eager"]._chunks = EagerChunks(trs["eager"])
+    if trs["graph"].chunks.name != "graph":
+        raise AssertionError("a card trainer's chains are not graphs")
+    if bits_differ(trainer_bits(trs["graph"]), trainer_bits(trs["eager"])):
+        raise AssertionError("two trainers from one seed differ")
+    return trs
+
+
+def hemp_chain_twins(ctx, data):
+    """One regroup at the default depth (the config defaults: 25 domains x
+    int(10 * 0.99) = 9 candidates = 225 chains of 5 adapt steps and 5
+    probes, the full sweep, the split resident on the card, dropout 0.2)
+    through ``_mask_evolution`` by graph and by an eager twin from one
+    seed: every candidate's pruned mask and probe loss bitwise, the
+    weights and generator too, kernel 1's launches the schedule's; then a
+    second regroup by graph alone. Then ms per chain of each dispatch
+    over 4 staged candidates, per chain launches and the device's idle
+    share, and one chain under sync debug mode 'error'."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+
+    spec = data.spec
+
+    def make():
+        t = build_trainer(spec, "cuda", N_DOMAIN, dataset_name="amazon",
+                          seed=0)
+        t.stage_device_data(data.train_x, data.train_y, data.aug_train_x,
+                            data.aug_train_y)
+        for d in range(N_DOMAIN):
+            t.mask_state.domain_mask[d] = t.mask_state.generate_mask(
+                "rand", d, t.config.init_active_percent)
+        return t
+
+    trs = chain_twin_trainers(make)
+    cfg = trs["graph"].config
+    if (cfg.regroup_update_step, cfg.regroup_eval_step,
+            cfg.candidate_mask_num, trs["graph"].overlay_enabled()) != (
+            5, 5, 10, False):
+        raise AssertionError("not the default depth of the full sweep")
+    recs = {name: spy_evolutions(t) for name, t in trs.items()}
+    batchers = {name: [DomainBatcher(data.train_x if s == 1 else
+                                     data.aug_train_x,
+                                     data.train_y if s == 1 else
+                                     data.aug_train_y, BS, spec.domain_idx,
+                                     N_DOMAIN, seed=s) for s in (1, 2)]
+                for name in trs}
+    runs = {name: [] for name in trs}
+    for order in (("graph", "eager"), ("graph",)):
+        for name in order:
+            t = trs[name]
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            counted(ctx, f"hemp/default_depth_{name}",
+                    lambda: t._mask_evolution(*batchers[name], verbose=False))
+            log = t.regroup_log[-1]
+            launches = ctx["launches_by_path"].pop(
+                f"hemp/default_depth_{name}")
+            want = {"sparse_adam": log["chains"] * 5, "fused_adam": 0}
+            if log["chains"] != N_DOMAIN * 9 or launches != want:
+                raise AssertionError(f"default depth {name}: {log['chains']} "
+                                     f"chains launched {launches}, the "
+                                     f"schedule implies {want}")
+            runs[name].append({"seconds": time.perf_counter() - h0,
+                               "seconds_in_regroup_log": log["seconds"],
+                               "chains": log["chains"],
+                               "dispatch": log["dispatch"]})
+        if len(order) == 2:
+            g, e = recs["graph"][-1], recs["eager"][-1]
+            bad = [d for d in range(N_DOMAIN)
+                   if g["losses"][d] != e["losses"][d]
+                   or not all(masks_equal(a, b) for a, b in zip(
+                       g["candidates"][d], e["candidates"][d]))
+                   or not masks_equal(g["after"][d], e["after"][d])]
+            bad += bits_differ(
+                {"sd": trs["graph"].model.state_dict(),
+                 "gen": trs["graph"].generator.get_state()},
+                {"sd": trs["eager"].model.state_dict(),
+                 "gen": trs["eager"].generator.get_state()})
+            if bad:
+                raise AssertionError(f"default-depth regroup: graph != eager "
+                                     f"at {bad[:8]}")
+    if [r["dispatch"] for r in runs["graph"]] != ["graph", "graph"]:
+        raise AssertionError(f"the graph trainer ran {runs['graph']}")
+    inputs = chain_inputs(trs["graph"], batchers["graph"][0], 4)
+    per_chain = {name: chain_replays(t, inputs, False, ctx,
+                                     f"hemp/replays_{name}")
+                 for name, t in trs.items()}
+    tr = trs["graph"]
+    chain, io = tr._stage_chains(False, *inputs)
+    ctx["hemp_profile_args"] = lambda: (io["i"].zero_(),
+                                        tr.chunks.run_chains(chain, 1))
+    sync_debug_chain(tr, inputs, False)
+    return {"depth": {"domains": N_DOMAIN, "candidates_per_domain": 9,
+                      "adapt_steps": 5, "probes": 5, "engine": "full",
+                      "feed": "row ids into the resident split"},
+            "regroups": runs, "bitwise_graph_eager": True,
+            "per_chain_4_staged": per_chain,
+            "graph_launches_per_replay": {
+                k: v.launches for k, v in tr.chunks.graphs.items()},
+            "sync_debug_error_chain": "passed"}
+
+
 def phase_hemp(ctx):
     """The HEMP loop at full Amazon width through build_model and
     AREADTrainer.fit, then its parts timed alone."""
@@ -2826,31 +3071,12 @@ def phase_hemp(ctx):
     got = [m.cpu().numpy() for m in prune_mask_tensor(mask_t, gms)]
     if not masks_equal(got, prune_mask(mask, [g.cpu().numpy() for g in gms])):
         raise AssertionError("the two prune routes disagree on the card")
-
-    # a whole chain by either prune route, in turns (host, device, device,
-    # host), from the snapshot each time. The trainer prunes on the host;
-    # the tensor twin stands in for it here, the mask kept on the card
-    card_mask = {}
-
-    def device_prune(_, gate_means):
-        card_mask["m"] = prune_mask_tensor(card_mask["m"], gate_means)
-        return card_mask["m"]
-
-    def chain():
-        card_mask["m"] = mask_t
-        tr._restore(snap)
-        tr._fast_adapt(mask, fa, probes)[1].cpu()
-
-    host_prune = tr._prune
-    chain_ms = {"host": [], "device": []}
-    for route in ("host", "device", "device", "host"):
-        tr._prune = device_prune if route == "device" else host_prune
-        chain_ms[route].append(event_ms(chain, n=6)[1])
-    tr._prune = host_prune
     tr._restore(snap)
-    ctx["hemp_profile_args"] = chain
-    ctx["hemp"] = {"trainer": tr, "data": data, "final": True}
+    del snap, state
 
+    # --- the chains by graph and by an eager twin at the default depth
+    twins = hemp_chain_twins(ctx, data)
+    ctx["hemp"] = {"trainer": tr, "data": data, "final": True}
     log = tr.regroup_log
     say("hemp", depth=HEMP_DEPTH, table_rows=model.spec.n_rows,
         embed_dim=cfg.embed_dim, bs=cfg.bs, n_tower=list(model.n_tower),
@@ -2873,8 +3099,10 @@ def phase_hemp(ctx):
                                  "host_clock": prune_host[1]},
                   "device_route": {"events": prune_dev[0],
                                    "host_clock": prune_dev[1]}},
-        chain_ms_host_clock_by_prune_route=chain_ms,
-        prune_route_in_use="host",
+        prune_route_in_use="device",
+        regroup_dispatch=[r["dispatch"] for r in log],
+        regroup_launches=[r["launches"] for r in log],
+        default_depth_chains=twins,
         sparse_adam_launches=launches["sparse_adam"],
         sparse_adam_launches_schedule=want,
         main_optimizer_t=tr.opt_state["t"],
@@ -3611,38 +3839,6 @@ def aread_overlay_trainer(dims, device="cuda", **cfg_kw):
                                     N_DOMAIN, device=device), cfg, N_DOMAIN)
 
 
-def chain_fn(tr, d: int, rng, overlay: bool):
-    """One chain of domain ``d`` from a snapshot (restore, adapt steps with
-    their prunes, probes, the fetch of the probe losses), as a callable;
-    the regroup's whole-table drift L2 as another (None for the full
-    sweep); and the snapshot, which the caller restores when it is done
-    timing (a chain leaves the weights as it moved them)."""
-    from aread_tpu_torch.ops import overlay_adam as oa
-    from aread_tpu_torch.train.trainer import TABLE_L2
-
-    cfg, spec = tr.config, tr.model.spec
-    x, y = amazon_rows(rng, spec, (cfg.regroup_update_step
-                                   + cfg.regroup_eval_step) * BS)
-    x[:, spec.domain_idx] = d
-    bs = [tr.place({"x": x[i * BS:(i + 1) * BS], "y": y[i * BS:(i + 1) * BS]
-                    .astype(np.float32), "valid": np.ones(BS, np.float32)})
-          for i in range(len(x) // BS)]
-    fa, probes = bs[:cfg.regroup_update_step], bs[cfg.regroup_update_step:]
-    mask = tr.mask_state.generate_mask("rand", d, 0.7)
-    table = tr.model.embedding.table
-    snap = tr._snapshot(table=not overlay)
-    drift = ((lambda: oa.drift_table_l2(table, cfg.regroup_update_step,
-                                        cfg.update_lr, cfg.wd, TABLE_L2))
-             if overlay else None)
-    state = {"drift": drift() if overlay else None}
-
-    def chain():
-        tr._restore(snap)
-        tr._fast_adapt(mask, fa, probes, state["drift"])[1].cpu()
-
-    return chain, drift, snap
-
-
 def options_overlay(ctx, tmp: str):
     """One 50-chain evolution of each engine at full Amazon width (bf16
     table and moments) from the same weights, masks and streams: ms per
@@ -3712,49 +3908,82 @@ def options_overlay(ctx, tmp: str):
         pruned_masks_equal_between_engines_bf16=f"{sum(same)}/{len(same)}",
         probe_loss_max_abs_diff_bf16_engines=float(
             np.max(np.abs(np.array(a) - np.array(b)))))
-    ctx["overlay_amazon"] = (runs["full"]["trainer"], elems)
     del runs
     torch.cuda.empty_cache()
 
 
-def chain_times(tr):
-    """Per engine, on ``tr``'s table: the host-clock ms of one chain
-    (median of 5, the engines in turns full, overlay, overlay, full), its
-    CUDA launches and device busy ms (torch.profiler, 2 chains), and the
-    whole-table drift L2's ms (once per regroup; 0 for the full sweep)."""
-    fns = {e: chain_fn(tr, 0, np.random.default_rng(9), e == "overlay")
-           for e in ("full", "overlay")}
-    out = {e: {"chain_ms_host_clock": []} for e in fns}
-    for e in ("full", "overlay", "overlay", "full"):
-        chain, _, snap = fns[e]
-        out[e]["chain_ms_host_clock"].append(event_ms(chain, n=5)[1])
-        tr._restore(snap)
-    for e, (chain, drift, snap) in fns.items():
-        launches, busy = launches_and_busy_per_call(chain, n=2)
-        tr._restore(snap)
-        out[e].update(cuda_launches=launches, device_busy_ms=busy,
-                      drift_l2_ms=event_ms(drift, n=3)[1] if drift else 0.0)
-    return out
+# candidates of each chain_times regroup: 2 eager, a capture, 4 replays
+CHAIN_CANDIDATES = 6
+
+
+def chain_times(ctx, label: str, dims, rng):
+    """Per engine on a table of ``dims`` (bf16 table and moments, the
+    options' S and P): a regroup of CHAIN_CANDIDATES candidates through
+    ``run_chains`` by graph and by an eager twin from one seed, in turns
+    (graph, eager, eager, graph), bitwise after each pair, with each run's
+    kernel launches held to the schedule; per dispatch the ms per chain
+    (CUDA events and host clock) and per chain launch calls, kernels
+    and device busy ms (``chain_replays``); and the whole-table drift
+    L2's ms (once per regroup; 0 for the full sweep). Returns (the
+    table's elements, whether 'auto' picks the overlay for it, per engine
+    those numbers)."""
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.ops import overlay_adam as oa
+    from aread_tpu_torch.train.trainer import TABLE_L2
+
+    def make():
+        t = aread_overlay_trainer(dims)
+        t.init()
+        return t
+
+    trs = chain_twin_trainers(make)
+    tr = trs["graph"]
+    cfg, spec = tr.config, tr.model.spec
+    x, y = amazon_rows(rng, spec, N_DOMAIN * 4 * BS)
+    inputs = chain_inputs(tr, DomainBatcher(x, y, BS, spec.domain_idx,
+                                            N_DOMAIN, seed=3),
+                          CHAIN_CANDIDATES)
+    n, S = CHAIN_CANDIDATES, cfg.regroup_update_step
+    out = {}
+    for engine in ("full", "overlay"):
+        ov = engine == "overlay"
+        want = ({"sparse_adam": 0, "fused_adam": overlay_launches(n, 1, cfg)}
+                if ov else {"sparse_adam": n * S, "fused_adam": 0})
+        runs = chain_twins(ctx, f"options/chains_{label}_{engine}", trs,
+                           inputs, ov, (("graph", "eager"),
+                                        ("eager", "graph")), want)
+        per = {name: chain_replays(t, inputs, ov, ctx,
+                                   f"options/replays_{label}_{engine}_{name}")
+               for name, t in trs.items()}
+        table = tr.model.embedding.table
+        out[engine] = {
+            "regroups": runs, "by_dispatch": per,
+            # the graph's numbers: what a card's regroup takes
+            "chain_ms_host_clock": per["graph"]["chain_ms_host_clock"],
+            "device_busy_ms": per["graph"]["device_busy_ms"],
+            "drift_l2_ms": event_ms(lambda: oa.drift_table_l2(
+                table, S, cfg.update_lr, cfg.wd, TABLE_L2), n=3)[1]
+            if ov else 0.0}
+    elems, auto = spec.n_rows * EMBED_DIM, tr.overlay_enabled()
+    del trs, tr, table
+    torch.cuda.empty_cache()
+    return elems, auto, out
 
 
 def options_overlay_large(ctx, tmp: str):
-    """Each engine's chain on the Amazon table and on one past 240M
-    elements, and where the two cross: each engine's time per chain (the
+    """Each engine's chains on the Amazon table and on one past 240M
+    elements, by graph and by an eager twin (``chain_times``), and where
+    the two engines cross: each engine's time per chain by graph (the
     overlay's whole-table drift shared by a regroup's 50 chains) taken as
     linear in the table's size between the two tables, once by the host
     clock (what a regroup takes) and once by device busy time."""
     from aread_tpu_torch.train.hemp import OVERLAY_AUTO_MIN_ELEMS
 
-    small_tr, e1 = ctx.pop("overlay_amazon")
-    small = chain_times(small_tr)
-    del small_tr
-    torch.cuda.empty_cache()
-    tr = aread_overlay_trainer(BIG_DIMS)
-    e2 = tr.model.spec.n_rows * EMBED_DIM
-    if e2 < OVERLAY_AUTO_MIN_ELEMS or not tr.overlay_enabled():
+    rng = np.random.default_rng(9)
+    e1, _, small = chain_times(ctx, "amazon", AMAZON_DIMS, rng)
+    e2, auto, big = chain_times(ctx, "big", BIG_DIMS, rng)
+    if e2 < OVERLAY_AUTO_MIN_ELEMS or not auto:
         raise AssertionError(f"{e2} elements: not past the crossover")
-    tr.init()
-    big = chain_times(tr)
 
     def crossing(key):
         per = {e: [statistics.median(np.atleast_1d(t[e][key]))
@@ -3772,8 +4001,6 @@ def options_overlay_large(ctx, tmp: str):
         ms_per_chain_with_drift_share={"host_clock": host, "device": dev},
         crossover_table_elems={"host_clock": host_cross, "device": dev_cross},
         jax_package_auto_threshold=OVERLAY_AUTO_MIN_ELEMS)
-    del tr
-    torch.cuda.empty_cache()
 
 
 def options_overlay_reference(ctx, tmp: str):

@@ -21,7 +21,9 @@ either way. Both sides get the true 0 (the JAX side through a wrapper
 around its hybrid_update_sparse that changes nothing else). The JAX
 trainer runs single jitted steps (its SCAN_CHUNK is set out of reach on
 the instance): the scans compute the same steps and take minutes to
-compile here."""
+compile here. Every test here runs torch on one thread: the suite's
+workers share the host's cores, and small tensors on many threads each
+spin for the rest."""
 
 import dataclasses
 import re
@@ -53,7 +55,7 @@ from aread_tpu_torch.ops.sparse_adam import (dedup_rows, lazy_sparse_adam_,
                                              sparse_adam_dispatch)
 from aread_tpu_torch.train.hemp import AREADTrainer, gather_batch
 from aread_tpu_torch.train.trainer import DenseAdam
-from aread_tpu_torch.utils.masks import prune_mask_tensor
+from aread_tpu_torch.utils.masks import prune_mask
 
 E, N_TOWER, N_DOMAIN, BS = 8, (2, 3, 4), 3, 32
 MODEL_KW = dict(embed_dim=E, n_tower=N_TOWER, n_domain=N_DOMAIN,
@@ -87,6 +89,14 @@ def _np_tree(t):
 
 def _jnp_tree(t):
     return jax.tree_util.tree_map(jnp.array, t)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -433,19 +443,19 @@ def test_mask_evolution_matches_jax(world):
 
 
 def test_prune_routes_give_the_same_evolution(world):
-    """The chain prunes on the host; with the tensor twin put in its
-    place an evolution chooses the same masks and the same probe losses,
-    bitwise."""
-    def tensor_prune(mask, gate_means):
-        pruned = prune_mask_tensor(tuple(torch.tensor(m) for m in mask),
-                                   gate_means)
-        return [m.numpy() for m in pruned]
+    """The chain prunes on the device (the tensor twin); with the host
+    ``prune_mask`` put in its place an evolution chooses the same masks
+    and the same probe losses, bitwise."""
+    def host_prune(mask, gate_means):
+        pruned = prune_mask([m.numpy() for m in mask],
+                            [g.numpy() for g in gate_means])
+        return tuple(torch.tensor(m) for m in pruned)
 
     seen = {}
     for route in ("host", "tensor"):
         _, _, _, _, tr = _fresh(world)
-        if route == "tensor":
-            tr._prune = tensor_prune
+        if route == "host":
+            tr._prune = host_prune
         _share_hemp_state(world.jt, tr, seed=5)
         _spy(tr.mask_state)
         tr._mask_evolution(*_batchers(world, DomainBatcher), verbose=False)

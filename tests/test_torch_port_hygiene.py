@@ -405,6 +405,82 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     assert last.values[1].values[0].value == "gpu"
 
 
+def test_chip_smoke_holds_the_chains_graph_against_eager():
+    """The hemp phase runs a regroup at the default depth by graph and by
+    an eager twin through ``_mask_evolution`` and requires every
+    candidate bitwise, times the chains of each dispatch, holds their
+    counted launches to the profiler's kernel records and runs a chain
+    under sync debug mode 'error'; the reference phase requires the card's
+    chains to be graphs; the options phase holds both engines' chains by
+    graph and by eager bitwise, with their launches held to the schedule,
+    on the Amazon table and on BIG_DIMS'."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    assert "hemp_chain_twins(ctx, data)" in funcs["phase_hemp"]
+    twins = funcs["hemp_chain_twins"]
+    for name in ("chain_twin_trainers(", "spy_evolutions(", "_mask_evolution(",
+                 "N_DOMAIN * 9", "(5, 5, 10, False)", "stage_device_data(",
+                 "bits_differ(", "chain_replays(", "sync_debug_chain(",
+                 "hemp_profile_args"):
+        assert name in twins, name
+    assert "EagerChunks" in funcs["chain_twin_trainers"]
+    assert "set_sync_debug_mode('error')" in funcs["sync_debug_chain"]
+    for name in ("chunk_profile(", "KERNEL_RECORDS", "event_ms(",
+                 "run_chains("):
+        assert name in funcs["chain_replays"], name
+    for name in ("run_chains(", "tobytes()", "bits_differ(", "counted(",
+                 "launches != want"):
+        assert name in funcs["chain_twins"], name
+    assert "'dispatch'" in funcs["reference_evolution"]
+    times = funcs["chain_times"]
+    for name in ("chain_twins(", "chain_replays(", "overlay_launches(",
+                 "('graph', 'eager'), ('eager', 'graph')", "drift_table_l2"):
+        assert name in times, name
+    for dims in ("AMAZON_DIMS", "BIG_DIMS"):
+        assert f"chain_times(ctx" in funcs["options_overlay_large"]
+        assert dims in funcs["options_overlay_large"], dims
+
+
+def test_chip_smoke_chain_inputs_have_the_regroup_shape():
+    """``chain_inputs`` on the CPU, at a toy size: ``n`` candidates in
+    domain order, each a valid mask and S adapt / P probe feeds as the
+    trainer feeds a chain (host batches here, row ids with the split
+    resident)."""
+    import importlib.util
+
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import DomainBatcher, make_synthetic_data
+    from aread_tpu_torch.models.aread import AREAD
+    from aread_tpu_torch.train.hemp import AREADTrainer
+    from aread_tpu_torch.utils.masks import has_output
+
+    spec_ = importlib.util.spec_from_file_location("chip_smoke",
+                                                   ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(cs)
+    data = make_synthetic_data(n_rows=300, n_domain=3, vocab=50, seed=1)
+    cfg = Config(model="aread", bs=16, embed_dim=8, regroup_update_step=3,
+                 regroup_eval_step=2)
+    tr = AREADTrainer(AREAD(data.spec, embed_dim=8, n_tower=(2, 3),
+                            n_domain=3, expert_dims=(8,),
+                            tower_dims=((4,), (4,)), device="cpu"), cfg, 3)
+    batcher = DomainBatcher(data.train_x, data.train_y, 16,
+                            data.spec.domain_idx, 3, seed=0)
+    masks, fa, probe = cs.chain_inputs(tr, batcher, 5)
+    assert len(masks) == len(fa) == len(probe) == 5
+    assert all(len(f) == 3 for f in fa) and all(len(p) == 2 for p in probe)
+    assert all(has_output(m) for m in masks)
+    for c, cand in enumerate(fa):
+        for b in cand:
+            assert b["x"].shape[0] == 16
+            live = b["x"][b["valid"] > 0]
+            assert (live[:, data.spec.domain_idx] == c % 3).all()
+    tr._device_data = (None, None, 0)
+    _, ids, _ = cs.chain_inputs(tr, batcher, 2)
+    assert ids[0][0].dtype == np.int32 and ids[0][0].shape == (16,)
+
+
 def test_chip_smoke_runs_the_options_phase():
     """The options phase drives each option through the entry points and
     holds the overlay's kernel launches to the schedule's."""

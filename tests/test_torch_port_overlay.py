@@ -9,9 +9,9 @@ Inputs are made from a seed with numpy, the JAX weights drawn by
 ``seeded_variables`` and carried over by convert.py; f32 table and
 moments; dropout 0.
 
-Tolerances, each stated where it is used: the working set equal as a set
-(the JAX one keeps duplicate slots, the port's holds each row once);
-``compact_grad`` exact (a gather of the same deduplicated sums); every
+Tolerances, each stated where it is used: the working set bitwise JAX's
+(sorted int32, duplicate slots kept); ``compact_grad`` exact (a gather of
+the same deduplicated sums); every
 function that runs Adam (the compact step, the drift, the gather with
 drift) within one f32 ulp (the fused Adam's plain version against
 ``reference_adam_update``: Queue 3's one-ulp gap); the whole-table drift
@@ -167,12 +167,12 @@ def test_overlay_function_matches_jax(world, fn):
     emb = AREAD(data.spec, device="cpu", **MODEL_KW).embedding
     ws = oa.build_working_set(emb, torch.tensor(xs))
     if fn == "working_set":
-        # the same rows, sorted; the port's once each
-        assert np.array_equal(ws.numpy(), np.unique(jws))
-        assert (np.diff(ws.numpy()) > 0).all() and len(ws) < len(jws)
+        # the same slots, duplicates and dtype too: a static shape
+        assert ws.numpy().dtype == jws.dtype == np.int32
+        assert np.array_equal(ws.numpy(), jws)
+        assert len(np.unique(jws)) < len(jws) == xs.size
         return
-    # a JAX slot's row is the port's slot of the same row
-    slot = np.searchsorted(ws.numpy(), jws)
+    assert np.array_equal(ws.numpy(), jws)
     rng = np.random.default_rng(4)
     n_rows = table_np.shape[0]
     if fn == "compact_grad":
@@ -183,11 +183,14 @@ def test_overlay_function_matches_jax(world, fn):
         uids, gsum = dedup_rows(ids.to(torch.int32), torch.tensor(g), n_rows)
         jcg = np.asarray(JOA.compact_grad(jnp.asarray(jws), juids, jgsum, 1))
         cg = oa.compact_grad(ws, uids, gsum).numpy()
-        np.testing.assert_array_equal(cg[slot], jcg)
+        np.testing.assert_array_equal(cg, jcg)
         # rows of the working set the batch did not touch: exact zeros
         assert (cg[~np.isin(ws.numpy(), ids.numpy())] == 0).all()
         return
-    C = len(ws)
+    # the elementwise steps (adam_step, drift_rows) take [C, E] of any C:
+    # the working set's distinct rows, as before it kept duplicate slots
+    C = (len(ws) if fn in ("gather", "l2_correction")
+         else len(np.unique(jws)))
     w0 = rng.standard_normal((C, E)).astype(np.float32)
     if fn == "adam_step":
         m0 = (0.1 * rng.standard_normal((C, E))).astype(np.float32)
@@ -218,7 +221,7 @@ def test_overlay_function_matches_jax(world, fn):
                                     drift_steps=drift, **HYPER)
             want = JOA.overlay_gather(jtable, jnp.asarray(rid.numpy()),
                                       ws=jnp.asarray(jws),
-                                      wvals=jnp.asarray(wvals[slot]),
+                                      wvals=jnp.asarray(wvals),
                                       drift_steps=drift, **HYPER)
             _assert_ulp(got.numpy(), want)
     elif fn == "drift_table_l2":
@@ -229,7 +232,7 @@ def test_overlay_function_matches_jax(world, fn):
         got = float(oa.overlay_l2_correction(table, ws, torch.tensor(w0),
                                              S_FA, **HYPER))
         want = float(JOA.overlay_l2_correction(
-            jtable, jnp.asarray(jws), jnp.asarray(w0[slot]), S_FA, **HYPER))
+            jtable, jnp.asarray(jws), jnp.asarray(w0), S_FA, **HYPER))
         # a difference of two sums over the working set: bounded by their
         # size, not by the difference's
         scale = float(np.sum(np.square(w0))) * 2
@@ -238,15 +241,17 @@ def test_overlay_function_matches_jax(world, fn):
 
 # -------------------------------------------------------------- the chains
 def _port_candidates(tr, fa, probe, masks0, drift_l2):
-    snap = tr._snapshot(table=False)
+    snap = tr._chain_snapshot(table=False)
+    scalars = torch.from_numpy(tr.chain_scalars(S_FA))
     out_masks, out_losses = [], []
     for c in range(N_CAND):
         tr._restore(snap)
         batches = [[{k: torch.tensor(st[k][c, s]) for k in st}
                     for s in range(st["x"].shape[1])] for st in (fa, probe)]
-        mask, losses = tr._fast_adapt([m[c] for m in masks0], *batches,
-                                      drift_l2)
-        out_masks.append(mask)
+        mask, losses = tr._fast_adapt(
+            tuple(torch.tensor(m[c]) for m in masks0), *batches, scalars,
+            drift_l2)
+        out_masks.append([m.numpy() for m in mask])
         out_losses.append(losses.numpy())
     tr._restore(snap)
     return out_masks, np.stack(out_losses)
