@@ -5,20 +5,26 @@
     model config and n_domain (``train.checkpoint.save_checkpoint``), so
     ``load_predictor(ckpt_dir)`` rebuilds the network with no training
     data or flags at hand;
-  * requests are padded to a few fixed sizes (``BUCKETS``), so a forward
-    has one of four shapes whatever the request's size: the same kernels
-    with the same launch configurations repeat, the caching allocator
-    hands back the same blocks, and a CUDA graph per bucket can be
-    captured later without touching the callers;
+  * requests are padded to a few fixed sizes (``BUCKETS``; above 8,192
+    rows multiples of 8,192), and on a card each (mode, padded shape) is
+    one captured CUDA graph, the counterpart of the JAX package's trace
+    per shape: a request is one copy of its rows into the graph's static
+    input, one replay and one copy of ``prob[:n]`` back
+    (``train/step_graph.py`` ``GraphChunks.serve``; the first request of
+    a (mode, shape) runs eagerly and captures). Elsewhere the same forward
+    runs op by op (``EagerChunks.serve``); ``step_graph.eval_dispatch``
+    decides;
   * AREAD single-domain requests run through that domain's HEMP mask
-    (mode='domain_with_mask'), the evaluation contract of training;
-    mixed-domain requests run as one forward in mode='batch_with_mask',
-    the per-example masks gathered on the device from the stacked
-    [n_domain, ...] masks, instead of one forward per domain; multi-tower
-    models gather the sample's group tower; results come back in input
-    order;
-  * one host-to-device copy of the rows and one device-to-host copy of the
-    probabilities per forward, and no other synchronization;
+    (mode='domain_with_mask'), the evaluation contract of training, the
+    masks picked on the device by row 0's domain; mixed-domain requests
+    run as one forward in mode='batch_with_mask', the per-example masks
+    gathered on the device from the stacked [n_domain, ...] masks,
+    instead of one forward per domain; multi-tower models gather the
+    sample's group tower; results come back in input order;
+  * the two copies are a request's only host calls besides the replay
+    (eagerly a DeepFM or MMoE with an f32 table also copies its gathered
+    rows on the device, a node of the graph), and no other
+    synchronization;
   * predictions are probabilities, equal to the trainers' evaluation
     path's to f32 round-off (a padded bucket and an evaluation batch may
     take different GEMM paths on the card);
@@ -33,6 +39,7 @@ import copy
 import dataclasses
 import json
 import os
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -45,6 +52,7 @@ from aread_tpu_torch.models.aread import AREAD, full_mask
 from aread_tpu_torch.models.base import FeatureSpec, gather_group
 from aread_tpu_torch.ops.precision import matmul_precision_ctx
 from aread_tpu_torch.train.checkpoint import load_checkpoint
+from aread_tpu_torch.train.step_graph import Evals, Request
 from aread_tpu_torch.train.trainer import (MULTI_TOWER_MODELS,
                                            adopt_state_dict)
 
@@ -63,7 +71,12 @@ class Predictor:
     in eval state: a trainer that goes on stepping the model it was made
     from does not move what is served. ``predict`` may be called from any
     thread; callers serialize the calls (``serve.server`` holds a lock
-    around each)."""
+    around each): a request's graph writes a static output that the call
+    reads before the next request."""
+
+    # the dispatch of the requests: CUDA graph replays on a card, the
+    # forward op by op elsewhere (step_graph.Evals)
+    evals = Evals()
 
     def __init__(self, model, n_domain: int,
                  domain_mask: Optional[List] = None,
@@ -75,6 +88,7 @@ class Predictor:
         self.n_domain = n_domain
         self.domain_mask = domain_mask
         self.compute_dtype = compute_dtype
+        self._evals = None
         self.is_aread = isinstance(self.model, AREAD)
         self.domain2group = domain2group
         self._d2g = (None if domain2group is None else torch.as_tensor(
@@ -112,12 +126,45 @@ class Predictor:
                 raise ValueError(
                     f"x holds a domain outside [0, {self.n_domain})")
 
-    def _padded(self, x: np.ndarray) -> torch.Tensor:
-        """``x`` padded with zero rows to its bucket, on the device."""
-        n = x.shape[0]
-        xb = np.zeros((_bucket(n), x.shape[1]), np.int32)
-        xb[:n] = x
-        return torch.from_numpy(xb).to(self.device)
+    def _forward(self, mode: str, xb: torch.Tensor) -> torch.Tensor:
+        """Probabilities [B] of the padded rows ``xb`` on the device in
+        ``mode`` ('generic', 'single' or 'mixed'), in the checkpoint's
+        precision (entered here, so that it holds at a capture); nothing
+        is read back to the host."""
+        model = self.model
+        dom = xb[:, model.spec.domain_idx].to(torch.int64)
+        with matmul_precision_ctx(self.compute_dtype):
+            if mode == "generic":
+                # the mapped domain group, else the domain itself: the
+                # trainer's gather falls back the same way
+                group = dom if self._d2g is None else self._d2g[dom]
+                prob = model(xb, group=group, train=False)["prob"]
+                return gather_group(prob, group) if prob.dim() == 2 else prob
+            if mode == "mixed":
+                # per-example masks (pad rows are zeros, so they take
+                # domain 0's mask)
+                dm = tuple(sm[dom] for sm in self._stacked_masks)
+                return model(xb, domain_mask=dm, mode="batch_with_mask",
+                             train=False)["prob"]
+            # one domain: its masks picked on the device by row 0's domain
+            dm = tuple(sm.index_select(0, dom[:1])[0]
+                       for sm in self._stacked_masks)
+            return model(xb, domain_mask=dm, mode="domain_with_mask",
+                         train=False)["prob"]
+
+    def request(self, mode: str) -> Request:
+        """A request in ``mode`` as both dispatches run it
+        (``step_graph.Request``)."""
+        return Request(name=f"{mode} request", key=mode,
+                       fn=functools.partial(self._forward, mode))
+
+    def mode_of(self, x: np.ndarray) -> str:
+        """'generic' for a model without masks; for AREAD 'single' when
+        every row is of one domain, else 'mixed'."""
+        if not self.is_aread:
+            return "generic"
+        domain = x[:, self.model.spec.domain_idx]
+        return "mixed" if len(np.unique(domain)) > 1 else "single"
 
     # -------------------------------------------------------------- public
     def predict(self, x: np.ndarray) -> np.ndarray:
@@ -136,43 +183,15 @@ class Predictor:
                 "every forward; a Predictor serves a frozen model (rebuild "
                 "it with adl_eval_dlm_update=False to serve these weights)")
         self._check(x)
-        model = self.model
-        didx = model.spec.domain_idx
+        xb = np.zeros((_bucket(n), x.shape[1]), np.int32)
+        xb[:n] = x
         # entered here and not at construction: the modes are
         # thread-local, and a threaded server calls from a new thread per
-        # request
-        with torch.inference_mode(), matmul_precision_ctx(self.compute_dtype):
-            if not self.is_aread:
-                xb = self._padded(x)
-                # the mapped domain group, else the domain itself: the
-                # trainer's gather falls back the same way
-                group = xb[:, didx].to(torch.int64)
-                if self._d2g is not None:
-                    group = self._d2g[group]
-                prob = model(xb, group=group, train=False)["prob"]
-                if prob.dim() == 2:
-                    prob = gather_group(prob, group)
-                return prob[:n].cpu().numpy().astype(np.float32)
-
-            domain = x[:, didx]
-            doms = np.unique(domain)
-            if len(doms) > 1:
-                # mixed-domain request: one forward, per-example masks
-                # (pad rows are zeros, so they take domain 0's mask)
-                xb = self._padded(x)
-                dom = xb[:, didx].to(torch.int64)
-                dm = tuple(sm[dom] for sm in self._stacked_masks)
-                prob = model(xb, domain_mask=dm, mode="batch_with_mask",
-                             train=False)["prob"]
-                return prob[:n].cpu().numpy().astype(np.float32)
-            out = np.zeros((n,), np.float32)
-            for d in doms:
-                idx = np.nonzero(domain == d)[0]
-                dm = tuple(m[int(d)] for m in self._stacked_masks)
-                prob = model(self._padded(x[idx]), domain_mask=dm,
-                             mode="domain_with_mask", train=False)["prob"]
-                out[idx] = prob[:len(idx)].cpu().numpy()
-            return out
+        # request; every static buffer of a graph is made and written in
+        # inference mode
+        with torch.inference_mode():
+            prob = self.evals.serve(self.request(self.mode_of(x)), xb)
+            return prob[:n].cpu().numpy().astype(np.float32)
 
 
 def _coerce_like(template, value):

@@ -47,7 +47,11 @@ reason the JAX package gives for its scans. The JAX package runs a whole
 regroup in one dispatch (``_fast_adapt_impl``, ``fast_adapt_many*``); the
 port's counterpart is one CUDA graph replay per candidate chain, through
 the same dispatch (``run_chains``, ``chain_step``; a chain is some 4,000
-launches, so one graph per chain and not one per regroup). The Pallas
+launches, so one graph per chain and not one per regroup). The valid and
+test passes (``evaluate``: the JAX package's ``eval_prob_step`` /
+``eval_prob_final_step`` and ``accum`` / ``accum_final``) are one replay
+a batch on one card, ``lazy_adam`` included, each batch's domain masks
+staged beside it (``evals``). The Pallas
 kernel window's prechecks (``FITS_SLICE``, ``_fits_from_x``,
 ``_fits_from_idx``, ``no_overflow``, ``assume_no_overflow``) have no
 counterpart: the CUDA kernel has no window.
@@ -90,7 +94,7 @@ from aread_tpu_torch.train.checkpoint import (load_checkpoint, local_state,
                                               mask_template, restore_tree_,
                                               set_generator_state)
 from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chain, Chunks,
-                                              aread_step)
+                                              Eval, Evals, aread_step)
 from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            adopt_state_dict,
                                            bce_with_logits,
@@ -100,7 +104,8 @@ from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            embed_lookup_ctx, gather_batch,
                                            hybrid_init, hybrid_update_sparse,
                                            make_optimizer, masked_mean,
-                                           mean_losses, raise_if_nonfinite,
+                                           mean_losses, pass_rows,
+                                           raise_if_nonfinite,
                                            restored_best, split_table,
                                            strip_table_rule, sum_over_data,
                                            sum_states_over_data,
@@ -213,8 +218,11 @@ class AREADTrainer:
         # host clock per step: the launches, since no step synchronises
         self.step_timer = profiling.StepTimer()
         # the dispatch of the warm-up, bagging and final-gate steps (made
-        # at the first chunk: step_graph.Chunks)
-        self._chunks = None
+        # at the first chunk: step_graph.Chunks) and of the evaluation
+        # passes (step_graph.Evals)
+        self._chunks = self._evals = None
+        # the streaming evaluation's histograms, kept from pass to pass
+        self._auc_state = None
         # fail on a hemp_fast_adapt misconfiguration now, not at the first
         # regroup, a warm-up into the first epoch
         overlay = self.overlay_enabled()
@@ -243,11 +251,13 @@ class AREADTrainer:
         self.opt_state = hybrid_init(
             self.optimizer, self.model,
             moments_dtype=self.config.table_moments_dtype)
-        self._chunks = None
+        self._chunks = self._evals = None
         return self.opt_state
 
     # the dispatch of the steps: CUDA graphs or the eager loop
     chunks = Chunks()
+    # ... and of the evaluation passes
+    evals = Evals()
 
     def chunk_step(self, kind: str, state: Dict):
         """The step a chunk runs (``step_graph.aread_step``)."""
@@ -925,42 +935,74 @@ class AREADTrainer:
     def eval_prob(self, batch, dm, final: bool = False) -> torch.Tensor:
         return self.eval_prob_logit(batch, dm, final)[0]
 
+    def eval_pass(self, final: bool = False, streaming: bool = False
+                  ) -> Eval:
+        """One evaluation pass as both dispatches run it
+        (``step_graph.Eval``): each batch through its domain's masks
+        (staged beside it) in 'domain_with_mask' or, with ``final``,
+        'domain_mask_final'; its probabilities (the JAX package's
+        ``eval_prob_step`` / ``eval_prob_final_step``) or, with
+        ``streaming``, its logits into the histograms ``self._auc_state``,
+        zeroed here, by the batch's domain column (``accum`` /
+        ``accum_final``)."""
+        mode = "domain_mask_final" if final else "domain_with_mask"
+        if not streaming:
+            return Eval(name=f"AREAD {mode} evaluation",
+                        key=f"eval_prob {mode}",
+                        fn=lambda batch, dm: self.gather_rows(
+                            self.eval_prob(batch, dm, final=final)),
+                        feed_keys=("x",))
+        acc = metrics_lib.StreamingAUC(self.n_domain, self.config.auc_bins)
+        state = self._auc_state = acc.reset_state(self._auc_state,
+                                                  self.device)
+
+        def accum(batch, dm):
+            prob, logit = self.eval_prob_logit(batch, dm, final=final)
+            acc.update_(state, prob, batch["y"], batch["domain"],
+                        batch["valid"], logits=logit)
+
+        return Eval(name=f"AREAD {mode} streaming evaluation",
+                    key=f"accum {mode}", fn=accum,
+                    feed_keys=("x", "y", "valid", "domain"), holds=(state,))
+
+    def eval_batches(self, batcher: DomainBatcher) -> Tuple[List, List]:
+        """One pass's batches of ``batcher.domain_batch_seq`` (single-domain,
+        the last of each domain padded) and each one's domain masks."""
+        ms = self.mask_state
+        seq = list(batcher.domain_batch_seq)
+        missing = sorted({d for d in seq if ms.domain_mask[d] is None})
+        if missing:
+            raise ValueError(f"masked modes need a domain_mask: domains "
+                             f"{missing} have none")
+        return ([batcher.next_batch(d) for d in seq],
+                [ms.domain_mask[d] for d in seq])
+
     def evaluate(self, batcher: DomainBatcher,
                  domain_cnt_weight: np.ndarray, final: bool = False) -> Dict:
-        """One pass over ``batcher.domain_batch_seq``, each batch through
-        its domain's current mask (``final``: and the trained final gate);
-        total and per-domain AUC / log-loss. With
-        ``config.streaming_eval`` the predictions stay on the device: each
-        batch goes into per-domain histograms (``StreamingAUC``) and only
-        those are fetched. On a mesh each rank scores its rows, and the
-        predictions are all-gathered (the histograms summed) over 'data'."""
-        ms = self.mask_state
-        if self.config.streaming_eval:
-            acc = metrics_lib.StreamingAUC(self.n_domain, self.config.auc_bins)
-            auc_state = acc.init_state(self.device)
-            for d in batcher.domain_batch_seq:
-                batch = self.place(batcher.next_batch(d))
-                prob, logit = self.eval_prob_logit(batch, ms.domain_mask[d],
-                                                   final=final)
-                auc_state = acc.update(auc_state, prob, batch["y"],
-                                       batch["domain"], batch["valid"],
-                                       logits=logit)
-            return acc.finalize(
-                sum_states_over_data(self.mesh, auc_state), domain_cnt_weight,
-                multi_domain=self.config.is_evaluate_multi_domain)
-        preds, targets, domains = [], [], []
-        for d in batcher.domain_batch_seq:
-            batch_np = batcher.next_batch(d)
-            prob = self.gather_rows(self.eval_prob(
-                self.place(batch_np), ms.domain_mask[d], final=final))
-            n = int(batch_np["valid"].sum())
-            preds.append(prob[:n])
-            targets.append(batch_np["y"][:n])
-            domains.append(np.full((n,), d, np.int64))
+        """One pass over ``batcher.domain_batch_seq`` through
+        ``self.evals`` (a replay of a captured CUDA graph a batch on one
+        card), each batch through its domain's current mask (``final``: and
+        the trained final gate); total and per-domain AUC / log-loss. The
+        predictions are fetched once a pass; with ``config.streaming_eval``
+        they stay on the device: each batch goes into per-domain
+        histograms (``StreamingAUC``) and only those are fetched. On a
+        mesh each rank scores its rows, and the predictions are
+        all-gathered (the histograms summed) over 'data'."""
+        cfg = self.config
+        feeds, masks = self.eval_batches(batcher)
+        if cfg.streaming_eval:
+            self.evals.run_eval(self.eval_pass(final, streaming=True), feeds,
+                                masks)
+            return metrics_lib.StreamingAUC(self.n_domain, cfg.auc_bins
+                                            ).finalize(
+                sum_states_over_data(self.mesh, self._auc_state),
+                domain_cnt_weight,
+                multi_domain=cfg.is_evaluate_multi_domain)
+        preds, targets, domains = pass_rows(
+            self.evals.run_eval(self.eval_pass(final), feeds, masks), feeds)
         return metrics_lib.full_evaluation(
-            np.concatenate(targets), torch.cat(preds).cpu().numpy(),
-            np.concatenate(domains), domain_cnt_weight,
-            multi_domain=self.config.is_evaluate_multi_domain)
+            targets, preds, domains, domain_cnt_weight,
+            multi_domain=cfg.is_evaluate_multi_domain)
 
     def _copy_masks(self) -> List:
         return copy_masks(self.mask_state.domain_mask)

@@ -102,16 +102,23 @@ class StreamingAUC:
                 "neg": z(self.n_domain, self.n_bins),
                 "loss_sum": z(self.n_domain), "count": z(self.n_domain)}
 
-    @torch.no_grad()
-    def update(self, state, probs, targets, domains, valid=None,
-               logits=None) -> Dict[str, torch.Tensor]:
-        """``probs`` / ``targets`` [B] float, ``domains`` [B] int,
-        ``valid`` [B] float mask of the real rows. Pass the model's raw
-        ``logits`` where there are any: f32 probabilities saturate to
-        exactly 0 or 1 and lose their rank, logits keep it. Returns the
-        new state; ``state`` is left as it was."""
+    def reset_state(self, state: Optional[Dict[str, torch.Tensor]],
+                    device=None) -> Dict[str, torch.Tensor]:
+        """``state`` (a state of the caller's device, or None) zeroed in
+        place when it has this accumulator's shape, else a new
+        ``init_state``: a pass that starts from it keeps the tensors that a
+        captured pass adds into."""
+        if state is None or state["pos"].shape != (self.n_domain,
+                                                   self.n_bins):
+            return self.init_state(device)
+        with torch.no_grad():
+            torch._foreach_zero_(list(state.values()))
+        return state
+
+    def _increments(self, dev, probs, targets, domains, valid, logits):
+        """One batch's additions to the four entries of a state on
+        ``dev``."""
         f32 = torch.float32
-        dev = state["pos"].device
         targets = torch.as_tensor(targets, device=dev).to(f32)
         domains = torch.as_tensor(domains, device=dev).to(torch.int64)
         if logits is not None:
@@ -146,10 +153,34 @@ class StreamingAUC:
         bce = -(targets * torch.log(p) + (1 - targets) * torch.log1p(-p)) * valid
         onehot = (domains[None, :] == torch.arange(
             self.n_domain, device=dev)[:, None]).to(f32)  # [n_domain, B]
-        return {"pos": state["pos"] + pos.view(self.n_domain, self.n_bins),
-                "neg": state["neg"] + neg.view(self.n_domain, self.n_bins),
-                "loss_sum": state["loss_sum"] + (onehot * bce[None]).sum(dim=1),
-                "count": state["count"] + (onehot * valid[None]).sum(dim=1)}
+        return {"pos": pos.view(self.n_domain, self.n_bins),
+                "neg": neg.view(self.n_domain, self.n_bins),
+                "loss_sum": (onehot * bce[None]).sum(dim=1),
+                "count": (onehot * valid[None]).sum(dim=1)}
+
+    @torch.no_grad()
+    def update(self, state, probs, targets, domains, valid=None,
+               logits=None) -> Dict[str, torch.Tensor]:
+        """``probs`` / ``targets`` [B] float, ``domains`` [B] int,
+        ``valid`` [B] float mask of the real rows. Pass the model's raw
+        ``logits`` where there are any: f32 probabilities saturate to
+        exactly 0 or 1 and lose their rank, logits keep it. Returns the
+        new state; ``state`` is left as it was."""
+        inc = self._increments(state["pos"].device, probs, targets, domains,
+                               valid, logits)
+        return {k: state[k] + v for k, v in inc.items()}
+
+    @torch.no_grad()
+    def update_(self, state, probs, targets, domains, valid=None,
+                logits=None) -> None:
+        """``update`` in place: the same increments added into ``state``'s
+        own tensors (bitwise the functional form), so that a captured
+        evaluation pass keeps its histograms in static tensors. On device
+        input it makes no tensor from host data and reads nothing back."""
+        inc = self._increments(state["pos"].device, probs, targets, domains,
+                               valid, logits)
+        for k, v in inc.items():
+            state[k].add_(v)
 
     @staticmethod
     def _auc_from_hist(pos: np.ndarray, neg: np.ndarray) -> float:

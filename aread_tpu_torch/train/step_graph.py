@@ -43,6 +43,27 @@ its first candidates ran eagerly, and replays it once per candidate. A
 chain sets its host counters (the fast optimizer's ``t`` and ``count``)
 from zero, so each replay puts them where one chain leaves them.
 
+Evaluation and serving, forward only, take the same two routes (the JAX
+package jits its eval step, the streaming ``accum``, AREAD's
+``eval_prob*``, ``all_tower_probs`` and the Predictor's per-bucket
+programs): a trainer states a pass as an ``Eval`` (``run_eval``: its
+batches staged ``SCAN_CHUNK`` at a time in static buffers, one
+asynchronous copy per array, a device counter picking the batch, each
+batch's output written at its slice of a static output that is read once
+at the end of the pass, or added into static histograms), and a
+``Predictor`` states a request as a ``Request`` (``serve``: the padded
+rows copied into a static input, one replay, the static output read). A
+pass's graph is captured after its first batches ran eagerly (after all
+of a pass of one or two batches, for its next pass), a request's after
+two eager calls of the first request of its (mode, shape); a pass is
+captured again when it would read another object, shape, mode or final
+flag, not when the weights were rewritten in place (a Predictor's model
+and masks are its own and never change). An evaluation runs no
+optimizer: ``eval_dispatch`` picks graphs on one CUDA device without a
+mesh, whatever the table optimizer, and a trainer whose steps are graphs
+too evaluates through the same runner (``Evals``), one memory pool for
+both.
+
 A trainer states each of its step functions as a ``Step``
 (``trainer.chunk_step(kind, state)``): the function, the keys of a host
 feed, the host counters one step advances, its step count, learning rate
@@ -94,6 +115,14 @@ def graph_dispatch(trainer) -> bool:
             and trainer.config.table_optimizer == "adam")
 
 
+def eval_dispatch(owner) -> bool:
+    """Whether ``owner``'s evaluation passes (a trainer's) or requests (a
+    ``Predictor``'s) run as CUDA graphs: one CUDA device, no mesh. No
+    optimizer runs in them, so the table optimizer does not matter."""
+    return (owner.device.type == "cuda"
+            and getattr(owner, "mesh", None) is None)
+
+
 def make_chunks(trainer):
     """The dispatch ``trainer``'s configuration asks for."""
     return GraphChunks(trainer) if graph_dispatch(trainer) else \
@@ -113,6 +142,30 @@ class Chunks:
             trainer._chunks = make_chunks(trainer)
             trainer.step_timer.dispatch = trainer._chunks.name
         return trainer._chunks
+
+
+def make_evals(owner):
+    """The dispatch ``owner``'s evaluation asks for: on a card its
+    trainer's step runner where that replays graphs too (one memory pool
+    for both), else a graph runner of its own; elsewhere the eager loop."""
+    if not eval_dispatch(owner):
+        return EagerChunks(owner)
+    steps = getattr(owner, "chunks", None)
+    return steps if isinstance(steps, GraphChunks) else GraphChunks(owner)
+
+
+class Evals:
+    """A trainer's or a ``Predictor``'s ``evals``: the dispatch of its
+    evaluation passes or requests (``make_evals``), made at the first use
+    and kept in ``owner._evals``, which a trainer's new optimizer state
+    sets back to None with ``_chunks``."""
+
+    def __get__(self, owner, cls=None):
+        if owner is None:
+            return self
+        if owner._evals is None:
+            owner._evals = make_evals(owner)
+        return owner._evals
 
 
 @dataclasses.dataclass
@@ -142,6 +195,40 @@ class Chain:
     counters: List[Tuple[Dict, str]]  # host counters a chain sets
     holds: Tuple                # objects a captured chain reads
     lrs: Tuple                  # the learning rates it is captured with
+
+
+@dataclasses.dataclass
+class Eval:
+    """One evaluation pass of a trainer, as both dispatches run it:
+    ``fn`` scores one batch (its domain mask ``dm``, or None) in eval mode,
+    with the mode and contexts set inside it, and returns the batch's
+    per-row output, which the pass stacks [n, ...], or None where it adds
+    into tensors that it holds (the streaming histograms)."""
+    name: str                   # for messages: "AREAD evaluation", ...
+    key: str                    # its graph, beside the batch's shapes
+    fn: Callable                # (batch, dm) -> [B, ...] or None
+    feed_keys: Tuple[str, ...]  # the arrays of a host batch it reads
+    holds: Tuple = ()           # objects a captured pass reads
+
+
+@dataclasses.dataclass
+class Request:
+    """One request of a ``Predictor``: ``fn`` maps its padded rows on the
+    device [B, F] to their probabilities [B], reading nothing back to the
+    host; one graph per ``key`` (the mode) and padded shape."""
+    name: str                   # for messages: "mixed request", ...
+    key: str
+    fn: Callable[[torch.Tensor], torch.Tensor]
+
+
+def stage_into(dst: torch.Tensor, arr: np.ndarray) -> None:
+    """``arr`` into the leading rows of the buffer ``dst``: on a card one
+    asynchronous copy from pinned memory (the caching host allocator keeps
+    the pinned block until the copy has run)."""
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if dst.device.type == "cuda":
+        src = src.pin_memory()
+    dst[:len(arr)].copy_(src, non_blocking=True)
 
 
 # ----------------------------------------------------- the AREAD trainer
@@ -305,6 +392,29 @@ class EagerChunks:
         for _ in range(n):
             chain.fn()
 
+    @torch.no_grad()
+    def run_eval(self, ev: Eval, feeds: Sequence[Dict],
+                 masks: Optional[Sequence] = None
+                 ) -> Optional[torch.Tensor]:
+        """One evaluation pass: ``ev.fn`` on each host batch of ``feeds``
+        (its ``ev.feed_keys``, placed: on a mesh this rank's rows) with its
+        domain mask (``masks``: per batch, or None). Returns the batches'
+        outputs [n, ...] on the device, not fetched, or None where
+        ``ev.fn`` returns none."""
+        place = self.tr.place
+        outs = []
+        for j, feed in enumerate(feeds):
+            out = ev.fn(place({k: feed[k] for k in ev.feed_keys}),
+                        None if masks is None else masks[j])
+            if out is not None:
+                outs.append(out)
+        return torch.stack(outs) if outs else None
+
+    def serve(self, req: Request, xb: np.ndarray) -> torch.Tensor:
+        """One request: ``req.fn`` on the padded rows ``xb``, copied to the
+        device."""
+        return req.fn(torch.from_numpy(xb).to(self.tr.device))
+
 
 @dataclasses.dataclass
 class _Graph:
@@ -329,7 +439,9 @@ class GraphChunks:
         self.tr = weakref.proxy(trainer)  # as EagerChunks'
         self.dev = trainer.device
         self.graphs: Dict[str, _Graph] = {}
-        self.captures = 0  # graphs captured, re-captures included
+        # graphs captured, re-captures included: of steps and chains, and
+        # of evaluation passes and requests
+        self.captures = self.eval_captures = 0
         self.pool = None
         self.buf: Dict[str, object] = {}
 
@@ -432,13 +544,14 @@ class GraphChunks:
         return g
 
     def _capture(self, what: str, counters, body: Callable, holds: Tuple,
-                 lrs: Tuple) -> _Graph:
-        """Capture one call of ``body`` (``what``: the step or chain, for
-        the message); the host counters and launch counts that the capture
-        advanced are put back, and a chain's end values kept for its
-        replays."""
-        tr = self.tr
-        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+                 lrs: Tuple, generator=None) -> _Graph:
+        """Capture one call of ``body`` (``what``: the step, chain, pass or
+        request, for the message), ``generator`` (dropout's, for steps and
+        chains) registered with the graph; the host counters and launch
+        counts that the capture advanced are put back, and a chain's end
+        values kept for its replays."""
+        if generator is not None and not hasattr(
+                torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
                 "this PyTorch cannot register a torch.Generator with a CUDA "
                 "graph (CUDAGraph.register_generator_state): the captured "
@@ -449,7 +562,8 @@ class GraphChunks:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(tr.generator)
+        if generator is not None:
+            graph.register_generator_state(generator)
         try:
             capture(graph, self.pool, body)
             sets = [d[k] for d, k in counters]
@@ -459,7 +573,6 @@ class GraphChunks:
         finally:
             for d, k, v in saved:
                 d[k] = v
-        self.captures += 1
         return _Graph(graph=graph, holds=holds, lrs=lrs,
                       launches=dict(cuda_ops.captured_counts), sets=sets)
 
@@ -509,7 +622,9 @@ class GraphChunks:
                 return self._outputs(buf, n)
             self.graphs.pop(key, None)
             g = self.graphs[key] = self._capture(
-                f"{step.name} step", step.counters, body, holds, step.lrs)
+                f"{step.name} step", step.counters, body, holds, step.lrs,
+                tr.generator)
+            self.captures += 1
         for j in range(done, n):
             with tr.step_timer.step(n_examples=examples[j]):
                 g.graph.replay()
@@ -530,12 +645,161 @@ class GraphChunks:
                 return
             self.graphs.pop(chain.key, None)
             g = self.graphs[chain.key] = self._capture(
-                chain.name, chain.counters, chain.fn, chain.holds, chain.lrs)
+                chain.name, chain.counters, chain.fn, chain.holds, chain.lrs,
+                self.tr.generator)
+            self.captures += 1
         for _ in range(done, n):
             g.graph.replay()
             for (d, k), v in zip(chain.counters, g.sets):
                 d[k] = v
             self._count_replay(g)
+
+    # ------------------------------------------------- evaluation passes
+    @staticmethod
+    def eval_key(ev: Eval, feed: Dict, mask) -> str:
+        """The graph and buffers of a pass: its ``ev.key`` and the shapes
+        of a batch's arrays and masks."""
+        shapes = [f"{k}{list(np.shape(feed[k]))}" for k in ev.feed_keys]
+        if mask is not None:
+            shapes += [f"dm{list(np.shape(m))}" for m in mask]
+        return f"eval {ev.key} {' '.join(shapes)}"
+
+    def eval_buffers(self, key: str, ev: Eval, feed: Dict, mask) -> Dict:
+        """The static buffers of a pass's graph, made at its first pass:
+        inputs for ``SCAN_CHUNK`` batches and their masks, the counters of
+        the chunk's batch (``i``) and of the pass's (``o``); the output
+        follows at the first batch."""
+        buf = self.buf.get(key)
+        if buf is not None:
+            return buf
+        S, dev = SCAN_CHUNK, self.dev
+        buf = {"i": torch.zeros((1,), dtype=torch.int64, device=dev),
+               "o": torch.zeros((1,), dtype=torch.int64, device=dev),
+               "feed": {k: torch.empty(
+                   (S,) + np.shape(feed[k]),
+                   dtype=torch.from_numpy(np.asarray(feed[k])).dtype,
+                   device=dev) for k in ev.feed_keys},
+               "masks": None if mask is None else [
+                   torch.empty((S,) + np.shape(m), dtype=torch.bool,
+                               device=dev) for m in mask]}
+        self.buf[key] = buf
+        return buf
+
+    @staticmethod
+    def stage_eval(buf: Dict, feeds: Sequence[Dict], masks) -> None:
+        """A chunk of a pass's batches into the static buffers, one
+        asynchronous copy per array and mask level, and the chunk's
+        counter to 0."""
+        for k, dst in buf["feed"].items():
+            stage_into(dst, np.stack([np.asarray(f[k]) for f in feeds]))
+        if buf["masks"] is not None:
+            for li, dst in enumerate(buf["masks"]):
+                stage_into(dst, np.stack([np.asarray(m[li], dtype=bool)
+                                          for m in masks]))
+        buf["i"].zero_()
+
+    def eval_body(self, ev: Eval, buf: Dict) -> Callable:
+        """One batch that reads its inputs at the chunk counter's slice and
+        writes its output at the pass counter's slice of the static
+        output."""
+        dev = self.dev
+
+        def body():
+            i, o = buf["i"], buf["o"]
+            batch = {k: v.index_select(0, i)[0]
+                     for k, v in buf["feed"].items()}
+            dm = (None if buf["masks"] is None else
+                  tuple(m.index_select(0, i)[0] for m in buf["masks"]))
+            out = ev.fn(batch, dm)
+            if out is not None:
+                if "out" not in buf:
+                    # shaped at the first (eager) batch, for the pass
+                    buf["out"] = torch.zeros((buf["n"],) + tuple(out.shape),
+                                             dtype=out.dtype, device=dev)
+                buf["out"].index_copy_(0, o, out[None])
+            i.add_(1)
+            o.add_(1)
+
+        return body
+
+    @staticmethod
+    def _eval_reads(ev: Eval, buf: Dict) -> Tuple:
+        return ev.holds + (buf.get("out"),)
+
+    @torch.no_grad()
+    def run_eval(self, ev: Eval, feeds: Sequence[Dict],
+                 masks: Optional[Sequence] = None
+                 ) -> Optional[torch.Tensor]:
+        """``EagerChunks.run_eval`` as graph replays: the batches staged
+        ``SCAN_CHUNK`` at a time, one replay each; at a (re)capture the
+        first ``WARMUP_STEPS`` batches run eagerly, and a pass no longer
+        than that captures after them, for its next pass. The output
+        [n, ...] is a view of the static output: read it before the next
+        pass of this graph."""
+        n = len(feeds)
+        if n == 0:
+            return None
+        masks = [None] * n if masks is None else list(masks)
+        key = self.eval_key(ev, feeds[0], masks[0])
+        buf = self.eval_buffers(key, ev, feeds[0], masks[0])
+        if "out" in buf and buf["out"].shape[0] < n:
+            del buf["out"]  # a longer pass: a larger output, a new capture
+        if "out" not in buf:
+            buf["n"] = n
+        buf["o"].zero_()
+        body = self.eval_body(ev, buf)
+        g = self._current(key, self._eval_reads(ev, buf), ())
+        for lo in range(0, n, SCAN_CHUNK):
+            m = min(SCAN_CHUNK, n - lo)
+            self.stage_eval(buf, feeds[lo:lo + m], masks[lo:lo + m])
+            done = 0
+            if g is None:
+                done = self._eager_first(body, m)
+                self.graphs.pop(key, None)
+                g = self.graphs[key] = self._capture(
+                    ev.name, [], body, self._eval_reads(ev, buf), ())
+                self.eval_captures += 1
+            for _ in range(done, m):
+                g.graph.replay()
+                self._count_replay(g)
+        out = buf.get("out")
+        return None if out is None else out[:n]
+
+    # ----------------------------------------------------------- requests
+    @staticmethod
+    def serve_body(req: Request, buf: Dict) -> Callable:
+        """A request on the static input, its probabilities copied into the
+        static output."""
+        def body():
+            prob = req.fn(buf["x"])
+            if "out" not in buf:
+                buf["out"] = torch.empty_like(prob)  # at the first call
+            buf["out"].copy_(prob)
+
+        return body
+
+    def serve(self, req: Request, xb: np.ndarray) -> torch.Tensor:
+        """``EagerChunks.serve`` as a replay: the padded rows copied into
+        the static input of the request's (mode, shape) in one copy, then
+        one replay. The first request of a (mode, shape) runs eagerly
+        ``WARMUP_STEPS`` times (the same answer each time) and captures.
+        Returns the static output: read it before the next request."""
+        key = f"serve {req.key} {list(xb.shape)}"
+        buf = self.buf.get(key)
+        if buf is None:
+            buf = self.buf[key] = {"x": torch.empty(
+                xb.shape, dtype=torch.from_numpy(xb).dtype, device=self.dev)}
+        buf["x"].copy_(torch.from_numpy(xb))
+        body = self.serve_body(req, buf)
+        g = self.graphs.get(key)
+        if g is None:
+            self._eager_first(body, WARMUP_STEPS)
+            self.graphs[key] = self._capture(req.name, [], body, (), ())
+            self.eval_captures += 1
+        else:
+            g.graph.replay()
+            self._count_replay(g)
+        return buf["out"]
 
     @staticmethod
     def _outputs(buf: Dict, n: int):

@@ -20,7 +20,10 @@ JAX package's ``_build_train_scan`` / ``_build_epoch_scan`` run them:
 each step a replay of a captured CUDA graph on one card
 (``GraphChunks``), each launched from Python elsewhere (``EagerChunks``:
 the CPU, a mesh, ``lazy_adam``); ``step_timer.dispatch`` says which. Its
-options:
+evaluation passes (the JAX package's eval step, streaming ``accum`` and
+``all_tower_probs``) are one replay a batch on one card, ``lazy_adam``
+included (``evals``, ``step_graph.Eval``), eager on the CPU and on a
+mesh. Its options:
 ``compute_dtype`` (``ops/precision.py``), ``dynamic_regroup`` (the
 domain -> group map recomputed between epochs from the valid split's
 per-(tower, domain) losses, ``train/regroup.py``), ``log_dir``
@@ -76,8 +79,8 @@ from aread_tpu_torch.train.checkpoint import (full_state, load_checkpoint,
                                               set_generator_state)
 from aread_tpu_torch.train.regroup import (get_losses_tower_domain,
                                            regroup_all_domain)
-from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chunks,
-                                              trainer_step)
+from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chunks, Eval,
+                                              Evals, trainer_step)
 from aread_tpu_torch.utils import profiling
 from aread_tpu_torch.utils.runlog import RunLogger
 
@@ -433,6 +436,21 @@ def sum_states_over_data(mesh, state: Dict[str, torch.Tensor]):
     return {k: mesh.all_reduce_(v.clone(), "data") for k, v in state.items()}
 
 
+def pass_rows(out: torch.Tensor, feeds: Sequence[Dict[str, np.ndarray]]
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(predictions, targets, domains) of an evaluation pass: its outputs
+    [n, B, ...] fetched in one copy, each batch's real rows (its first
+    ``valid.sum()``) concatenated, and the same rows of the host batches'
+    ``y`` and ``domain``."""
+    if out is None:
+        raise ValueError("an evaluation pass over no batch")
+    counts = [int(f["valid"].sum()) for f in feeds]
+    host = out.cpu().numpy()
+    return tuple(np.concatenate([a[:c] for a, c in zip(arrs, counts)])
+                 for arrs in (host, [f["y"] for f in feeds],
+                              [f["domain"] for f in feeds]))
+
+
 def clone_state(model) -> Dict[str, torch.Tensor]:
     """A copy of the model's weights and buffers on its device."""
     return {k: v.clone() for k, v in model.state_dict().items()}
@@ -507,8 +525,10 @@ class Trainer:
         # host clock per step: the launches, since no step synchronises
         self.step_timer = profiling.StepTimer()
         # the dispatch of the epochs' steps (made at the first chunk:
-        # step_graph.Chunks)
-        self._chunks = None
+        # step_graph.Chunks) and of the evaluation passes (step_graph.Evals)
+        self._chunks = self._evals = None
+        # the streaming evaluation's histograms, kept from pass to pass
+        self._auc_state = None
         # early-stop state
         self.trial_counter = 0
         self.best_auc, self.best_mean_auc = 0.0, 0.0
@@ -532,11 +552,13 @@ class Trainer:
         self.opt_state = hybrid_init(
             self.optimizer, self.model,
             moments_dtype=self.config.table_moments_dtype)
-        self._chunks = None
+        self._chunks = self._evals = None
         return self.opt_state
 
     # the dispatch of the epochs' steps: CUDA graphs or the eager loop
     chunks = Chunks()
+    # ... and of the evaluation passes
+    evals = Evals()
 
     def chunk_step(self, kind: str, state: Dict):
         """The step a chunk runs (``step_graph.trainer_step``)."""
@@ -743,69 +765,101 @@ class Trainer:
     def eval_prob(self, batch) -> torch.Tensor:
         return self.eval_prob_logit(batch)[0]
 
+    def eval_batches(self, x: np.ndarray, y: np.ndarray) -> List[Dict]:
+        """A split's evaluation batches: ``GlobalBatcher``'s at 8 * bs in
+        order, the last padded (``valid``), so one shape serves a pass."""
+        return list(GlobalBatcher(x, y, self.config.bs * 8,
+                                  self.model.spec.domain_idx,
+                                  self.domain2group, shuffle=False))
+
+    def eval_pass(self, kind: str) -> Eval:
+        """The evaluation pass ``kind`` as both dispatches run it
+        (``step_graph.Eval``; the JAX package's jitted counterparts):
+        'eval_step' (each batch's probabilities), 'accum' (each batch into
+        the streaming histograms ``self._auc_state``, zeroed here) or
+        'all_tower_probs' (every tower head's probabilities, [B, T]; a
+        single head as one tower). ADL's ``eval_dlm_update`` keys the
+        graph: it decides whether a forward moves the centres."""
+        group = () if self.domain2group is None else ("group",)
+        key = (f"{kind} dlm_update="
+               f"{bool(getattr(self.model, 'eval_dlm_update', False))}")
+        if kind == "eval_step":
+            return Eval(name="generic Trainer evaluation", key=key,
+                        fn=lambda batch, dm: self.gather_rows(
+                            self.eval_prob(batch)),
+                        feed_keys=("x",) + group)
+        if kind == "accum":
+            acc = metrics_lib.StreamingAUC(self.n_domain,
+                                           self.config.auc_bins)
+            state = self._auc_state = acc.reset_state(self._auc_state,
+                                                      self.device)
+
+            def accum(batch, dm):
+                prob, logit = self.eval_prob_logit(batch)
+                acc.update_(state, prob, batch["y"], batch["domain"],
+                            batch["valid"], logits=logit)
+
+            return Eval(name="generic Trainer streaming evaluation", key=key,
+                        fn=accum,
+                        feed_keys=("x", "y", "valid", "domain") + group,
+                        holds=(state,))
+        if kind != "all_tower_probs":
+            raise ValueError(f"no evaluation pass {kind!r}")
+
+        def all_tower_probs(batch, dm):
+            self.model.eval()
+            with self.run_ctx():
+                prob = self.model(batch["x"], group=batch.get("group"),
+                                  train=False)["prob"]
+            return self.gather_rows(prob[:, None] if prob.dim() == 1
+                                    else prob)
+
+        return Eval(name="loss matrix (all_tower_probs)", key=key,
+                    fn=all_tower_probs, feed_keys=("x",) + group)
+
     def evaluate(self, x: np.ndarray, y: np.ndarray,
                  domain_cnt_weight: np.ndarray) -> Dict:
-        """Total and per-domain AUC / log-loss over a split. Evaluation
-        normalizes with the running statistics, so the batch size does not
-        change the predictions; batches of 8 * bs cut the launches. ADL with
-        ``eval_dlm_update`` moves its cluster centres batch by batch, in
-        this order, on both paths. With
-        ``config.streaming_eval`` the predictions stay on the device: each
-        batch's logits go into per-domain histograms (``StreamingAUC``)
-        and only those are fetched. On a mesh each rank scores its rows;
-        the predictions are all-gathered (the histograms summed) over
-        'data' before the metrics, which every rank then computes alike."""
-        batcher = GlobalBatcher(x, y, self.config.bs * 8,
-                                self.model.spec.domain_idx, self.domain2group,
-                                shuffle=False)
-        if self.config.streaming_eval:
-            acc = metrics_lib.StreamingAUC(self.n_domain, self.config.auc_bins)
-            auc_state = acc.init_state(self.device)
-            for batch in batcher:
-                tb = self.place(batch)
-                prob, logit = self.eval_prob_logit(tb)
-                auc_state = acc.update(auc_state, prob, tb["y"], tb["domain"],
-                                       tb["valid"], logits=logit)
-            return acc.finalize(
-                sum_states_over_data(self.mesh, auc_state), domain_cnt_weight,
-                multi_domain=self.config.is_evaluate_multi_domain)
-        preds, targets, domains = [], [], []
-        for batch in batcher:
-            n = int(batch["valid"].sum())
-            preds.append(self.gather_rows(self.eval_prob(self.place(batch)))[:n])
-            targets.append(batch["y"][:n])
-            domains.append(batch["domain"][:n])
+        """Total and per-domain AUC / log-loss over a split, one pass of
+        ``eval_batches`` through ``self.evals``: each batch a replay of a
+        captured CUDA graph on one card, launched op by op elsewhere.
+        Evaluation normalizes with the running statistics, so the batch
+        size does not change the predictions; batches of 8 * bs cut the
+        launches. ADL with ``eval_dlm_update`` moves its cluster centres
+        batch by batch, in this order, on both paths. The predictions of
+        a pass are fetched once; with ``config.streaming_eval`` they stay
+        on the device: each batch's logits go into per-domain histograms
+        (``StreamingAUC``) and only those are fetched. On a mesh each rank
+        scores its rows; the predictions are all-gathered (the histograms
+        summed) over 'data' before the metrics, which every rank then
+        computes alike."""
+        cfg = self.config
+        feeds = self.eval_batches(x, y)
+        if cfg.streaming_eval:
+            ev = self.eval_pass("accum")
+            self.evals.run_eval(ev, feeds)
+            return metrics_lib.StreamingAUC(self.n_domain, cfg.auc_bins
+                                            ).finalize(
+                sum_states_over_data(self.mesh, self._auc_state),
+                domain_cnt_weight,
+                multi_domain=cfg.is_evaluate_multi_domain)
+        preds, targets, domains = pass_rows(
+            self.evals.run_eval(self.eval_pass("eval_step"), feeds), feeds)
         return metrics_lib.full_evaluation(
-            np.concatenate(targets), torch.cat(preds).cpu().numpy(),
-            np.concatenate(domains), domain_cnt_weight,
-            multi_domain=self.config.is_evaluate_multi_domain)
+            targets, preds, domains, domain_cnt_weight,
+            multi_domain=cfg.is_evaluate_multi_domain)
 
     # ------------------------------------------------- dynamic regrouping
-    @torch.no_grad()
     def tower_domain_losses(self, x: np.ndarray,
                             y: np.ndarray) -> np.ndarray:
         """Per-(tower, domain) mean BCE [n_tower, n_domain] of every tower
         head on a split (NaN for a domain without rows): the loss matrix
-        ``regroup_all_domain`` takes."""
-        self.model.eval()
-        batcher = GlobalBatcher(x, y, self.config.bs * 8,
-                                self.model.spec.domain_idx, self.domain2group,
-                                shuffle=False)
-        preds, targets, domains = [], [], []
-        for batch in batcher:
-            tb = self.place(batch)
-            with self.run_ctx():
-                prob = self.model(tb["x"], group=tb.get("group"),
-                                  train=False)["prob"]
-            n = int(batch["valid"].sum())
-            if prob.dim() == 1:  # a single head: one degenerate tower
-                prob = prob[:, None]
-            preds.append(self.gather_rows(prob)[:n])
-            targets.append(batch["y"][:n])
-            domains.append(batch["domain"][:n])
-        pred = torch.cat(preds).cpu().numpy()
-        return get_losses_tower_domain(pred, np.concatenate(targets),
-                                       np.concatenate(domains),
+        ``regroup_all_domain`` takes, from one pass of
+        ``eval_pass('all_tower_probs')``."""
+        feeds = self.eval_batches(x, y)
+        pred, targets, domains = pass_rows(
+            self.evals.run_eval(self.eval_pass("all_tower_probs"), feeds),
+            feeds)
+        return get_losses_tower_domain(pred, targets, domains,
                                        pred.shape[1], self.n_domain)
 
     def apply_dynamic_regroup(self, valid_x: np.ndarray, valid_y: np.ndarray,

@@ -34,7 +34,15 @@ Phases, each printing one line:
            clock, examples/s, launches and kernels per step and the
            device's idle share (torch.profiler over one chunk), peak
            memory; the captured step once under sync debug mode 'error';
-  eval     AREADTrainer.evaluate over a few per-domain batches;
+  eval     evaluation by CUDA graph replays (one a batch) and by its eager
+           twin, in turns, bitwise (results, predictions or histograms,
+           weights): the train phase's AREAD trainer over EVAL_BATCHES
+           per-domain batches of 1,024 rows in 'domain_with_mask' and
+           'domain_mask_final', exact and streaming, then DeepFM's
+           Trainer.evaluate at 8,192-row batches; per dispatch ms a batch
+           (CUDA events, host clock), the pass's seconds, launch calls,
+           kernels, busy ms and idle share (torch.profiler over 32
+           batches); a captured batch under sync debug mode 'error';
   train_dense  the generic Trainer at full Amazon width with the dense
            table gradient: build_model + Trainer.fit for DeepFM (one epoch
            of graph replays, valid and test passes), then a few steps each
@@ -65,7 +73,8 @@ Phases, each printing one line:
   zoo2     the zoo's second half at full Amazon width: hinet, adasparse
            and adl fitted, held graph against eager and timed as in zoo; ADL's DLM centres
            unit vectors after fit, left bitwise alone by an evaluation and
-           moved by one with eval_dlm_update; one step of each card vs CPU
+           moved by one with eval_dlm_update, by graph bitwise as by the
+           eager twin; one step of each card vs CPU
            at a small width, and ADL's centres after such an evaluation;
            MAMDR at the CLI defaults (sparse table gradient, bf16 table and
            moments) through MamdrTrainer.fit for one epoch, its sparse_adam
@@ -92,7 +101,11 @@ Phases, each printing one line:
            directory alone; served probabilities against the trainers'
            evaluation, the per-domain loop and the same checkpoint on the
            CPU; the HTTP server on a thread (requests of 1 to 8,192 rows,
-           a malformed one); request times per bucket by both clocks;
+           a malformed one); each bucket and mode (AREAD single- and
+           mixed-domain, DeepFM, MMoE) by CUDA graph (one replay a
+           request, 2 copies) and by the eager twin, bitwise, with times
+           by both clocks, copies, launches, busy ms and idle share, and a
+           captured request under sync debug mode 'error';
            streaming evaluation against the exact one; fit(ckpt_dir=) and
            a resume; both CLIs in subprocesses on a seed-made CSV;
   options  the trainers' options at full Amazon width: one 50-chain
@@ -103,8 +116,8 @@ Phases, each printing one line:
            Amazon table and on a 248M-element one, and the crossover
            they imply; the overlay card vs CPU and vs the full sweep (f32,
            2 domains); an overlay AREADTrainer.fit with log_dir; MMoE
-           fits under each dynamic_regroup mode and the loss matrix card
-           vs CPU; compute_dtype='bfloat16' (a product against f64 on
+           fits under each dynamic_regroup mode, the loss matrix by graph
+           bitwise its eager twin (seconds of each) and card vs CPU; compute_dtype='bfloat16' (a product against f64 on
            rounded operands, a step card vs CPU, step times, a served
            checkpoint); the epoch watchdog, a fresh process's first two
            epochs, and a trace;
@@ -352,9 +365,10 @@ def cuda_copies_per_call(fn, n: int = 4):
 
 def assert_copies(what: str, copies: float, kinds, want: int) -> None:
     """``want`` cudaMemcpyAsync calls per request: one copy in and one
-    out, plus with an f32 table the device-to-device copy of the gathered
-    rows. Held on the host-side call count; the device-side kinds are
-    printed beside it but a profiler window can lose one of them."""
+    out, plus, on the eager path with an f32 table, the device-to-device
+    copy of the gathered rows (by graph a node of the replay). Held on the
+    host-side call count; the device-side kinds are printed beside it but
+    a profiler window can lose one of them."""
     if copies != want:
         raise AssertionError(f"{what} made {copies} copies ({kinds}); "
                              f"{want} were expected")
@@ -1366,10 +1380,9 @@ def phase_train(ctx):
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     x, y = amazon_rows(rng, spec, N_DOMAIN * 5 * BS)
-    ex, ey = amazon_rows(rng, spec, N_DOMAIN * 200)
+    ex, ey = amazon_rows(rng, spec, EVAL_BATCHES * BS)
     batcher = DomainBatcher(x, y, BS, spec.domain_idx, N_DOMAIN, seed=0)
-    ctx["eval"] = (tr, DomainBatcher(ex, ey, BS, spec.domain_idx, N_DOMAIN,
-                                     seed=1),
+    ctx["eval"] = (tr, (ex, ey),
                    np.bincount(x[:, spec.domain_idx], minlength=N_DOMAIN) / len(x))
     for t in trs.values():
         ms = t.mask_state
@@ -1429,17 +1442,227 @@ def phase_train(ctx):
         sync_debug_error_step="passed")
 
 
+# the eval phase's split: at least this many per-domain batches of BS rows
+# for AREAD, and as many batches of 8 * BS rows for DeepFM
+EVAL_BATCHES = 100
+# batches of a pass run under the profiler
+EVAL_PROFILED = 32
+
+
+@contextlib.contextmanager
+def eager_evals(*owners):
+    """Inside, ``owners`` (trainers or Predictors) evaluate and serve by
+    their eager twin: the dispatch rule, ``step_graph.eval_dispatch``,
+    answers False for them and their runners are made anew; afterwards
+    their graph runners, graphs and all, are back."""
+    from aread_tpu_torch.train import step_graph
+
+    rule = step_graph.eval_dispatch
+    saved = [(o, o._evals) for o in owners]
+    step_graph.eval_dispatch = lambda t: (all(t is not o for o in owners)
+                                          and rule(t))
+    try:
+        for o in owners:
+            o._evals = None
+            if o.evals.name != "eager":
+                raise AssertionError("the eager twin dispatched "
+                                     f"{o.evals.name}")
+        yield
+    finally:
+        step_graph.eval_dispatch = rule
+        for o, runner in saved:
+            o._evals = runner
+
+
+def spied_pass(tr, call):
+    """One evaluation ``call()`` of ``tr``: (its result, the pass's output
+    or, for a streaming pass, its histograms, copied; the batches, the
+    seconds by the host clock, the ms by CUDA events)."""
+    runner = tr.evals
+    got = []
+    real = runner.run_eval
+
+    def run_eval(ev, feeds, masks=None):
+        out = real(ev, feeds, masks)
+        got.append((len(feeds), None if out is None else out.clone()))
+        return out
+
+    runner.run_eval = run_eval
+    try:
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        res = call()
+        b.record()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        del runner.run_eval
+    n, out = got[-1]
+    if out is None:
+        out = {k: v.clone() for k, v in tr._auc_state.items()}
+    return res, out, n, secs, a.elapsed_time(b)
+
+
+def eval_twins(path: str, tr, cases, profile):
+    """Each case ``(label, call)`` (an evaluate of ``tr``) by CUDA graph
+    replays and by the eager twin (``eager_evals``) in turns; the two must
+    leave bitwise the same result, predictions or histograms, and
+    weights. Per dispatch: the evaluate's seconds and ms a batch by CUDA
+    events and by the host clock (the metrics on the host included);
+    ``profile(label)`` (``run_eval`` over EVAL_PROFILED staged batches,
+    the device path alone) by both clocks, then under torch.profiler for
+    launch calls, kernels and busy ms a batch, and the idle share of its
+    unprofiled time. Returns the per-case records."""
+    out = {}
+    for ci, (label, call) in enumerate(cases):
+        order = ("graph", "eager") if ci % 2 == 0 else ("eager", "graph")
+        rec, seen = {}, {}
+        for name in order:
+            with (contextlib.nullcontext() if name == "graph"
+                  else eager_evals(tr)):
+                if tr.evals.name != name:
+                    raise AssertionError(f"{path} {label}: dispatched "
+                                         f"{tr.evals.name}, not {name}")
+                res, got, n, secs, ev_ms = spied_pass(tr, call)
+                run_ev, run_host = event_ms(lambda: profile(label), n=3,
+                                            warmup=1)
+                _, prof = chunk_profile(lambda: profile(label),
+                                        EVAL_PROFILED)
+            seen[name] = (res, got, {k: v.clone() for k, v in
+                                     tr.model.state_dict().items()})
+            run_ms = run_host / EVAL_PROFILED
+            rec[name] = {"batches": n, "pass_s": secs,
+                         "batch_ms_events": ev_ms / n,
+                         "batch_ms_host_clock": secs * 1e3 / n,
+                         "run_eval_batch_ms_events": run_ev / EVAL_PROFILED,
+                         "run_eval_batch_ms_host_clock": run_ms,
+                         **{k: prof[k] for k in (
+                             "cudaLaunchKernel", "cudaGraphLaunch",
+                             "cudaMemcpyAsync", "kernels_run",
+                             "device_busy_ms")},
+                         "device_idle_share_unprofiled":
+                             1 - prof["device_busy_ms"] / run_ms}
+        bad = bits_differ(seen["graph"][1:], seen["eager"][1:])
+        if bad or not fit_results_equal({"history": [], "test": seen[
+                "graph"][0]}, {"history": [], "test": seen["eager"][0]}):
+            raise AssertionError(f"{path} {label}: graph != eager at "
+                                 f"{bad[:8]}")
+        rec["bitwise"] = True
+        out[label] = rec
+    return out
+
+
+def sync_debug_eval(tr, ev, feeds, masks=None) -> None:
+    """The first of ``feeds`` through the body that ``tr``'s graph of the
+    pass ``ev`` captured, run eagerly under
+    torch.cuda.set_sync_debug_mode('error'): a body that waited for the
+    device (a host read, a pageable copy) raises."""
+    g = tr.evals
+    masks = [None] * len(feeds) if masks is None else masks
+    buf = g.buf[g.eval_key(ev, feeds[0], masks[0])]
+    g.stage_eval(buf, feeds[:1], masks[:1])
+    buf["o"].zero_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            g.eval_body(ev, buf)()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def phase_eval(ctx):
-    tr, batcher, weight = ctx["eval"]
+    """Evaluation at full Amazon width by CUDA graph replays (one a batch,
+    train/step_graph.py run_eval) and by its eager twin, in turns
+    (``eval_twins``): the train phase's AREAD trainer over EVAL_BATCHES
+    per-domain batches of BS rows in both modes ('domain_with_mask' and,
+    ``final``, 'domain_mask_final'), exact and streaming; then DeepFM's
+    Trainer.evaluate over EVAL_BATCHES batches of 8 * BS rows; a captured
+    batch under sync debug mode 'error'."""
+    import dataclasses
+
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import DomainBatcher
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    tr, (ex, ey), weight = ctx["eval"]
+    spec, cfg = tr.model.spec, tr.config
+    if tr.evals is not tr.chunks or tr.evals.name != "graph":
+        raise AssertionError("the card's AREAD trainer does not evaluate "
+                             "through its graph runner")
+
+    def batcher():
+        return DomainBatcher(ex, ey, BS, spec.domain_idx, N_DOMAIN,
+                             shuffle=False)
+
+    def aread_case(final, streaming):
+        def call():
+            tr.config = dataclasses.replace(cfg, streaming_eval=streaming)
+            try:
+                return tr.evaluate(batcher(), weight, final=final)
+            finally:
+                tr.config = cfg
+        return (f"{'final' if final else 'domain_with_mask'}_"
+                f"{'streaming' if streaming else 'exact'}", call)
+
+    feeds, masks = tr.eval_batches(batcher())
+    if len(feeds) < EVAL_BATCHES:
+        raise AssertionError(f"{len(feeds)} eval batches")
+
+    def aread_profile(label):
+        final, streaming = label.startswith("final"), label.endswith(
+            "streaming")
+        tr.evals.run_eval(tr.eval_pass(final, streaming),
+                          feeds[:EVAL_PROFILED], masks[:EVAL_PROFILED])
+
     t0 = time.perf_counter()
-    res = tr.evaluate(batcher, weight)
-    secs = time.perf_counter() - t0
-    for k in ("total_auc", "mean_auc", "total_loss"):
-        if not np.isfinite(res[k]) or (k.endswith("auc") and not 0 <= res[k] <= 1):
-            raise AssertionError(f"{k}={res[k]}")
-    say("eval", total_auc=res["total_auc"], mean_auc=res["mean_auc"],
-        total_loss=res["total_loss"], n_batches=len(batcher.domain_batch_seq),
-        seconds=secs)
+    aread = eval_twins("eval/aread", tr, [
+        aread_case(f, s) for f in (False, True) for s in (False, True)],
+        aread_profile)
+    aread_s = time.perf_counter() - t0
+    res = tr.evaluate(batcher(), weight)
+    check_metrics("eval", [("aread", res)])
+    sync_debug_eval(tr, tr.eval_pass(), feeds, masks)
+    say("eval", model="aread", total_auc=res["total_auc"],
+        mean_auc=res["mean_auc"], total_loss=res["total_loss"],
+        n_batches=len(feeds), rows_per_batch=BS, cases=aread,
+        eval_captures=tr.evals.eval_captures, twins_s=aread_s,
+        sync_debug_error_batch="passed")
+
+    # DeepFM through the generic Trainer: 8 * BS rows a batch
+    dcfg = Config(model="deepfm", dataset_name="amazon", seed=0,
+                  sparse_table_grad=False, table_dtype="float32")
+    dtr = Trainer(build_model(dcfg, spec, N_DOMAIN, device="cuda"), dcfg,
+                  N_DOMAIN)
+    dx, dy = amazon_rows(np.random.default_rng(2), spec,
+                         EVAL_BATCHES * 8 * BS)
+    dfeeds = dtr.eval_batches(dx, dy)
+
+    def deepfm_case(streaming):
+        def call():
+            dtr.config = dataclasses.replace(dcfg, streaming_eval=streaming)
+            try:
+                return dtr.evaluate(dx, dy, weight)
+            finally:
+                dtr.config = dcfg
+        return "streaming" if streaming else "exact", call
+
+    deepfm = eval_twins(
+        "eval/deepfm", dtr, [deepfm_case(False), deepfm_case(True)],
+        lambda label: dtr.evals.run_eval(
+            dtr.eval_pass("accum" if label == "streaming" else "eval_step"),
+            dfeeds[:EVAL_PROFILED]))
+    dres = dtr.evaluate(dx, dy, weight)
+    check_metrics("eval", [("deepfm", dres)])
+    say("eval", model="deepfm", total_auc=dres["total_auc"],
+        total_loss=dres["total_loss"], n_batches=len(dfeeds),
+        rows_per_batch=8 * BS, cases=deepfm,
+        eval_captures=dtr.evals.eval_captures)
 
 
 def timed_steps(tr, batches):
@@ -2007,10 +2230,10 @@ def fit_results_equal(a, b) -> bool:
 
 def fit_twins(ctx, path: str, make, fit):
     """Two trainers from one seed (``make()``) through Trainer.fit
-    (``fit(trainer)``), one by CUDA graph replays (the card's dispatch) and
-    one eager (the dispatch rule, ``step_graph.graph_dispatch``, answers
-    False for it during the fits), each counted as ``path`` and
-    ``path``_eager;
+    (``fit(trainer)``), one by CUDA graph replays (the card's dispatch:
+    steps and evaluation passes) and one eager (the dispatch rules,
+    ``step_graph.graph_dispatch`` and ``eval_dispatch``, answer False for
+    it during the fits), each counted as ``path`` and ``path``_eager;
     after the fits the two must be bitwise equal (``trainer_bits``) and
     their results equal. Returns ({'graph', 'eager'}: trainer, result,
     fit seconds)."""
@@ -2018,20 +2241,24 @@ def fit_twins(ctx, path: str, make, fit):
 
     trs = {"graph": make(), "eager": make()}
     res, secs = {}, {}
-    card_rule = step_graph.graph_dispatch
+    card_rule, eval_rule = step_graph.graph_dispatch, step_graph.eval_dispatch
     step_graph.graph_dispatch = lambda t: (t is not trs["eager"]
                                            and card_rule(t))
+    step_graph.eval_dispatch = lambda t: (t is not trs["eager"]
+                                          and eval_rule(t))
     try:
         for k, t in trs.items():
             t0 = time.perf_counter()
             res[k] = counted(ctx, path + ("" if k == "graph" else "_eager"),
                              lambda: fit(t))
             secs[k] = time.perf_counter() - t0
-            if res[k]["dispatch"] != k:
+            if res[k]["dispatch"] != k or t.evals.name != k:
                 raise AssertionError(f"{path}: the {k} trainer dispatched "
-                                     f"{res[k]['dispatch']}")
+                                     f"{res[k]['dispatch']}, evaluated "
+                                     f"{t.evals.name}")
     finally:
         step_graph.graph_dispatch = card_rule
+        step_graph.eval_dispatch = eval_rule
     bad = bits_differ(trainer_bits(trs["graph"]), trainer_bits(trs["eager"]))
     if bad or not fit_results_equal(res["graph"], res["eager"]):
         raise AssertionError(f"{path}: the graph fit != the eager fit at "
@@ -2425,7 +2652,9 @@ def phase_zoo2(ctx):
 def zoo2_adl_centres(tr, data):
     """After fit the DLM centres are unit vectors; an evaluation leaves
     them bitwise where they were, and one with eval_dlm_update moves
-    them (and keeps them unit vectors)."""
+    them (and keeps them unit vectors), by graph replays (a pass that
+    captures first, then the replayed one) bitwise as by the eager twin
+    (``eager_evals``) from the same centres, each timed."""
     model = tr.model
     centres = model.cluster_centers
     norm_err = float((torch.linalg.vector_norm(centres, dim=1) - 1).abs().max())
@@ -2433,20 +2662,45 @@ def zoo2_adl_centres(tr, data):
     tr.evaluate(data.valid_x, data.valid_y, data.domain_cnt_weight)
     pure = torch.equal(centres, before)
     model.eval_dlm_update = True
+    runs = {}
     try:
-        res = tr.evaluate(data.valid_x, data.valid_y, data.domain_cnt_weight)
+        tr.evaluate(data.valid_x, data.valid_y, data.domain_cnt_weight)
+        captured = tr.evals.eval_captures
+        for name in ("graph", "eager"):
+            with torch.no_grad():
+                centres.copy_(before)  # in place: the graph stays valid
+            with (contextlib.nullcontext() if name == "graph"
+                  else eager_evals(tr)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = tr.evaluate(data.valid_x, data.valid_y,
+                                  data.domain_cnt_weight)
+                torch.cuda.synchronize()
+                runs[name] = (res, centres.clone(),
+                              time.perf_counter() - t0, tr.evals.name)
     finally:
         model.eval_dlm_update = False
+    twins = bits_differ(runs["graph"][1], runs["eager"][1]) == [] and \
+        fit_results_equal({"history": [], "test": runs["graph"][0]},
+                          {"history": [], "test": runs["eager"][0]})
+    replayed = tr.evals.eval_captures == captured
     moved = float((centres - before).abs().max())
     norm_err_after = float(
         (torch.linalg.vector_norm(centres, dim=1) - 1).abs().max())
     say("zoo2", model="adl", part="centres", shape=list(centres.shape),
         norm_err_after_fit=norm_err, eval_bitwise_unchanged=pure,
         moved_by_eval_dlm_update=moved, norm_err_after_update=norm_err_after,
-        valid_total_auc_with_update=res["total_auc"])
+        valid_total_auc_with_update=res["total_auc"],
+        update_graph_bitwise_eager=twins, update_graph_replayed=replayed,
+        dispatch=[r[3] for r in runs.values()],
+        update_eval_s={k: r[2] for k, r in runs.items()})
     if max(norm_err, norm_err_after) > 1e-5 or not pure or moved == 0.0:
         raise AssertionError("adl: centres not unit vectors, moved by a pure "
                              "evaluation or not moved by eval_dlm_update")
+    if not (twins and replayed) or [r[3] for r in runs.values()] != [
+            "graph", "eager"]:
+        raise AssertionError("adl: the centres after an eval_dlm_update "
+                             "evaluation by graph != by the eager twin")
 
 
 def zoo2_adl_eval_reference(trainers, data):
@@ -3378,38 +3632,101 @@ def serve_http(pred, x: np.ndarray):
     return times
 
 
+def serve_request_numbers(pred, req: np.ndarray, copies_want: int) -> dict:
+    """One request's numbers on ``pred``'s current dispatch: the served
+    probabilities, median of 20 calls by CUDA events and by the host clock
+    (each call ends in its device-to-host copy), cudaMemcpyAsync calls (held
+    to ``copies_want``) and their kinds, launch calls, graph launches,
+    kernels and busy ms (torch.profiler over 4 calls), the idle share of
+    the unprofiled call (busy ms over the host clock's); on the
+    eager path also the launch calls by ``cuda_launches_per_call``, the
+    measure of earlier runs."""
+    out = pred.predict(req)
+    ev, host = event_ms(lambda: pred.predict(req), n=20)
+    copies, kinds = cuda_copies_per_call(lambda: pred.predict(req))
+    assert_copies(f"a {pred.evals.name} {pred.mode_of(req)} request of "
+                  f"{len(req)} rows", copies, kinds, copies_want)
+    _, prof = chunk_profile(lambda: [pred.predict(req) for _ in range(4)], 4)
+    if pred.evals.name == "eager":
+        prof["launches"] = cuda_launches_per_call(lambda: pred.predict(req))
+    prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / host
+    return {"out": out, "events_ms": ev, "host_clock_ms": host,
+            "copies": copies, "copy_kinds": kinds,
+            **{k: prof[k] for k in ("cudaLaunchKernel", "cudaGraphLaunch",
+                                    "kernels_run", "device_busy_ms",
+                                    "device_idle_share_unprofiled",
+                                    "launches")
+               if k in prof}}
+
+
+def serve_request_twins(pred, req: np.ndarray, copies: dict,
+                        turn: int) -> dict:
+    """``serve_request_numbers`` by CUDA graph (the card's dispatch) and by
+    the eager twin (``eager_evals``), in turns by ``turn``; the two served
+    probabilities bitwise equal. ``copies``: per dispatch the copies a
+    request makes."""
+    rec = {}
+    for name in (("graph", "eager") if turn % 2 == 0 else ("eager", "graph")):
+        with (contextlib.nullcontext() if name == "graph"
+              else eager_evals(pred)):
+            if pred.evals.name != name:
+                raise AssertionError(f"a request dispatched "
+                                     f"{pred.evals.name}, not {name}")
+            rec[name] = serve_request_numbers(pred, req, copies[name])
+    a, b = (rec[k].pop("out") for k in ("graph", "eager"))
+    if a.dtype != b.dtype or not np.array_equal(a.view(np.uint32),
+                                                b.view(np.uint32)):
+        raise AssertionError(f"a {pred.mode_of(req)} request of {len(req)} "
+                             f"rows: graph != eager by {max_abs(a, b)}")
+    rec["bitwise"] = True
+    return rec
+
+
+def sync_debug_request(pred, req: np.ndarray) -> None:
+    """The body that ``pred``'s graph of ``req``'s (mode, bucket) captured
+    run once eagerly on its static input under
+    torch.cuda.set_sync_debug_mode('error')."""
+    from aread_tpu_torch.serve.predictor import _bucket
+
+    g, mode = pred.evals, pred.mode_of(req)
+    buf = g.buf[f"serve {mode} {[_bucket(len(req)), req.shape[1]]}"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            g.serve_body(pred.request(mode), buf)()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def serve_times(preds, x: np.ndarray, http_ms):
-    """Request time per bucket: median of 20 predict calls by CUDA events
-    and by the host clock (each call ends in its device-to-host copy),
-    single- and mixed-domain, the HTTP round trip beside them; CUDA
-    launches and copies per request (torch.profiler; one copy in and one
-    out, or the run fails); the host's JSON work of a request apart from
-    the device's."""
+    """Request time per bucket and mode (AREAD single- and mixed-domain,
+    DeepFM and MMoE at every bucket too) by CUDA graph and by the eager
+    twin in turns (``serve_request_twins``: bitwise equal, times by both
+    clocks, launches, kernels, busy ms, idle share; by graph one copy in and one
+    out for every model, eagerly DeepFM and MMoE with an f32 table also
+    copy their gathered rows on the device), the HTTP round trip beside
+    them; a captured request under sync debug mode 'error'; the host's
+    JSON work of a request apart from the device's."""
     pred = preds["aread"]
-    rows = []
+    rows, turn = [], 0
     for n in SERVE_BUCKETS:
         for kind, req in (("single", single_domain(x[:n], 3)),
                           ("mixed", x[:n])):
-            ev, host = event_ms(lambda: pred.predict(req), n=20)
-            copies, kinds = cuda_copies_per_call(lambda: pred.predict(req))
-            assert_copies(f"a {kind} request of {n} rows", copies, kinds, 2)
-            rows.append({"rows": n, "kind": kind, "events_ms": ev,
-                         "host_clock_ms": host,
+            rows.append({"rows": n, "kind": kind,
                          "http_round_trip_ms": http_ms[f"{n}_{kind}"],
-                         "launches": cuda_launches_per_call(
-                             lambda: pred.predict(req)),
-                         "copies": copies, "copy_kinds": kinds})
+                         **serve_request_twins(
+                             pred, req, {"graph": 2, "eager": 2}, turn)})
+            turn += 1
     ev, host = event_ms(lambda: predict_per_domain(pred, x), n=5)
     per_domain = {"rows": len(x), "events_ms": ev, "host_clock_ms": host}
     others = {}
     for name in ("deepfm", "mmoe"):
-        ev, host = event_ms(lambda: preds[name].predict(x), n=20)
-        copies, kinds = cuda_copies_per_call(lambda: preds[name].predict(x))
-        assert_copies(f"{name}: a request of {len(x)} rows", copies, kinds, 3)
-        others[name] = {"rows": len(x), "events_ms": ev, "host_clock_ms": host,
-                        "launches": cuda_launches_per_call(
-                            lambda: preds[name].predict(x)),
-                        "copies": copies, "copy_kinds": kinds}
+        others[name] = [{"rows": n, **serve_request_twins(
+            preds[name], x[:n], {"graph": 2, "eager": 3}, turn + i)}
+            for i, n in enumerate(SERVE_BUCKETS)]
+    sync_debug_request(pred, x[:SERVE_BUCKETS[0]])
     # the host's share of an 8,192-row HTTP request, timed alone
     body = json.dumps({"x": x.tolist()})
     prob = pred.predict(x)
@@ -3422,6 +3739,8 @@ def serve_times(preds, x: np.ndarray, http_ms):
     say("serve", part="times", model="aread", requests=rows,
         http_round_trip_ms=http_ms,
         per_domain_loop=per_domain, other_models=others,
+        captures={k: p.evals.eval_captures for k, p in preds.items()},
+        sync_debug_error_request="passed",
         json_8192_rows_ms={"decode_request": decode_ms,
                            "encode_answer": encode_ms,
                            "request_bytes": len(body)})
@@ -4188,7 +4507,8 @@ def options_regroup(ctx, tmp: str):
                      "domains_moved": [int(np.sum(m != p)) for p, m in
                                        zip([d2g] + maps[:-1], maps)],
                      "map_after": maps[-1].tolist(),
-                     "test_mean_auc": res["test"]["mean_auc"]}
+                     "test_mean_auc": res["test"]["mean_auc"],
+                     "loss_matrix_twins": loss_matrix_twins(tr, data)}
     # the loss matrix, card against CPU, at a small width
     small = make_synthetic_data(n_rows=2048, n_domain=4, vocab=300, seed=3)
     cfg = Config(model="mmoe", embed_dim=8, mmoe_expert_dims=(16, 8),
@@ -4210,6 +4530,30 @@ def options_regroup(ctx, tmp: str):
         steps_per_epoch=-(-len(data.train_x) // BS),
         epochs=2, n_tower=3, **out, small_width_card_vs_cpu_max_abs=diff,
         tolerance=1e-6)
+
+
+def loss_matrix_twins(tr, data):
+    """The valid split's loss matrix of ``tr`` by CUDA graph replays (the
+    fit's regroups captured its graph) and by the eager twin
+    (``eager_evals``), in turns (graph, eager, eager, graph): bitwise
+    equal, NaN columns alike; the seconds of each."""
+    captured = tr.evals.eval_captures
+    mats, secs = [], {"graph": [], "eager": []}
+    for name in ("graph", "eager", "eager", "graph"):
+        with (contextlib.nullcontext() if name == "graph"
+              else eager_evals(tr)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the class's method: the caller's timing wrapper is left out
+            mats.append(type(tr).tower_domain_losses(tr, data.valid_x,
+                                                     data.valid_y))
+            secs[name].append(time.perf_counter() - t0)
+    if not all(m.dtype == mats[0].dtype and np.array_equal(
+            m, mats[0], equal_nan=True) for m in mats):
+        raise AssertionError("the loss matrix by graph != by the eager twin")
+    if tr.evals.eval_captures != captured or not captured:
+        raise AssertionError("the loss matrix's graph calls were not replays")
+    return {"bitwise": True, "seconds": secs, "captures": captured}
 
 
 def options_bf16(ctx, tmp: str):

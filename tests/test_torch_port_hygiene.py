@@ -442,6 +442,63 @@ def test_chip_smoke_holds_the_chains_graph_against_eager():
         assert dims in funcs["options_overlay_large"], dims
 
 
+def test_chip_smoke_holds_evaluation_and_serving_graph_against_eager():
+    """The eval, serve, options and zoo2 phases run evaluation, requests,
+    the loss matrix and ADL's evaluated centres by CUDA graph and by the
+    eager twin (the dispatch rule answering False), in turns, and require
+    them bitwise; the eval phase covers both AREAD modes, exact and
+    streaming, over at least 100 batches of BS rows and DeepFM at 8 * BS;
+    requests make 2 copies by graph for every model; a captured batch and
+    a captured request run under sync debug mode 'error'; the zoo fits'
+    twins evaluate eagerly too."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id in ("EVAL_BATCHES", "BS",
+                                                      "SERVE_BUCKETS")}
+    assert consts["EVAL_BATCHES"] >= 100
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    for name in ("step_graph.eval_dispatch = ", "o._evals = None",
+                 "o._evals = runner"):
+        assert name in funcs["eager_evals"], name
+    assert "step_graph.eval_dispatch = " in funcs["fit_twins"]
+    for name in ("eager_evals(tr)", "('graph', 'eager')", "bits_differ(",
+                 "fit_results_equal(", "chunk_profile(", "spied_pass(",
+                 "batch_ms_events", "batch_ms_host_clock", "pass_s"):
+        assert name in funcs["eval_twins"], name
+    for name in ("device_busy_ms", "device_idle_share_unprofiled",
+                 "cudaLaunchKernel", "kernels_run", "run_eval_batch_ms_events"):
+        assert name in funcs["eval_twins"], name
+    phase = funcs["phase_eval"]
+    for name in ("eval_twins('eval/aread'", "eval_twins('eval/deepfm'",
+                 "for f in (False, True) for s in (False, True)",
+                 "EVAL_BATCHES * 8 * BS", "model='deepfm'",
+                 "sync_debug_eval(", "tr.evals is not tr.chunks"):
+        assert name in phase, name
+    # the AREAD split, drawn by the train phase for its graph trainer
+    assert "amazon_rows(rng, spec, EVAL_BATCHES * BS)" in funcs["phase_train"]
+    assert "set_sync_debug_mode('error')" in funcs["sync_debug_eval"]
+    times = funcs["serve_times"]
+    for name in ("serve_request_twins(", "{'graph': 2, 'eager': 2}",
+                 "{'graph': 2, 'eager': 3}", "for n in SERVE_BUCKETS",
+                 "('deepfm', 'mmoe')", "sync_debug_request("):
+        assert name in times, name
+    for name in ("eager_evals(pred)", "view(np.uint32)", "'bitwise'"):
+        assert name in funcs["serve_request_twins"], name
+    for name in ("assert_copies(", "chunk_profile(", "cudaGraphLaunch",
+                 "event_ms("):
+        assert name in funcs["serve_request_numbers"], name
+    assert "set_sync_debug_mode('error')" in funcs["sync_debug_request"]
+    assert "loss_matrix_twins(tr, data)" in funcs["options_regroup"]
+    for name in ("eager_evals(tr)", "equal_nan=True",
+                 "('graph', 'eager', 'eager', 'graph')"):
+        assert name in funcs["loss_matrix_twins"], name
+    for name in ("eager_evals(tr)", "update_graph_bitwise_eager",
+                 "centres.copy_(before)", "bits_differ("):
+        assert name in funcs["zoo2_adl_centres"], name
+
+
 def test_chip_smoke_chain_inputs_have_the_regroup_shape():
     """``chain_inputs`` on the CPU, at a toy size: ``n`` candidates in
     domain order, each a valid mask and S adapt / P probe feeds as the
