@@ -30,7 +30,9 @@ the rows not gathered this step.
   optimizer, ``table_optimizer='lazy_adam'``: only the gathered rows
   change, so there is no table sweep and no kernel; the JAX package runs
   it with gathers and scatters outside its Pallas kernel too, and indexed
-  PyTorch ops on either device are its port.
+  PyTorch ops on either device are its port. It reads the same scalar
+  block and keeps static shapes (every entry of ``uids``, the sentinels
+  included), so a captured step replays it too.
 
 The TPU kernel's ``PAD_W`` block window, its overflow fallback and the
 host checks that avoid it (``rows_fit_kernel``, ``steps_fit_kernel``) have
@@ -221,32 +223,51 @@ def sparse_adam_reference(w, m, v, uids, gsum, t: int, lr: float,
 def lazy_sparse_adam_(w, m, v, uids, gsum, t: int, lr: float,
                       b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
                       weight_decay: float = 1e-8, l2: float = 0.0,
-                      sr_seed=None) -> None:
+                      sr_seed=None, scalars=None) -> None:
     """SparseAdam-semantics update in place (port of
-    ``_lazy_sparse_adam``): only the rows in ``uids`` change, weights and
-    moments; the rest of the table is bitwise untouched and its moments do
-    not decay. The bias correction uses the global step ``t``; the decay
-    and L2 term is applied to the touched rows' gradients ('lazy
-    regularization'). A bf16 table is rounded stochastically, keyed by
-    ``sr_seed`` (None: ``t``) and the storage index, as in the
-    dense-semantics update. Work is
-    O(touched rows). Selecting the live entries of ``uids`` waits for the
-    device once."""
+    ``_lazy_sparse_adam``, its [n_rows, D] branch): only the rows in
+    ``uids`` change, weights and moments; the rest of the table is bitwise
+    untouched and its moments do not decay. The bias correction uses the
+    global step; the decay and L2 term is applied to the touched rows'
+    gradients ('lazy regularization'). A bf16 table is rounded
+    stochastically, keyed by the seed and the storage index, as in the
+    dense-semantics update. lr, the bias corrections and the seed are read
+    from ``scalars``, the step's [4] int32 block on the table's device
+    (None: made from ``t``, ``lr`` and ``sr_seed``, None: ``t``). Work is
+    O(touched rows).
+
+    Static shapes, nothing read back to the host, so that a CUDA graph
+    captures it: all K entries of ``uids`` (``dedup_rows``' output, sorted
+    and unique, sentinels ``n_rows`` at the tail) are computed, the rows
+    read at ``min(uids, n_rows - 1)``. PyTorch has no ``mode="drop"``, so
+    a sentinel entry writes entry 0's row with entry 0's new bits, the
+    same bits that entry 0 writes there (duplicate writes of equal bits
+    leave one result in any order); when entry 0 is itself a sentinel,
+    every entry is, and all write row ``n_rows - 1``'s own old bits
+    back."""
     n_rows, d = w.shape
-    s = adam_scalars(t, lr, b1, b2, eps, weight_decay, l2)
-    b1c = torch.tensor(s["b1c"], dtype=torch.float32, device=w.device)
-    b2c = torch.tensor(s["b2c"], dtype=torch.float32, device=w.device)
-    live = uids < n_rows  # sentinel entries carry no row
-    rows = uids[live].to(torch.int64)
-    wf = w[rows].to(torch.float32)
-    g = gsum[live] + s["decay"] * wf
-    m2 = s["b1"] * m[rows].to(torch.float32) + s["omb1"] * g
-    v2 = s["b2"] * v[rows].to(torch.float32) + s["omb2"] * g * g
-    w2 = wf - s["lr"] * (m2 / b1c) / (torch.sqrt(v2 / b2c) + s["eps"])
-    w[rows] = sround(w2, w.dtype, _row_flat_index(rows, d),
-                     t if sr_seed is None else sr_seed)
-    m[rows] = m2.to(m.dtype)
-    v[rows] = v2.to(v.dtype)
+    dev = w.device
+    lr_t, b1c, b2c, seed = split_scalars(
+        step_block(t, lr, b1, b2, sr_seed, scalars, dev))
+    s = adam_constants(b1, b2, eps, weight_decay, l2)
+    live = (uids < n_rows)[:, None]  # sentinel entries carry no row
+    gid = torch.clamp(uids.to(torch.int64), max=n_rows - 1)
+    w0, m0, v0 = (x.index_select(0, gid) for x in (w, m, v))
+    wf = w0.to(torch.float32)
+    g = gsum + s["decay"] * wf
+    m2 = s["b1"] * m0.to(torch.float32) + s["omb1"] * g
+    v2 = s["b2"] * v0.to(torch.float32) + s["omb2"] * g * g
+    w2 = wf - lr_t * (m2 / b1c) / (torch.sqrt(v2 / b2c) + s["eps"])
+    # a sentinel entry's values are its clamped row's old bits ...
+    nw = torch.where(live, sround(w2, w.dtype, _row_flat_index(gid, d),
+                                  seed), w0)
+    nm = torch.where(live, m2.to(m.dtype), m0)
+    nv = torch.where(live, v2.to(v.dtype), v0)
+    # ... and it writes entry 0's row with entry 0's values: where entry 0
+    # is live, never the old bits of a row that a live entry updates
+    dst = torch.where(live[:, 0], gid, gid[:1])
+    for x, new in ((w, nw), (m, nm), (v, nv)):
+        x.index_copy_(0, dst, torch.where(live, new, new[:1]))
 
 
 # --------------------------------------------------------------- CUDA path
@@ -404,7 +425,7 @@ def sparse_adam_dispatch(w, m, v, uids, gsum, t: int, lr: float,
     through the kernel, CPU tensors through the plain version, both reading
     the step's scalar block ``scalars`` (None: made from ``t``, ``lr`` and
     ``sr_seed``). ``lazy``: the touched rows only, by indexed updates on
-    either device, never the kernel, from ``t`` and ``lr``. Returns the
+    either device, never the kernel, from the same block. Returns the
     pre-update sum(w**2) (0-dim f32) with ``want_l2``, else None.
     ``sr_seed`` keys a bf16 table's stochastic rounding (None: ``t``)."""
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, l2=l2,
@@ -413,7 +434,7 @@ def sparse_adam_dispatch(w, m, v, uids, gsum, t: int, lr: float,
         # the sum is a full pass of its own here: no sweep carries it
         l2v = (torch.sum(torch.square(w.to(torch.float32)))
                if want_l2 else None)
-        lazy_sparse_adam_(w, m, v, uids, gsum, t, **kw)
+        lazy_sparse_adam_(w, m, v, uids, gsum, t, scalars=scalars, **kw)
         return l2v
     kw.update(want_l2=want_l2, scalars=scalars)
     if w.device.type == "cuda":

@@ -41,7 +41,10 @@ CUDA device each chunk replays a captured CUDA graph per step, the
 counterpart of the JAX package's scanned chunk (``make_scan``,
 ``make_scan_idx``), and elsewhere the steps are launched one by one
 (``train/step_graph.py``; the configuration alone decides, and ``fit``'s
-result and ``step_timer.dispatch`` say which ran). An AREAD step is some
+result and ``step_timer.dispatch`` say which ran), under either table
+optimizer: ``lazy_adam``'s touched-rows update (``lazy_sparse_adam_``)
+keeps static shapes and reads its step's scalar block, so its steps and
+chains are replays too. An AREAD step is some
 1,200 small launches, whose host time is several times the device's, the
 reason the JAX package gives for its scans. The JAX package runs a whole
 regroup in one dispatch (``_fast_adapt_impl``, ``fast_adapt_many*``); the
@@ -50,8 +53,8 @@ the same dispatch (``run_chains``, ``chain_step``; a chain is some 4,000
 launches, so one graph per chain and not one per regroup). The valid and
 test passes (``evaluate``: the JAX package's ``eval_prob_step`` /
 ``eval_prob_final_step`` and ``accum`` / ``accum_final``) are one replay
-a batch on one card, ``lazy_adam`` included, each batch's domain masks
-staged beside it (``evals``). The Pallas
+a batch on one card, each batch's domain masks staged beside it
+(``evals``). The Pallas
 kernel window's prechecks (``FITS_SLICE``, ``_fits_from_x``,
 ``_fits_from_idx``, ``no_overflow``, ``assume_no_overflow``) have no
 counterpart: the CUDA kernel has no window.

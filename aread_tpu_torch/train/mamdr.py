@@ -19,10 +19,24 @@ BatchNorm statistics are not among them: they stay in the model and run
 on through every sequence, as the JAX package's ``state`` does. Weights
 are swapped into the model with ``copy_`` into the same tensors, so the
 sparse-Adam kernel's scratch (keyed on the table tensor) stays valid. Each
-sequence starts from ``hybrid_init`` without ``moments_dtype``: the
-table's moments in the table's dtype and the step count at 0, as in the
-JAX package. Per-domain weights start at zero, so merged = meta at first.
-After ``fit`` the model holds the meta weights (what the CLI saves).
+sequence starts from a fresh optimizer, ``hybrid_init`` without
+``moments_dtype``: the table's moments in the table's dtype and the step
+count at 0, as in the JAX package. Per-domain weights start at zero, so
+merged = meta at first. After ``fit`` the model holds the meta weights
+(what the CLI saves).
+
+The JAX package jits each inner step (``_train_on_sequence`` ->
+``_train_step``) and each evaluation batch (``_eval_step``). Here a
+sequence's batches run through the trainer's step runner
+(``self.chunks``, ``train/step_graph.py``) ``SCAN_CHUNK`` at a time: on
+one CUDA device each step a replay of one captured CUDA graph, elsewhere
+the eager loop. The fresh optimizer is one state made once and put back
+to step 0 in place before every sequence (``hybrid_reset_``, bitwise
+``hybrid_init``), and the weight swaps and Reptile passes copy into the
+model's own tensors outside the graph, so one capture serves every
+sequence of a fit. ``evaluate_merged`` is one pass of the trainer's
+evaluation (``self.evals``, one replay a batch on a card) per domain,
+each fetched once.
 
 On a mesh (``MamdrTrainer(mesh=)``, passed on to ``Trainer``) the steps
 are the mesh steps and the table is each rank's rows; Reptile's passes are
@@ -42,8 +56,10 @@ from aread_tpu_torch.config import Config
 from aread_tpu_torch.data.loader import DomainBatcher, SplitData
 from aread_tpu_torch.train import metrics as metrics_lib
 from aread_tpu_torch.train.checkpoint import local_state
+from aread_tpu_torch.train.step_graph import SCAN_CHUNK
 from aread_tpu_torch.train.trainer import (Trainer, adopt_state_dict,
-                                           hybrid_init)
+                                           hybrid_init, hybrid_reset_,
+                                           pass_rows)
 from aread_tpu_torch.utils.runlog import RunLogger
 
 Weights = Dict[str, torch.Tensor]
@@ -84,6 +100,7 @@ class MamdrTrainer(Trainer):
         super().__init__(model, config, n_domain, mesh=mesh)
         self.meta_weights: Optional[Weights] = None
         self.domain_weights: Optional[List[Weights]] = None
+        self._seq_state: Optional[Dict] = None  # fresh_state's
 
     def live_weights(self) -> Weights:
         """The model's tensors that Reptile moves: every trainable tensor
@@ -98,14 +115,30 @@ class MamdrTrainer(Trainer):
         torch._foreach_copy_([live[n] for n in weights],
                              list(weights.values()))
 
+    def fresh_state(self) -> Dict:
+        """The sequences' optimizer state at step 0: made by
+        ``hybrid_init`` (the table's moments in the table's dtype) at the
+        first sequence, put back in place (``hybrid_reset_``) at every
+        later one, so a captured step keeps reading the same tensors."""
+        st = self._seq_state
+        if st is None:
+            st = self._seq_state = hybrid_init(self.optimizer, self.model)
+        else:
+            hybrid_reset_(st)
+        self.opt_state = st
+        return st
+
     def train_from(self, weights: Weights, batcher: DomainBatcher,
                    seq: Iterable[int]) -> None:
         """``weights`` into the model, a fresh optimizer, then one step per
-        entry of ``seq`` on that domain's next batch."""
+        entry of ``seq`` on that domain's next batch, ``SCAN_CHUNK`` steps
+        a chunk through ``self.chunks``."""
         self.load_weights(weights)
-        self.opt_state = hybrid_init(self.optimizer, self.model)
-        for d in seq:
-            self.step(self.place(batcher.next_batch(int(d))))
+        st = self.fresh_state()
+        seq = [int(d) for d in seq]
+        for lo in range(0, len(seq), SCAN_CHUNK):
+            feeds = [batcher.next_batch(d) for d in seq[lo:lo + SCAN_CHUNK]]
+            self.chunks.run("train", feeds, [None] * len(feeds), st)
 
     def fit(self, data: SplitData, epochs: Optional[int] = None,
             verbose: bool = True, warm_start: Optional[Dict] = None) -> Dict:
@@ -116,7 +149,8 @@ class MamdrTrainer(Trainer):
         ``config.log_dir``: the valid and test results go to a
         ``RunLogger``. As in the JAX package, the epochs run without the
         watchdog and without dynamic regrouping (``epoch_timeout_s`` and
-        ``dynamic_regroup`` are taken and not acted on)."""
+        ``dynamic_regroup`` are taken and not acted on). The result's
+        'dispatch' says how the steps ran: 'graph' or 'eager'."""
         with RunLogger(self.config.log_dir or None,
                        config=self.config) as logger:
             return self._fit(data, epochs, verbose, warm_start, logger)
@@ -192,27 +226,28 @@ class MamdrTrainer(Trainer):
         logger.log({"test": test_result})
         return {"history": history, "test": test_result,
                 "meta_weights": self.meta_weights,
-                "domain_weights": self.domain_weights}
+                "domain_weights": self.domain_weights,
+                "dispatch": self.chunks.name}
 
     def evaluate_merged(self, batcher: DomainBatcher,
                         domain_cnt_weight: np.ndarray) -> Dict:
-        """Domain by domain (ascending), each with its merged weights;
+        """Domain by domain (ascending), each with its merged weights: one
+        pass of ``self.evals`` over the domain's batches, fetched once;
         the model holds the meta weights again afterwards."""
+        seq = np.asarray(batcher.domain_batch_seq)
+        ev = self.eval_pass("eval_step")
         preds, targets, domains = [], [], []
-        prev_d = -1
-        for d in np.sort(np.asarray(batcher.domain_batch_seq)).tolist():
-            if d != prev_d:
-                self.load_weights(tree_add(self.meta_weights,
-                                           self.domain_weights[d]))
-                prev_d = d
-            batch = batcher.next_batch(d)
-            n = int(batch["valid"].sum())
-            preds.append(self.gather_rows(
-                self.eval_prob(self.place(batch)))[:n])
-            targets.append(batch["y"][:n])
-            domains.append(np.full((n,), d, np.int64))
+        for d in np.unique(seq).tolist():
+            self.load_weights(tree_add(self.meta_weights,
+                                       self.domain_weights[d]))
+            feeds = [batcher.next_batch(d)
+                     for _ in range(int(np.sum(seq == d)))]
+            p, y, dom = pass_rows(self.evals.run_eval(ev, feeds), feeds)
+            preds.append(p)
+            targets.append(y)
+            domains.append(dom.astype(np.int64))
         self.load_weights(self.meta_weights)
         return metrics_lib.full_evaluation(
-            np.concatenate(targets), torch.cat(preds).cpu().numpy(),
+            np.concatenate(targets), np.concatenate(preds),
             np.concatenate(domains), domain_cnt_weight,
             multi_domain=self.config.is_evaluate_multi_domain)

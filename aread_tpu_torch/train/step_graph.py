@@ -60,31 +60,35 @@ captured again when it would read another object, shape, mode or final
 flag, not when the weights were rewritten in place (a Predictor's model
 and masks are its own and never change). An evaluation runs no
 optimizer: ``eval_dispatch`` picks graphs on one CUDA device without a
-mesh, whatever the table optimizer, and a trainer whose steps are graphs
-too evaluates through the same runner (``Evals``), one memory pool for
-both.
+mesh, and a trainer whose steps are graphs too evaluates through the
+same runner (``Evals``), one memory pool for both.
 
 A trainer states each of its step functions as a ``Step``
 (``trainer.chunk_step(kind, state)``): the function, the keys of a host
 feed, the host counters one step advances, its step count, learning rate
 and betas, and what a captured step holds besides the model; and it turns
 a feed into a batch (``trainer.feed_batch``). The configuration alone picks
-the dispatch (``graph_dispatch``): the graph on one CUDA device with
-``table_optimizer='adam'``; the eager loop on the CPU, on a mesh (its
-collectives are not captured: gloo stages them through the host), with
-``lazy_adam`` (whose update waits for the device). Both leave the same
-bits. A trainer's ``chunks`` (``Chunks``) makes its dispatch at the first
-chunk. ``MamdrTrainer`` never asks for one: its Reptile steps are single
-steps, as the JAX package's ``_train_on_sequence`` runs them.
+the dispatch (``graph_dispatch``): the graph on one CUDA device, under
+either table optimizer (``lazy_adam``'s touched-rows update keeps static
+shapes and reads nothing back); the eager loop on the CPU and on a mesh
+(its collectives are not captured: gloo stages them through the host).
+Both leave the same bits. A trainer's ``chunks`` (``Chunks``) makes its
+dispatch at the first chunk. ``MamdrTrainer`` runs each Reptile sequence
+as chunks of its one step function (the JAX package jits
+``_train_on_sequence``'s ``_train_step``), on one optimizer state that
+``trainer.hybrid_reset_`` puts back to step 0 in place before each
+sequence, so one graph serves every sequence of a fit; its merged
+evaluation is one pass a domain.
 
 A graph holds the storage of everything it touches: the model's tensors,
 the optimizer state, the resident split and its domain -> group map. Mask
 evolution, ``_load_best``, a warm start's or a resume's weights and the
 best weights' reload write those in place, so a graph stays valid across
-them; a graph is captured again when a step would read another tensor (a
-new optimizer state, a new resident split, a regrouped domain -> group map
-of the resident split, which is a new tensor as the JAX package's regroup
-drops its ``_epoch_scan``) or another learning rate. Host state that picks
+them, as do MAMDR's weight swaps and Reptile passes; a graph is captured
+again when a step would read another tensor (a new optimizer state, a new
+resident split, a regrouped domain -> group map of the resident split,
+which is a new tensor as the JAX package's regroup drops its
+``_epoch_scan``) or another learning rate. Host state that picks
 the kernels, as ``matmul_precision_ctx``'s TF32 switch, is set inside the
 step and so holds at the capture; a replay runs the kernels it picked.
 """
@@ -110,15 +114,13 @@ WARMUP_STEPS = 2
 
 def graph_dispatch(trainer) -> bool:
     """Whether ``trainer``'s steps run as CUDA graphs: one CUDA device, no
-    mesh, the dense-semantics table Adam."""
-    return (trainer.device.type == "cuda" and trainer.mesh is None
-            and trainer.config.table_optimizer == "adam")
+    mesh."""
+    return trainer.device.type == "cuda" and trainer.mesh is None
 
 
 def eval_dispatch(owner) -> bool:
     """Whether ``owner``'s evaluation passes (a trainer's) or requests (a
-    ``Predictor``'s) run as CUDA graphs: one CUDA device, no mesh. No
-    optimizer runs in them, so the table optimizer does not matter."""
+    ``Predictor``'s) run as CUDA graphs: one CUDA device, no mesh."""
     return (owner.device.type == "cuda"
             and getattr(owner, "mesh", None) is None)
 

@@ -18,12 +18,12 @@ tower and the loss gathers the sample's group column. An epoch's steps
 run in chunks of ``SCAN_CHUNK`` through ``train/step_graph.py``, as the
 JAX package's ``_build_train_scan`` / ``_build_epoch_scan`` run them:
 each step a replay of a captured CUDA graph on one card
-(``GraphChunks``), each launched from Python elsewhere (``EagerChunks``:
-the CPU, a mesh, ``lazy_adam``); ``step_timer.dispatch`` says which. Its
-evaluation passes (the JAX package's eval step, streaming ``accum`` and
-``all_tower_probs``) are one replay a batch on one card, ``lazy_adam``
-included (``evals``, ``step_graph.Eval``), eager on the CPU and on a
-mesh. Its options:
+(``GraphChunks``), under either table optimizer, each launched from
+Python elsewhere (``EagerChunks``: the CPU, a mesh);
+``step_timer.dispatch`` says which. Its evaluation passes (the JAX
+package's eval step, streaming ``accum`` and ``all_tower_probs``) are one
+replay a batch on one card (``evals``, ``step_graph.Eval``), eager on the
+CPU and on a mesh. Its options:
 ``compute_dtype`` (``ops/precision.py``), ``dynamic_regroup`` (the
 domain -> group map recomputed between epochs from the valid split's
 per-(tower, domain) losses, ``train/regroup.py``), ``log_dir``
@@ -253,6 +253,21 @@ def hybrid_init(optimizer: DenseAdam, model, moments_dtype=None) -> Dict:
             "m": torch.zeros(table.shape, dtype=mdt, device=table.device),
             "v": torch.zeros(table.shape, dtype=mdt, device=table.device),
             "t": 0}
+
+
+@torch.no_grad()
+def hybrid_reset_(state: Dict) -> Dict:
+    """A ``hybrid_init`` state put back to step 0 in place: the table's
+    and the dense leaves' moments zeroed, the step counts 0. Every tensor
+    keeps its identity, so a captured step that reads them stays valid;
+    the result is bitwise ``hybrid_init``'s for the same model."""
+    inner = state["inner"]
+    torch._foreach_zero_([state["m"], state["v"]]
+                         + list(inner["mu"].values())
+                         + list(inner["nu"].values()))
+    inner["count"] = 0
+    state["t"] = 0
+    return state
 
 
 def clip_scale_by_global_norm(tensors: Sequence[torch.Tensor],

@@ -34,6 +34,13 @@ Phases, each printing one line:
            clock, examples/s, launches and kernels per step and the
            device's idle share (torch.profiler over one chunk), peak
            memory; the captured step once under sync debug mode 'error';
+           then its lazy part, table_optimizer='lazy_adam' (the touched
+           rows' update, no kernel of ours): AREAD trainers on LAZY_CHUNKS,
+           a regroup of LAZY_CHAINS chains of 5 + 5, and DeepFM through
+           Trainer.fit and on LAZY_DENSE_CHUNKS, each by graph and by its
+           eager twin in turns, bitwise, with the same per-dispatch
+           numbers, a step and a chain under sync debug mode 'error'; and
+           lazy_sparse_adam_ alone, by its call and by a replay, bitwise;
   eval     evaluation by CUDA graph replays (one a batch) and by its eager
            twin, in turns, bitwise (results, predictions or histograms,
            weights): the train phase's AREAD trainer over EVAL_BATCHES
@@ -77,9 +84,13 @@ Phases, each printing one line:
            eager twin; one step of each card vs CPU
            at a small width, and ADL's centres after such an evaluation;
            MAMDR at the CLI defaults (sparse table gradient, bf16 table and
-           moments) through MamdrTrainer.fit for one epoch, its sparse_adam
-           launches held to the Reptile schedule's, a Reptile update, a
-           merge and a weight swap timed, and one small epoch card vs CPU;
+           moments) through MamdrTrainer.fit for one epoch by graph
+           replays and by its eager twin, bitwise (meta and every domain's
+           weights, history), one step capture for the fit, each fit's
+           sparse_adam launches held to the Reptile schedule's, then its
+           steps by both dispatches in turns on MAMDR_CHUNKS, a Reptile
+           update, a merge and a weight swap timed, and one small epoch
+           card (graph replays) vs CPU;
            the four models saved, rebuilt by load_predictor and served
            against their trainers' evaluation; each FM op this slice
            added to ops/fm.py card vs CPU at the Amazon field count;
@@ -1330,6 +1341,43 @@ def twin_chunks(ctx, path, trs, chunks, run, timed: int, profiled: int):
     return per_step, runs, outs, checked
 
 
+def aread_chunks(tr, batcher, plan):
+    """``plan``'s chunks ((kind, steps)) of ``batcher``'s per-domain
+    batches in its domain sequence, each with its steps' domain masks from
+    ``tr``'s mask state (none for warm-up): (kind, feeds, masks)."""
+    ms = tr.mask_state
+    seq = list(batcher.domain_batch_seq)
+    chunks, k = [], 0
+    for kind, n in plan:
+        ds = seq[k:k + n]
+        k += n
+        chunks.append((kind, [batcher.next_batch(d) for d in ds],
+                       [None if kind == "warmup" else ms.domain_mask[d]
+                        for d in ds]))
+    return chunks
+
+
+def run_aread_chunk(t, chunk):
+    """``twin_chunks``' ``run`` for an AREAD chunk (kind, feeds, masks)."""
+    kind, feeds, masks = chunk
+    return t.chunks.run(kind, feeds, masks, t.opt_state)
+
+
+def train_chunks(feeds, sizes):
+    """``feeds`` cut into chunks of the generic step ('train', feeds) of
+    ``sizes`` steps each, and ``twin_chunks``' ``run`` for them."""
+    chunks, k = [], 0
+    for n in sizes:
+        chunks.append(("train", feeds[k:k + n]))
+        k += n
+
+    def run(t, chunk):
+        return t.chunks.run("train", chunk[1], [None] * len(chunk[1]),
+                            t.opt_state)
+
+    return chunks, run
+
+
 def sync_debug_step(tr, kind: str, key: str, feeds, masks) -> None:
     """The step ``tr``'s graph ``key`` captured, its body run once eagerly
     on the first of ``feeds`` under torch.cuda.set_sync_debug_mode('error'):
@@ -1389,25 +1437,13 @@ def phase_train(ctx):
         for d in range(N_DOMAIN):
             ms.domain_mask[d] = ms.generate_mask("rand", d,
                                                  cfg.init_active_percent)
-    ms = tr.mask_state
     table0 = tr.model.embedding.table.clone()
-    seq = list(batcher.domain_batch_seq)
-    chunks, k = [], 0
-    for kind, n in TRAIN_CHUNKS:
-        ds = seq[k:k + n]
-        k += n
-        chunks.append((kind, [batcher.next_batch(d) for d in ds],
-                       [None if kind == "warmup" else ms.domain_mask[d]
-                        for d in ds]))
+    chunks = aread_chunks(tr, batcher, TRAIN_CHUNKS)
     torch.cuda.synchronize()
-
-    def run(t, chunk):
-        kind, feeds, masks = chunk
-        return t.chunks.run(kind, feeds, masks, t.opt_state)
-
     t_loop = time.perf_counter()
     per_step, runs, outs, checked = twin_chunks(
-        ctx, "train", trs, chunks, run, TIMED_CHUNK, PROFILED_CHUNK)
+        ctx, "train", trs, chunks, run_aread_chunk, TIMED_CHUNK,
+        PROFILED_CHUNK)
     loop_s = time.perf_counter() - t_loop
     launches = ctx["launches_by_path"]["train"]
     n_steps = sum(n for _, n in TRAIN_CHUNKS)
@@ -1440,6 +1476,216 @@ def phase_train(ctx):
         chunks_by_dispatch=runs, loss_first=float(losses[0]),
         loss_last=float(losses[-1]), launches=launches,
         sync_debug_error_step="passed")
+    train_lazy(ctx)
+
+
+# the train phase's lazy part: AREAD chunks (kind, steps), the first
+# bagging chunk captures, the second is timed, the third profiled; a
+# regroup of LAZY_CHAINS candidate chains at the default depth (5 + 5);
+# DeepFM's chunks after its fit (steps each, the same roles)
+LAZY_CHUNKS = (("warmup", 4), ("main", 16), ("main", 16), ("main", 8))
+LAZY_TIMED, LAZY_PROFILED = 2, 3
+LAZY_CHAINS = 6
+LAZY_DENSE_CHUNKS = (8, 16, 8)
+# lazy_sparse_adam_'s call in its former boolean-index form, which waited
+# for the device (NVIDIA H100 80GB HBM3, 700 W; PERF.md): ms a call, host
+# included, printed beside the static form's
+LAZY_CALL_MS_BOOLEAN_INDEX = (0.8, 1.5)
+
+
+def no_launches(ctx, *paths) -> None:
+    """The lazy update launches no kernel of ours: every count 0."""
+    for path in paths:
+        got = ctx["launches_by_path"][path]
+        if any(got.values()):
+            raise AssertionError(f"{path} launched {got} under lazy_adam")
+
+
+def lazy_call(dma) -> dict:
+    """lazy_sparse_adam_ alone on the probe's bf16 Amazon table and batch,
+    reading a staged scalar block: by the eager call and by one replay of
+    its captured CUDA graph, the two bitwise from one state; per call the
+    ms (CUDA events around one call, median of 10, and back to back), the
+    host clock, launch calls, kernels and device busy ms (torch.profiler
+    over 5 calls)."""
+    from aread_tpu_torch.ops.sparse_adam import (lazy_sparse_adam_,
+                                                 step_scalars, to_device)
+
+    w, m, v, uids, gsum = dma.lazy_inputs(BS, "cuda")
+    block = to_device(step_scalars(1, SPARSE_KW["lr"]), "cuda")
+
+    def call():
+        lazy_sparse_adam_(w, m, v, uids, gsum, 1, scalars=block, **SPARSE_KW)
+
+    start = [x.clone() for x in (w, m, v)]
+
+    def restore():
+        for x, x0 in zip((w, m, v), start):
+            x.copy_(x0)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    graph.replay()
+    by_graph = [x.clone() for x in (w, m, v)]
+    restore()
+    call()
+    bad = bits_differ(by_graph, [w, m, v])
+    if bad:
+        raise AssertionError(f"lazy_sparse_adam_: replay != call at {bad}")
+    out = {"table": [list(w.shape), str(w.dtype)],
+           "touched_rows": int((uids < w.shape[0]).sum()),
+           "replay_bitwise_call": True}
+    for name, fn in (("eager", call), ("graph", graph.replay)):
+        ev, host = event_ms(fn)
+        _, prof = chunk_profile(lambda: [fn() for _ in range(5)], 5)
+        out[name] = {"call_ms_events": ev, "call_ms_host_clock": host,
+                     "ms_back_to_back": device_time_ms(fn),
+                     **{k: prof[k] for k in (
+                         "cudaLaunchKernel", "cudaGraphLaunch",
+                         "cudaMemcpyAsync", "kernels_run",
+                         "device_busy_ms")}}
+    return out
+
+
+def train_lazy(ctx):
+    """table_optimizer='lazy_adam' at full Amazon width, each path by CUDA
+    graph replays and by its eager twin from one seed, required bitwise:
+    (a) AREAD's warm-up and bagging steps in turns on LAZY_CHUNKS
+    (``twin_chunks``: per dispatch ms a step, launches, kernels, busy ms,
+    idle share) and a captured bagging step under sync debug mode
+    'error'; (b) a regroup of LAZY_CHAINS full-sweep candidate chains at
+    the default depth (5 + 5) in turns (``chain_twins``), ms a chain of
+    each dispatch (``chain_replays``) and a chain under sync debug mode
+    'error'; (c) DeepFM at the CLI defaults through Trainer.fit
+    (``fit_twins``), then its steps in turns on LAZY_DENSE_CHUNKS; (d)
+    lazy_sparse_adam_ alone (``lazy_call``). No kernel of ours runs on
+    these paths: every count stays 0."""
+    from aread_tpu_torch.benchmarks import prof_dma_issue as dma
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import DomainBatcher, GlobalBatcher
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.train.trainer import Trainer
+
+    spec = amazon_spec()
+
+    def make():
+        t = build_trainer(spec, "cuda", N_DOMAIN, dataset_name="amazon",
+                          seed=0, table_optimizer="lazy_adam")
+        for d in range(N_DOMAIN):
+            t.mask_state.domain_mask[d] = t.mask_state.generate_mask(
+                "rand", d, t.config.init_active_percent)
+        return t
+
+    # (a) the AREAD steps
+    trs = chain_twin_trainers(make)
+    tr = trs["graph"]
+    cfg = tr.config
+    if (cfg.table_optimizer, cfg.table_dtype, cfg.table_moments_dtype,
+            tr.model.embedding.table.shape[0]) != (
+            "lazy_adam", "bfloat16", "bfloat16", 1518384):
+        raise AssertionError("not the Amazon configuration under lazy_adam")
+    rng = np.random.default_rng(5)
+    x, y = amazon_rows(rng, spec, N_DOMAIN * 5 * BS)
+    chunks = aread_chunks(tr, DomainBatcher(x, y, BS, spec.domain_idx,
+                                            N_DOMAIN, seed=0), LAZY_CHUNKS)
+
+    per_step, runs, outs, checked = twin_chunks(
+        ctx, "train/lazy", trs, chunks, run_aread_chunk, LAZY_TIMED,
+        LAZY_PROFILED)
+    no_launches(ctx, "train/lazy")
+    losses = torch.cat([o[0] for o in outs["graph"]]).cpu().numpy()
+    n_steps = sum(n for _, n in LAZY_CHUNKS)
+    if not np.isfinite(losses).all() or tr.opt_state["t"] != n_steps:
+        raise AssertionError(f"lazy: losses {losses}, t={tr.opt_state['t']}")
+    say("train", part="lazy_step", table_optimizer="lazy_adam",
+        chunks=[[k, n] for k, n in LAZY_CHUNKS],
+        bitwise_after_chunks=checked, per_step=per_step,
+        chunk_event_ms={k: [r["event_ms"] for r in rs]
+                        for k, rs in runs.items()},
+        graph_launches_per_replay={k: v.launches
+                                   for k, v in tr.chunks.graphs.items()},
+        captures=tr.chunks.captures,
+        launches=ctx["launches_by_path"]["train/lazy"],
+        loss_first=float(losses[0]), loss_last=float(losses[-1]))
+
+    # (b) a regroup's chains at the default depth
+    if (cfg.regroup_update_step, cfg.regroup_eval_step) != (5, 5):
+        raise AssertionError("not the default chain depth")
+    inputs = chain_inputs(tr, DomainBatcher(x, y, BS, spec.domain_idx,
+                                            N_DOMAIN, seed=1), LAZY_CHAINS)
+    zero = {"sparse_adam": 0, "fused_adam": 0}
+    chain_runs = chain_twins(ctx, "train/lazy_chain", trs, inputs, False,
+                             (("graph", "eager"), ("eager", "graph")), zero)
+    per_chain = {name: chain_replays(t, inputs, False, ctx,
+                                     f"train/lazy_chain_replays_{name}")
+                 for name, t in trs.items()}
+    # last, since they move the graph trainer past its twin: a chain
+    # (which restores the weights) and a step under sync debug 'error'
+    sync_debug_chain(tr, inputs, False)
+    kind, feeds, masks = chunks[1]
+    sync_debug_step(tr, kind, kind, feeds, masks)
+    say("train", part="lazy_chain", candidates=LAZY_CHAINS,
+        adapt_steps=5, probes=5, engine="full", feed="host batches",
+        regroups=chain_runs, bitwise_graph_eager=True,
+        per_chain=per_chain, captures=tr.chunks.captures,
+        graph_launches_per_replay={k: v.launches
+                                   for k, v in tr.chunks.graphs.items()},
+        sync_debug_error_chain="passed", sync_debug_error_step="passed")
+    del trs, tr, chunks, outs
+    torch.cuda.empty_cache()
+
+    # (c) DeepFM through Trainer.fit, then its steps
+    dcfg = Config(model="deepfm", dataset_name="amazon", seed=0,
+                  table_optimizer="lazy_adam")
+    if (dcfg.sparse_table_grad, dcfg.table_dtype,
+            dcfg.table_moments_dtype) != (True, "bfloat16", "bfloat16"):
+        raise AssertionError("not the CLI defaults")
+    data = amazon_split(np.random.default_rng(7), 24 * BS, 4096)
+    trs, res, fit_s = fit_twins(
+        ctx, "train/lazy_fit",
+        lambda: Trainer(build_model(dcfg, spec, N_DOMAIN, device="cuda"),
+                        dcfg, N_DOMAIN),
+        lambda t: t.fit(data, epochs=1, verbose=False))
+    no_launches(ctx, "train/lazy_fit", "train/lazy_fit_eager")
+    check_metrics("lazy deepfm", (("valid", res["graph"]["history"][0]),
+                                  ("test", res["graph"]["test"])))
+    g = trs["graph"]
+    if g.chunks.captures != 1:
+        raise AssertionError(f"lazy deepfm fit: {g.chunks.captures} captures")
+    dx, dy = amazon_rows(np.random.default_rng(8), spec,
+                         sum(LAZY_DENSE_CHUNKS) * BS)
+    dchunks, drun = train_chunks(
+        list(GlobalBatcher(dx, dy, BS, spec.domain_idx, None, seed=1)),
+        LAZY_DENSE_CHUNKS)
+    dper_step, druns, _, dchecked = twin_chunks(
+        ctx, "train/lazy_deepfm_steps", trs, dchunks, drun, 1, 2)
+    no_launches(ctx, "train/lazy_deepfm_steps")
+    sync_debug_step(g, "train", "train", dchunks[1][1], [None])
+    say("train", part="lazy_fit", model="deepfm",
+        table=[list(g.model.embedding.table.shape),
+               str(g.model.embedding.table.dtype)],
+        fit_steps=24, fit_s=fit_s, bitwise_graph_eager=True,
+        valid_total_auc=res["graph"]["history"][0]["total_auc"],
+        test_total_auc=res["graph"]["test"]["total_auc"],
+        chunks=list(LAZY_DENSE_CHUNKS), bitwise_after_chunks=dchecked,
+        per_step=dper_step,
+        chunk_event_ms={k: [r["event_ms"] for r in rs]
+                        for k, rs in druns.items()},
+        captures=g.chunks.captures, sync_debug_error_step="passed")
+    del trs, g, res
+    torch.cuda.empty_cache()
+
+    # (d) the update alone
+    say("train", part="lazy_call", **lazy_call(dma),
+        boolean_index_form_call_ms=list(LAZY_CALL_MS_BOOLEAN_INDEX))
 
 
 # the eval phase's split: at least this many per-domain batches of BS rows
@@ -1723,15 +1969,7 @@ def dense_twins(ctx, make, spec, d2g, sparse: bool, resident: bool,
         feeds = list(batcher.epoch_perm())
     else:
         feeds = list(batcher)
-    chunks, k = [], 0
-    for n in DENSE_CHUNKS:
-        chunks.append(("train", feeds[k:k + n]))
-        k += n
-
-    def run(t, chunk):
-        return t.chunks.run("train", chunk[1], [None] * len(chunk[1]),
-                            t.opt_state)
-
+    chunks, run = train_chunks(feeds, DENSE_CHUNKS)
     grad, feed = ("sparse" if sparse else "dense",
                   "resident" if resident else "host")
     path = f"train_dense/deepfm_{grad}_{feed}" + (
@@ -2744,13 +2982,25 @@ def mamdr_sparse_adam_launches(cfg, data) -> int:
     return total
 
 
+# MAMDR's steps by both dispatches after the fits: chunks of host batches
+# (the first is replayed by the fit's graph, the second timed, the third
+# profiled)
+MAMDR_CHUNKS = (8, 16, 8)
+
+
 def zoo2_mamdr(ctx):
     """MAMDR at the CLI defaults (sparse table gradient, bf16 table and
     moments, 2 auxiliary domains) through build_model + MamdrTrainer.fit:
-    one epoch on MAMDR_TRAIN_ROWS rows, valid and test passes of 2,048;
-    the sparse_adam launches must be the schedule's; then one Reptile
+    one epoch on MAMDR_TRAIN_ROWS rows, valid and test passes of 2,048,
+    by CUDA graph replays and by its eager twin from one seed
+    (``fit_twins``); the two bitwise (the model, the optimizer state, the
+    generator, the meta weights, every domain's weights, the history and
+    the test result), one step graph captured for the whole fit, and
+    each fit's sparse_adam launches the schedule's. Then one Reptile
     update, one merge and one weight swap timed alone (the table
-    included), and 6 training steps as zoo times its models'."""
+    included), and the twins' steps in turns on MAMDR_CHUNKS
+    (``twin_chunks``: ms a step, launches, kernels, busy ms, idle
+    share). Returns the graph trainer, holding the meta weights."""
     from aread_tpu_torch.config import Config
     from aread_tpu_torch.data.loader import DomainBatcher
     from aread_tpu_torch.models import build_model
@@ -2765,23 +3015,33 @@ def zoo2_mamdr(ctx):
             cfg.mamdr_aux_sample_num, cfg.bs) != (True, "bfloat16",
                                                   "bfloat16", 2, BS):
         raise AssertionError("not the CLI defaults")
-    tr = MamdrTrainer(build_model(cfg, data.spec, N_DOMAIN, device="cuda"),
-                      cfg, N_DOMAIN)
+    want = mamdr_sparse_adam_launches(cfg, data)
+    trs, res, epoch_s = fit_twins(
+        ctx, "zoo2/mamdr_fit",
+        lambda: MamdrTrainer(build_model(cfg, data.spec, N_DOMAIN,
+                                         device="cuda"), cfg, N_DOMAIN),
+        lambda t: t.fit(data, epochs=1, verbose=False))
+    for path in ("zoo2/mamdr_fit", "zoo2/mamdr_fit_eager"):
+        launches = ctx["launches_by_path"][path]
+        if launches != {"sparse_adam": want, "fused_adam": 0}:
+            raise AssertionError(f"{path} launched {launches}, the "
+                                 f"schedule implies {want} sparse_adam")
+    bad = bits_differ(
+        [res["graph"]["meta_weights"], res["graph"]["domain_weights"]],
+        [res["eager"]["meta_weights"], res["eager"]["domain_weights"]])
+    if bad:
+        raise AssertionError(f"mamdr: the graph fit's Reptile weights != "
+                             f"the eager fit's at {bad[:8]}")
+    tr = trs["graph"]
     table = tr.model.embedding.table
     if tuple(table.shape) != (1518384, EMBED_DIM):
         raise AssertionError(f"table {tuple(table.shape)}")
-    want = mamdr_sparse_adam_launches(cfg, data)
-    t0 = time.perf_counter()
-    res = counted(ctx, "zoo2/mamdr_fit",
-                  lambda: tr.fit(data, epochs=1, verbose=False))
-    epoch_s = time.perf_counter() - t0
-    launches = ctx["launches_by_path"]["zoo2/mamdr_fit"]
-    if launches != {"sparse_adam": want, "fused_adam": 0}:
-        raise AssertionError(f"mamdr fit launched {launches}, the schedule "
-                             f"implies {want} sparse_adam")
-    hist = res["history"][0]
-    check_metrics("mamdr", (("valid", hist), ("test", res["test"])))
-    meta = res["meta_weights"]
+    if tr.chunks.captures != 1:
+        raise AssertionError(f"mamdr fit: {tr.chunks.captures} step "
+                             f"captures, one for the whole fit wanted")
+    hist = res["graph"]["history"][0]
+    check_metrics("mamdr", (("valid", hist), ("test", res["graph"]["test"])))
+    meta = res["graph"]["meta_weights"]
     live = tr.live_weights()
     if tr.model.embedding.table is not table or not all(
             torch.equal(v, meta[k]) for k, v in live.items()):
@@ -2789,37 +3049,57 @@ def zoo2_mamdr(ctx):
     peak = torch.cuda.max_memory_allocated() / 2**30
     reptile_ms = event_ms(lambda: reptile_update(meta, live, meta,
                                                  cfg.mamdr_meta_lr))
-    merge_ms = event_ms(lambda: tree_add(meta, res["domain_weights"][0]))
+    merge_ms = event_ms(lambda: tree_add(meta,
+                                         res["graph"]["domain_weights"][0]))
     swap_ms = event_ms(lambda: tr.load_weights(meta))
-    # one training step of the meta-trainer alone (the model's state is
-    # put back afterwards: it serves the meta weights)
+    # the twins' steps alone (the graph trainer's model is put back
+    # afterwards: it serves the meta weights)
     saved = {k: v.clone() for k, v in tr.model.state_dict().items()}
     batcher = DomainBatcher(data.train_x, data.train_y, BS,
                             data.spec.domain_idx, N_DOMAIN, seed=1)
-    batches = [tr.place(batcher.next_batch(d)) for d in range(6)]
-    step_ms, _ = counted(ctx, "zoo2/mamdr_steps",
-                         lambda: timed_steps(tr, batches))
-    per_step, busy_ms = launches_and_busy_per_call(lambda: tr.step(batches[0]))
+    # the split holds a batch a domain: the chunks go round the domains
+    seq = list(batcher.domain_batch_seq)
+    chunks, run = train_chunks(
+        [batcher.next_batch(seq[j % len(seq)])
+         for j in range(sum(MAMDR_CHUNKS))], MAMDR_CHUNKS)
+    per_step, runs, _, checked = twin_chunks(
+        ctx, "zoo2/mamdr_steps", trs, chunks, run, 1, 2)
+    steps = ctx["launches_by_path"]["zoo2/mamdr_steps"]
+    if steps != {"sparse_adam": 2 * sum(MAMDR_CHUNKS), "fused_adam": 0}:
+        raise AssertionError(f"mamdr steps launched {steps}")
+    if tr.chunks.captures != 1:
+        raise AssertionError("mamdr: its steps captured the step again")
     tr.model.load_state_dict(saved)
     say("zoo2", model="mamdr", part="fit", rows=MAMDR_TRAIN_ROWS,
         table=[list(table.shape), str(table.dtype)],
         params=sum(t.numel() for t in live.values()),
-        epoch_s=epoch_s, steps=want, launches=launches,
-        sparse_adam_launches_schedule=want, step_ms_median=step_ms,
-        cuda_launches_per_step=per_step, device_busy_ms_per_step=busy_ms,
-        device_idle_share=1 - busy_ms / step_ms,
+        epoch_s=epoch_s, steps=want,
+        launches=ctx["launches_by_path"]["zoo2/mamdr_fit"],
+        sparse_adam_launches_schedule=want,
+        bitwise_graph_eager=["model", "optimizer state", "generator",
+                             "meta weights", "domain weights", "history",
+                             "test"],
+        step_captures=tr.chunks.captures,
+        eval_captures=tr.chunks.eval_captures,
+        graph_launches_per_replay={k: v.launches
+                                   for k, v in tr.chunks.graphs.items()},
+        chunks=list(MAMDR_CHUNKS), bitwise_after_chunks=checked,
+        per_step=per_step,
+        chunk_event_ms={k: [r["event_ms"] for r in rs]
+                        for k, rs in runs.items()},
         valid_total_auc=hist["total_auc"],
         valid_mean_auc=hist["mean_auc"],
-        test_total_auc=res["test"]["total_auc"],
+        test_total_auc=res["graph"]["test"]["total_auc"],
         reptile_update_ms=reptile_ms, merge_ms=merge_ms, swap_ms=swap_ms,
         peak_mem_gb=peak)
-    del res, meta, live, saved, batches
+    del res, meta, live, saved, trs
     return tr
 
 
 def zoo2_mamdr_reference(ctx):
     """One MamdrTrainer.fit epoch from the same weights on the card
-    (sparse-Adam kernel) and on the CPU (plain version): a small width
+    (sparse-Adam kernel, the steps graph replays) and on the CPU (plain
+    version, the eager loop): a small width
     (embed 8, MLP of 16 and 8 units, 4 domains, bs 256), f32 table and
     moments, dropout 0; the meta weights and domain 0's weights at atol
     1e-5. Every batch holds one domain, so the rows of the MLP's first
@@ -2867,6 +3147,9 @@ def zoo2_mamdr_reference(ctx):
     res["cuda"] = counted(ctx, "zoo2_mamdr_reference", lambda: trainers[
         "cuda"].fit(data, epochs=1, verbose=False))
     launches = ctx["launches_by_path"].pop("zoo2_mamdr_reference")
+    if res["cuda"]["dispatch"] != "graph":
+        raise AssertionError(f"the card's MAMDR fit dispatched "
+                             f"{res['cuda']['dispatch']}")
     diffs = {}
     for what, pick in (("meta", lambda r: r["meta_weights"]),
                        ("domain0", lambda r: r["domain_weights"][0])):
@@ -2875,7 +3158,7 @@ def zoo2_mamdr_reference(ctx):
             diffs[f"{what}:{k}"] = float((a[k] - b[k].cpu()).abs().max())
     worst = max(diffs, key=diffs.get)
     say("reference", path="mamdr MamdrTrainer.fit (one epoch)",
-        launches=launches, max_abs_diff=diffs[worst], worst=worst,
+        dispatch=res["cuda"]["dispatch"], launches=launches, max_abs_diff=diffs[worst], worst=worst,
         tolerance=1e-5, reptile_and_merge_bitwise=True)
     if launches["sparse_adam"] != mamdr_sparse_adam_launches(cfg, data):
         raise AssertionError(f"mamdr reference launched {launches}")

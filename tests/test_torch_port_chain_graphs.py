@@ -364,9 +364,14 @@ def test_chain_dispatch_follows_the_configuration(world, monkeypatch):
     assert tr.chunks.name == "eager"
     monkeypatch.setattr(tr, "device", torch.device("cuda"))
     assert isinstance(step_graph.make_chunks(tr), step_graph.GraphChunks)
-    for field, value in (("table_optimizer", "lazy_adam"), ("mesh", object())):
-        if field == "mesh":
-            monkeypatch.setattr(tr, "mesh", value)
-        else:
-            monkeypatch.setattr(tr.config, field, value)
+    # lazy_adam's chains are graphs on a card too; a mesh's are eager
+    monkeypatch.setattr(tr.config, "table_optimizer", "lazy_adam")
+    assert isinstance(step_graph.make_chunks(tr), step_graph.GraphChunks)
+    for opt in ("lazy_adam", "adam"):
+        monkeypatch.setattr(tr.config, "table_optimizer", opt)
+        monkeypatch.setattr(tr, "mesh", object())
         assert isinstance(step_graph.make_chunks(tr), step_graph.EagerChunks)
+        monkeypatch.setattr(tr, "mesh", None)
+        monkeypatch.setattr(tr, "device", torch.device("cpu"))
+        assert isinstance(step_graph.make_chunks(tr), step_graph.EagerChunks)
+        monkeypatch.setattr(tr, "device", torch.device("cuda"))

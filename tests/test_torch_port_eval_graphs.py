@@ -29,9 +29,9 @@ convert.py.
   weights, a pass of one batch captured for its next pass, and a failed
   capture raising by name.
 * (d) The configuration alone picks the evaluation's dispatch: eager on
-  the CPU and on a mesh, graphs on one CUDA device even under
-  ``lazy_adam``, through the trainer's own step runner where its steps are
-  graphs too.
+  the CPU and on a mesh, graphs on one CUDA device, ``lazy_adam``
+  included, through the trainer's own step runner where its steps are
+  graphs too (``lazy_adam``'s are).
 * (e) ``StreamingAUC.update_`` (in place) is bitwise ``update`` over
   hypothesis draws.
 
@@ -552,9 +552,11 @@ def test_eval_dispatch_follows_the_configuration(data, monkeypatch):
     monkeypatch.setattr(tr, "device", torch.device("cuda"))
     monkeypatch.setattr(gen, "device", torch.device("cuda"))
     monkeypatch.setattr(pred, "device", torch.device("cuda"))
-    # lazy_adam steps eagerly, and evaluates by graphs all the same
-    assert isinstance(step_graph.make_chunks(tr), step_graph.EagerChunks)
+    # lazy_adam steps and evaluates by graphs on a card, through one runner
+    assert isinstance(step_graph.make_chunks(tr), step_graph.GraphChunks)
     assert isinstance(step_graph.make_evals(tr), step_graph.GraphChunks)
+    tr._chunks = tr._evals = None
+    assert tr.evals is tr.chunks
     assert isinstance(step_graph.make_evals(pred), step_graph.GraphChunks)
     # graph steps: the evaluation shares the step runner (one pool)
     gen._chunks = gen._evals = None

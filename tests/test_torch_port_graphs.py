@@ -544,13 +544,18 @@ def test_dispatch_follows_the_configuration(monkeypatch):
     tr = _trainer(spec)
     assert not step_graph.graph_dispatch(tr)
     assert tr.chunks.name == "eager" and tr.step_timer.dispatch == "eager"
-    monkeypatch.setattr(tr, "device", torch.device("cuda"))
-    assert step_graph.graph_dispatch(tr)
-    tr.config.table_optimizer = "lazy_adam"
-    assert not step_graph.graph_dispatch(tr)
+    # one CUDA device without a mesh: graphs under either table optimizer;
+    # the CPU and a mesh: the eager loop
+    for opt in ("adam", "lazy_adam"):
+        tr.config.table_optimizer = opt
+        assert not step_graph.graph_dispatch(tr), opt
+        monkeypatch.setattr(tr, "device", torch.device("cuda"))
+        assert step_graph.graph_dispatch(tr), opt
+        tr.mesh = object()
+        assert not step_graph.graph_dispatch(tr), opt
+        tr.mesh = None
+        monkeypatch.setattr(tr, "device", torch.device("cpu"))
     tr.config.table_optimizer = "adam"
-    tr.mesh = object()
-    assert not step_graph.graph_dispatch(tr)
     # fit records the dispatch it ran
     tr = _trainer(spec, epoch=1, warm_up_interval=1, regroup_interval=1,
                   regroup_update_step=1, regroup_eval_step=1,

@@ -499,6 +499,52 @@ def test_chip_smoke_holds_evaluation_and_serving_graph_against_eager():
         assert name in funcs["zoo2_adl_centres"], name
 
 
+def test_chip_smoke_holds_lazy_adam_and_mamdr_graphs_against_eager():
+    """The train phase's lazy part runs, under table_optimizer='lazy_adam',
+    AREAD's steps, a regroup's chains at the default depth and a DeepFM
+    Trainer.fit, each by CUDA graph and by its eager twin in turns and
+    required bitwise, with no kernel of ours launched, a step and a chain
+    under sync debug mode 'error', and lazy_sparse_adam_ alone by its
+    call and by a replay, bitwise; the zoo2 phase fits MAMDR by graph and
+    by an eager twin, requires the meta weights, every domain's weights
+    and the history bitwise, one step capture and the Reptile schedule's
+    launches, and its card-vs-CPU epoch runs on graphs."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id in (
+                  "LAZY_CHUNKS", "LAZY_CHAINS", "LAZY_DENSE_CHUNKS",
+                  "MAMDR_CHUNKS")}
+    assert [k for k, _ in consts["LAZY_CHUNKS"]].count("main") >= 3
+    assert consts["LAZY_CHAINS"] >= 3
+    assert len(consts["LAZY_DENSE_CHUNKS"]) >= 3
+    assert len(consts["MAMDR_CHUNKS"]) >= 3
+    funcs = {n.name: ast.unparse(n) for n in tree.body
+             if isinstance(n, ast.FunctionDef)}
+    assert "train_lazy(ctx)" in funcs["phase_train"]
+    lazy = funcs["train_lazy"]
+    for name in ("table_optimizer='lazy_adam'", "chain_twin_trainers(make)",
+                 "twin_chunks(ctx, 'train/lazy'", "chain_twins(",
+                 "('graph', 'eager'), ('eager', 'graph')", "chain_replays(",
+                 "fit_twins(", "model='deepfm'",
+                 "twin_chunks(ctx, 'train/lazy_deepfm_steps'",
+                 "sync_debug_step(", "sync_debug_chain(", "lazy_call(dma)",
+                 "no_launches(ctx, 'train/lazy_fit', 'train/lazy_fit_eager')"):
+        assert name in lazy, name
+    for name in ("torch.cuda.graph(", "bits_differ(", "scalars=block",
+                 "chunk_profile(", "event_ms("):
+        assert name in funcs["lazy_call"], name
+    mamdr = funcs["zoo2_mamdr"]
+    for name in ("fit_twins(", "bits_differ(", "['meta_weights']",
+                 "['domain_weights']", "captures != 1", "twin_chunks(",
+                 "MAMDR_CHUNKS", "zoo2/mamdr_fit_eager"):
+        assert name in mamdr, name
+    assert "['dispatch'] != 'graph'" in funcs["zoo2_mamdr_reference"]
+    for name in ("step_graph.graph_dispatch = ", "fit_results_equal(",
+                 "bits_differ(trainer_bits"):
+        assert name in funcs["fit_twins"], name
+
+
 def test_chip_smoke_chain_inputs_have_the_regroup_shape():
     """``chain_inputs`` on the CPU, at a toy size: ``n`` candidates in
     domain order, each a valid mask and S adapt / P probe feeds as the

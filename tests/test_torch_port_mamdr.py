@@ -51,6 +51,16 @@ SHAPES = {"embedding/table": (50, 8), "mlp/linear_0/kernel": (24, 16),
           "mlp/linear_0/bias": (16,), "linear/bias": (1,)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the suite's workers share the host's cores,
+    and small tensors on many threads each spin for the rest."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trees(dtype, seed=0):
     """Three trees (update, new, old) of numpy arrays in ``dtype``."""
     rng = np.random.default_rng(seed)
@@ -147,7 +157,14 @@ def test_one_epoch_matches_the_jax_meta_trainer(data, monkeypatch,
         inits.append((a, kw))
         return T.hybrid_init(optimizer, model, *a, **kw)
 
+    resets = []
+
+    def spy_reset(state):
+        resets.append(state)
+        return T.hybrid_reset_(state)
+
     monkeypatch.setattr(M, "hybrid_init", spy_init)
+    monkeypatch.setattr(M, "hybrid_reset_", spy_reset)
     table = tr.model.embedding.table
     tres = tr.fit(data, epochs=1, verbose=False)
 
@@ -161,9 +178,12 @@ def test_one_epoch_matches_the_jax_meta_trainer(data, monkeypatch,
             np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-4,
                                        err_msg=f"{split} {k}")
     # 1 shared sequence + (2 aux + the domain itself) per domain, each from
-    # a fresh optimizer whose table moments take the table's dtype
-    assert len(inits) == 1 + 3 * N_DOMAIN and all(i == ((), {})
-                                                  for i in inits)
+    # a fresh optimizer whose table moments take the table's dtype: one
+    # state made at the first sequence, put back to step 0 in place before
+    # each later one
+    assert len(inits) + len(resets) == 1 + 3 * N_DOMAIN and all(
+        i == ((), {}) for i in inits)
+    assert len(inits) == 1 and all(r is tr.opt_state for r in resets)
     # the same tensors throughout; the model ends on the meta weights
     assert tr.model.embedding.table is table
     for k, v in tr.live_weights().items():

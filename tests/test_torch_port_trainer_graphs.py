@@ -29,8 +29,10 @@ dropout streams cannot agree).
   new optimizer state, a new resident split, another learning rate and a
   regrouped domain -> group map of the resident split, none for a regroup
   of host batches, and a failed capture raising by name.
-* (e) ``graph_dispatch`` follows the configuration: the CPU, a mesh and
-  ``lazy_adam`` run eagerly; ``MamdrTrainer.fit`` makes no chunk dispatch.
+* (e) ``graph_dispatch`` follows the configuration: graphs on one CUDA
+  device without a mesh under either table optimizer, the eager loop on
+  the CPU and on a mesh; ``MamdrTrainer`` follows the same rule, and its
+  fit on the CPU steps through the eager loop.
 
 A linear bias that feeds a BatchNorm has a true gradient of exactly 0;
 both sides get the true 0 where the JAX package is compared, as in
@@ -87,6 +89,16 @@ ATTEN_DIM = 8
 SIDE = dict(n_cross_layers=2, atten_embed_dim=ATTEN_DIM, att_layer_num=1,
             att_head_num=2)
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the suite's workers share the host's cores,
+    and small tensors on many threads each spin for the rest."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _data():
@@ -589,32 +601,41 @@ def test_dispatch_follows_the_configuration(monkeypatch):
     tr = _zoo_trainer(data, "deepfm", False)
     assert not step_graph.graph_dispatch(tr)
     assert tr.chunks.name == "eager" and tr.step_timer.dispatch == "eager"
-    monkeypatch.setattr(tr, "device", torch.device("cuda"))
-    assert step_graph.graph_dispatch(tr)
-    tr.config.table_optimizer = "lazy_adam"
-    assert not step_graph.graph_dispatch(tr)
+    # one CUDA device without a mesh: graphs under either table optimizer;
+    # the CPU and a mesh: the eager loop
+    for opt in ("adam", "lazy_adam"):
+        tr.config.table_optimizer = opt
+        assert not step_graph.graph_dispatch(tr), opt
+        monkeypatch.setattr(tr, "device", torch.device("cuda"))
+        assert step_graph.graph_dispatch(tr), opt
+        tr.mesh = object()
+        assert not step_graph.graph_dispatch(tr), opt
+        tr.mesh = None
+        monkeypatch.setattr(tr, "device", torch.device("cpu"))
     tr.config.table_optimizer = "adam"
-    tr.mesh = object()
-    assert not step_graph.graph_dispatch(tr)
-    # MAMDR's Reptile steps are single steps, as the JAX package's
-    # _train_on_sequence runs them: its fit makes no chunk dispatch
+    # MAMDR's Reptile sequences run through the same rule: graphs on a
+    # card, and on the CPU its fit steps through the eager loop
     cfg = Config(**{**SMALL, "model": "mamdr", "sparse_table_grad": True})
     mt = MamdrTrainer(build_model(cfg, data.spec, N_DOMAIN, device="cpu"),
                       cfg, N_DOMAIN)
-
-    def no_chunks(trainer):
-        raise AssertionError("MamdrTrainer made a chunk dispatch")
-
-    steps, single_step = [], mt.step
-    monkeypatch.setattr(step_graph, "make_chunks", no_chunks)
-    monkeypatch.setattr(mt, "step",
-                        lambda batch: steps.append(1) or single_step(batch))
+    monkeypatch.setattr(mt, "device", torch.device("cuda"))
+    assert step_graph.graph_dispatch(mt)
+    monkeypatch.setattr(mt, "mesh", object())
+    assert not step_graph.graph_dispatch(mt)
+    monkeypatch.undo()
+    steps = []
+    real_run = step_graph.EagerChunks.run
+    monkeypatch.setattr(step_graph.EagerChunks, "run",
+                        lambda self, kind, feeds, *a, **kw: (
+                            steps.append(len(feeds)),
+                            real_run(self, kind, feeds, *a, **kw))[-1])
     # two batches of rows a split keep MAMDR's passes short
-    mt.fit(dataclasses.replace(
+    res = mt.fit(dataclasses.replace(
         data, **{f"{s}_{a}": getattr(data, f"{s}_{a}")[:2 * BS]
                  for s in ("train", "valid", "test") for a in "xy"}),
         epochs=1, verbose=False)
-    assert mt._chunks is None and steps
+    assert res["dispatch"] == "eager" and mt.chunks.name == "eager"
+    assert steps and mt.step_timer.total_steps == sum(steps)
     monkeypatch.undo()
     # fit records the dispatch it ran
     tr = _zoo_trainer(data, "deepfm", False)
