@@ -55,6 +55,7 @@ from aread_tpu_torch.train.checkpoint import load_checkpoint
 from aread_tpu_torch.train.step_graph import Evals, Request
 from aread_tpu_torch.train.trainer import (MULTI_TOWER_MODELS,
                                            adopt_state_dict)
+from aread_tpu_torch.utils.profiling import STORE
 
 BUCKETS = (128, 512, 2048, 8192)
 
@@ -170,28 +171,48 @@ class Predictor:
     def predict(self, x: np.ndarray) -> np.ndarray:
         """``x``: int array [N, n_columns] of encoded feature ids (the
         canonical CSV's layout: the one-hot columns, then the flattened
-        padded history sequences). Returns [N] float32 probabilities."""
-        x = np.asarray(x, np.int32)
-        n = x.shape[0]
-        if n == 0:
-            return np.zeros((0,), np.float32)
-        if getattr(self.model, "eval_dlm_update", False):
-            # the JAX Predictor applies the model without a mutable
-            # collection, and flax refuses ADL's centre update there
-            raise ValueError(
-                "ADL with adl_eval_dlm_update moves its cluster centres at "
-                "every forward; a Predictor serves a frozen model (rebuild "
-                "it with adl_eval_dlm_update=False to serve these weights)")
-        self._check(x)
-        xb = np.zeros((_bucket(n), x.shape[1]), np.int32)
-        xb[:n] = x
-        # entered here and not at construction: the modes are
-        # thread-local, and a threaded server calls from a new thread per
-        # request; every static buffer of a graph is made and written in
-        # inference mode
-        with torch.inference_mode():
-            prob = self.evals.serve(self.request(self.mode_of(x)), xb)
-            return prob[:n].cpu().numpy().astype(np.float32)
+        padded history sequences). Returns [N] float32 probabilities.
+
+        Each request is a ``serve.predict`` span, its id the request's
+        sequence number (``serve.requests``), with the children
+        ``serve.prepare`` (check, mode, pad), ``serve.copy_in``,
+        ``serve.replay`` (a graph's, with a device event pair) or
+        ``step_graph.eager``, ``serve.fetch`` (the copy out, which waits for
+        the device) and ``serve.convert``; its rows and padded rows are
+        counted (``utils/profiling.py``)."""
+        with STORE.span("serve.predict", STORE.count("serve.requests")):
+            with STORE.span("serve.prepare"):
+                x = np.asarray(x, np.int32)
+                n = x.shape[0]
+                if n == 0:
+                    return np.zeros((0,), np.float32)
+                if getattr(self.model, "eval_dlm_update", False):
+                    # the JAX Predictor applies the model without a
+                    # mutable collection, and flax refuses ADL's centre
+                    # update there
+                    raise ValueError(
+                        "ADL with adl_eval_dlm_update moves its cluster "
+                        "centres at every forward; a Predictor serves a "
+                        "frozen model (rebuild it with "
+                        "adl_eval_dlm_update=False to serve these weights)")
+                self._check(x)
+                xb = np.zeros((_bucket(n), x.shape[1]), np.int32)
+                xb[:n] = x
+                req = self.request(self.mode_of(x))
+            # entered here and not at construction: the modes are
+            # thread-local, and a threaded server calls from a new thread
+            # per request; every static buffer of a graph is made and
+            # written in inference mode
+            with torch.inference_mode():
+                prob = self.evals.serve(req, xb)
+                with STORE.span("serve.fetch"):
+                    host = prob[:n].cpu()
+                STORE.harvest("request")
+                with STORE.span("serve.convert"):
+                    out = host.numpy().astype(np.float32)
+            STORE.count("serve.rows", n)
+            STORE.count("serve.padded_rows", len(xb))
+            return out
 
 
 def _coerce_like(template, value):

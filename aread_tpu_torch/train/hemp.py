@@ -75,7 +75,6 @@ from __future__ import annotations
 import functools
 import logging
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -114,6 +113,7 @@ from aread_tpu_torch.train.trainer import (TABLE_L2, Trainer,
                                            sum_states_over_data,
                                            table_reg_value)
 from aread_tpu_torch.utils import profiling
+from aread_tpu_torch.utils.profiling import STORE
 from aread_tpu_torch.utils.masks import HempMaskState, prune_mask_tensor
 from aread_tpu_torch.utils.runlog import RunLogger
 
@@ -196,8 +196,8 @@ class AREADTrainer:
         self.init_active_percent = config.init_active_percent
         self.candidate_mask_num = float(config.candidate_mask_num)
         self.regroup_times = 0
-        # one record per evolution: seconds, chains, candidates per domain
-        # and the active ratio it left
+        # one record per evolution: seconds, each phase's seconds, chains,
+        # candidates per domain and the active ratio it left
         self.regroup_log: List[Dict] = []
         # early stopping
         self.trial_counter = 0
@@ -218,7 +218,8 @@ class AREADTrainer:
         self._chain_io: Dict[str, Dict] = {}
         self._device_data = None  # (dxc, dyc, aug_offset)
         self._epoch_examples = 0  # rows stepped in the running epoch
-        # host clock per step: the launches, since no step synchronises
+        # each step's span (utils/profiling.py): on a card the launch,
+        # since no step synchronises
         self.step_timer = profiling.StepTimer()
         # the dispatch of the warm-up, bagging and final-gate steps (made
         # at the first chunk: step_graph.Chunks) and of the evaluation
@@ -739,14 +740,19 @@ class AREADTrainer:
         (``_feed``). Returns (per level the pruned masks [n, ...], the probe
         losses [n, P])."""
         n = len(masks)
-        chain, io = self._stage_chains(overlay, masks, fa_feeds, probe_feeds)
-        self.chunks.run_chains(chain, n)
-        self._restore(self._chain_snap)
-        # one fetch: the masks' bytes and the losses' side by side
-        outs = [m[:n].reshape(n, -1).view(torch.uint8)
-                for m in io["out_masks"]]
-        outs.append(io["out_losses"][:n].contiguous().view(torch.uint8))
-        host = torch.cat(outs, dim=1).cpu().numpy()
+        with STORE.span("hemp.stage"):
+            chain, io = self._stage_chains(overlay, masks, fa_feeds,
+                                           probe_feeds)
+        with STORE.span("hemp.chains"):
+            self.chunks.run_chains(chain, n)
+            self._restore(self._chain_snap)
+        with STORE.span("hemp.fetch"):
+            # one fetch: the masks' bytes and the losses' side by side
+            outs = [m[:n].reshape(n, -1).view(torch.uint8)
+                    for m in io["out_masks"]]
+            outs.append(io["out_losses"][:n].contiguous().view(torch.uint8))
+            host = torch.cat(outs, dim=1).cpu().numpy()
+        STORE.harvest("chain")
         levels, lo = [], 0
         for m in io["out_masks"]:
             size = int(np.prod(m.shape[1:]))
@@ -763,7 +769,15 @@ class AREADTrainer:
         the JAX package's staging order, then every chain runs from the
         snapshot taken here (``run_chains``); the weights and statistics
         are restored at the end, and the main optimizer's state is never
-        touched."""
+        touched. One ``hemp_mask_evolution`` span, its id the regroup's
+        number, with the children ``hemp.draw``, ``hemp.stage``,
+        ``hemp.chains``, ``hemp.fetch`` and ``hemp.select``, whose seconds
+        the regroup's ``regroup_log`` entry keeps (``phases``)."""
+        self.regroup_times += 1
+        with STORE.span("hemp_mask_evolution", self.regroup_times) as evo:
+            self._evolve(train_batcher, aug_batcher, verbose, evo)
+
+    def _evolve(self, train_batcher, aug_batcher, verbose, evo) -> None:
         cfg = self.config
         ms = self.mask_state
         overlay = self.overlay_enabled()
@@ -771,48 +785,54 @@ class AREADTrainer:
         self.init_active_percent = max(0.1, self.init_active_percent * 0.95)
         self.candidate_mask_num *= 0.99
         n_cand = max(1, int(self.candidate_mask_num))
-        self.regroup_times += 1
         if verbose:
             print(f"regroup {self.regroup_times}: sigma={self.random_modify_sigma:.4f} "
                   f"active%={self.init_active_percent:.3f} candidates={n_cand}")
-        t0 = time.time()
-        aug_off = self._device_data[2] if self._device_data is not None else 0
-        cand_index: List[Tuple[int, int]] = []
-        masks, fa_feeds, probe_feeds = [], [], []
-        # the numpy streams (mask generator, both batchers) are drawn
-        # domain-major, a candidate's mask, then its adapt batches, then
-        # its probe batches: the JAX package's staging order
-        for d in range(self.n_domain):
-            # a domain the augmented rows do not cover adapts on its train
-            # rows
-            use_aug = len(aug_batcher.domain_indices[d]) > 0
-            fa_batcher = aug_batcher if use_aug else train_batcher
-            for z in range(n_cand):
-                masks.append(ms.generate_mask(
-                    "mask_max_gate", d,
-                    init_active_percent=self.init_active_percent,
-                    random_modify_sigma=self.random_modify_sigma))
-                fa_feeds.append([
-                    self._feed(fa_batcher, fa_batcher.next_batch_indices(d),
-                               aug_off if use_aug else 0)
-                    for _ in range(cfg.regroup_update_step)])
-                probe_feeds.append([
-                    self._feed(train_batcher,
-                               train_batcher.next_batch_indices(d))
-                    for _ in range(cfg.regroup_eval_step)])
-                cand_index.append((d, z))
+        with STORE.span("hemp.draw") as draw:
+            aug_off = (self._device_data[2] if self._device_data is not None
+                       else 0)
+            cand_index: List[Tuple[int, int]] = []
+            masks, fa_feeds, probe_feeds = [], [], []
+            # the numpy streams (mask generator, both batchers) are drawn
+            # domain-major, a candidate's mask, then its adapt batches,
+            # then its probe batches: the JAX package's staging order
+            for d in range(self.n_domain):
+                # a domain the augmented rows do not cover adapts on its
+                # train rows
+                use_aug = len(aug_batcher.domain_indices[d]) > 0
+                fa_batcher = aug_batcher if use_aug else train_batcher
+                for z in range(n_cand):
+                    masks.append(ms.generate_mask(
+                        "mask_max_gate", d,
+                        init_active_percent=self.init_active_percent,
+                        random_modify_sigma=self.random_modify_sigma))
+                    fa_feeds.append([
+                        self._feed(fa_batcher,
+                                   fa_batcher.next_batch_indices(d),
+                                   aug_off if use_aug else 0)
+                        for _ in range(cfg.regroup_update_step)])
+                    probe_feeds.append([
+                        self._feed(train_batcher,
+                                   train_batcher.next_batch_indices(d))
+                        for _ in range(cfg.regroup_eval_step)])
+                    cand_index.append((d, z))
         before = dict(cuda_ops.launch_counts)
         out_masks, all_losses = self.run_chains(masks, fa_feeds, probe_feeds,
                                                 overlay)
-        for i, (d, z) in enumerate(cand_index):
-            ms.candidate_domain_mask[d].append([m[i].copy()
-                                                for m in out_masks])
-            for loss in all_losses[i]:
-                ms.add_eval_loss(float(loss), d=d, mask_z=z)
-        ms.update_all_mask()
-        seconds = time.time() - t0
+        with STORE.span("hemp.select") as select:
+            for i, (d, z) in enumerate(cand_index):
+                ms.candidate_domain_mask[d].append([m[i].copy()
+                                                    for m in out_masks])
+                for loss in all_losses[i]:
+                    ms.add_eval_loss(float(loss), d=d, mask_z=z)
+            ms.update_all_mask()
+        seconds = evo.seconds
+        phases = {"draw": draw.seconds, "select": select.seconds}
+        for k in ("stage", "chains", "fetch"):  # run_chains' spans
+            t0, t1, _, _ = STORE.records(f"hemp.{k}", evo.traced)[-1]
+            phases[k] = (t1 - t0) / 1e9
         self.regroup_log.append({
-            "seconds": seconds, "chains": len(cand_index),
+            "seconds": seconds, "phases": phases, "chains": len(cand_index),
             "candidates": n_cand, "overlay": overlay,
             "dispatch": self.chunks.name,
             "launches": {k: v - before[k]
@@ -834,14 +854,15 @@ class AREADTrainer:
         flagged ``record``, all on the device, unfetched."""
         state = self._main_state() if state is None else state
         losses, recorded = [], []
-        for lo in range(0, len(steps), SCAN_CHUNK):
-            chunk = steps[lo:lo + SCAN_CHUNK]
-            ls, gms = self.chunks.run(kind, [st[1] for st in chunk],
-                                      [st[2] for st in chunk], state)
-            losses.append(ls)
-            recorded.extend((d, tuple(g[i] for g in gms))
-                            for i, (d, _, _, record) in enumerate(chunk)
-                            if record)
+        with STORE.span("hemp.segment"):
+            for lo in range(0, len(steps), SCAN_CHUNK):
+                chunk = steps[lo:lo + SCAN_CHUNK]
+                ls, gms = self.chunks.run(kind, [st[1] for st in chunk],
+                                          [st[2] for st in chunk], state)
+                losses.append(ls)
+                recorded.extend((d, tuple(g[i] for g in gms))
+                                for i, (d, _, _, record) in enumerate(chunk)
+                                if record)
         return losses, recorded
 
     def train_epoch(self, epoch_i: int, train_batcher: DomainBatcher,
@@ -889,22 +910,27 @@ class AREADTrainer:
             run("warmup", steps)
             losses.clear()  # warm-up losses are not epoch losses
 
+        seq = train_batcher.domain_batch_seq
+        # an evolution before step i, at each regroup point: the steps
+        # between two are a segment, its feeds built (``hemp.feeds``, the
+        # device idle) before its first chunk runs
+        cuts = [i for i in range(len(seq)) if (epoch_i == 0 and i == 0)
+                or (i + 1) % regroup_interval == 0]
         with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
-            steps = []
-            for i, d in enumerate(train_batcher.domain_batch_seq):
-                if (epoch_i == 0 and i == 0) or (
-                        (i + 1) % regroup_interval == 0):
-                    # the segment's steps run before the evolution after it
-                    run("main", steps)
-                    steps = []
-                    flush_records()
-                    with profiling.annotate("hemp_mask_evolution"):
-                        self._mask_evolution(train_batcher, aug_batcher,
-                                             verbose)
-                record = ((i + 1) // regroup_interval
-                          - (i + 1 + warm_up_interval) // regroup_interval) > 0
-                steps.append(pending(d, ms.domain_mask[d], record))
-            run("main", steps)
+            lo = 0
+            for cut in cuts + [len(seq)]:
+                with STORE.span("hemp.feeds"):
+                    steps = [pending(
+                        seq[i], ms.domain_mask[seq[i]],
+                        ((i + 1) // regroup_interval
+                         - (i + 1 + warm_up_interval) // regroup_interval) > 0)
+                        for i in range(lo, cut)]
+                run("main", steps)
+                if cut == len(seq):
+                    break
+                flush_records()
+                self._mask_evolution(train_batcher, aug_batcher, verbose)
+                lo = cut
         flush_records()
         return mean_losses(losses)
 
@@ -1178,23 +1204,25 @@ class AREADTrainer:
         history = []
         for epoch_i in range(start_epoch,
                              epochs if epochs is not None else cfg.epoch):
-            t0 = time.time()
-            with watchdog(epoch_deadline(cfg.epoch_timeout_s,
-                                         cfg.epoch_timeout_first_mult),
-                          tag=f"aread_epoch{epoch_i}",
-                          kill_process=cfg.epoch_timeout_kill):
-                train_loss = self.train_epoch(epoch_i, train_b, aug_b,
-                                              verbose)
-            train_s = time.time() - t0
-            raise_if_nonfinite(train_loss, epoch_i, cfg)
-            train_b.shuffle_seq()
-            result = self.evaluate(valid_b, data.domain_cnt_weight)
+            mark = STORE.mark()
+            with STORE.span("fit.epoch", epoch_i) as epoch:
+                with watchdog(epoch_deadline(cfg.epoch_timeout_s,
+                                             cfg.epoch_timeout_first_mult),
+                              tag=f"aread_epoch{epoch_i}",
+                              kill_process=cfg.epoch_timeout_kill), \
+                        STORE.span("fit.train") as train:
+                    train_loss = self.train_epoch(epoch_i, train_b, aug_b,
+                                                  verbose)
+                raise_if_nonfinite(train_loss, epoch_i, cfg)
+                train_b.shuffle_seq()
+                result = self.evaluate(valid_b, data.domain_cnt_weight)
             result["train_loss"] = train_loss
-            result["epoch_time_s"] = time.time() - t0
+            result["epoch_time_s"] = epoch.seconds
             # evolutions included; the epoch's seconds end in the fetch of
-            # its losses (a StepTimer around an unsynchronised step would
-            # time the launches)
-            result["examples_per_s"] = self._epoch_examples / train_s
+            # its losses (a replay's span times its launch, not its work)
+            result["examples_per_s"] = self._epoch_examples / train.seconds
+            # the epoch's spans, replays and counters
+            result["spans"] = STORE.summary(since=mark)
             history.append(result)
             logger.log({"valid": result}, step=epoch_i + 1)
             if verbose:
@@ -1225,16 +1253,18 @@ class AREADTrainer:
             self.trial_counter = 0
             for epoch_i in range(epochs if epochs is not None
                                  else cfg.final_epoch):
-                t0 = time.time()
-                floss = self.train_final_epoch(final_state, epoch_i, train_b,
-                                               verbose)
-                raise_if_nonfinite(floss, epoch_i, cfg)
-                train_b.shuffle_seq()
-                result = self.evaluate(valid_b, data.domain_cnt_weight,
-                                       final=True)
+                mark = STORE.mark()
+                with STORE.span("fit.epoch", epoch_i) as epoch:
+                    floss = self.train_final_epoch(final_state, epoch_i,
+                                                   train_b, verbose)
+                    raise_if_nonfinite(floss, epoch_i, cfg)
+                    train_b.shuffle_seq()
+                    result = self.evaluate(valid_b, data.domain_cnt_weight,
+                                           final=True)
                 result["train_loss"] = floss
-                result["epoch_time_s"] = time.time() - t0
+                result["epoch_time_s"] = epoch.seconds
                 result["phase"] = "final_gate"
+                result["spans"] = STORE.summary(since=mark)
                 history.append(result)
                 if verbose:
                     print(f"final-gate epoch {epoch_i + 1}: train_loss={floss:.4f} "

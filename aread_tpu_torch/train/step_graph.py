@@ -91,11 +91,23 @@ which is a new tensor as the JAX package's regroup drops its
 ``_epoch_scan``) or another learning rate. Host state that picks
 the kernels, as ``matmul_precision_ctx``'s TF32 switch, is set inside the
 step and so holds at the capture; a replay runs the kernels it picked.
+
+Both runners record into the store of ``utils/profiling.py``, never inside
+a captured body (a span there would run at the capture only): a chunk is a
+``step_graph.run`` span with ``step_graph.stage``, its eager steps (and
+every eager call before a capture) ``step_graph.eager``, a capture
+``step_graph.capture``, a ``run_chains`` call ``step_graph.chains``. Each
+step, chain and request replay is one span (``step_graph.replay``,
+``step_graph.chain_replay``, ``serve.replay``: the clock pair just around
+``graph.replay()``, which is also what the trainer's ``StepTimer`` reads)
+inside one timing event pair on the card, the first replay of a call
+flagged so that the gaps at call boundaries and within a call are told
+apart. Eager steps, captures and replays are counted by kind; a runner's
+``captures`` and ``eval_captures`` read its own share of the captures.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -105,6 +117,7 @@ import torch
 
 from aread_tpu_torch.ops import cuda as cuda_ops
 from aread_tpu_torch.ops.sparse_adam import chunk_scalars, to_device
+from aread_tpu_torch.utils.profiling import STORE
 
 # steps a chunk; the JAX package's SCAN_CHUNK
 SCAN_CHUNK = 32
@@ -376,23 +389,32 @@ class EagerChunks:
         losses [n] and the per-step outputs, each [n, ...], on the device,
         not fetched."""
         tr = self.tr
-        fn = tr.chunk_step(kind, state).fn
-        if not isinstance(feeds[0], dict):
-            staged = stage_ids(feeds, staged, tr.device)
-        losses, outs = [], []
-        for j, (feed, mask) in enumerate(zip(feeds, masks)):
-            with tr.step_timer.step(n_examples=feed_examples(feed)):
-                batch = tr.feed_batch(feed if staged is None else staged[j])
-                loss, out = fn(batch, mask, None)
-            losses.append(loss)
-            outs.append(out)
-        return torch.stack(losses), tuple(torch.stack(x) for x in zip(*outs))
+        with STORE.span("step_graph.run"):
+            fn = tr.chunk_step(kind, state).fn
+            if not isinstance(feeds[0], dict):
+                with STORE.span("step_graph.stage"):
+                    staged = stage_ids(feeds, staged, tr.device)
+            losses, outs = [], []
+            for j, (feed, mask) in enumerate(zip(feeds, masks)):
+                STORE.count("step.eager")
+                with tr.step_timer.step(feed_examples(feed),
+                                        "step_graph.eager"):
+                    batch = tr.feed_batch(feed if staged is None
+                                          else staged[j])
+                    loss, out = fn(batch, mask, None)
+                losses.append(loss)
+                outs.append(out)
+            return torch.stack(losses), tuple(torch.stack(x)
+                                              for x in zip(*outs))
 
     @staticmethod
     def run_chains(chain: Chain, n: int) -> None:
         """Run ``n`` candidates of a staged regroup, one ``chain.fn`` each."""
-        for _ in range(n):
-            chain.fn()
+        with STORE.span("step_graph.chains"):
+            for _ in range(n):
+                STORE.count("chain.eager")
+                with STORE.span("step_graph.eager"):
+                    chain.fn()
 
     @torch.no_grad()
     def run_eval(self, ev: Eval, feeds: Sequence[Dict],
@@ -415,7 +437,11 @@ class EagerChunks:
     def serve(self, req: Request, xb: np.ndarray) -> torch.Tensor:
         """One request: ``req.fn`` on the padded rows ``xb``, copied to the
         device."""
-        return req.fn(torch.from_numpy(xb).to(self.tr.device))
+        with STORE.span("serve.copy_in"):
+            x = torch.from_numpy(xb).to(self.tr.device)
+        STORE.count("request.eager")
+        with STORE.span("step_graph.eager"):
+            return req.fn(x)
 
 
 @dataclasses.dataclass
@@ -441,11 +467,24 @@ class GraphChunks:
         self.tr = weakref.proxy(trainer)  # as EagerChunks'
         self.dev = trainer.device
         self.graphs: Dict[str, _Graph] = {}
-        # graphs captured, re-captures included: of steps and chains, and
-        # of evaluation passes and requests
-        self.captures = self.eval_captures = 0
+        # this runner's captures, re-captures included, counted into the
+        # store (``captures`` and ``eval_captures`` read them)
+        self._captured = {k: STORE.counter(f"{k}.captures")
+                          for k in ("step", "chain", "eval", "request")}
+        # replays on a card record device event pairs (utils/profiling.py)
+        self.timed = self.dev.type == "cuda"
         self.pool = None
         self.buf: Dict[str, object] = {}
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured of steps and chains."""
+        return self._captured["step"].n + self._captured["chain"].n
+
+    @property
+    def eval_captures(self) -> int:
+        """Graphs captured of evaluation passes and requests."""
+        return self._captured["eval"].n + self._captured["request"].n
 
     # ----------------------------------------------------------- buffers
     def _buffers(self, key, step: Step, feeds, masks) -> Dict:
@@ -545,13 +584,14 @@ class GraphChunks:
             return None
         return g
 
-    def _capture(self, what: str, counters, body: Callable, holds: Tuple,
-                 lrs: Tuple, generator=None) -> _Graph:
-        """Capture one call of ``body`` (``what``: the step, chain, pass or
-        request, for the message), ``generator`` (dropout's, for steps and
-        chains) registered with the graph; the host counters and launch
-        counts that the capture advanced are put back, and a chain's end
-        values kept for its replays."""
+    def _capture(self, kind: str, what: str, counters, body: Callable,
+                 holds: Tuple, lrs: Tuple, generator=None) -> _Graph:
+        """Capture one call of ``body`` (``kind``: 'step', 'chain', 'eval'
+        or 'request', counted; ``what``: the step, chain, pass or request,
+        for the message), ``generator`` (dropout's, for steps and chains)
+        registered with the graph; the host counters and launch counts that
+        the capture advanced are put back, and a chain's end values kept
+        for its replays."""
         if generator is not None and not hasattr(
                 torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
@@ -567,7 +607,8 @@ class GraphChunks:
         if generator is not None:
             graph.register_generator_state(generator)
         try:
-            capture(graph, self.pool, body)
+            with STORE.span("step_graph.capture"):
+                capture(graph, self.pool, body)
             sets = [d[k] for d, k in counters]
         except Exception as e:
             raise RuntimeError(f"capturing the {what} into a CUDA graph "
@@ -575,20 +616,25 @@ class GraphChunks:
         finally:
             for d, k, v in saved:
                 d[k] = v
+        self._captured[kind].add()
         return _Graph(graph=graph, holds=holds, lrs=lrs,
                       launches=dict(cuda_ops.captured_counts), sets=sets)
 
-    def _eager_first(self, fn: Callable, n: int, examples=None) -> int:
+    def _eager_first(self, kind: str, fn: Callable, n: int,
+                     examples=None) -> int:
         """The recipe's eager calls on a side stream before a capture: the
-        first ``min(WARMUP_STEPS, n)`` steps or chains, real ones (with
-        ``examples``, each step timed). Returns how many ran."""
+        first ``min(WARMUP_STEPS, n)`` steps, chains, batches or requests
+        (``kind``), real ones (with ``examples``, each step timed), each a
+        span and counted. Returns how many ran."""
         warm = min(WARMUP_STEPS, n)
         side = side_stream(self.dev)
         side.wait_stream(torch.cuda.current_stream(self.dev))
         with torch.cuda.stream(side):
             for j in range(warm):
-                with (contextlib.nullcontext() if examples is None else
-                      self.tr.step_timer.step(n_examples=examples[j])):
+                STORE.count(kind + ".eager")
+                with (STORE.span("step_graph.eager") if examples is None
+                      else self.tr.step_timer.step(examples[j],
+                                                   "step_graph.eager")):
                     fn()
         torch.cuda.current_stream(self.dev).wait_stream(side)
         return warm
@@ -605,56 +651,58 @@ class GraphChunks:
         n = len(feeds)
         if not 0 < n <= SCAN_CHUNK:
             raise ValueError(f"a chunk holds 1 to {SCAN_CHUNK} steps, not {n}")
-        tr = self.tr
-        step = tr.chunk_step(kind, state)
-        # a graph per step function and feed form: host batches, or row ids
-        # into the resident split (the JAX package's scan and index scan)
-        idx = not isinstance(feeds[0], dict)
-        key = f"{kind}_idx" if idx else kind
-        buf = self._buffers(key, step, feeds, masks)
-        self._stage(buf, kind, feeds, masks, state, staged)
-        examples = [feed_examples(f) for f in feeds]
-        body = self._body(kind, buf, state)
-        done = 0
-        holds = self._reads(step, idx)
-        g = self._current(key, holds, step.lrs)
-        if g is None:
-            done = self._eager_first(body, n, examples)
-            if done == n:
-                return self._outputs(buf, n)
-            self.graphs.pop(key, None)
-            g = self.graphs[key] = self._capture(
-                f"{step.name} step", step.counters, body, holds, step.lrs,
-                tr.generator)
-            self.captures += 1
-        for j in range(done, n):
-            with tr.step_timer.step(n_examples=examples[j]):
-                g.graph.replay()
-            for d, k in step.counters:
-                d[k] += 1
-            self._count_replay(g)
-        return self._outputs(buf, n)
+        with STORE.span("step_graph.run"):
+            tr = self.tr
+            step = tr.chunk_step(kind, state)
+            # a graph per step function and feed form: host batches, or row ids
+            # into the resident split (the JAX package's scan and index scan)
+            idx = not isinstance(feeds[0], dict)
+            key = f"{kind}_idx" if idx else kind
+            buf = self._buffers(key, step, feeds, masks)
+            with STORE.span("step_graph.stage"):
+                self._stage(buf, kind, feeds, masks, state, staged)
+            examples = [feed_examples(f) for f in feeds]
+            body = self._body(kind, buf, state)
+            done = 0
+            holds = self._reads(step, idx)
+            g = self._current(key, holds, step.lrs)
+            if g is None:
+                done = self._eager_first("step", body, n, examples)
+                if done == n:
+                    return self._outputs(buf, n)
+                self.graphs.pop(key, None)
+                g = self.graphs[key] = self._capture(
+                    "step", f"{step.name} step", step.counters, body, holds,
+                    step.lrs, tr.generator)
+            timer = tr.step_timer
+            for j in range(done, n):
+                timer.add(STORE.replay("step", g.graph, j == done, self.timed),
+                          examples[j])
+                for d, k in step.counters:
+                    d[k] += 1
+                self._count_replay(g)
+            return self._outputs(buf, n)
 
     def run_chains(self, chain: Chain, n: int) -> None:
         """``EagerChunks.run_chains`` as replays of the chain's graph: its
         first candidates run eagerly when it is (re)captured, the rest are
         one replay each."""
-        done = 0
-        g = self._current(chain.key, chain.holds, chain.lrs)
-        if g is None:
-            done = self._eager_first(chain.fn, n)
-            if done == n:
-                return
-            self.graphs.pop(chain.key, None)
-            g = self.graphs[chain.key] = self._capture(
-                chain.name, chain.counters, chain.fn, chain.holds, chain.lrs,
-                self.tr.generator)
-            self.captures += 1
-        for _ in range(done, n):
-            g.graph.replay()
-            for (d, k), v in zip(chain.counters, g.sets):
-                d[k] = v
-            self._count_replay(g)
+        with STORE.span("step_graph.chains"):
+            done = 0
+            g = self._current(chain.key, chain.holds, chain.lrs)
+            if g is None:
+                done = self._eager_first("chain", chain.fn, n)
+                if done == n:
+                    return
+                self.graphs.pop(chain.key, None)
+                g = self.graphs[chain.key] = self._capture(
+                    "chain", chain.name, chain.counters, chain.fn,
+                    chain.holds, chain.lrs, self.tr.generator)
+            for j in range(done, n):
+                STORE.replay("chain", g.graph, j == done, self.timed)
+                for (d, k), v in zip(chain.counters, g.sets):
+                    d[k] = v
+                self._count_replay(g)
 
     # ------------------------------------------------- evaluation passes
     @staticmethod
@@ -756,11 +804,10 @@ class GraphChunks:
             self.stage_eval(buf, feeds[lo:lo + m], masks[lo:lo + m])
             done = 0
             if g is None:
-                done = self._eager_first(body, m)
+                done = self._eager_first("eval", body, m)
                 self.graphs.pop(key, None)
                 g = self.graphs[key] = self._capture(
-                    ev.name, [], body, self._eval_reads(ev, buf), ())
-                self.eval_captures += 1
+                    "eval", ev.name, [], body, self._eval_reads(ev, buf), ())
             for _ in range(done, m):
                 g.graph.replay()
                 self._count_replay(g)
@@ -791,15 +838,18 @@ class GraphChunks:
         if buf is None:
             buf = self.buf[key] = {"x": torch.empty(
                 xb.shape, dtype=torch.from_numpy(xb).dtype, device=self.dev)}
-        buf["x"].copy_(torch.from_numpy(xb))
-        body = self.serve_body(req, buf)
+        with STORE.span("serve.copy_in"):
+            buf["x"].copy_(torch.from_numpy(xb))
         g = self.graphs.get(key)
         if g is None:
-            self._eager_first(body, WARMUP_STEPS)
-            self.graphs[key] = self._capture(req.name, [], body, (), ())
-            self.eval_captures += 1
+            body = self.serve_body(req, buf)
+            self._eager_first("request", body, WARMUP_STEPS)
+            self.graphs[key] = self._capture("request", req.name, [], body,
+                                             (), ())
         else:
-            g.graph.replay()
+            # one unit: the request's own id, from its enclosing span
+            STORE.replay("request", g.graph, True, self.timed,
+                         STORE.current_uid())
             self._count_replay(g)
         return buf["out"]
 

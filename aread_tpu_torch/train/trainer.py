@@ -53,7 +53,6 @@ import contextlib
 import dataclasses
 import functools
 import os
-import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +81,7 @@ from aread_tpu_torch.train.regroup import (get_losses_tower_domain,
 from aread_tpu_torch.train.step_graph import (SCAN_CHUNK, Chunks, Eval,
                                               Evals, trainer_step)
 from aread_tpu_torch.utils import profiling
+from aread_tpu_torch.utils.profiling import STORE
 from aread_tpu_torch.utils.runlog import RunLogger
 
 MULTI_TOWER_MODELS = ("ple", "mmoe", "pepnet", "epnet", "star", "adl", "hinet")
@@ -110,11 +110,17 @@ def mean_losses(losses: List) -> float:
     """Mean over a list of 0-dim (or [S]) loss tensors. The epoch loops
     keep the losses on the device, unfetched — a fetch per step would make
     the host wait for the device every step — and bring them over here,
-    once."""
+    once; the epoch's replays' device event pairs are read back around
+    that wait, those the device has finished while it runs the rest
+    (``utils/profiling.py``)."""
     if not losses:
         return float("nan")
-    return float(torch.cat([l.detach().reshape(-1) for l in losses])
-                 .mean(dtype=torch.float32))
+    mean = torch.cat([l.detach().reshape(-1) for l in losses]).mean(
+        dtype=torch.float32)
+    STORE.harvest()
+    mean = float(mean)
+    STORE.harvest()
+    return mean
 
 
 def table_reg_value(table: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -733,7 +739,8 @@ class Trainer:
         with profiling.trace():  # a no-op unless AREAD_TPU_TRACE is set
             for lo in range(0, len(perm_np), self.DEVICE_EPOCH_CHUNK):
                 block = perm_np[lo:lo + self.DEVICE_EPOCH_CHUNK]
-                staged = to_device(block, self.device)
+                with STORE.span("trainer.stage"):
+                    staged = to_device(block, self.device)
                 for s in range(0, len(block), SCAN_CHUNK):
                     losses.append(self._train_chunk(
                         list(block[s:s + SCAN_CHUNK]),
@@ -1016,24 +1023,28 @@ class Trainer:
             try:
                 n_epochs = epochs if epochs is not None else cfg.epoch
                 for epoch_i in range(start_epoch, n_epochs):
-                    t0 = time.time()
-                    with watchdog(epoch_deadline(cfg.epoch_timeout_s,
-                                                 cfg.epoch_timeout_first_mult),
-                                  tag=f"train_epoch{epoch_i}",
-                                  kill_process=cfg.epoch_timeout_kill):
-                        train_loss = (
-                            self.train_epoch_device(batcher) if device_data
-                            else self.train_epoch(batcher))
-                    train_s = time.time() - t0
-                    raise_if_nonfinite(train_loss, epoch_i, cfg)
-                    result = self.evaluate(data.valid_x, data.valid_y,
-                                           data.domain_cnt_weight)
+                    mark = STORE.mark()
+                    with STORE.span("fit.epoch", epoch_i) as epoch:
+                        with watchdog(epoch_deadline(
+                                cfg.epoch_timeout_s,
+                                cfg.epoch_timeout_first_mult),
+                                tag=f"train_epoch{epoch_i}",
+                                kill_process=cfg.epoch_timeout_kill), \
+                                STORE.span("fit.train") as train:
+                            train_loss = (
+                                self.train_epoch_device(batcher)
+                                if device_data else self.train_epoch(batcher))
+                        raise_if_nonfinite(train_loss, epoch_i, cfg)
+                        result = self.evaluate(data.valid_x, data.valid_y,
+                                               data.domain_cnt_weight)
                     result["train_loss"] = train_loss
-                    result["epoch_time_s"] = time.time() - t0
+                    result["epoch_time_s"] = epoch.seconds
                     # the epoch's rows over its seconds, which end in the
-                    # fetch of its losses (a StepTimer around an
-                    # unsynchronised step would time the launches)
-                    result["examples_per_s"] = n_train / train_s
+                    # fetch of its losses (a replay's span times its
+                    # launch, not its work)
+                    result["examples_per_s"] = n_train / train.seconds
+                    # the epoch's spans, replays and counters
+                    result["spans"] = STORE.summary(since=mark)
                     history.append(result)
                     logger.log({"valid": result}, step=epoch_i + 1)
                     if verbose:

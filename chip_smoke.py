@@ -195,6 +195,12 @@ Phases, each printing one line:
            adam_attrib mode in every sweep bitwise against its plain
            version, full against kernel 1 too (-0.0 told apart), at the
            full table and at D = 8, 64, 256;
+  spans    the store of spans, counters and device event pairs
+           (utils/profiling.py): AREAD bagging steps, a regroup's chains,
+           generic Trainer chunks and a Predictor's requests at full Amazon
+           width, their replays, staging and pair reads under sync debug
+           mode 'error'; every kind's pairs read, none dropped; the host's
+           ns a span, a replay's span, an event pair and a pair read back;
   reference three steps from the same weights on the card and on the CPU
            (plain versions) at a small width, for the AREAD step and for
            the dense DeepFM step, and one small evolution at full width
@@ -6686,13 +6692,202 @@ def phase_probes(ctx):
         raise AssertionError(f"the probes launched no kernel: {launches}")
 
 
+# ------------------------------------------------------------------- spans
+# the spans phase: bagging steps in segments of 64 (the first captures),
+# a regroup's candidates, 1,024-row chunks of generic Trainer steps
+SPANS_SEGMENT, SPANS_CHAINS, SPANS_ROWS = 64, 6, 131072
+SPANS_COST_N = 2000  # replays a cost reading (under RING: no slot reused)
+
+
+def under_sync_error(failed: dict, what: str, fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode('error'), synchronised
+    before and after; a host wait inside is kept in ``failed`` under
+    ``what`` (and ``fn`` run again, outside the mode)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        failed[what] = str(e).splitlines()[0]
+        torch.cuda.set_sync_debug_mode("default")
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def span_costs() -> dict:
+    """Host ns a span costs, a replay's span and its event pair, a pair
+    read back, and a span under a running profiler: each the best of 5
+    loops on a store of its own, less the bare loop's or call's time."""
+    from aread_tpu_torch.utils.profiling import Store
+
+    class Null:  # a graph whose replay launches nothing
+        def replay(self):
+            pass
+
+    null, n, now = Null(), SPANS_COST_N, time.perf_counter_ns
+
+    def best(fn, timed=False):
+        out = []
+        for _ in range(5):
+            st = Store()
+            if timed:  # the pool made and each event created, untimed
+                p = st._slot("step")
+                for e in p.start + p.end:
+                    e.record()
+                torch.cuda.synchronize()
+            t0 = now()
+            fn(st)
+            out.append((now() - t0) / n)
+        return min(out), st
+
+    def bare(st):
+        for _ in range(n):
+            null.replay()
+
+    def spans(st):
+        for _ in range(n):
+            with st.span("x"):
+                pass
+
+    def replays(st, timed):
+        for _ in range(n):
+            st.replay("step", null, False, timed)
+
+    def traced(st):
+        with torch.profiler.profile():
+            t0 = now()
+            spans(st)
+            traced.ns = now() - t0
+
+    base, _ = best(bare)
+    span_ns, _ = best(spans)
+    replay_ns, _ = best(lambda st: replays(st, False))
+    timed_ns, st = best(lambda st: replays(st, True), timed=True)
+    torch.cuda.synchronize()
+    t0 = now()
+    st.harvest()
+    read_ns = (now() - t0) / n
+    traced(Store())
+    return {"span_ns": span_ns - base, "replay_span_ns": replay_ns - base,
+            "event_pair_ns": timed_ns - replay_ns,
+            "pair_read_ns": read_ns,
+            "span_under_profiler_ns": traced.ns / n - base,
+            "pairs_read": st.counts["device.pairs"]}
+
+
+def phase_spans(ctx):
+    """The store of spans, counters and device event pairs
+    (utils/profiling.py) at full Amazon width: AREAD bagging steps fed row
+    ids into a resident split, a regroup's candidate chains, generic
+    Trainer (DeepFM) chunks staged as train_epoch_device stages them, and
+    a Predictor's requests, each replay inside an event pair; a segment of
+    steps, a chunk with its staging, the chains and a request's replay run
+    under torch.cuda.set_sync_debug_mode('error'), and so does reading the
+    pairs back; then every kind has its pairs read, none dropped, and the
+    host's cost of a span, a replay's span, an event pair and a pair read
+    back."""
+    from aread_tpu_torch.config import Config
+    from aread_tpu_torch.data.loader import DomainBatcher, GlobalBatcher
+    from aread_tpu_torch.models import build_model
+    from aread_tpu_torch.ops.sparse_adam import to_device
+    from aread_tpu_torch.serve.predictor import Predictor
+    from aread_tpu_torch.train.step_graph import SCAN_CHUNK
+    from aread_tpu_torch.train.trainer import Trainer
+    from aread_tpu_torch.utils.masks import HempMaskState
+    from aread_tpu_torch.utils.profiling import PAIR_EVERY, STORE
+
+    spec = amazon_spec()
+    x, y = amazon_rows(np.random.default_rng(20), spec, SPANS_ROWS)
+    tr = build_trainer(spec, "cuda", N_DOMAIN, dataset_name="amazon", seed=0)
+    if not tr.stage_device_data(x, y, x, y):
+        raise AssertionError("the spans phase's split is not resident")
+    bs = tr.config.bs
+    batcher = DomainBatcher(x, y, bs, spec.domain_idx, N_DOMAIN, seed=0)
+    ms = HempMaskState(tr.model.n_tower, N_DOMAIN, seed=0)
+    masks = [ms.generate_mask("rand", d, 0.7) for d in range(N_DOMAIN)]
+
+    def segment():
+        steps = [(d, batcher.next_batch_indices(d),
+                  [np.array(m) for m in masks[d]], False)
+                 for d in (np.arange(SPANS_SEGMENT) % N_DOMAIN)]
+        return tr.run_segment("main", steps)[0]
+
+    failed = {}
+    for _ in range(2):  # the first captures
+        float(torch.cat(segment()).mean())
+    losses = under_sync_error(failed, "AREAD bagging steps", segment)
+    float(torch.cat(losses).mean())
+    under_sync_error(failed, "reading the steps' pairs", STORE.harvest)
+
+    inputs = chain_inputs(tr, batcher, SPANS_CHAINS)
+    for _ in range(2):  # the first captures
+        tr.run_chains(*inputs, False)
+    chain, _ = tr._stage_chains(False, *inputs)
+    under_sync_error(failed, "HEMP chain replays",
+                     lambda: tr.chunks.run_chains(chain, SPANS_CHAINS))
+    tr._restore(tr._chain_snap)
+    under_sync_error(failed, "reading the chains' pairs",
+                     lambda: STORE.harvest("chain"))
+
+    pred = Predictor(tr.model, N_DOMAIN, domain_mask=masks)
+    req = x[x[:, spec.domain_idx] == 3][:600]
+    for _ in range(3):  # eager, the capture, a replay
+        pred.predict(req)
+    (graph,) = [g for k, g in pred.evals.graphs.items()
+                if k.startswith("serve single")]
+    under_sync_error(failed, "a request's replays", lambda: [
+        STORE.replay("request", graph.graph, True, True, -1)
+        for _ in range(PAIR_EVERY["request"])])
+    under_sync_error(failed, "reading the request's pair",
+                     lambda: STORE.harvest("request"))
+    del pred
+
+    cfg = Config(model="deepfm", dataset_name="amazon", seed=0)
+    gt = Trainer(build_model(cfg, spec, N_DOMAIN, device="cuda"), cfg,
+                 N_DOMAIN)
+    gt.init()
+    gb = GlobalBatcher(x, y, bs, spec.domain_idx, None, shuffle=True, seed=0)
+    gt.stage_device_data(gb)
+    perm = gb.epoch_perm()
+
+    def chunk(lo):
+        with STORE.span("trainer.stage"):
+            staged = to_device(perm[lo:lo + SCAN_CHUNK], gt.device)
+        return gt._train_chunk(list(perm[lo:lo + SCAN_CHUNK]), staged=staged)
+
+    for lo in (0, SCAN_CHUNK):  # the first captures
+        float(chunk(lo).mean())
+    float(under_sync_error(failed, "generic Trainer steps",
+                           lambda: chunk(2 * SCAN_CHUNK)).mean())
+    under_sync_error(failed, "reading the Trainer's pairs", STORE.harvest)
+
+    summary = STORE.summary()
+    say("spans", sync_debug_error=failed or "passed",
+        replays=summary["replays"], counters=summary["counters"],
+        spans={k: v for k, v in summary["spans"].items()
+               if k.startswith(("step_graph.", "hemp.", "serve.",
+                                "trainer."))},
+        costs=span_costs())
+    del tr, gt
+    torch.cuda.empty_cache()
+    missing = {"step", "chain", "request"} - set(summary["replays"])
+    if failed or missing or summary["counters"].get("device.dropped", 0):
+        raise AssertionError(f"sync debug: {failed}; pairs: "
+                             f"{summary['replays']}; counters "
+                             f"{summary['counters']}")
+
+
 PHASES = {"device": phase_device, "build": phase_build,
           "kernels": phase_kernels, "reference": phase_reference,
           "train": phase_train, "eval": phase_eval,
           "train_dense": phase_train_dense, "zoo": phase_zoo,
           "zoo2": phase_zoo2, "hemp": phase_hemp,
           "serve": phase_serve, "options": phase_options,
-          "mesh": phase_mesh, "data": phase_data, "probes": phase_probes}
+          "mesh": phase_mesh, "data": phase_data, "probes": phase_probes,
+          "spans": phase_spans}
 OPT_IN = {"profile": phase_profile, "profile_dense": phase_profile_dense,
           "profile_hemp": phase_profile_hemp}
 

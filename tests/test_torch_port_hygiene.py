@@ -373,7 +373,7 @@ def test_chip_smoke_runs_the_hemp_phase_and_keeps_its_last_line():
     assert dicts["PHASES"] == ["device", "build", "kernels", "reference",
                                "train", "eval", "train_dense", "zoo", "zoo2",
                                "hemp", "serve", "options", "mesh", "data",
-                               "probes"]
+                               "probes", "spans"]
     assert dicts["OPT_IN"] == ["profile", "profile_dense", "profile_hemp"]
     assert {"train_batches", "regroup_interval", "candidate_mask_num",
             "final_epoch"} <= set(dicts["HEMP_DEPTH"])

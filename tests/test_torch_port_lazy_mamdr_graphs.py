@@ -413,7 +413,7 @@ def _spy(ms):
 def _results_equal(a, b):
     def metrics(r):
         return [{k: v for k, v in h.items()
-                 if k not in ("epoch_time_s", "examples_per_s")}
+                 if k not in ("epoch_time_s", "examples_per_s", "spans")}
                 for h in r["history"]] + [r["test"]]
 
     def same(x, y):
