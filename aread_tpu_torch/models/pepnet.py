@@ -13,6 +13,12 @@
 
 The detaches stand where the JAX package stops gradients; they change the
 gradients, not the forward.
+
+In a training forward on a card each Gate NU (its MLP, 2 * sigmoid and the
+multiply that applies it) runs inside a ``pepnet.gate`` event pair, and
+the trainer's step inside a ``pepnet.step`` pair (``step_pair``): nodes
+of the step's CUDA graph, read at the trainer's fetches
+(``utils/profiling.py``). Evaluation and serving open none.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from aread_tpu_torch.ops.initializers import linear_kernel_init, uniform_fan_in
 from aread_tpu_torch.ops.mlp import (BatchNorm, GateNN, Linear, StackedLinear,
                                      StackedMLP, dropout)
 from aread_tpu_torch.ops.precision import einsum
+from aread_tpu_torch.utils.profiling import STORE
 
 
 class PPNetBlock(nn.Module):
@@ -58,12 +65,14 @@ class PPNetBlock(nn.Module):
     def forward(self, feature_emb, gate_emb, train: bool = False, mask=None,
                 generator=None):
         B, T = feature_emb.shape[0], self.n_tower
+        timed = train and feature_emb.is_cuda
         gate_input = torch.cat([feature_emb.detach(), gate_emb], dim=-1)
         x = feature_emb[:, None, :].expand(B, T, feature_emb.shape[-1])
         for idx in range(len(self.dims) - 1):
-            gw = getattr(self, f"gate_{idx}")(gate_input, train=train,
-                                              generator=generator)
-            gated = x * gw.reshape(B, T, self.dims[idx])
+            with STORE.pair("pepnet.gate", timed):
+                gw = getattr(self, f"gate_{idx}")(gate_input, train=train,
+                                                  generator=generator)
+                gated = x * gw.reshape(B, T, self.dims[idx])
             h = (einsum("btd,df->btf", gated,
                         getattr(self, f"kernel_{idx}"))
                  + getattr(self, f"bias_{idx}"))
@@ -73,6 +82,8 @@ class PPNetBlock(nn.Module):
 
 
 class PEPNet(CTRModel):
+    # the trainer's step runs inside an event pair of this name
+    step_pair = "pepnet.step"
     REG_RULES = BASE_REG_RULES + (
         (r"^epnet/.*kernel$", 1e-5),
         (r"^ppnet/.*kernel", 1e-5),
@@ -129,10 +140,10 @@ class PEPNet(CTRModel):
         domain_embed = embed_x[:, self.spec.domain_idx, :]
         flat = embed_x.reshape(embed_x.shape[0], -1)
         run = dict(train=train, mask=mask, generator=generator)
-        epnet_weight = self.epnet(torch.cat([flat.detach(), domain_embed],
-                                            dim=-1), train=train,
-                                  generator=generator)
-        epnet_out = flat * epnet_weight
+        gate_input = torch.cat([flat.detach(), domain_embed], dim=-1)
+        with STORE.pair("pepnet.gate", train and flat.is_cuda):
+            epnet_out = flat * self.epnet(gate_input, train=train,
+                                          generator=generator)
 
         side = self.linear(flat)  # [B, 1]
         if self.cn is not None:

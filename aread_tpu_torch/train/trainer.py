@@ -113,7 +113,8 @@ def mean_losses(losses: List) -> float:
     the host wait for the device every step — and bring them over here,
     once; the epoch's replays' device event pairs are read back around
     that wait, those the device has finished while it runs the rest
-    (``utils/profiling.py``), and the table sweeps' counters with it
+    (``utils/profiling.py``), the pairs captured inside the step's graph
+    after it, and the table sweeps' counters with it
     (``ops/sparse_adam.py::fetch_tiny_counts``)."""
     if not losses:
         return float("nan")
@@ -124,6 +125,7 @@ def mean_losses(losses: List) -> float:
     mean = float(mean)
     tiny_counts()
     STORE.harvest()
+    STORE.read_captured()
     return mean
 
 
@@ -643,7 +645,15 @@ class Trainer:
         device (lr, the bias corrections of step ``t + 1``, its seed;
         ``ops/sparse_adam.py::step_scalars``), which the table's kernel and
         the dense leaves' Adam read (None: each makes its own from the step
-        count). Nothing is read back to the host."""
+        count). Nothing is read back to the host. On a card a model that
+        names a ``step_pair`` has the step timed inside an event pair of
+        that name (``utils/profiling.py``)."""
+        with STORE.pair(getattr(self.model, "step_pair", None),
+                        batch["x"].is_cuda):
+            return self._step_core(batch, scalars)
+
+    def _step_core(self, batch: Dict[str, torch.Tensor],
+                   scalars: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.config
         mesh = self.mesh
         model = self.model

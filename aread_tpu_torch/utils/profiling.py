@@ -34,12 +34,32 @@ it).
   enqueued it). A pair still incomplete when its slot comes round is
   dropped and counted (``device.dropped``), never waited for. No event is
   recorded inside a capture or on the side stream of the eager calls
-  before one.
+  before one, except by a stretch's pair, below.
+* A stretch's event pair (``STORE.pair(name, on)``, a context manager):
+  opened by the code that does the work where it asks for one (PEPNet's
+  Gate NUs and its training step), and nowhere else, so no other graph
+  gains a node. Outside a capture it is an ordinary pair, kept and read
+  as a replay's are, by the stretch's name. Inside a capture its two
+  events are made with ``external=True``: each record becomes a node of
+  the graph, so every replay records the pair again and it times that
+  stretch inside that replay. The pairs of one capture go to the graph
+  replayed next (``STORE.replay``: the graph it captured, in every
+  runner), which then notes on each replay its replay number. They are
+  read (``STORE.read_captured``) only right after the host has waited for
+  the device, where no queued replay can record them again
+  (``train.trainer.mean_losses``, after its fetch): each read keeps the
+  newest replay's number and milliseconds per pair
+  (``captured_records``), one read a graph between fetches, counted as
+  ``device.captured_pairs``. A pair that cannot be read there (its graph
+  never replayed, or an event not complete) is counted as
+  ``device.captured_missed``. The replays between two reads leave no
+  record.
 * ``STORE.summary()``: per span name over its untraced records the count,
   median and total ms; per kind of replay the mean gap (all, within one
   ``run`` / ``run_chains`` call, at its first replay) and the median device
-  ms; every counter. ``summary(since=STORE.mark())`` gives what happened
-  after the mark (``fit`` adds it to each epoch's result as ``spans``).
+  ms; per captured pair's name its reads and median ms; every counter.
+  ``summary(since=STORE.mark())`` gives what happened after the mark
+  (``fit`` adds it to each epoch's result as ``spans``).
 * ``StepTimer``: rolling stats of a loop's steps, fed the step spans'
   durations (one clock pair a step). On the card a replay returns when
   its kernels are queued, so these durations time the launch; the
@@ -66,6 +86,7 @@ import socket
 import statistics
 import threading
 import time
+import weakref
 from typing import Dict, Iterator, List, Optional
 
 import torch
@@ -196,6 +217,73 @@ class Pairs:
         return self.stream
 
 
+# a stretch nobody times (``Store.pair`` where none is asked for)
+NO_PAIR = contextlib.nullcontext()
+
+
+def in_capture() -> bool:
+    """Whether the current stream is capturing a CUDA graph."""
+    return torch.cuda.is_current_stream_capturing()
+
+
+def captured_event():
+    """A timing event whose record, inside a capture, is a node of the
+    graph."""
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+class Captured:
+    """The stretch pairs recorded inside one capture: (name, start, end)
+    in the order they closed; ``replay``, the number of the graph's newest
+    replay (None before its first), ``traced`` whether it ran under a
+    profiler, ``read`` the replay number last read."""
+
+    __slots__ = ("pairs", "replay", "traced", "read", "__weakref__")
+
+    def __init__(self):
+        self.pairs: List = []
+        self.replay: Optional[int] = None
+        self.traced = False
+        self.read: Optional[int] = None
+
+
+class DevicePair:
+    """A timing event pair around a stretch of device work on the current
+    stream (module docstring). Pairs of one name may not nest."""
+
+    __slots__ = ("store", "name", "start", "slot")
+
+    def __init__(self, store: "Store", name: str):
+        self.store, self.name = store, name
+
+    def __enter__(self) -> "DevicePair":
+        if in_capture():
+            self.slot = None
+            self.start = captured_event()
+            self.start.record()
+        else:
+            p = self.store._slot(self.name)
+            self.slot = (p, p.n & MASK)
+            p.start[self.slot[1]].record(p.current_stream())
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        st = self.store
+        if self.slot is None:
+            end = captured_event()
+            end.record()
+            if st._capturing is None:
+                st._capturing = Captured()
+            st._capturing.pairs.append((self.name, self.start, end))
+            return False
+        p, s = self.slot
+        p.end[s].record(p.current_stream())
+        p.meta[s] = (p.n, st.current_uid(), False,
+                     _autograd_profiler._is_profiler_enabled)
+        p.n += 1
+        return False
+
+
 class _Local(threading.local):
     def __init__(self):
         self.stack: List[Span] = []
@@ -209,6 +297,12 @@ class Store:
         self.counts: Dict[str, int] = collections.defaultdict(int)
         self.pairs: Dict[str, Pairs] = {}
         self.device: Dict[bool, Dict[str, Ring]] = {False: {}, True: {}}
+        # (replay number, ms) of each captured pair read, by its name
+        self.captured: Dict[bool, Dict[str, Ring]] = {False: {}, True: {}}
+        # the pairs of the capture under way, and those of the graphs
+        # that hold some (weak: a dropped graph takes its pairs along)
+        self._capturing: Optional[Captured] = None
+        self._graphs: List[weakref.ref] = []
         self._local = _Local()
 
     # ------------------------------------------------------------ record
@@ -236,6 +330,13 @@ class Store:
     def counter(self, name: str) -> Count:
         return Count(self.counts, name)
 
+    def pair(self, name: Optional[str], on: bool = True):
+        """A timing event pair of ``name`` around the block where ``on``
+        (its work on a card) and a name is given; else nothing."""
+        if name is None or not on:
+            return NO_PAIR
+        return DevicePair(self, name)
+
     def replay(self, kind: str, graph, first: bool = False,
                timed: bool = False, uid: Optional[int] = None) -> int:
         """``graph.replay()`` as one span of ``REPLAYS[kind]`` (its id
@@ -250,6 +351,12 @@ class Store:
         stack = self._local.stack
         parent = stack[-1].name if stack else None
         timed = timed and n % PAIR_EVERY[kind] == 0
+        cap = getattr(graph, "captured_pairs", None)
+        if cap is None and self._capturing is not None:
+            # the graph captured last: its first replay
+            cap = graph.captured_pairs = self._capturing
+            self._capturing = None
+            self._graphs.append(weakref.ref(cap))
         rng = None
         if traced:
             rng = _ProfilerRange(name)
@@ -267,6 +374,8 @@ class Store:
                 p.end[s].record(stream)
                 p.meta[s] = (n, uid, first, traced)
                 p.n += 1
+            if cap is not None:
+                cap.replay, cap.traced = n, traced
         finally:
             if rng is not None:
                 rng.__exit__(None, None, None)
@@ -319,6 +428,35 @@ class Store:
             self._ring(kind, traced, self.device).put(
                 (uid, dev, gap, first))
 
+    def read_captured(self) -> None:
+        """Read every captured pair whose graph replayed since its last
+        read: the newest replay's milliseconds, under its replay number.
+        Call only right after the host waited for the device (module
+        docstring)."""
+        live = []
+        for ref in self._graphs:
+            cap = ref()
+            if cap is None:
+                continue
+            live.append(ref)
+            if cap.replay is None or cap.replay == cap.read:
+                continue
+            cap.read = cap.replay
+            try:
+                ms = [a.elapsed_time(b) for _, a, b in cap.pairs]
+            except RuntimeError:  # not recorded, or not complete
+                self.counts["device.captured_missed"] += len(cap.pairs)
+                continue
+            for (name, _, _), t in zip(cap.pairs, ms):
+                self._ring(name, cap.traced, self.captured).put(
+                    (cap.replay, t))
+            self.counts["device.captured_pairs"] += len(ms)
+        self._graphs = live
+        if self._capturing is not None and not in_capture():
+            # a capture's pairs that no replay took up
+            self.counts["device.captured_missed"] += len(
+                self._capturing.pairs)
+
     # -------------------------------------------------------------- read
     def records(self, name: str, traced: bool = False, since: int = 0
                 ) -> List:
@@ -334,19 +472,30 @@ class Store:
         r = self.device[traced].get(kind)
         return [] if r is None else r.tail(since)
 
+    def captured_records(self, name: str, traced: bool = False,
+                         since: int = 0) -> List:
+        """(replay number, ms) of the captured pairs of ``name`` read,
+        oldest first."""
+        r = self.captured[traced].get(name)
+        return [] if r is None else r.tail(since)
+
     def mark(self) -> Dict:
         """Where every ring and counter stands (``summary(since=)``)."""
         return {"spans": {k: r.n for k, r in self.rings[False].items()},
                 "device": {k: r.n for k, r in self.device[False].items()},
+                "captured": {k: r.n
+                             for k, r in self.captured[False].items()},
                 "counts": dict(self.counts)}
 
     def summary(self, since: Optional[Dict] = None) -> Dict:
         """What the benchmark's readers and an operator read (module
         docstring): per span name and per kind of replay over the untraced
         records (after ``since``, a ``mark()``), and every counter (less
-        its value at the mark). Complete event pairs are read back first."""
+        its value at the mark), and per captured pair's name its reads.
+        Complete event pairs are read back first."""
         self.harvest()
-        since = since or {"spans": {}, "device": {}, "counts": {}}
+        since = since or {"spans": {}, "device": {}, "captured": {},
+                          "counts": {}}
         spans = {}
         for name in sorted(self.rings[False]):
             ms = [(b - a) / 1e6 for a, b, _, _ in
@@ -372,9 +521,17 @@ class Store:
                 "gap_us_within": mean_us(lambda r: not r[3]),
                 "gap_us_first": mean_us(lambda r: r[3]),
                 "device_ms": statistics.median(r[1] for r in recs)}
+        captured = {}
+        for name in sorted(self.captured[False]):
+            recs = self.captured_records(
+                name, since=since["captured"].get(name, 0))
+            if recs:
+                captured[name] = {"reads": len(recs), "median_ms":
+                                  statistics.median(r[1] for r in recs)}
         counts = {k: v - since["counts"].get(k, 0)
                   for k, v in sorted(self.counts.items())}
-        return {"spans": spans, "replays": replays, "counters": counts}
+        return {"spans": spans, "replays": replays, "captured": captured,
+                "counters": counts}
 
 
 STORE = Store()
