@@ -8,7 +8,8 @@ from typing import Dict
 # launches of each kernel's wrapper (one per launch of its kernel, nowhere
 # else); chip_smoke.py zeroes them before a path and reads them after it
 launch_counts: Dict[str, int] = {"sparse_adam": 0, "fused_adam": 0,
-                                 "gather_rows": 0, "adam_attrib": 0}
+                                 "gather_rows": 0, "adam_attrib": 0,
+                                 "dedup_rows": 0}
 # launches recorded into the CUDA graph being captured: a capture runs no
 # kernel, so ``count_launch`` puts them here, and ``train/step_graph.py``
 # adds a graph's launches to ``launch_counts`` once per replay

@@ -9,6 +9,10 @@ gathered rows only, ``dedup_rows`` sums duplicate ids, and one update
 sweeps the table with g = g_data + (wd + 2*l2) * w, where g_data is 0 for
 the rows not gathered this step.
 
+* ``dedup_rows`` sums the duplicate ids' row gradients in sorted order:
+  with CPU tensors through its plain version (``dedup_rows_reference``),
+  with CUDA tensors through PyTorch's sort and the hand-written kernel
+  ``ops/cuda/dedup_rows.cu`` (``dedup_rows_cuda``), always.
 * ``sparse_adam_reference`` is the plain PyTorch version, a line-for-line
   port of the JAX package's ``_xla_sparse_adam``: a decay-only dense pass,
   then the touched rows recomputed from their pre-step state with the full
@@ -29,8 +33,9 @@ the rows not gathered this step.
 * ``fetch_tiny_counts`` reads the kernel's counters of its warp steps
   that took a small-operand form of the division or sqrt (a trained
   table's weights and moments sit at the bottom of the f32 range, where
-  IEEE division and sqrt would leave their fast sequence) into the store's
-  counters, without a host wait of its own.
+  IEEE division and sqrt would leave their fast sequence), and the dedup
+  kernel's of the rows it staged, into the store's counters, without a
+  host wait of its own.
 * ``lazy_sparse_adam_`` (the dispatch's ``lazy=True``) is the other table
   optimizer, ``table_optimizer='lazy_adam'``: only the gathered rows
   change, so there is no table sweep and no kernel; the JAX package runs
@@ -64,7 +69,22 @@ def dedup_rows(flat_ids: torch.Tensor, flat_grads: torch.Tensor,
     gsum [K, D] f32); entries beyond the number of unique ids carry the
     sentinel ``n_rows`` and zero gradients. Each id's gradients are added
     in sorted order (a segmented sum, no float atomics), so the result is
-    the same on every run and device, and bitwise the JAX package's."""
+    the same on every run and device, and bitwise the JAX package's. CPU
+    tensors go through the plain version (``dedup_rows_reference``), CUDA
+    tensors through the hand-written kernel ``ops/cuda/dedup_rows.cu``
+    (``dedup_rows_cuda``), always: if it cannot be built or launched it
+    raises."""
+    if flat_ids.device.type == "cuda":
+        return dedup_rows_cuda(flat_ids, flat_grads, n_rows)
+    return dedup_rows_reference(flat_ids, flat_grads, n_rows)
+
+
+def dedup_rows_reference(flat_ids: torch.Tensor, flat_grads: torch.Tensor,
+                         n_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``dedup_rows`` on any device, a port of the JAX
+    package's: a stable sort, the rows gathered in sorted order, the runs
+    numbered by a cumsum, ``segment_reduce`` (each run's rows added in
+    order from 0) and a scatter of the unique ids."""
     K = flat_ids.shape[0]
     order = torch.argsort(flat_ids, stable=True)
     sid = flat_ids[order]
@@ -329,6 +349,9 @@ class _Scratch(NamedTuple):
     # [2] int64, growing: the sweeps' warp steps that took a small-operand
     # form of the division or sqrt, and all their warp steps
     tiny: torch.Tensor
+    # [2] int64, growing: the dedup kernel's rows summed through its staged
+    # long-run path, and all its rows (``dedup_rows_cuda``)
+    dedup: torch.Tensor
 
 
 _SLOTS: Dict[Tuple[int, int], _Scratch] = {}
@@ -345,10 +368,11 @@ def _slot_key(device: torch.device, n_rows: int) -> Tuple[int, int]:
 def _slot_map(device: torch.device, n_rows: int) -> _Scratch:
     """The sweep's persistent scratch, one per (card, table size): the
     int32 slot map, all -1 between launches (the kernel restores it), and
-    the sum(w*w) partials, output and block counter (0 between launches).
-    Two tables of one size on one card share it, so their updates must
-    run on one stream; a launch on a second stream could read the map
-    and the counter while the first still uses them."""
+    the sum(w*w) partials, output and block counter (0 between launches),
+    and the sweep's and the dedup kernel's counters. Two tables of one
+    size on one card share it, so their updates must run on one stream; a
+    launch on a second stream could read the map and the counter while the
+    first still uses them."""
     key = _slot_key(device, n_rows)
     scratch = _SLOTS.get(key)
     if scratch is None:
@@ -359,7 +383,8 @@ def _slot_map(device: torch.device, n_rows: int) -> _Scratch:
             l2=torch.zeros((1,), dtype=torch.float32, device=device),
             count=torch.zeros((1,), dtype=torch.int32, device=device),
             none=torch.empty((0,), dtype=torch.float32, device=device),
-            tiny=torch.zeros((2,), dtype=torch.int64, device=device))
+            tiny=torch.zeros((2,), dtype=torch.int64, device=device),
+            dedup=torch.zeros((2,), dtype=torch.int64, device=device))
         _SLOTS[key] = scratch
     return scratch
 
@@ -428,50 +453,133 @@ def sparse_adam_cuda(w, m, v, uids, gsum, t: int, lr: float, b1: float = 0.9,
     return out[0] if want_l2 else None
 
 
+# floats of one staging tile of a long run (16 KB; the ring holds 3)
+DEDUP_TILE_FLOATS = 4096
+
+
+def dedup_producer_warps(cw: int) -> int:
+    """The producer warps of the dedup kernel's long-run block beside
+    ``cw`` consumer warps of its 8 (``dedup_rows.cu``'s
+    ``producer_warps``): those on the schedulers (warp % 4) that hold no
+    consumer, or every other warp once all four do (every warp at 8)."""
+    if cw < 4:
+        return 2 * (4 - cw)
+    return 8 - cw if cw < 8 else 8
+
+
+def dedup_plan(d: int) -> Tuple[int, int]:
+    """``(w, tile_rows)`` of the dedup kernel's long runs at width ``d``:
+    a run is staged a column slice of ``w`` at a time, ``d`` itself up to
+    the 256 columns of its block's threads, else ceil(d / 256) slices of a
+    multiple of 32; a staging tile holds ``tile_rows`` rows of a slice:
+    128, fewer where a slice is wide, so that a tile holds at most
+    ``DEDUP_TILE_FLOATS``, a multiple of 8, and at most 32 rows a producer
+    warp (a lane holds each one's position)."""
+    if d < 1:
+        raise ValueError(f"the dedup kernel takes D >= 1, not {d}")
+    slices = -(-d // 256)
+    per_slice = -(-d // slices)
+    w = d if slices == 1 else -(-per_slice // 32) * 32
+    producers = dedup_producer_warps(-(-w // 32))
+    return w, min(128, DEDUP_TILE_FLOATS // w // 8 * 8, 32 * producers // 8 * 8)
+
+
+def dedup_rows_cuda(flat_ids: torch.Tensor, flat_grads: torch.Tensor,
+                    n_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dedup_rows`` on the card: PyTorch's stable sort of the ids, then
+    ``ops/cuda/dedup_rows.cu`` (the operator
+    ``torch.ops.aread_tpu_torch.dedup_rows_``, two launches on the current
+    stream) reads each gradient row through the sort's permutation and
+    writes uids and gsum, bitwise ``dedup_rows_reference``'s, in its static
+    shapes; nothing is read back to the host, so a captured step replays
+    it. The kernel adds its rows to the counters of the table's scratch
+    (``_Scratch.dedup``, ``fetch_tiny_counts``). Raises on anything the
+    kernel does not take and on a failed build or launch."""
+    dev = flat_ids.device
+    if dev.type != "cuda" or flat_grads.device != dev:
+        raise ValueError(f"dedup_rows_cuda needs CUDA tensors on one card, "
+                         f"not {dev} and {flat_grads.device}")
+    if flat_ids.dtype != torch.int32 or flat_ids.dim() != 1:
+        raise TypeError("flat_ids must be 1-D int32")
+    k = flat_ids.shape[0]
+    if (flat_grads.dtype != torch.float32 or flat_grads.dim() != 2
+            or flat_grads.shape[0] != k):
+        raise TypeError("flat_grads must be [K, D] float32")
+    d = flat_grads.shape[1]
+    if not 0 <= n_rows < 2**31 or k * d >= 2**31:
+        raise ValueError(f"n_rows={n_rows}, [K, D]=[{k}, {d}]: uids and the "
+                         "gradients' element offsets are int32")
+    width, tile_rows = dedup_plan(d)
+    sid, order = torch.sort(flat_ids, stable=True)
+    uids = torch.empty((k,), dtype=torch.int32, device=dev)
+    gsum = torch.empty((k, d), dtype=torch.float32, device=dev)
+    # run starts [K + 1], long runs [K], their two counts
+    work = torch.empty((2 * k + 3,), dtype=torch.int32, device=dev)
+    scratch = _slot_map(dev, n_rows)
+    from aread_tpu_torch.ops.cuda import build
+
+    build.load("dedup_rows")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        torch.ops.aread_tpu_torch.dedup_rows_(
+            sid, order, flat_grads.contiguous(), uids, gsum, work,
+            scratch.dedup, n_rows, width, tile_rows, stream)
+    count_launch("dedup_rows")
+    return uids, gsum
+
+
 # what fetch_tiny_counts last read of each scratch's counters: (the
-# counters' tensor, its two values), by the scratch's key
-_TINY_READ: Dict[Tuple[int, int], Tuple[torch.Tensor, int, int]] = {}
+# counters' tensor, its two values), by the scratch's key and field
+_TINY_READ: Dict[Tuple[Tuple[int, int], str], Tuple[torch.Tensor, int, int]] = {}
 # the store's counters of what the sweeps counted (``fetch_tiny_counts``)
 TINY_COUNTERS = ("sparse_adam.tiny_warps", "sparse_adam.warps")
+# the store's counters of what the dedup kernel counted: the rows summed
+# through its staged long-run path, and all its rows
+DEDUP_COUNTERS = ("dedup_rows.staged_rows", "dedup_rows.rows")
+_COUNTERS = {"tiny": TINY_COUNTERS, "dedup": DEDUP_COUNTERS}
 
 
 def fetch_tiny_counts():
-    """Start reading the sweeps' counters (``_Scratch.tiny``) without a
-    host wait: a copy of each card's counters into pinned host memory on
-    the current stream. Returns a function to call once the host has waited
+    """Start reading the kernels' counters (``_Scratch.tiny``, the
+    sweeps', and ``_Scratch.dedup``, the dedup kernel's) without a host
+    wait: a copy of each card's counters into pinned host memory on the
+    current stream. Returns a function to call once the host has waited
     for that stream (the trainers call it around a fetch they make anyway:
     an epoch's losses, a regroup's masks and losses). It adds what the
-    sweeps counted since the previous read to the store's counters
+    kernels counted since the previous read to the store's counters
     ``TINY_COUNTERS`` (warp steps that took a small-operand form of the
-    division or sqrt, all warp steps; with ``.traced`` appended while a
-    profiler runs, so that a traced stretch's reads stay apart), and
-    returns the two. (0, 0), and nothing counted, where no sweep has
-    run."""
+    division or sqrt, all warp steps) and ``DEDUP_COUNTERS`` (rows summed
+    through the staged path, all rows), with ``.traced`` appended while a
+    profiler runs, so that a traced stretch's reads stay apart, and
+    returns the sweeps' two. (0, 0), and nothing counted, where no kernel
+    has run."""
     pending = []
     for key, scratch in _SLOTS.items():
-        counters = scratch.tiny
-        if counters.device.type == "cuda":
-            host = torch.empty((2,), dtype=torch.int64, pin_memory=True)
-            host.copy_(counters, non_blocking=True)
-        else:  # a scratch made on the CPU (only tests make one)
-            host = counters.clone()
-        pending.append((key, counters, host))
+        for field in _COUNTERS:
+            counters = getattr(scratch, field)
+            if counters.device.type == "cuda":
+                host = torch.empty((2,), dtype=torch.int64, pin_memory=True)
+                host.copy_(counters, non_blocking=True)
+            else:  # a scratch made on the CPU (only tests make one)
+                host = counters.clone()
+            pending.append(((key, field), counters, host))
 
     def record() -> Tuple[int, int]:
-        tiny = steps = 0
-        for key, counters, host in pending:
+        got = {field: [0, 0] for field in _COUNTERS}
+        for read_key, counters, host in pending:
             now = host.tolist()
-            last = _TINY_READ.get(key)
+            last = _TINY_READ.get(read_key)
             before = last[1:] if last and last[0] is counters else (0, 0)
-            _TINY_READ[key] = (counters, *now)
-            tiny += now[0] - before[0]
-            steps += now[1] - before[1]
+            _TINY_READ[read_key] = (counters, *now)
+            for i in range(2):
+                got[read_key[1]][i] += now[i] - before[i]
         if pending:
             traced = _autograd_profiler._is_profiler_enabled
             suffix = ".traced" if traced else ""
-            STORE.count(TINY_COUNTERS[0] + suffix, tiny)
-            STORE.count(TINY_COUNTERS[1] + suffix, steps)
-        return tiny, steps
+            for field, names in _COUNTERS.items():
+                for name, n in zip(names, got[field]):
+                    STORE.count(name + suffix, n)
+        return tuple(got["tiny"])
 
     return record
 

@@ -258,17 +258,20 @@ import torch
 # Amazon layout of bench.py / config defaults
 AMAZON_DIMS = (1368287, 7, 25, 40, 11, 150000, 12)
 EMBED_DIM, BS, N_DOMAIN = 32, 1024, 25
-KERNEL_SOURCES = ["sparse_adam", "fused_adam", "gather_rows", "adam_attrib"]
+KERNEL_SOURCES = ["sparse_adam", "fused_adam", "gather_rows", "adam_attrib",
+                  "dedup_rows"]
 # the phase whose path launches each kernel ("no path launched" is checked
 # for the kernels whose phase ran)
 LAUNCHED_IN = {"sparse_adam": "train", "fused_adam": "train_dense",
-               "gather_rows": "probes", "adam_attrib": "probes"}
+               "gather_rows": "probes", "adam_attrib": "probes",
+               "dedup_rows": "train"}
 # each kernel's main __global__ function by a part of its name, and the
 # instantiations ptxas must report (every storage variant or mode); none
 # may spill
 MAIN_KERNELS = {"sparse_adam": ("vec8", 8), "fused_adam": ("vec8", 8),
                 "gather_rows": ("gather_rows_", 2),
-                "adam_attrib": ("attrib_sweep", 12)}
+                "adam_attrib": ("attrib_sweep", 12),
+                "dedup_rows": ("dedup_sum", 8)}
 # per-kernel times of the final ``kernels`` line (beside library_ms):
 # ms / scalar_ms are device times of the vector and the scalar kernel (the
 # back-to-back clock; for the gather, whose ring launch is shorter than its
@@ -454,9 +457,11 @@ def say(phase: str, **kw) -> None:
 def path_counts(launch_counts) -> dict:
     """A path's launch counts: the two Adam kernels' always (every path's
     check names both), any other kernel's where the path launched it (so
-    an unexpected launch fails those checks)."""
+    an unexpected launch fails those checks), except the row dedup's: it
+    runs before every table gradient, sparse or dense, and ``counted``
+    keeps its count apart (ctx['dedup_by_path'])."""
     return {k: v for k, v in launch_counts.items()
-            if v or k in ("sparse_adam", "fused_adam")}
+            if k != "dedup_rows" and (v or k in ("sparse_adam", "fused_adam"))}
 
 
 def counted(ctx, path: str, fn):
@@ -468,6 +473,7 @@ def counted(ctx, path: str, fn):
     out = fn()
     torch.cuda.synchronize()
     ctx.setdefault("launches_by_path", {})[path] = path_counts(launch_counts)
+    ctx.setdefault("dedup_by_path", {})[path] = launch_counts["dedup_rows"]
     return out
 
 
@@ -2433,9 +2439,9 @@ def reference_aread(ctx, **model_kw):
             losses[dev].extend(float(x) for x in ls.cpu())
     if trainers["cuda"].chunks.graphs["main"].launches != {
             **dict.fromkeys(trainers["cuda"].chunks.graphs["main"].launches,
-                            0), "sparse_adam": 1}:
+                            0), "sparse_adam": 1, "dedup_rows": 1}:
         raise AssertionError("the captured bagging step does not launch "
-                             "kernel 1 once")
+                             "kernel 1 and the row dedup once each")
     worst, diff = state_diffs(trainers["cpu"], trainers["cuda"], losses)
     if diff > 1e-5:
         raise AssertionError(f"card and CPU disagree after {REFERENCE_STEPS} "
@@ -6960,11 +6966,14 @@ def main(argv=None) -> int:
         {**PHASES, **OPT_IN}[name](ctx)
         print(f"# phase {name} done in {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)
+    dedup = ctx.get("dedup_by_path", {})
     for name in KERNEL_SOURCES:
-        if LAUNCHED_IN[name] in wanted and not any(
-                c.get(name, 0) for c in ctx["launches_by_path"].values()):
+        counts = (dedup.values() if name == "dedup_rows" else
+                  [c.get(name, 0) for c in ctx["launches_by_path"].values()])
+        if LAUNCHED_IN[name] in wanted and not any(counts):
             raise AssertionError(f"no path launched {name}")
-    say("launches", by_path=ctx.get("launches_by_path", {}))
+    say("launches", by_path=ctx.get("launches_by_path", {}),
+        dedup_by_path=dedup)
     rows = []
     for name, row in ctx.get("kernel_rows", {}).items():
         row = dict(row)

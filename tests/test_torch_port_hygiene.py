@@ -239,9 +239,13 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_adam.fused_adam_cuda(w, w.clone(), w.clone(), w.clone(), 1,
                                    lr=1e-3)
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_adam.dedup_rows_cuda(torch.zeros(4, dtype=torch.int32),
+                                    torch.zeros((4, 8)), 16)
 
 
-KERNELS = ["sparse_adam", "fused_adam", "gather_rows", "adam_attrib"]
+KERNELS = ["sparse_adam", "fused_adam", "gather_rows", "adam_attrib",
+           "dedup_rows"]
 # the kernels built on rounding.cuh's Adam element and stores
 ADAM_KERNELS = ["sparse_adam", "fused_adam", "adam_attrib"]
 

@@ -5,7 +5,9 @@ element count and the pointers' alignment; the vector sweep's index math
 host-computed multiplier), emulated with numpy; where the sweep may reset
 the slot map itself; the persistent scratch and its key; the f32 scalars of
 a step; and that each operator's schema, its C launcher and the wrapper's
-call agree on their arguments."""
+call agree on their arguments. For the row dedup's kernel: its staging
+tile against the launcher's limits, and its copies of a long run's rows
+emulated."""
 
 import ast
 import re
@@ -264,6 +266,99 @@ def test_operator_schema_launcher_and_call_agree(name, module):
     impl = op[op.index(f"void {name}_("):]
     impl = impl[:impl.index(") {")]
     assert impl.count(",") + 1 == len(schema)
+
+
+def test_dedup_operator_schema_launcher_and_call_agree():
+    cu, op = (p.read_text() for p in build.sources("dedup_rows"))
+    schema = _schema_args(op, "dedup_rows")
+    call = _wrapper_call(sparse_adam, "dedup_rows")
+    assert not call.keywords and len(call.args) == len(schema)
+    assert [getattr(a, "id", None) for a in call.args[-4:]] == schema[-4:] == [
+        "n_rows", "width", "tile_rows", "stream"]
+    assert _c_signature(op, "dedup_rows") == _c_signature(cu, "dedup_rows")
+    impl = op[op.index("void dedup_rows_("):]
+    impl = impl[:impl.index(") {")]
+    assert impl.count(",") + 1 == len(schema)
+
+
+# ------------------------------------------------- the dedup kernel's plan
+DEDUP_WIDTHS = [1, 8, 20, 32, 33, 64, 96, 200, 256, 264, 1000]
+
+
+def _dedup_producers(w):
+    """(producer warps, the producer index of each of the 8 warps) of a
+    long-run block staging slices of w columns, as dedup_rows.cu's
+    producer_warps / producer_of give them."""
+    cw = -(-w // 32)
+    if cw < 4:
+        of = [(i // 4) * (4 - cw) + i % 4 - cw if i % 4 >= cw else -1
+              for i in range(8)]
+    else:
+        of = [i - cw if cw < 8 else i for i in range(8)]
+        of = [i if i >= 0 else -1 for i in of]
+    n = sparse_adam.dedup_producer_warps(cw)
+    assert sorted(i for i in of if i >= 0) == list(range(n))
+    # no producer shares a scheduler (warp % 4) with a consumer while one
+    # is free of them
+    if cw < 4:
+        assert all(i % 4 >= cw for i in range(8) if of[i] >= 0)
+    return n, of
+
+
+def test_dedup_plan_keeps_the_kernels_limits():
+    cu = build.sources("dedup_rows")[0].read_text()
+    assert f"constexpr int TILE_FLOATS = {sparse_adam.DEDUP_TILE_FLOATS};" in cu
+    assert "constexpr int MAX_W = SUM_THREADS;" in cu and BLOCK == 256
+    for d in list(range(1, 600)) + [1000, 4096]:
+        w, rows = sparse_adam.dedup_plan(d)
+        # the launcher refuses anything else
+        assert 1 <= w <= min(d, BLOCK) and (w == d or w % 32 == 0), d
+        assert -(-d // w) == -(-d // BLOCK), d  # slices: as few as fit
+        assert rows >= 8 and rows % 8 == 0, d
+        assert rows * w <= sparse_adam.DEDUP_TILE_FLOATS, d
+        assert -(-rows // _dedup_producers(w)[0]) <= 32, d
+    assert sparse_adam.dedup_plan(32) == (32, 128)
+    with pytest.raises(ValueError, match="dedup kernel"):
+        sparse_adam.dedup_plan(0)
+
+
+@pytest.mark.parametrize("d", DEDUP_WIDTHS)
+def test_dedup_staging_copies_every_value_of_a_run_once_in_order(d):
+    """sum_staged's index math emulated, for each column slice of a run:
+    producer p copies the tile's rows p, p + producers, ... (at most 32, a
+    lane each), a lane a column; the consumers then read the tile's rows in
+    order. Every value of the run lands once, in its row's order, in the
+    slice's tile layout."""
+    w, tile = sparse_adam.dedup_plan(d)
+    producers, _ = _dedup_producers(w)
+    slices = [(c0, min(w, d - c0)) for c0 in range(0, d, w)]
+    assert sum(n for _, n in slices) == d
+    for length in (33, tile, tile + 1, 1001):
+        tiles = -(-length // tile)
+        for c0, ws in slices:
+            read = []
+            for t in range(tiles):
+                rows = min(tile, length - t * tile)
+                got = {}  # (tile row, column) -> run row
+                for p in range(producers):
+                    n = -(-(rows - p) // producers) if rows > p else 0
+                    assert n <= 32
+                    for lane_row in range(n):
+                        i = p + producers * lane_row
+                        for c in range(ws):
+                            assert (i, c) not in got
+                            got[i, c] = t * tile + i
+                assert sorted(got) == [(i, c) for i in range(rows)
+                                       for c in range(ws)]
+                read += [got[i, 0] for i in range(rows)]
+            assert read == list(range(length))
+    # producers fill a stage once its consumers have freed it, and run up to
+    # NSTAGE tiles ahead of the adds
+    cu = build.sources("dedup_rows")[0].read_text()
+    assert "constexpr int NSTAGE = 3;" in cu
+    assert "bar_wait(&ring.empty[st], ((g / NSTAGE) - 1) & 1);" in cu
+    assert "bar_wait(&ring.full[st], (g / NSTAGE) & 1);" in cu
+    assert "produce(t + NSTAGE - 1, pos);" in cu
 
 
 @pytest.mark.parametrize("name", ["sparse_adam", "fused_adam"])
